@@ -1,32 +1,50 @@
 #!/usr/bin/env python3
-"""Drive raypt_torch's bench render path once on one NVIDIA GPU and
-check it, phase by phase; any failure raises and the exit code is not 0.
+"""Drive raypt_torch's three render paths once on one NVIDIA GPU and
+check them, phase by phase; any failure raises and the exit code is not
+0. The paths render the bench scene (stanford_bunny at 1024^2, 1 spp, 4
+bounces, roulette) through:
 
+  expand       backend "onehot", leaf 384, expand 8192, compact 32768
+               (bench.py's finder): alive_compact, topwalk_cm_u,
+               cluster_expand, alive_uncompact
+  dense_union  backend "onehot" at the JAX package's defaults (leaf 128,
+               expand 0, compact 0): topwalk_union, cluster_intersect_mask
+  cluster      backend "cluster", clusters of 64 triangles:
+               cluster_intersect
+
+Phases:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions
-  2. build the native SAH builder and the four CUDA kernels from source
-  3. each kernel against its plain torch version on the card, at the
-     bench shapes (R = 2^20 rays, cwp = 8 mask words, compaction groups
-     of 32,768), on the wavefronts of all four bounces, plus all-dead and
-     all-alive compaction groups and a 40-word mask case (leaf-16 accel,
-     65,536 rays); every comparison is bitwise; CUDA-event times
-  4. the bench render (stanford_bunny at 1024^2, 1 spp, 4 bounces,
-     roulette, leaf 384, expand 8192, compact 32768) through
-     render_sample: every kernel must launch once per bounce, the image
-     must be finite and bitwise equal to the render with the plain finder
-  5. the bench loss (mean image) forward and backward w.r.t. mesh
-     positions and material albedo: finite grads, nonzero albedo grad,
-     median seconds of 3 runs after a warm-up. The bench camera sits
-     inside the stand-in bunny, where no path reaches the sky, so the
-     gradient w.r.t. positions is about 0 there; from a view outside the
-     mesh (GRAD_VIEW, GRAD_WIDTH^2) it is not, and the card's gradients
-     through the kernels must agree with the CPU's through the plain
-     versions to GRAD_RTOL of their largest magnitude; then one bench
-     fwd+bwd step traced with torch.profiler: the device time of the top
-     kernels and backward ops
+  2. build the native SAH builder and the CUDA kernels from source (one
+     nvcc per source, all started together)
+  3. each kernel against its plain torch version on the card, bitwise,
+     on the wavefronts of all four bounces of its path, with CUDA-event
+     times (kernel mean of 10, plain of 2, summed over the bounces) and
+     the bound of each launch; then edge cases: all-dead and all-alive
+     compaction groups, a tile of dead rays, the leaf-16 accel (1,026
+     clusters: 40 mask words, 33 union words) on 65,536 rays, and the
+     cluster finder at cap 8, where tiles overflow into its fallback
+  4. each path's render through render_sample: every kernel of the path
+     launches once per bounce and no other kernel launches, the image is
+     finite and bitwise equal to the render through the plain versions,
+     with equal traced counts
+  5. cross-checks on the card, bitwise: the union walk against the tile
+     fold of topwalk_cm_u's masks, the dense mask intersection of those
+     unions against cluster_expand of the masks on live rays, and the
+     dense-union render at leaf 384 against the expand render
+  6. each path's bench loss (mean image) forward and backward w.r.t.
+     mesh positions and material albedo: finite grads, nonzero albedo
+     grad, median seconds of 3 runs after a warm-up, and one fwd+bwd
+     step traced with torch.profiler. The bench camera sits inside the
+     stand-in bunny, where no path reaches the sky, so the gradient
+     w.r.t. positions is about 0 there; for the expand path, from a view
+     outside the mesh (GRAD_VIEW, GRAD_WIDTH^2) it is not, and the card's
+     gradients through the kernels must agree with the CPU's through the
+     plain versions to GRAD_RTOL of their largest magnitude
 
 The last line is {"ok": true, "device": {...}}; the line before it is
-the per-kernel JSON summary, whose "ms" and "plain_ms" are summed over
-the four bounce wavefronts (one frame's worth of launches).
+the per-kernel JSON summary: "ms", "plain_ms" and "bound_ms" are summed
+over the four bounce wavefronts of the kernel's path (one frame's worth
+of launches), "launches" are counted in that path's render of phase 4.
 Run: python3 chip_smoke.py
 """
 import json
@@ -41,21 +59,45 @@ BOUNCES = 4
 LEAF = 384
 EXPAND_N = 8192
 COMPACT_N = 32768
+DENSE_LEAF = 128          # RenderConfig's default onehot_leaf
 MULTIWORD_LEAF = 16
 MULTIWORD_RAYS = 65536
+OVERFLOW_CAP = 8
 GRAD_VIEW = dict(position=(30.0, -18.0, -200.0), angle_y=180.0)
 GRAD_WIDTH = 128
 GRAD_RTOL = 1e-3
 
-KERNELS = {   # name -> (source, TPU kernel it replaces)
-    "alive_compact": ("raypt_torch/csrc/compact.cu",
+# The H100 SXM's published peaks (NVIDIA data sheet, at 700 W): HBM
+# bytes/s and float32 operations/s outside the tensor cores. The f32
+# peak counts a fused multiply-add as two operations; the kernels are
+# built with -fmad=false and issue none, so their own ceiling is half
+# of it and an operations bound below is a floor they cannot reach.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# f32 operations of one walk step (12 slab sub/mul, 10 min/max, 8
+# compares, 15 for the three link/id decodes) and of one ray-triangle
+# Moller-Trumbore test with its merge (cluster_test.cuh: 50 arithmetic,
+# 7 compares and selects). Only live rays need tests: a dead ray is
+# seeded -BIG, so no hit can replace its result.
+WALK_OPS = 45
+MT_OPS = 57
+
+KERNELS = {   # name -> (path, source, TPU kernel it replaces)
+    "alive_compact": ("expand", "raypt_torch/csrc/compact.cu",
                       "raypt/kernels/compact.py:180"),
-    "topwalk_cm_u": ("raypt_torch/csrc/onehot_walk.cu",
+    "topwalk_cm_u": ("expand", "raypt_torch/csrc/onehot_walk.cu",
                      "raypt/kernels/onehot_walk.py:252"),
-    "cluster_expand": ("raypt_torch/csrc/cluster_expand.cu",
+    "cluster_expand": ("expand", "raypt_torch/csrc/cluster_expand.cu",
                        "raypt/kernels/cluster_expand.py:246"),
-    "alive_uncompact": ("raypt_torch/csrc/compact.cu",
+    "alive_uncompact": ("expand", "raypt_torch/csrc/compact.cu",
                         "raypt/kernels/compact.py:218"),
+    "topwalk_union": ("dense_union", "raypt_torch/csrc/onehot_walk.cu",
+                      "raypt/kernels/onehot_walk.py:325"),
+    "cluster_intersect_mask": ("dense_union",
+                               "raypt_torch/csrc/cluster_intersect.cu",
+                               "raypt/kernels/cluster_pallas.py:331"),
+    "cluster_intersect": ("cluster", "raypt_torch/csrc/cluster_intersect.cu",
+                          "raypt/kernels/cluster_pallas.py:104"),
 }
 
 
@@ -92,11 +134,40 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def popcounts(x):
+    """Set bits of each element of an int32 tensor, as int64."""
+    import torch
+    v = x.to(torch.int64) & 0xFFFFFFFF
+    v = v - ((v >> 1) & 0x55555555)
+    v = (v & 0x33333333) + ((v >> 2) & 0x33333333)
+    v = (v + (v >> 4)) & 0x0F0F0F0F
+    return ((v * 0x01010101) & 0xFFFFFFFF) >> 24
+
+
+def popcount(x) -> int:
+    """Set bits of an int32 tensor."""
+    return int(popcounts(x).sum())
+
+
+def live_tests(alive, clusters_per_tile, tile) -> int:
+    """Ray-cluster tests a tile kernel needs: the live rays of each tile
+    times the clusters it tests for that tile."""
+    live = alive.view(-1, tile).sum(dim=1)
+    return int((live * clusters_per_tile.to(live.dtype)).sum())
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
 class Stats:
     def __init__(self):
         self.err = {k: 0.0 for k in KERNELS}
         self.ms = {k: 0.0 for k in KERNELS}
         self.plain_ms = {k: 0.0 for k in KERNELS}
+        self.bound_ms = {k: 0.0 for k in KERNELS}
+        self.bound_parts = {k: {"bytes": 0.0, "operations": 0.0}
+                            for k in KERNELS}
 
     def check(self, name, what, a, b, where=None):
         eq, err = bitwise_equal(a, b, where)
@@ -105,11 +176,39 @@ class Stats:
             raise AssertionError(f"{name}: kernel and plain version differ "
                                  f"on {what} (max abs err {err})")
 
+    def time(self, name, label, kernel, plain, args, moved, ops):
+        """CUDA-event times of one launch of the kernel and of its plain
+        version on args, and the launch's bound: the larger of `moved`
+        bytes over the HBM rate and `ops` f32 operations over the peak."""
+        k_ms = cuda_ms(lambda: kernel(*args), 10)
+        p_ms = cuda_ms(lambda: plain(*args), 2)
+        by_bytes = 1e3 * moved / HBM_BYTES_PER_S
+        by_ops = 1e3 * ops / F32_OPS_PER_S
+        self.ms[name] += k_ms
+        self.plain_ms[name] += p_ms
+        self.bound_ms[name] += max(by_bytes, by_ops)
+        self.bound_parts[name]["bytes"] += by_bytes
+        self.bound_parts[name]["operations"] += by_ops
+        log(f"  {label:9s} {name:22s} kernel {k_ms:9.3f} ms   plain "
+            f"{p_ms:9.3f} ms   bound {max(by_bytes, by_ops):8.4f} ms")
 
-def compare_stages(stats, label, scene, accel, ro, rd, active, timed):
-    """Run the finder's four stages on one wavefront with the kernels and
-    with the plain versions, feeding both the kernel's outputs of the
-    previous stage; every output must agree bitwise."""
+    def bound_by(self, name):
+        parts = self.bound_parts[name]
+        return max(parts, key=parts.get)
+
+
+def walk_visits(table, ro, rd, t0, active, num_words) -> int:
+    """Node visits of the walk on these rays (the plain walk's count)."""
+    from raypt_torch.accel.ctree import walk_topwalk
+    visits = []
+    walk_topwalk(table, ro, rd, t0, active, num_words, visits)
+    return sum(visits)
+
+
+def compare_expand(stats, label, scene, accel, ro, rd, active, timed):
+    """Run the expand path's four stages on one wavefront with the
+    kernels and with the plain versions, feeding both the kernel's
+    outputs of the previous stage; every output must agree bitwise."""
     import torch
     from raypt_torch.accel.traverse import onehot_inputs
     from raypt_torch.core.math3d import BIG
@@ -133,7 +232,8 @@ def compare_stages(stats, label, scene, accel, ro, rd, active, timed):
     stats.check("topwalk_cm_u", f"{label} union_pp", ku, pu)
 
     seed = torch.where(kc[3], kc[2], torch.full_like(kc[2], -BIG))
-    eargs = (km, ku, accel.clusters.tri_rows, kc[0], kc[1], seed)
+    rows = accel.clusters.tri_rows
+    eargs = (km, ku, rows, kc[0], kc[1], seed)
     kt, kf = ex.cluster_expand(*eargs)
     pt, pf = ex.cluster_expand_plain(*eargs)
     stats.check("cluster_expand", f"{label} t", kt, pt)
@@ -146,21 +246,92 @@ def compare_stages(stats, label, scene, accel, ro, rd, active, timed):
     stats.check("alive_uncompact", f"{label} live face", kuf, puf, where=a)
 
     if timed:
-        for name, k, p, fa in (
-                ("alive_compact", cp.alive_compact, cp.alive_compact_plain,
-                 args),
-                ("topwalk_cm_u", wk.topwalk_cm_u, wk.topwalk_cm_u_plain,
-                 wargs),
-                ("cluster_expand", ex.cluster_expand, ex.cluster_expand_plain,
-                 eargs),
-                ("alive_uncompact", cp.alive_uncompact,
-                 cp.alive_uncompact_plain, uargs)):
-            k_ms = cuda_ms(lambda: k(*fa), 10)
-            p_ms = cuda_ms(lambda: p(*fa), 2)
-            stats.ms[name] += k_ms
-            stats.plain_ms[name] += p_ms
-            log(f"  {label:9s} {name:16s} kernel {k_ms:9.3f} ms   "
-                f"plain {p_ms:9.3f} ms")
+        r = o.shape[0]
+        leaf = rows.shape[1]
+        visits = walk_visits(accel.table, *kc, cwp)
+        stats.time("alive_compact", label, cp.alive_compact,
+                   cp.alive_compact_plain, args, 2 * nbytes(o, d, t, a), 0)
+        stats.time("topwalk_cm_u", label, wk.topwalk_cm_u,
+                   wk.topwalk_cm_u_plain, wargs,
+                   nbytes(accel.table, *kc[:4], km, ku), WALK_OPS * visits)
+        stats.time("cluster_expand", label, ex.cluster_expand,
+                   ex.cluster_expand_plain, eargs,
+                   nbytes(km, ku, rows, kc[0], kc[1], seed, kt, kf),
+                   MT_OPS * leaf * popcount(km))
+        stats.time("alive_uncompact", label, cp.alive_uncompact,
+                   cp.alive_uncompact_plain, uargs,
+                   nbytes(kt, kf, a, kut, kuf), 0)
+        log(f"  {label:9s} walk visits {visits}, wanted clusters per live "
+            f"ray {popcount(km) / max(int(a.sum()), 1):.2f} (R = {r})")
+
+
+def compare_dense_union(stats, label, scene, accel, ro, rd, active, timed):
+    """The dense-union path's two stages on one wavefront, kernels
+    against plain versions, the intersection fed the kernel's unions."""
+    import torch
+    from raypt_torch.accel.traverse import DENSE_CHUNK, wavefront_inputs
+    from raypt_torch.core.math3d import BIG
+    from raypt_torch.kernels import cluster_pallas as dn
+    from raypt_torch.kernels import onehot_walk as wk
+
+    o, d, t, a, _, _ = wavefront_inputs(scene, ro, rd, active, DENSE_CHUNK)
+    nw = -(-accel.num_clusters // 32)
+    wargs = (accel.table, o, d, t, a, nw)
+    ku = wk.topwalk_union(*wargs)
+    stats.check("topwalk_union", f"{label} union", ku,
+                wk.topwalk_union_plain(*wargs))
+    seed = torch.where(a, t, torch.full_like(t, -BIG))
+    rows = accel.clusters.tri_rows
+    iargs = (ku, rows, o, d, seed)
+    kt, kf = dn.cluster_intersect_mask(*iargs)
+    pt, pf = dn.cluster_intersect_mask_plain(*iargs)
+    stats.check("cluster_intersect_mask", f"{label} t", kt, pt)
+    stats.check("cluster_intersect_mask", f"{label} face", kf, pf)
+    if timed:
+        leaf = rows.shape[1]
+        visits = walk_visits(*wargs)
+        stats.time("topwalk_union", label, wk.topwalk_union,
+                   wk.topwalk_union_plain, wargs,
+                   nbytes(accel.table, o, d, t, a, ku), WALK_OPS * visits)
+        tests = live_tests(a, popcounts(ku).sum(dim=1), dn.TILE)
+        stats.time("cluster_intersect_mask", label, dn.cluster_intersect_mask,
+                   dn.cluster_intersect_mask_plain, iargs,
+                   nbytes(ku, rows, o, d, seed, kt, kf),
+                   MT_OPS * leaf * tests)
+        log(f"  {label:9s} walk visits {visits}, union clusters per tile "
+            f"{popcount(ku) / ku.shape[0]:.2f}, live ray-cluster tests "
+            f"{tests} ({tests / max(dn.TILE * popcount(ku), 1):.4f} of all)")
+    return ku
+
+
+def compare_cluster(stats, label, scene, clusters, ro, rd, active, timed):
+    """The cluster path's worklist intersection on one wavefront, kernel
+    against plain version, on the cull's worklists."""
+    import torch
+    from raypt_torch.accel.clusters import WORKLIST_CAP, tile_worklists
+    from raypt_torch.accel.traverse import DENSE_CHUNK, wavefront_inputs
+    from raypt_torch.core.math3d import BIG
+    from raypt_torch.kernels import cluster_pallas as dn
+
+    o, d, t, a, _, _ = wavefront_inputs(scene, ro, rd, active, DENSE_CHUNK)
+    seed = torch.where(a, t, torch.full_like(t, -BIG))
+    wl, cnt, _ = tile_worklists(clusters, o, d, seed, dn.TILE, WORKLIST_CAP)
+    rows = clusters.tri_rows
+    iargs = (wl, cnt, rows, o, d, seed)
+    kt, kf = dn.cluster_intersect(*iargs)
+    pt, pf = dn.cluster_intersect_plain(*iargs)
+    stats.check("cluster_intersect", f"{label} t", kt, pt)
+    stats.check("cluster_intersect", f"{label} face", kf, pf)
+    if timed:
+        tests = live_tests(a, cnt, dn.TILE)
+        stats.time("cluster_intersect", label, dn.cluster_intersect,
+                   dn.cluster_intersect_plain, iargs,
+                   nbytes(wl, cnt, rows, o, d, seed, kt, kf),
+                   MT_OPS * rows.shape[1] * tests)
+        log(f"  {label:9s} worklist clusters per tile "
+            f"{float(cnt.float().mean()):.2f}, max {int(cnt.max())}, live "
+            f"ray-cluster tests {tests} "
+            f"({tests / max(dn.TILE * int(cnt.sum()), 1):.4f} of all)")
 
 
 def _dev_us(e, inclusive):
@@ -174,7 +345,7 @@ def _dev_us(e, inclusive):
     raise AttributeError(f"profiler event has none of {names}")
 
 
-def profile_step(step):
+def profile_step(label, step):
     """Trace one call of `step` and log the device time: the top kernels
     by self time and the top backward ops by inclusive time, as shares
     of the summed time of all kernels."""
@@ -190,12 +361,13 @@ def profile_step(step):
     total = sum(_dev_us(e, False) for e in kernels)
     if total <= 0:
         raise AssertionError("profiler saw no device time")
-    log(f"profile: {total / 1e3:.3f} ms of kernel time in one fwd+bwd step")
+    log(f"profile {label}: {total / 1e3:.3f} ms of kernel time in one "
+        f"fwd+bwd step")
     for title, rows, inclusive in (
             ("kernels by device time", kernels, False),
             ("backward ops by inclusive device time",
              [e for e in ev if e.key.endswith("Backward0")], True)):
-        log(f"profile: {title}")
+        log(f"profile {label}: {title}")
         for e in sorted(rows, key=lambda e: -_dev_us(e, inclusive))[:8]:
             us = _dev_us(e, inclusive)
             log(f"  {us / 1e3:10.3f} ms {100 * us / total:5.1f}% "
@@ -222,7 +394,7 @@ def grad_check(build_scene, render, dev):
         big = float(p.abs().max())
         err = float((g - p).abs().max())
         rows = int((p.abs().sum(dim=1) > 0).sum())
-        log(f"phase 5: {GRAD_WIDTH}^2 outside view, grad {name}: "
+        log(f"phase 6: {GRAD_WIDTH}^2 outside view, grad {name}: "
             f"{rows} nonzero rows, max {big:.3e}, card vs CPU max abs err "
             f"{err:.3e} ({err / max(big, 1e-30):.2e} of max)")
         if not bool(torch.isfinite(g).all()) or big == 0.0:
@@ -230,6 +402,72 @@ def grad_check(build_scene, render, dev):
         if err > GRAD_RTOL * big:
             raise AssertionError(f"grad w.r.t. {name}: card and CPU differ "
                                  f"by {err / big:.2e} of the largest")
+
+
+def seconds(fn):
+    """Host seconds of 3 calls after a warm-up, each ending in a
+    synchronize."""
+    import torch
+    fn()
+    out = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append(time.perf_counter() - t)
+    return out
+
+
+def bench_loss(label, scene, cfg, skey, accel):
+    """Phase 6 for one path: forward and fwd+bwd seconds of the bench
+    loss, finite grads, a nonzero albedo grad, a profiled step. Returns
+    fwd_bwd, the step."""
+    import torch
+    from raypt_torch.render.integrator import make_finder, render_sample
+    v0 = scene.mesh.positions
+    a0 = scene.materials.albedo
+
+    def loss_fn(v, a):
+        s = scene.replace(mesh=scene.mesh.replace(positions=v),
+                          materials=scene.materials.replace(albedo=a))
+        img_, tr = render_sample(s, cfg, skey, make_finder(s, cfg, accel),
+                                 return_alive=True)
+        return img_.mean(), tr
+
+    def fwd():
+        with torch.no_grad():
+            loss, _ = loss_fn(v0, a0)
+        return float(loss)
+
+    def fwd_bwd():
+        v = v0.clone().requires_grad_(True)
+        a = a0.clone().requires_grad_(True)
+        loss, tr = loss_fn(v, a)
+        loss.backward()
+        torch.cuda.synchronize()
+        return float(loss.detach()), tr, v.grad, a.grad
+
+    torch.cuda.reset_peak_memory_stats()
+    fwd_s = seconds(fwd)
+    fb_s = seconds(fwd_bwd)
+    loss, tr, gv, ga = fwd_bwd()
+    for name, g in (("positions", gv), ("albedo", ga)):
+        if g is None or not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"{label}: grad w.r.t. {name} is not finite")
+    if not bool((ga != 0).any()):
+        raise AssertionError(f"{label}: albedo grad is zero")
+    segs = 2 * int(tr.sum())
+    log(f"phase 6 {label}: loss {loss:.6f}, |grad positions| max "
+        f"{float(gv.abs().max()):.3e}, |grad albedo| max "
+        f"{float(ga.abs().max()):.3e}")
+    log(f"phase 6 {label}: fwd s {[round(x, 4) for x in fwd_s]} median "
+        f"{statistics.median(fwd_s):.4f}; fwd+bwd s "
+        f"{[round(x, 4) for x in fb_s]} median {statistics.median(fb_s):.4f}; "
+        f"traced segments fwd+bwd {segs} -> "
+        f"{segs / statistics.median(fb_s) / 1e6:.3f} Mray-seg/s; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    profile_step(label, fwd_bwd)
 
 
 def main():
@@ -261,11 +499,18 @@ def main():
     log(f"phase 2: native SAH builder and CUDA kernels built in "
         f"{time.perf_counter() - t0:.1f} s")
 
+    from raypt_torch.accel.clusters import (CLUSTER_LEAF, build_clusters,
+                                            tile_union_counts, tile_worklists)
     from raypt_torch.accel.ctree import build_onehot
     from raypt_torch.accel.host_bvh import build_sah
-    from raypt_torch.accel.traverse import PLAIN, find_closest_onehot
+    from raypt_torch.accel.traverse import (DENSE_CHUNK, KERNELS as KOPS,
+                                            PLAIN, find_closest_cluster,
+                                            find_closest_onehot,
+                                            wavefront_inputs)
+    from raypt_torch.core.math3d import BIG
     from raypt_torch.core.types import RenderConfig
     from raypt_torch.kernels import cluster_expand as ex
+    from raypt_torch.kernels import cluster_pallas as dn
     from raypt_torch.kernels import compact as cp
     from raypt_torch.kernels import onehot_walk as wk
     from raypt_torch.render.integrator import make_finder, render_sample
@@ -275,168 +520,225 @@ def main():
     builder = stanford_bunny()
     builder.camera.viewport_width = WIDTH
     builder.camera.viewport_height = HEIGHT
-    scene_cpu = builder.freeze()
-    scene = scene_cpu.to(dev)
-    cfg = RenderConfig(width=WIDTH, height=HEIGHT, samples_per_pixel=1,
-                       num_bounces=BOUNCES, backend="onehot",
-                       russian_roulette=True, onehot_leaf=LEAF,
-                       onehot_expand=EXPAND_N, onehot_compact=COMPACT_N)
+    scene = builder.freeze(dev)
+    base = RenderConfig(width=WIDTH, height=HEIGHT, samples_per_pixel=1,
+                        num_bounces=BOUNCES, russian_roulette=True)
+    cfgs = {"expand": base.replace(backend="onehot", onehot_leaf=LEAF,
+                                   onehot_expand=EXPAND_N,
+                                   onehot_compact=COMPACT_N),
+            "dense_union": base.replace(backend="onehot",
+                                        onehot_leaf=DENSE_LEAF),
+            "cluster": base.replace(backend="cluster")}
     t0 = time.perf_counter()
-    bvh = build_sah(scene_cpu.mesh)
-    m = scene_cpu.mesh
-    accel = build_onehot(bvh, m.positions, m.faces, m.face_valid, leaf=LEAF)
-    log(f"scene: {int(m.face_valid.sum())} faces (padded {m.num_faces}), "
-        f"C = {accel.num_clusters} clusters, Nt = {accel.table.shape[0]} "
-        f"top rows; host accel build {time.perf_counter() - t0:.2f} s")
-    accel = accel.to(dev)
-    finder = make_finder(scene, cfg, accel)
+    m = scene.mesh
+    bvh = build_sah(m)
+    accels = {"expand": build_onehot(bvh, m.positions, m.faces, m.face_valid,
+                                     leaf=LEAF).to(dev),
+              "dense_union": build_onehot(bvh, m.positions, m.faces,
+                                          m.face_valid,
+                                          leaf=DENSE_LEAF).to(dev),
+              "cluster": build_clusters(bvh, m.positions, m.faces,
+                                        m.face_valid,
+                                        leaf=CLUSTER_LEAF).to(dev)}
+    accel16 = build_onehot(bvh, m.positions, m.faces, m.face_valid,
+                           leaf=MULTIWORD_LEAF).to(dev)
+    log(f"scene: {int(m.face_valid.sum())} faces (padded {m.num_faces}); "
+        f"C = {accels['expand'].num_clusters} / "
+        f"{accels['dense_union'].num_clusters} / "
+        f"{accels['cluster'].num_clusters} clusters at leaf {LEAF} / "
+        f"{DENSE_LEAF} / {CLUSTER_LEAF} ({accel16.num_clusters} at leaf "
+        f"{MULTIWORD_LEAF}); Nt = {accels['expand'].table.shape[0]} / "
+        f"{accels['dense_union'].table.shape[0]} top rows; host accel "
+        f"builds {time.perf_counter() - t0:.2f} s")
     skey = sample_key(frame_key(key(0), 0), 0)
 
-    # phase 3: kernels vs plain versions on the bench wavefronts
-    waves = []
+    def plain_finder(path, accel):
+        cfg = cfgs[path]
+        if path == "cluster":
+            return lambda s, ro, rd, active=None: find_closest_cluster(
+                s, accel, ro, rd, active, ops=PLAIN)
+        return lambda s, ro, rd, active=None: find_closest_onehot(
+            s, ro, rd, active, accel=accel, expand_n=cfg.onehot_expand,
+            compact_n=cfg.onehot_compact, ops=PLAIN)
 
-    def recording_finder(s, ro, rd, active=None):
-        waves.append((ro.reshape(-1, 3).clone(), rd.reshape(-1, 3).clone(),
-                      active.reshape(-1).clone()))
-        return finder(s, ro, rd, active)
+    # phase 3: kernels vs plain versions on each path's wavefronts
+    waves = {}
+    for path, cfg in cfgs.items():
+        finder = make_finder(scene, cfg, accels[path])
+        rec = waves[path] = []
 
-    with torch.no_grad():
-        render_sample(scene, cfg, skey, recording_finder)
+        def recording_finder(s, ro, rd, active=None, finder=finder, rec=rec):
+            rec.append((ro.reshape(-1, 3).clone(), rd.reshape(-1, 3).clone(),
+                        active.reshape(-1).clone()))
+            return finder(s, ro, rd, active)
+
+        with torch.no_grad():
+            render_sample(scene, cfg, skey, recording_finder)
     stats = Stats()
-    log("phase 3: kernel vs plain, bitwise, per bounce wavefront")
-    for b, (ro, rd, active) in enumerate(waves):
-        log(f"  bounce {b}: {int(active.sum())} live rays of {active.numel()}")
-        compare_stages(stats, f"bounce {b}", scene, accel, ro, rd,
-                              active, timed=True)
-    # compaction with all-dead and all-alive groups (bounce-1 wavefront)
-    ro, rd, active = waves[1]
+    compare = {"expand": compare_expand, "dense_union": compare_dense_union,
+               "cluster": compare_cluster}
+    for path in cfgs:
+        log(f"phase 3 {path}: kernel vs plain, bitwise, per bounce wavefront")
+        for b, (ro, rd, active) in enumerate(waves[path]):
+            log(f"  bounce {b}: {int(active.sum())} live rays of "
+                f"{active.numel()}")
+            compare[path](stats, f"bounce {b}", scene, accels[path], ro, rd,
+                          active, timed=True)
+
+    # edge cases on the bounce-1 wavefronts
+    ro, rd, active = waves["expand"][1]
     edge = active.clone()
     edge[:COMPACT_N] = False
     edge[COMPACT_N:2 * COMPACT_N] = True
-    compare_stages(stats, "edge grps", scene, accel, ro, rd, edge,
+    compare_expand(stats, "edge grps", scene, accels["expand"], ro, rd, edge,
                    timed=False)
-    # multi-word masks: leaf-16 accel, 65,536 rays of the bounce-1 wavefront
-    accel16 = build_onehot(bvh, m.positions, m.faces, m.face_valid,
-                           leaf=MULTIWORD_LEAF).to(dev)
     cwp16 = -(-accel16.num_clusters // 256) * 8
+    nw16 = -(-accel16.num_clusters // 32)
     log(f"  multi-word: leaf {MULTIWORD_LEAF}, C = {accel16.num_clusters}, "
-        f"cwp = {cwp16}, Nt = {accel16.table.shape[0]}")
-    compare_stages(stats, "multiword", scene, accel16,
-                   ro[:MULTIWORD_RAYS].contiguous(),
-                   rd[:MULTIWORD_RAYS].contiguous(),
-                   active[:MULTIWORD_RAYS].contiguous(), timed=False)
+        f"cwp = {cwp16}, union words {nw16}, Nt = {accel16.table.shape[0]}")
+    for path, cmp, acc in (("expand", compare_expand, accel16),
+                           ("dense_union", compare_dense_union, accel16),
+                           ("cluster", compare_cluster, accel16.clusters)):
+        ro, rd, active = waves[path][1]
+        cmp(stats, "multiword", scene, acc, ro[:MULTIWORD_RAYS].contiguous(),
+            rd[:MULTIWORD_RAYS].contiguous(),
+            active[:MULTIWORD_RAYS].contiguous(), timed=False)
+    for path, cmp in (("dense_union", compare_dense_union),
+                      ("cluster", compare_cluster)):
+        ro, rd, active = waves[path][1]
+        dead = active.clone()
+        dead[:dn.TILE] = False       # the first tile: every ray dead
+        out = cmp(stats, "dead tile", scene, accels[path], ro, rd, dead,
+                  timed=False)
+        if path == "dense_union" and bool(out[0].any()):
+            raise AssertionError("a tile of dead rays has a nonzero union")
+    # the cluster finder at cap 8: tiles overflow into the fallback
+    ro, rd, active = waves["cluster"][1]
+    clusters = accels["cluster"]
+    o, d, t, a, _, _ = wavefront_inputs(scene, ro, rd, active, DENSE_CHUNK)
+    seed = torch.where(a, t, torch.full_like(t, -BIG))
+    n_over = int(tile_worklists(clusters, o, d, seed, dn.TILE,
+                                OVERFLOW_CAP)[2].sum())
+    if n_over == 0:
+        raise AssertionError(f"no tile overflows at cap {OVERFLOW_CAP}")
+    t0 = time.perf_counter()
+    k = find_closest_cluster(scene, clusters, ro, rd, active, cap=OVERFLOW_CAP)
+    p = find_closest_cluster(scene, clusters, ro, rd, active, cap=OVERFLOW_CAP,
+                             ops=PLAIN)
+    for what, x, y in (("t", k.t, p.t), ("tri", k.tri, p.tri),
+                       ("sphere", k.sphere, p.sphere)):
+        stats.check("cluster_intersect", f"overflow {what}", x, y)
+    log(f"  overflow: cap {OVERFLOW_CAP}, {n_over} of {o.shape[0] // dn.TILE} "
+        f"tiles overflow; finder through kernels and plain bitwise equal "
+        f"({time.perf_counter() - t0:.1f} s for both)")
     log("phase 3: all comparisons bitwise equal")
 
-    # phase 4: the main path through the kernels
+    # phase 4: each path through its kernels
     counters = {"alive_compact": cp.alive_compact,
                 "topwalk_cm_u": wk.topwalk_cm_u,
                 "cluster_expand": ex.cluster_expand,
-                "alive_uncompact": cp.alive_uncompact}
-    torch.cuda.synchronize()
-    for fn in counters.values():
-        fn.launches = 0
-    with torch.no_grad():
-        img, traced = render_sample(scene, cfg, skey, finder,
-                                    return_alive=True)
-    torch.cuda.synchronize()
-    launches = {k: fn.launches for k, fn in counters.items()}
-    log(f"phase 4: launches {launches}")
-    for k, n in launches.items():
-        if n != BOUNCES:
-            raise AssertionError(f"{k} launched {n} times, expected "
-                                 f"{BOUNCES} (once per bounce)")
-    if not bool(torch.isfinite(img).all()) or img.shape != (HEIGHT, WIDTH, 3):
-        raise AssertionError(f"bad image {tuple(img.shape)}")
-    log(f"phase 4: traced_per_bounce {traced.tolist()}, image mean "
-        f"{float(img.mean()):.6f}")
-
-    def plain_finder(s, ro_, rd_, active=None):
-        return find_closest_onehot(s, ro_, rd_, active, accel=accel,
-                                   expand_n=EXPAND_N, compact_n=COMPACT_N,
-                                   ops=PLAIN)
-
-    with torch.no_grad():
-        img_plain, traced_plain = render_sample(scene, cfg, skey, plain_finder,
-                                                return_alive=True)
-    eq, err = bitwise_equal(img, img_plain)
-    if not eq or not torch.equal(traced, traced_plain):
-        raise AssertionError(f"kernel and plain-finder renders differ "
-                             f"(max abs err {err})")
-    log("phase 4: image bitwise equal to the plain-finder render")
-
-    # phase 5: the bench loss forward and backward
-    v0 = scene.mesh.positions
-    a0 = scene.materials.albedo
-
-    def loss_fn(v, a):
-        s = scene.replace(mesh=scene.mesh.replace(positions=v),
-                          materials=scene.materials.replace(albedo=a))
-        img_, tr = render_sample(s, cfg, skey, make_finder(s, cfg, accel),
-                                 return_alive=True)
-        return img_.mean(), tr
-
-    def fwd():
-        with torch.no_grad():
-            loss, _ = loss_fn(v0, a0)
-        return float(loss)
-
-    def fwd_bwd():
-        v = v0.clone().requires_grad_(True)
-        a = a0.clone().requires_grad_(True)
-        loss, tr = loss_fn(v, a)
-        loss.backward()
+                "alive_uncompact": cp.alive_uncompact,
+                "topwalk_union": wk.topwalk_union,
+                "cluster_intersect_mask": dn.cluster_intersect_mask,
+                "cluster_intersect": dn.cluster_intersect}
+    launches = {}
+    images = {}
+    for path, cfg in cfgs.items():
+        finder = make_finder(scene, cfg, accels[path])
         torch.cuda.synchronize()
-        return float(loss.detach()), tr, v.grad, a.grad
+        for fn in counters.values():
+            fn.launches = 0
+        with torch.no_grad():
+            img, traced = render_sample(scene, cfg, skey, finder,
+                                        return_alive=True)
+        torch.cuda.synchronize()
+        counts = {k: fn.launches for k, fn in counters.items()}
+        log(f"phase 4 {path}: launches {counts}")
+        for k, n in counts.items():
+            want = BOUNCES if KERNELS[k][0] == path else 0
+            if n != want:
+                raise AssertionError(f"{path}: {k} launched {n} times, "
+                                     f"expected {want}")
+            if want:
+                launches[k] = n
+        if not bool(torch.isfinite(img).all()) or img.shape != (HEIGHT, WIDTH,
+                                                               3):
+            raise AssertionError(f"{path}: bad image {tuple(img.shape)}")
+        log(f"phase 4 {path}: traced_per_bounce {traced.tolist()}, image mean "
+            f"{float(img.mean()):.6f}")
+        with torch.no_grad():
+            img_plain, traced_plain = render_sample(
+                scene, cfg, skey, plain_finder(path, accels[path]),
+                return_alive=True)
+        eq, err = bitwise_equal(img, img_plain)
+        if not eq or not torch.equal(traced, traced_plain):
+            raise AssertionError(f"{path}: kernel and plain-finder renders "
+                                 f"differ (max abs err {err})")
+        log(f"phase 4 {path}: image bitwise equal to the plain-finder render")
+        images[path] = (img, traced)
 
-    def seconds(fn):
-        fn()
-        out = []
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            out.append(time.perf_counter() - t)
-        return out
+    # phase 5: cross-checks on the card
+    acc = accels["dense_union"]
+    nw = -(-acc.num_clusters // 32)
+    cwp = -(-acc.num_clusters // 256) * 8
+    for b, (ro, rd, active) in enumerate(waves["dense_union"]):
+        o, d, t, a, _, _ = wavefront_inputs(scene, ro, rd, active, DENSE_CHUNK)
+        mask_cm, union_pp = wk.topwalk_cm_u(acc.table, o, d, t, a, cwp)
+        folded, _ = tile_union_counts(mask_cm[:nw].T.contiguous(), dn.TILE)
+        if not torch.equal(folded, wk.topwalk_union(acc.table, o, d, t, a,
+                                                    nw)):
+            raise AssertionError(f"bounce {b}: topwalk_union differs from the "
+                                 f"tile fold of topwalk_cm_u's masks")
+        seed = torch.where(a, t, torch.full_like(t, -BIG))
+        rows = acc.clusters.tri_rows
+        ta, fa = dn.cluster_intersect_mask(folded, rows, o, d, seed)
+        tb, fb = ex.cluster_expand(mask_cm, union_pp, rows, o, d, seed)
+        for what, x, y in (("t", ta, tb), ("face", fa, fb)):
+            eq, err = bitwise_equal(x, y, where=a)
+            if not eq:
+                raise AssertionError(f"bounce {b}: cluster_intersect_mask and "
+                                     f"cluster_expand differ on live {what} "
+                                     f"(max abs err {err})")
+    log("phase 5: topwalk_union == fold of topwalk_cm_u's masks, and "
+        "cluster_intersect_mask == cluster_expand on live rays, bitwise, "
+        "on all four dense-union wavefronts")
+    cfg384 = cfgs["dense_union"].replace(onehot_leaf=LEAF)
+    with torch.no_grad():
+        img384, tr384 = render_sample(scene, cfg384, skey,
+                                      make_finder(scene, cfg384,
+                                                  accels["expand"]),
+                                      return_alive=True)
+    eq, err = bitwise_equal(img384, images["expand"][0])
+    if not eq or not torch.equal(tr384, images["expand"][1]):
+        raise AssertionError(f"the dense-union render at leaf {LEAF} differs "
+                             f"from the expand render (max abs err {err})")
+    log(f"phase 5: dense-union render at leaf {LEAF} bitwise equal to the "
+        f"expand render")
 
-    fwd_s = seconds(fwd)
-    fb_s = seconds(fwd_bwd)
-    loss, tr, gv, ga = fwd_bwd()
-    for name, g in (("positions", gv), ("albedo", ga)):
-        if g is None or not bool(torch.isfinite(g).all()):
-            raise AssertionError(f"grad w.r.t. {name} is not finite")
-    if not bool((ga != 0).any()):
-        raise AssertionError("albedo grad is zero")
-    segs = 2 * int(tr.sum())
-    log(f"phase 5: loss {loss:.6f}, |grad positions| max "
-        f"{float(gv.abs().max()):.3e}, |grad albedo| max "
-        f"{float(ga.abs().max()):.3e}")
-    log(f"phase 5: fwd s {[round(x, 4) for x in fwd_s]} median "
-        f"{statistics.median(fwd_s):.4f}; fwd+bwd s "
-        f"{[round(x, 4) for x in fb_s]} median {statistics.median(fb_s):.4f}; "
-        f"traced segments fwd+bwd {segs} -> "
-        f"{segs / statistics.median(fb_s) / 1e6:.3f} Mray-seg/s")
-    log(f"phase 5: peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    # phase 6: the bench loss forward and backward on each path
+    for path, cfg in cfgs.items():
+        bench_loss(path, scene, cfg, skey, accels[path])
 
     def outside_scene():
         b = stanford_bunny()
         b.camera.viewport_width = b.camera.viewport_height = GRAD_WIDTH
         for k, val in GRAD_VIEW.items():
             setattr(b.camera, k, val)
-        return b.freeze()
+        return b.freeze("cpu")
 
-    gcfg = cfg.replace(width=GRAD_WIDTH, height=GRAD_WIDTH)
+    gcfg = cfgs["expand"].replace(width=GRAD_WIDTH, height=GRAD_WIDTH)
     grad_check(outside_scene,
                lambda s: render_sample(s, gcfg, skey,
-                                       make_finder(s, gcfg, accel)),
+                                       make_finder(s, gcfg, accels["expand"])),
                dev)
-    profile_step(fwd_bwd)
 
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[k], "max_abs_err": stats.err[k],
-         "ms": round(stats.ms[k], 4), "plain_ms": round(stats.plain_ms[k], 4)}
-        for k, (src, rep) in KERNELS.items()]}))
+         "ms": round(stats.ms[k], 4), "plain_ms": round(stats.plain_ms[k], 4),
+         "bound_ms": round(stats.bound_ms[k], 4),
+         "bound_by": stats.bound_by(k), "library_ms": None}
+        for k, (_, src, rep) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

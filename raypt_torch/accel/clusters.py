@@ -1,7 +1,11 @@
 """Triangle clusters: the LBVH cut at subtree size <= leaf into
 morton-contiguous blocks (`raypt/accel/clusters.py`'s `Clusters` and
-`build_clusters`). Built once on the host in numpy, then moved to the
-device with `.to(device)`.
+`build_clusters`), built once on the host in numpy and moved to the
+device with `.to(device)`; and the per-tile glue of the cluster finders,
+in torch on the clusters' device: the dense box cull into nearest-first
+worklists (`tile_worklists`), the union of per-ray masks over ray tiles
+(`tile_union_counts`) and the worklist intersection reference that the
+cluster finder's overflow fallback runs (`intersect_worklist`).
 """
 from __future__ import annotations
 
@@ -10,9 +14,14 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..core.math3d import BIG
+from ..core.math3d import BIG, EPS, cross, dot
 from ..core.types import TensorTree
 from .lbvh import LBVH
+
+CLUSTER_LEAF = 64     # triangles per cluster of backend "cluster"
+# Worklist slots per ray tile of backend "cluster"; a tile whose cull
+# finds more clusters overflows into the finder's fallback.
+WORKLIST_CAP = 512
 
 
 @dataclasses.dataclass
@@ -43,11 +52,20 @@ def cluster_cut(bvh: LBVH, leaf: int):
     return cut, parent, counts, attached, l_int, r_int
 
 
-def build_clusters(bvh: LBVH, positions: np.ndarray, faces: np.ndarray,
-                   face_valid: np.ndarray, leaf: int) -> Clusters:
+def _host_array(a) -> np.ndarray:
+    """numpy view of a tensor (on any device) or array-like."""
+    return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) \
+        else np.asarray(a)
+
+
+def build_clusters(bvh: LBVH, positions, faces, face_valid,
+                   leaf: int) -> Clusters:
     """Cut the tree into C = cluster_capacity clusters of <= leaf
     triangles; triangle j of cluster c is the j-th leaf of the cut
-    node's subtree. Padded triangle slots carry zeros and face id 0."""
+    node's subtree. Padded triangle slots carry zeros and face id 0.
+    The mesh arrays may be tensors or numpy; the result is on the CPU."""
+    positions, faces, face_valid = (_host_array(a) for a in
+                                    (positions, faces, face_valid))
     n = bvh.num_leaves
     ni = n - 1
     total = 2 * n - 1
@@ -96,3 +114,132 @@ def build_clusters(bvh: LBVH, positions: np.ndarray, faces: np.ndarray,
     return Clusters(bmin=torch.from_numpy(bmin), bmax=torch.from_numpy(bmax),
                     tri_rows=torch.from_numpy(tri_rows),
                     valid=torch.from_numpy(cvalid))
+
+
+def tile_union_counts(mask: torch.Tensor, tile: int):
+    """mask (R, CW) int32 per-ray wanted-cluster bits, R divisible by the
+    power-of-two tile -> (union (R // tile, CW) int32 OR over each tile,
+    counts (R // tile,) int32 set bits of each union, not clamped)."""
+    if tile <= 0 or tile & (tile - 1):
+        raise ValueError(f"tile must be a power of two, got {tile}")
+    r, cw = mask.shape
+    m = mask.view(r // tile, tile, cw)
+    t = tile
+    while t > 1:
+        half = t // 2
+        m = m[:, :half] | m[:, half:t]
+        t = half
+    union = m[:, 0]
+    bits = torch.arange(32, dtype=torch.int32, device=mask.device)
+    counts = ((union[..., None] >> bits) & 1).sum(dim=(1, 2))
+    return union.contiguous(), counts.to(torch.int32)
+
+
+# ray-cluster pairs per step of the cull: a (group, C) slab test
+CULL_PAIRS = 1 << 24
+
+
+@torch.no_grad()
+def tile_worklists(clusters: Clusters, ro, rd, t0, tile: int,
+                   cap: int = WORKLIST_CAP):
+    """Dense cull: every ray (R, 3), R divisible by tile, slab-tests every
+    cluster box with the bound t0; a tile's worklist holds the clusters
+    any of its rays hits, ordered by the tile's smallest entry distance
+    (nearest first; a stable sort, so ties keep ascending id).
+
+    Returns (worklist (R // tile, cap) int32 [-1 pad], counts (R // tile,)
+    int32 clamped to cap, overflow (R // tile,) bool: more than cap
+    clusters were hit). Tiles are culled in groups of about CULL_PAIRS
+    ray-cluster pairs, as the JAX package's lax.map does, so that no
+    (R, C) temporary is built."""
+    r = ro.shape[0]
+    n_tiles = r // tile
+    c = clusters.num_clusters
+    safe = torch.where(torch.abs(rd) > 1e-12, rd,
+                       torch.where(rd >= 0, torch.full_like(rd, 1e-12),
+                                   torch.full_like(rd, -1e-12)))
+    inv = 1.0 / safe
+    group = max(1, min(n_tiles, CULL_PAIRS // max(tile * c, 1)))
+    while n_tiles % group:
+        group -= 1
+    k2 = min(c, cap)
+    wl = torch.full((n_tiles, cap), -1, dtype=torch.int32, device=ro.device)
+    counts = torch.empty((n_tiles,), dtype=torch.int32, device=ro.device)
+    slot = torch.arange(k2, device=ro.device)
+    for g0 in range(0, n_tiles, group):
+        rays = slice(g0 * tile, (g0 + group) * tile)
+        o, iv, tb = ro[rays], inv[rays], t0[rays]
+        tn = torch.full((o.shape[0], c), -torch.inf, device=ro.device)
+        tf = torch.full((o.shape[0], c), torch.inf, device=ro.device)
+        for k in range(3):
+            t1 = (clusters.bmin[None, :, k] - o[:, k:k + 1]) * iv[:, k:k + 1]
+            t2 = (clusters.bmax[None, :, k] - o[:, k:k + 1]) * iv[:, k:k + 1]
+            tn = torch.maximum(tn, torch.minimum(t1, t2))
+            tf = torch.minimum(tf, torch.maximum(t1, t2))
+        hit = ((tf >= tn) & (tf > 0.0) & (tn < tb[:, None])
+               & clusters.valid[None, :])
+        tile_hit = hit.view(group, tile, c).any(dim=1)
+        tnc = torch.where(hit, torch.clamp(tn, min=0.0),
+                          torch.full_like(tn, torch.inf)).view(group, tile, c)
+        order = torch.sort(tnc.amin(dim=1), dim=1, stable=True).indices
+        cnt = tile_hit.sum(dim=1).to(torch.int32)
+        wl[g0:g0 + group, :k2] = torch.where(
+            slot[None, :] < torch.clamp(cnt, max=k2)[:, None],
+            order[:, :k2].to(torch.int32), -1)
+        counts[g0:g0 + group] = cnt
+    return wl, torch.clamp(counts, max=cap), counts > cap
+
+
+@torch.no_grad()
+def intersect_worklist(clusters: Clusters, worklist, ro, rd, t0,
+                       tile: int):
+    """Reference worklist intersection (`intersect_worklist_jnp`): every
+    ray of a tile against every slot of the tile's worklist, in slot
+    order. Its rules differ from the kernel's: every slot is scanned
+    (-1 slots test nothing), a miss is inf, within a cluster the first
+    slot of the smallest t wins (argmin), and the test is written with
+    cross/dot. Across slots the carry takes a strictly smaller t. Tiles
+    are processed in chunks; none depends on another.
+
+    The cluster finder's overflow fallback runs this and not the
+    worklist kernel, because the JAX package's fallback is this function:
+    its tie and rounding rules decide which face an overflowed ray hits,
+    and the kernel's (lowest face id at a tie, explicit operation order)
+    would pick another face where two triangles tie or round apart."""
+    r = ro.shape[0]
+    n_tiles, cap = worklist.shape
+    leaf = clusters.tri_rows.shape[1]
+    o_all = ro.view(n_tiles, tile, 1, 3)
+    d_all = rd.view(n_tiles, tile, 1, 3)
+    tb = t0.reshape(n_tiles, tile).clone()
+    fb = torch.full_like(tb, -1, dtype=torch.int32)
+    chunk = max(1, (1 << 22) // (tile * leaf))
+    for s0 in range(0, n_tiles, chunk):
+        tiles = slice(s0, s0 + chunk)
+        o, d = o_all[tiles], d_all[tiles]
+        for w in range(cap):
+            cid = worklist[tiles, w]
+            rows = clusters.tri_rows[torch.clamp(cid, min=0).long()]
+            p0 = rows[..., 0:3][:, None]             # (T, 1, leaf, 3)
+            e1 = rows[..., 3:6][:, None]
+            e2 = rows[..., 6:9][:, None]
+            fid = rows[..., 9].contiguous().view(torch.int32)[:, None]
+            pvec = cross(d, e2)
+            det = dot(e1, pvec)
+            ok_det = torch.abs(det) > EPS
+            inv_det = (torch.where(ok_det, 1.0, 0.0)
+                       / torch.where(ok_det, det, torch.ones_like(det)))
+            tvec = o - p0
+            u = dot(tvec, pvec) * inv_det
+            qvec = cross(tvec, e1)
+            v = dot(d, qvec) * inv_det
+            t = dot(e2, qvec) * inv_det
+            hit = (ok_det & (u >= 0) & (v >= 0) & (u + v <= 1.0) & (t > 0.0)
+                   & (cid >= 0)[:, None, None])
+            t = torch.where(hit, t, torch.full_like(t, torch.inf))
+            tmin, col = torch.min(t, dim=-1)         # first index of the min
+            fmin = torch.gather(fid.expand(t.shape), -1, col[..., None])[..., 0]
+            better = tmin < tb[tiles]
+            tb[tiles] = torch.where(better, tmin, tb[tiles])
+            fb[tiles] = torch.where(better, fmin, fb[tiles])
+    return tb.view(r), fb.view(r)

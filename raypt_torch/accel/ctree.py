@@ -191,12 +191,7 @@ def build_onehot(bvh: LBVH, positions, faces, face_valid,
                  leaf: int) -> OnehotAccel:
     """Clusters and encoded top-tree table for a mesh (tensors or numpy
     arrays; built on the host, returned on the CPU)."""
-    def host(a):
-        return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) \
-            else np.asarray(a)
-
-    clusters = build_clusters(bvh, host(positions), host(faces),
-                              host(face_valid), leaf=leaf)
+    clusters = build_clusters(bvh, positions, faces, face_valid, leaf=leaf)
     table = encode_topwalk_table(build_cluster_tree(bvh, leaf=leaf))
     return OnehotAccel(clusters=clusters, table=_table_tensor(table))
 
@@ -227,10 +222,11 @@ def walk_max_steps(nt: int) -> int:
 
 def walk_topwalk(table: torch.Tensor, ro: torch.Tensor, rd: torch.Tensor,
                  t0: torch.Tensor, active: torch.Tensor,
-                 num_words: int) -> torch.Tensor:
+                 num_words: int, visits: list | None = None) -> torch.Tensor:
     """Reference walk over the encoded table: (R, num_words) int32
     wanted-cluster bitmask (`walk_topwalk_jnp`). Each step works only on
-    the rays whose walk has not ended."""
+    the rays whose walk has not ended; `visits`, when given, gets the
+    number of node visits of every step appended (the walk's work)."""
     safe = torch.where(torch.abs(rd) > 1e-12, rd,
                        torch.where(rd >= 0, torch.full_like(rd, 1e-12),
                                    torch.full_like(rd, -1e-12)))
@@ -244,6 +240,8 @@ def walk_topwalk(table: torch.Tensor, ro: torch.Tensor, rd: torch.Tensor,
     for _ in range(walk_max_steps(table.shape[0])):
         if idx.numel() == 0:
             break
+        if visits is not None:
+            visits.append(idx.numel())
         r = tab[node]                                    # (n, 16)
         o, iv = ro[idx], inv[idx]
         ok_row = r[:, 13] > 0.5

@@ -1,6 +1,9 @@
 """Closest-hit finders (`raypt/accel/traverse.py`): the brute-force toy
-oracle and the onehot finder's per-ray-exact branch (alive compaction,
-top-tree walk, cluster expansion, uncompaction).
+oracle; the onehot finder, in its per-ray-exact branch (alive
+compaction, top-tree walk, cluster expansion, uncompaction) and its
+dense-union branch (walk to per-tile unions, dense tile x cluster
+intersection); and the cluster finder (dense box cull into per-tile
+worklists, worklist intersection, overflow fallback).
 
 Finders return only discrete results and run without autograd; shading
 recomputes the chosen hit differentiably (`render.shading`). A triangle
@@ -18,8 +21,11 @@ import torch
 from ..core.math3d import BIG, intersect_sphere, intersect_triangle
 from ..core.types import Scene
 from ..kernels import cluster_expand as _expand
+from ..kernels import cluster_pallas as _dense
 from ..kernels import compact as _compact
 from ..kernels import onehot_walk as _walk
+from .clusters import (WORKLIST_CAP, Clusters, intersect_worklist,
+                       tile_worklists)
 from .ctree import OnehotAccel
 
 
@@ -85,36 +91,45 @@ def find_closest_bruteforce(scene: Scene, ro, rd, active=None) -> HitIds:
                   sphere=torch.where(~tri_wins & (ts < BIG), si, minus1))
 
 
-class OnehotOps(NamedTuple):
-    """The four stages of the onehot finder. KERNELS dispatches on the
-    tensors' device (CUDA kernel or plain version); PLAIN always runs
+class FinderOps(NamedTuple):
+    """The kernel stages of the cluster finders. KERNELS dispatches on
+    the tensors' device (CUDA kernel or plain version); PLAIN always runs
     the plain torch versions, to hold the kernels against on the card."""
-    compact: Callable
+    compact: Callable          # onehot, per-ray-exact branch
     walk: Callable
     expand: Callable
     uncompact: Callable
+    walk_union: Callable       # onehot, dense-union branch
+    intersect_mask: Callable
+    intersect: Callable        # cluster finder
 
 
-KERNELS = OnehotOps(_compact.alive_compact, _walk.topwalk_cm_u,
-                    _expand.cluster_expand, _compact.alive_uncompact)
-PLAIN = OnehotOps(_compact.alive_compact_plain, _walk.topwalk_cm_u_plain,
-                  _expand.cluster_expand_plain, _compact.alive_uncompact_plain)
+KERNELS = FinderOps(_compact.alive_compact, _walk.topwalk_cm_u,
+                    _expand.cluster_expand, _compact.alive_uncompact,
+                    _walk.topwalk_union, _dense.cluster_intersect_mask,
+                    _dense.cluster_intersect)
+PLAIN = FinderOps(_compact.alive_compact_plain, _walk.topwalk_cm_u_plain,
+                  _expand.cluster_expand_plain, _compact.alive_uncompact_plain,
+                  _walk.topwalk_union_plain,
+                  _dense.cluster_intersect_mask_plain,
+                  _dense.cluster_intersect_plain)
+
+# rays per padding chunk of the dense-union branch and the cluster
+# finder: 8 tiles (`max(8 * TILE, RAY_TILE)` in the JAX package)
+DENSE_CHUNK = max(8 * _dense.TILE, _walk.RAY_TILE)
 
 
-def onehot_inputs(scene: Scene, ro, rd, active, compact_n: int):
-    """Sphere pass and the flat, padded wavefront the stages consume:
-    (flat_o, flat_d, flat_t, flat_a, ts, si). Padding rays are dead; R
-    is padded to a multiple of the walk tile and of compact_n (so
-    compaction never switches itself off)."""
+def wavefront_inputs(scene: Scene, ro, rd, active, chunk: int):
+    """Sphere pass and the flat wavefront the stages consume, padded with
+    dead rays to a multiple of chunk: (flat_o, flat_d, flat_t, flat_a,
+    ts, si)."""
     ts, si = _closest_sphere(scene, ro, rd)
     flat_o = ro.reshape(-1, 3)
     flat_d = rd.reshape(-1, 3)
     flat_t = ts.reshape(-1)
     flat_a = (torch.ones_like(flat_t, dtype=torch.bool) if active is None
               else active.reshape(-1))
-    n = flat_o.shape[0]
-    chunk = math.lcm(_walk.RAY_TILE, compact_n or 1)
-    pad = (-n) % chunk
+    pad = (-flat_o.shape[0]) % chunk
     if pad:
         dev = flat_o.device
         flat_o = torch.cat([flat_o, torch.zeros((pad, 3), device=dev)])
@@ -127,20 +142,41 @@ def onehot_inputs(scene: Scene, ro, rd, active, compact_n: int):
             flat_a.contiguous(), ts, si)
 
 
+def onehot_inputs(scene: Scene, ro, rd, active, compact_n: int):
+    """wavefront_inputs of the per-ray-exact branch: R is padded to a
+    multiple of the walk tile and of compact_n (so compaction never
+    switches itself off)."""
+    return wavefront_inputs(scene, ro, rd, active,
+                            math.lcm(_walk.RAY_TILE, compact_n or 1))
+
+
+def _hit_ids(t_best, face, alive, n: int, ts, si) -> HitIds:
+    """HitIds of the first n lanes; dead lanes miss (BIG, -1), and a
+    sphere wins where no triangle did."""
+    t_best = torch.where(alive, t_best, torch.full_like(t_best, BIG))[:n]
+    face = torch.where(alive, face, torch.full_like(face, -1))[:n]
+    t_best, face = t_best.reshape(ts.shape), face.reshape(ts.shape)
+    tri_wins = face >= 0
+    minus1 = torch.full_like(si, -1)
+    return HitIds(t=t_best, tri=torch.where(tri_wins, face, minus1),
+                  sphere=torch.where(~tri_wins & (ts < BIG), si, minus1))
+
+
 @torch.no_grad()
 def find_closest_onehot(scene: Scene, ro, rd, active=None, *,
                         accel: OnehotAccel, expand_n: int, compact_n: int,
-                        ops: OnehotOps = KERNELS) -> HitIds:
-    """The onehot finder's per-ray-exact branch: compact live rays to
-    the front of each compact_n group (when compact_n > 0), walk the
-    top tree, test each ray's wanted clusters, restore the ray order.
-    expand_n > 0 selects this branch; the CUDA expansion runs one thread
-    per ray, so its value shapes nothing else. The dense-union branch
-    (expand_n == 0) is not ported."""
+                        ops: FinderOps = KERNELS) -> HitIds:
+    """The onehot finder. expand_n > 0 selects the per-ray-exact branch:
+    compact live rays to the front of each compact_n group (when
+    compact_n > 0), walk the top tree to per-ray masks, test each ray's
+    wanted clusters, restore the ray order; the CUDA expansion runs one
+    thread per ray, so expand_n's value shapes nothing else. expand_n ==
+    0 selects the dense-union branch: walk the top tree to the union of
+    each 256-ray tile's wanted clusters and test every ray of a tile
+    against every cluster of its union; compact_n is not applied there,
+    as in the JAX package."""
     if not expand_n:
-        raise NotImplementedError(
-            "onehot_expand=0 (the dense-union branch) is not ported "
-            "(ROADMAP queue 1 item 10)")
+        return _onehot_dense_union(scene, ro, rd, active, accel, ops)
     if scene.mesh.num_faces >= 1 << 24:
         raise ValueError("face ids must stay below 2^24")
     flat_o, flat_d, flat_t, flat_a, ts, si = onehot_inputs(
@@ -158,11 +194,56 @@ def find_closest_onehot(scene: Scene, ro, rd, active=None, *,
                               flat_o, flat_d, seed)
     if compact_n:
         t_best, face = ops.uncompact(t_best, face, orig_a, compact_n)
-    shape = ts.shape
-    t_best = torch.where(orig_a, t_best, torch.full_like(t_best, BIG))[:n]
-    face = torch.where(orig_a, face, torch.full_like(face, -1))[:n]
-    t_best, face = t_best.reshape(shape), face.reshape(shape)
-    tri_wins = face >= 0
-    minus1 = torch.full_like(si, -1)
-    return HitIds(t=t_best, tri=torch.where(tri_wins, face, minus1),
-                  sphere=torch.where(~tri_wins & (ts < BIG), si, minus1))
+    return _hit_ids(t_best, face, orig_a, n, ts, si)
+
+
+def _onehot_dense_union(scene: Scene, ro, rd, active, accel: OnehotAccel,
+                        ops: FinderOps) -> HitIds:
+    """The dense-union branch (`traverse.py:668-681, 702-729`): union
+    words unpadded, ceil(C / 32); dead rays seed -BIG, so they take no
+    hit."""
+    flat_o, flat_d, flat_t, flat_a, ts, si = wavefront_inputs(
+        scene, ro, rd, active, DENSE_CHUNK)
+    num_words = -(-accel.num_clusters // 32)
+    union = ops.walk_union(accel.table, flat_o, flat_d, flat_t, flat_a,
+                           num_words)
+    seed = torch.where(flat_a, flat_t, torch.full_like(flat_t, -BIG))
+    t_best, face = ops.intersect_mask(union, accel.clusters.tri_rows, flat_o,
+                                      flat_d, seed)
+    return _hit_ids(t_best, face, flat_a, ro.reshape(-1, 3).shape[0], ts, si)
+
+
+@torch.no_grad()
+def find_closest_cluster(scene: Scene, clusters: Clusters, ro, rd,
+                         active=None, cap: int = 0,
+                         ops: FinderOps = KERNELS) -> HitIds:
+    """The two-level cluster finder (`traverse.py:361-430`): a dense box
+    cull gives each 256-ray tile a nearest-first worklist of at most cap
+    clusters (WORKLIST_CAP when 0), the worklist kernel tests every ray
+    of the tile against them, and a tile whose cull found more than cap
+    clusters is re-intersected against every cluster with
+    `intersect_worklist` (the JAX package's lax.cond fallback). Deciding
+    whether to run the fallback reads one flag back to the host."""
+    cap = cap or WORKLIST_CAP
+    tile = _dense.TILE
+    flat_o, flat_d, flat_t, flat_a, ts, si = wavefront_inputs(
+        scene, ro, rd, active, DENSE_CHUNK)
+    # dead rays contribute no clusters and accept no hits
+    seed = torch.where(flat_a, flat_t, torch.full_like(flat_t, -BIG))
+    wl, cnt, overflow = tile_worklists(clusters, flat_o, flat_d, seed, tile,
+                                       cap)
+    t_best, face = ops.intersect(wl, cnt, clusters.tri_rows, flat_o, flat_d,
+                                 seed)
+    if bool(overflow.any()):
+        ov = torch.nonzero(overflow).flatten()
+        rays = (ov[:, None] * tile + torch.arange(tile, device=ov.device)
+                ).flatten()
+        c_total = clusters.num_clusters
+        every = torch.arange(c_total, dtype=torch.int32,
+                             device=ov.device).expand(ov.numel(), c_total)
+        t_fb, f_fb = intersect_worklist(
+            clusters, every, flat_o[rays].contiguous(),
+            flat_d[rays].contiguous(), seed[rays].contiguous(), tile)
+        t_best = t_best.index_copy(0, rays, t_fb)
+        face = face.index_copy(0, rays, f_fb)
+    return _hit_ids(t_best, face, flat_a, ro.reshape(-1, 3).shape[0], ts, si)

@@ -1,6 +1,7 @@
 """Host scene builder (`raypt/core/scene.py`): numpy state, frozen into
-a `Scene` of tensors by `freeze(device)`. Capacities are padded as in
-the JAX package, so both packages freeze a builder to identical arrays.
+a `Scene` of tensors by `freeze(device)`, on the card unless the caller
+asks for another device. Capacities are padded as in the JAX package, so
+both packages freeze a builder to identical arrays.
 """
 from __future__ import annotations
 
@@ -99,7 +100,7 @@ class SceneBuilder:
             self._faces.append((int(f[0]) + offset, int(f[1]) + offset,
                                 int(f[2]) + offset, int(material)))
 
-    def freeze(self, device="cpu") -> Scene:
+    def freeze(self, device="cuda") -> Scene:
         nmat = max(len(self._materials), 1)
         nsph = len(self._spheres)
         nvert = max(len(self._positions), 1)

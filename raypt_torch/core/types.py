@@ -122,8 +122,10 @@ class Scene(TensorTree):
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:
     """Static render parameters, with the JAX package's fields and
-    defaults. The port renders only `backend="onehot"` with
-    `onehot_expand > 0`; other settings raise where they are read."""
+    defaults. The port renders `backend="onehot"` (its defaults,
+    `onehot_expand=0`, select the dense-union branch; `onehot_expand > 0`
+    the per-ray-exact one) and `backend="cluster"`; other backends and
+    refraction raise where they are read."""
     width: int = 1024
     height: int = 768
     samples_per_pixel: int = 5
@@ -155,11 +157,11 @@ _GROUPS = {"materials": Materials, "spheres": Spheres, "mesh": MeshArrays,
            "camera": CameraRays}
 
 
-def scene_from_numpy(leaves: dict) -> Scene:
-    """Build a CPU `Scene` from numpy arrays keyed "<group>.<field>"
-    (e.g. "mesh.positions", "env.data", "env.is_cube"), as read from
-    the leaves of a frozen JAX-package `Scene`. Missing "textures"
-    means none."""
+def scene_from_numpy(leaves: dict, device="cuda") -> Scene:
+    """Build a `Scene` on `device` from numpy arrays keyed
+    "<group>.<field>" (e.g. "mesh.positions", "env.data",
+    "env.is_cube"), as read from the leaves of a frozen JAX-package
+    `Scene`. Missing "textures" means none."""
     groups = {}
     for name, cls in _GROUPS.items():
         groups[name] = cls(**{
@@ -170,4 +172,4 @@ def scene_from_numpy(leaves: dict) -> Scene:
                  is_cube=bool(leaves["env.is_cube"]))
     tex = leaves.get("textures")
     return Scene(env=env, textures=None if tex is None
-                 else torch.from_numpy(np.array(tex)), **groups)
+                 else torch.from_numpy(np.array(tex)), **groups).to(device)

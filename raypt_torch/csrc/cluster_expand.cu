@@ -6,9 +6,9 @@
 // of its (cwp, R) mask column in ascending cluster id (bits >= C are
 // dropped, the guard at cluster_expand.py:274-282) and Moller-Trumbore
 // test the cluster's L triangles from the (C, L, 12) table
-// [p0, e1, e2, face id bits, 0, 0]. The arithmetic is _test_cluster's
-// (raypt/kernels/cluster_pallas.py:52-69) in its order; the build uses
-// -fmad=false so no multiply-add is contracted. Merge: the cluster's
+// [p0, e1, e2, face id bits, 0, 0] with cluster_test.cuh's test, which
+// is _test_cluster's (raypt/kernels/cluster_pallas.py:52-69) in its
+// order, built with -fmad=false. Merge: the cluster's
 // smallest t, then the lowest face id among its triangles with that t;
 // the ray's carry (seeded with `seed`, face -1) takes it only when
 // strictly smaller.
@@ -30,13 +30,13 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "cluster_test.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kRayTile = 2048;   // rays per union_pp row (onehot_walk.cu)
 static_assert(kRayTile % kThreads == 0, "a block lies in one walk tile");
-constexpr float kBig = 1e30f;
-constexpr int kBigI = 1 << 30;
 
 __global__ void __launch_bounds__(kThreads)
 cluster_expand_kernel(const int* __restrict__ mask, const int* __restrict__ union_pp,
@@ -51,8 +51,7 @@ cluster_expand_kernel(const int* __restrict__ mask, const int* __restrict__ unio
     __syncthreads();
 
     const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
-    const float ox = ro[i * 3], oy = ro[i * 3 + 1], oz = ro[i * 3 + 2];
-    const float dx = rd[i * 3], dy = rd[i * 3 + 1], dz = rd[i * 3 + 2];
+    const rk::Ray ray = rk::load_ray(ro, rd, i);
     float tb = seed[i];
     int fb = -1;
     const int cw = (c_total + 31) / 32;
@@ -66,39 +65,11 @@ cluster_expand_kernel(const int* __restrict__ mask, const int* __restrict__ unio
             bits &= bits - 1u;
             const float4* tri = reinterpret_cast<const float4*>(rows) +
                                 (long long)c * leaf * 3;
-            float tmin = kBig;
-            int fmin = kBigI;
-            for (int j = 0; j < leaf; ++j) {
-                const float4 a = __ldg(tri + j * 3);
-                const float4 b = __ldg(tri + j * 3 + 1);
-                const float4 g = __ldg(tri + j * 3 + 2);
-                const float p0x = a.x, p0y = a.y, p0z = a.z;
-                const float e1x = a.w, e1y = b.x, e1z = b.y;
-                const float e2x = b.z, e2y = b.w, e2z = g.x;
-                const int fid = __float_as_int(g.y);
-                const float pvx = dy * e2z - dz * e2y;
-                const float pvy = dz * e2x - dx * e2z;
-                const float pvz = dx * e2y - dy * e2x;
-                const float det = e1x * pvx + e1y * pvy + e1z * pvz;
-                const bool ok_det = fabsf(det) > 1e-8f;
-                const float inv_det = (ok_det ? 1.0f : 0.0f) / (ok_det ? det : 1.0f);
-                const float tvx = ox - p0x, tvy = oy - p0y, tvz = oz - p0z;
-                const float u = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det;
-                const float qvx = tvy * e1z - tvz * e1y;
-                const float qvy = tvz * e1x - tvx * e1z;
-                const float qvz = tvx * e1y - tvy * e1x;
-                const float v = (dx * qvx + dy * qvy + dz * qvz) * inv_det;
-                float t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det;
-                const bool hit = ok_det && u >= 0.0f && v >= 0.0f &&
-                                 u + v <= 1.0f && t > 0.0f;
-                if (!hit) t = kBig;
-                if (t < tmin) {
-                    tmin = t;
-                    fmin = fid;
-                } else if (t == tmin && fid < fmin) {
-                    fmin = fid;
-                }
-            }
+            float tmin = rk::kBig;
+            int fmin = rk::kBigI;
+            for (int j = 0; j < leaf; ++j)
+                rk::test_triangle(__ldg(tri + j * 3), __ldg(tri + j * 3 + 1),
+                                  __ldg(tri + j * 3 + 2), ray, tmin, fmin);
             if (tmin < tb) {
                 tb = tmin;
                 fb = fmin;

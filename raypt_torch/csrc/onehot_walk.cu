@@ -1,30 +1,39 @@
 // Per-ray walk of the encoded cluster top tree, for Hopper (sm_90a).
 //
-// Replaces raypt/kernels/onehot_walk.py: pallas_topwalk_cm_u (:252, body
-// _kernel :61). Contract: for each active ray, walk the skip-link top
-// tree from node 0, slab-testing each node box against the ray with the
-// bound t0; a hit internal node descends to its left child, anything
-// else follows its skip link; a hit leaf sets its cluster's bit. Output
-// is the word-major (cwp, R) int32 mask and union_pp (R / 2048, cwp),
-// the OR of the masks of each 2048-ray walk tile. The table rows are the
-// (Nt, 16) bf16 encoding of raypt/accel/ctree.py; links decode as
-// round(hi) * 128 + round(lo) - 1. At most ceil((Nt + 1) / 4) * 4 steps.
+// Replaces raypt/kernels/onehot_walk.py: pallas_topwalk_cm_u (:252) and
+// pallas_topwalk_union (:325), both with body _kernel (:61). Contract:
+// for each active ray, walk the skip-link top tree from node 0,
+// slab-testing each node box against the ray with the bound t0; a hit
+// internal node descends to its left child, anything else follows its
+// skip link; a hit leaf sets its cluster's bit (ids in the first cwp
+// words only). The table rows are the (Nt, 16) bf16 encoding of
+// raypt/accel/ctree.py; links decode as round(hi) * 128 + round(lo) - 1.
+// At most ceil((Nt + 1) / 4) * 4 steps. Two outputs, two launches:
+//   * rk_topwalk: the word-major (cwp, R) int32 mask and union_pp
+//     (R / 2048, cwp), the OR of the masks of each 2048-ray walk tile;
+//   * rk_topwalk_union: only the (R / 256, cwp) OR over each 256-ray
+//     union tile; the per-ray mask never reaches device memory.
 //
 // What bounds it on this card: the dependent chain of node fetches and
 // slab tests per ray (tens of steps), and warp divergence, since the
 // rays of a warp leave the walk after different step counts. Memory
-// traffic is small: 36 bytes of ray in, cwp * 4 bytes of mask out.
+// traffic is small: 29 bytes of ray in, cwp * 4 bytes of mask out (none
+// in the union form).
 //
 // What the design does about it: one thread per ray, the whole table in
 // shared memory (89 rows on the icosphere stand-in, 773 rows = 24.7 KB
 // on the 69k-triangle bunny at leaf 384; dynamic shared memory, with
 // the 48 KB opt-in above that, up to the 227 KB a block may use, about
 // 7,000 rows), so a node fetch is two 16-byte shared
-// loads and the row decodes in registers. Bits go straight into the
-// ray's own column of the mask (zeroed first), so no per-thread array
-// sits in local memory. The tile union is a warp __reduce_or_sync, a
-// shared atomicOr per block, and one global atomicOr per block and
-// word. The TPU kernel's radix one-hot MXU fetch has no counterpart.
+// loads and the row decodes in registers. Mask form: bits go straight
+// into the ray's own column of the mask (zeroed first), so no
+// per-thread array sits in local memory; the tile union is a warp
+// __reduce_or_sync, a shared atomicOr per block, and one global atomicOr
+// per block and word. Union form: a block is one 256-ray union tile, a
+// wanted bit is a shared atomicOr into the tile's words, and the block
+// stores every word once at the end, so the union is written whole and
+// needs no zeroing. The TPU kernel's radix one-hot MXU fetch and its
+// in-register OR-fold over lanes have no counterpart.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -39,11 +48,14 @@ __device__ __forceinline__ int decode(float hi, float lo) {
     return (int)(rintf(hi) * 128.0f + rintf(lo)) - 1;
 }
 
+// kTileUnion: write only the block's union to unions[blockIdx.x * cwp +
+// w] (mask is not read); else the mask and the walk-tile union_pp.
+template <bool kTileUnion>
 __global__ void __launch_bounds__(kThreads)
 topwalk_kernel(const uint16_t* __restrict__ table, int nt,
                const float* __restrict__ ro, const float* __restrict__ rd,
                const float* __restrict__ t0, const uint8_t* __restrict__ active,
-               int* __restrict__ mask, int* __restrict__ union_pp, long long r,
+               int* __restrict__ mask, int* __restrict__ unions, long long r,
                int cwp, int max_steps) {
     extern __shared__ uint4 s_mem[];                        // nt * 2 rows
     int* s_union = reinterpret_cast<int*>(s_mem + nt * 2);  // cwp words
@@ -53,7 +65,8 @@ topwalk_kernel(const uint16_t* __restrict__ table, int nt,
     __syncthreads();
 
     const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
-    for (int w = 0; w < cwp; ++w) mask[w * r + i] = 0;
+    if constexpr (!kTileUnion)
+        for (int w = 0; w < cwp; ++w) mask[w * r + i] = 0;
 
     if (active[i]) {
         const float ox = ro[i * 3], oy = ro[i * 3 + 1], oz = ro[i * 3 + 2];
@@ -87,12 +100,23 @@ topwalk_kernel(const uint16_t* __restrict__ table, int nt,
                              nonempty && f[13] > 0.5f;
             const bool is_leaf = f[12] > 0.5f;
             const int cid = decode(f[10], f[11]);
-            if (hit && is_leaf && cid >= 0 && (cid >> 5) < cwp)
-                mask[(long long)(cid >> 5) * r + i] |= (int)(1u << (cid & 31));
+            if (hit && is_leaf && cid >= 0 && (cid >> 5) < cwp) {
+                const int bit = (int)(1u << (cid & 31));
+                if constexpr (kTileUnion)
+                    atomicOr(&s_union[cid >> 5], bit);
+                else
+                    mask[(long long)(cid >> 5) * r + i] |= bit;
+            }
             node = (hit && !is_leaf) ? decode(f[6], f[7]) : decode(f[8], f[9]);
         }
     }
 
+    if constexpr (kTileUnion) {
+        __syncthreads();
+        for (int w = threadIdx.x; w < cwp; w += kThreads)
+            unions[(long long)blockIdx.x * cwp + w] = s_union[w];
+        return;
+    }
     const int lane = threadIdx.x & 31;
     for (int w = 0; w < cwp; ++w) {
         const unsigned v = __reduce_or_sync(kFull, (unsigned)mask[w * r + i]);
@@ -101,7 +125,18 @@ topwalk_kernel(const uint16_t* __restrict__ table, int nt,
     __syncthreads();
     const long long tile = ((long long)blockIdx.x * kThreads) / kRayTile;
     for (int w = threadIdx.x; w < cwp; w += kThreads)
-        if (s_union[w]) atomicOr(&union_pp[tile * cwp + w], s_union[w]);
+        if (s_union[w]) atomicOr(&unions[tile * cwp + w], s_union[w]);
+}
+
+// Dynamic shared memory of a launch: the table and cwp union words,
+// opted in above 48 KB. Returns a CUDA error code.
+template <bool kTileUnion>
+int prepare_smem(int nt, int cwp, size_t* smem) {
+    *smem = (size_t)nt * 32 + (size_t)cwp * 4;
+    if (*smem <= 48 * 1024) return 0;
+    return (int)cudaFuncSetAttribute(topwalk_kernel<kTileUnion>,
+                                     cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                     (int)*smem);
 }
 
 }  // namespace
@@ -113,13 +148,26 @@ extern "C" int rk_topwalk(const uint16_t* table, int nt, const float* ro,
     if (r % kRayTile || nt <= 0 || cwp <= 0)
         return (int)cudaErrorInvalidValue;
     if (r == 0) return 0;
-    const size_t smem = (size_t)nt * 32 + (size_t)cwp * 4;
-    if (smem > 48 * 1024) {
-        const cudaError_t e = cudaFuncSetAttribute(
-            topwalk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-        if (e != cudaSuccess) return (int)e;
-    }
-    topwalk_kernel<<<(unsigned)(r / kThreads), kThreads, smem, (cudaStream_t)stream>>>(
+    size_t smem;
+    if (const int e = prepare_smem<false>(nt, cwp, &smem)) return e;
+    topwalk_kernel<false><<<(unsigned)(r / kThreads), kThreads, smem,
+                            (cudaStream_t)stream>>>(
         table, nt, ro, rd, t0, active, mask, union_pp, r, cwp, max_steps);
+    return (int)cudaGetLastError();
+}
+
+// unions: (r / 256, cwp) int32, every word written.
+extern "C" int rk_topwalk_union(const uint16_t* table, int nt, const float* ro,
+                                const float* rd, const float* t0,
+                                const uint8_t* active, int* unions, long long r,
+                                int cwp, int max_steps, void* stream) {
+    if (r % kThreads || nt <= 0 || cwp <= 0)
+        return (int)cudaErrorInvalidValue;
+    if (r == 0) return 0;
+    size_t smem;
+    if (const int e = prepare_smem<true>(nt, cwp, &smem)) return e;
+    topwalk_kernel<true><<<(unsigned)(r / kThreads), kThreads, smem,
+                           (cudaStream_t)stream>>>(
+        table, nt, ro, rd, t0, active, nullptr, unions, r, cwp, max_steps);
     return (int)cudaGetLastError();
 }

@@ -21,11 +21,12 @@ import numpy as np
 from .._native_build import PKG_DIR, load_library
 
 SOURCE = os.path.join(os.path.dirname(PKG_DIR), "native", "raypt_native.cpp")
-GXX_FLAGS = ["-O3", "-fPIC", "-std=c++17", "-shared"]
+GXX_FLAGS = ["-O3", "-fPIC", "-std=c++17"]
 
 
 def load() -> C.CDLL:
-    lib = load_library("raypt_native", ["g++"], GXX_FLAGS, [SOURCE])
+    lib = load_library("raypt_native", ["g++"], GXX_FLAGS, ["-shared"],
+                       [SOURCE])
     lib.rn_free.argtypes = [C.c_void_p]
     lib.rn_build_sah_bvh.argtypes = [
         C.POINTER(C.c_float), C.c_int, C.POINTER(C.c_int), C.c_int,

@@ -1,5 +1,6 @@
-"""Build and launch of the four Hopper kernels, `raypt_torch/csrc/*.cu`:
-compiled with nvcc for `sm_90a` on first use (see
+"""Build and launch of the Hopper kernels, `raypt_torch/csrc/*.cu`:
+compiled with nvcc for `sm_90a` on first use, one nvcc process per
+source, all started together, then linked into one shared library (see
 `raypt_torch._native_build`), bound through a plain C interface and
 loaded with ctypes. A failed build or launch raises: nothing on the
 main path falls back to another implementation.
@@ -19,8 +20,11 @@ CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 # each operation exactly like the separate elementwise ops of its plain
 # torch version. No --use_fast_math: division and sqrt stay IEEE.
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
-KERNEL_SOURCES = ("compact.cu", "onehot_walk.cu", "cluster_expand.cu")
+              "-O3", "-fmad=false", "-Xcompiler", "-fPIC"]
+KERNEL_SOURCES = ("compact.cu", "onehot_walk.cu", "cluster_expand.cu",
+                  "cluster_intersect.cu")
+KERNEL_HEADERS = ("cluster_test.cuh",)
+SMEM_LIMIT = 232448   # shared memory a block may use on Hopper (227 KB)
 
 
 def _nvcc() -> str:
@@ -36,7 +40,9 @@ def kernel_lib() -> ctypes.CDLL:
     """The kernels' shared library, built on first use, with every C
     entry point's argtypes declared."""
     srcs = [os.path.join(CSRC_DIR, s) for s in KERNEL_SOURCES]
-    lib = load_library("raypt_kernels", [_nvcc()], NVCC_FLAGS, srcs)
+    hdrs = tuple(os.path.join(CSRC_DIR, s) for s in KERNEL_HEADERS)
+    lib = load_library("raypt_kernels", [_nvcc()], NVCC_FLAGS, ["-shared"],
+                       srcs, hdrs)
     p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     # the stream is always the last argument (see `launch`)
     sigs = {
@@ -47,9 +53,18 @@ def kernel_lib() -> ctypes.CDLL:
         # table, nt, ro, rd, t0, active -> mask, union_pp;
         # r, cwp, max_steps, stream
         "rk_topwalk": [p, i32, p, p, p, p, p, p, i64, i32, i32, p],
+        # table, nt, ro, rd, t0, active -> unions; r, cwp, max_steps, stream
+        "rk_topwalk_union": [p, i32, p, p, p, p, p, i64, i32, i32, p],
         # mask, union_pp, rows, c_total, leaf, ro, rd, seed -> t, face;
         # r, cwp, stream
         "rk_cluster_expand": [p, p, p, i32, i32, p, p, p, p, p, i64, i32, p],
+        # unions, cw, rows, c_total, leaf, ro, rd, seed -> t, face;
+        # n_tiles, stream
+        "rk_cluster_intersect_mask": [p, i32, p, i32, i32, p, p, p, p, p, i64,
+                                      p],
+        # worklist, counts, cap, rows, c_total, leaf, ro, rd, seed -> t,
+        # face; n_tiles, stream
+        "rk_cluster_intersect": [p, p, i32, p, i32, i32, p, p, p, p, p, i64, p],
     }
     for fn, argtypes in sigs.items():
         getattr(lib, fn).argtypes = argtypes

@@ -11,10 +11,11 @@ Merge rules, which decide the exact result:
     dead ones) with face -1.
 A lexicographic (t, face) minimum over all clusters is not the same rule.
 
-The triangle test is Moller-Trumbore in `_test_cluster`'s operation
-order (`raypt/kernels/cluster_pallas.py`), written as separate
-elementwise ops so that torch on the card rounds after every operation
-exactly as the kernel, built with -fmad=false, does.
+The triangle test is `kernels.cluster_pallas._test_cluster`, shared with
+the dense cluster intersection: Moller-Trumbore in the Pallas kernel's
+operation order, as separate elementwise ops, so that torch on the card
+rounds after every operation exactly as the kernel, built with
+-fmad=false, does.
 
 On CUDA tensors this launches `csrc/cluster_expand.cu`; on CPU tensors
 it runs the plain torch version below.
@@ -23,51 +24,9 @@ from __future__ import annotations
 
 import torch
 
-from ..core.math3d import BIG
 from ._build import launch, on_cuda
+from .cluster_pallas import PLAIN_CHUNK, _test_cluster
 from .onehot_walk import RAY_TILE
-
-BIG_I = 2 ** 30
-PLAIN_CHUNK = 65536   # rays per (rays, L) block of the plain version
-
-
-def _test_cluster(blk: torch.Tensor, o: torch.Tensor, d: torch.Tensor):
-    """blk (L, 12) triangles, o/d (n, 3) rays -> (tmin (n,), face (n,))
-    of the cluster; tmin = BIG when nothing is hit."""
-    def col(k):
-        return blk[:, k][None, :]
-
-    p0x, p0y, p0z = col(0), col(1), col(2)
-    e1x, e1y, e1z = col(3), col(4), col(5)
-    e2x, e2y, e2z = col(6), col(7), col(8)
-    dx, dy, dz = d[:, 0:1], d[:, 1:2], d[:, 2:3]
-    ox, oy, oz = o[:, 0:1], o[:, 1:2], o[:, 2:3]
-
-    pvx = dy * e2z - dz * e2y
-    pvy = dz * e2x - dx * e2z
-    pvz = dx * e2y - dy * e2x
-    det = e1x * pvx + e1y * pvy + e1z * pvz
-    ok_det = torch.abs(det) > 1e-8
-    one = torch.ones_like(det)
-    inv_det = torch.where(ok_det, one, torch.zeros_like(det)) / torch.where(
-        ok_det, det, one)
-    tvx = ox - p0x
-    tvy = oy - p0y
-    tvz = oz - p0z
-    u = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det
-    qvx = tvy * e1z - tvz * e1y
-    qvy = tvz * e1x - tvx * e1z
-    qvz = tvx * e1y - tvy * e1x
-    v = (dx * qvx + dy * qvy + dz * qvz) * inv_det
-    t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det
-    hit = ok_det & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > 0.0)
-    t = torch.where(hit, t, torch.full_like(t, BIG))
-    tmin = torch.amin(t, dim=1)
-    fid = blk[:, 9].contiguous().view(torch.int32)[None, :]
-    fmin = torch.amin(torch.where(t <= tmin[:, None], fid,
-                                  torch.full_like(fid, BIG_I)), dim=1)
-    return tmin, fmin
-
 
 def cluster_expand_plain(mask_cm, union_pp, tri_rows, ro, rd, seed):
     """Loop over cluster ids 0..C-1, testing only the rays whose bit is

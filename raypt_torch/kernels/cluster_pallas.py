@@ -1,0 +1,196 @@
+"""Dense cluster intersection per 256-ray tile
+(`raypt/kernels/cluster_pallas.py`): every ray of a tile is tested
+against every triangle of each cluster the tile names, either the set
+bits of the tile's wanted-cluster union (`cluster_intersect_mask`,
+`pallas_cluster_intersect_mask`) or the first `counts` entries of the
+tile's worklist (`cluster_intersect`, `pallas_cluster_intersect`).
+
+Merge rules, which decide the exact result: within a cluster the
+smallest t wins, and among triangles with that t the lowest face id;
+across clusters, in the tile's order (ascending id for the union, list
+order for the worklist), a cluster replaces the ray's carry only when
+its t is strictly smaller; the carry starts at the seed with face -1.
+
+`_test_cluster` is the Moller-Trumbore test of one cluster in the Pallas
+kernel's operation order, written as separate elementwise ops so that
+torch on the card rounds after every operation exactly as the kernels,
+built with -fmad=false, do. The expansion kernel's plain version
+(`kernels/cluster_expand.py`) uses it too.
+
+On CUDA tensors each wrapper launches `csrc/cluster_intersect.cu`; on
+CPU tensors it runs its plain torch version.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..core.math3d import BIG
+from ._build import SMEM_LIMIT, launch, on_cuda
+
+TILE = 256            # rays per tile: one CUDA block
+BIG_I = 2 ** 30
+PLAIN_CHUNK = 65536   # rays per (rays, L) block of the plain versions
+
+
+def _test_cluster(blk: torch.Tensor, o: torch.Tensor, d: torch.Tensor):
+    """blk (..., L, 12) triangles, o/d (..., n, 3) rays -> (tmin (..., n),
+    face (..., n)) of the cluster; tmin = BIG when nothing is hit. Leading
+    dimensions broadcast (one cluster per tile in the worklist version)."""
+    def col(k):
+        return blk[..., None, :, k]
+
+    p0x, p0y, p0z = col(0), col(1), col(2)
+    e1x, e1y, e1z = col(3), col(4), col(5)
+    e2x, e2y, e2z = col(6), col(7), col(8)
+    dx, dy, dz = d[..., 0:1], d[..., 1:2], d[..., 2:3]
+    ox, oy, oz = o[..., 0:1], o[..., 1:2], o[..., 2:3]
+
+    pvx = dy * e2z - dz * e2y
+    pvy = dz * e2x - dx * e2z
+    pvz = dx * e2y - dy * e2x
+    det = e1x * pvx + e1y * pvy + e1z * pvz
+    ok_det = torch.abs(det) > 1e-8
+    one = torch.ones_like(det)
+    inv_det = torch.where(ok_det, one, torch.zeros_like(det)) / torch.where(
+        ok_det, det, one)
+    tvx = ox - p0x
+    tvy = oy - p0y
+    tvz = oz - p0z
+    u = (tvx * pvx + tvy * pvy + tvz * pvz) * inv_det
+    qvx = tvy * e1z - tvz * e1y
+    qvy = tvz * e1x - tvx * e1z
+    qvz = tvx * e1y - tvy * e1x
+    v = (dx * qvx + dy * qvy + dz * qvz) * inv_det
+    t = (e2x * qvx + e2y * qvy + e2z * qvz) * inv_det
+    hit = ok_det & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > 0.0)
+    t = torch.where(hit, t, torch.full_like(t, BIG))
+    tmin = torch.amin(t, dim=-1)
+    fid = blk[..., 9].contiguous().view(torch.int32)[..., None, :]
+    fmin = torch.amin(torch.where(t <= tmin[..., None], fid,
+                                  torch.full_like(fid, BIG_I)), dim=-1)
+    return tmin, fmin
+
+
+def _valid_union(union: torch.Tensor, c_total: int) -> torch.Tensor:
+    """The union with every bit >= c_total cleared (the wrapper guard of
+    `pallas_cluster_intersect_mask`, applied to every word)."""
+    cw = union.shape[1]
+    keep = torch.clamp(c_total - 32 * torch.arange(cw, device=union.device),
+                       0, 32)
+    mask = torch.where(keep >= 32, -1, (1 << keep) - 1).to(torch.int32)
+    return union & mask[None, :]
+
+
+def cluster_intersect_mask_plain(union, tri_rows, ro, rd, t0):
+    """Loop over cluster ids 0..C-1; test every ray of each tile whose
+    union has the cluster's bit, with the strict merge."""
+    c_total = tri_rows.shape[0]
+    union = _valid_union(union, c_total)
+    tb = t0.clone()
+    fb = torch.full_like(t0, -1, dtype=torch.int32)
+    lane = torch.arange(TILE, device=ro.device)
+    for c in range(c_total):
+        tiles = torch.nonzero((union[:, c >> 5] >> (c & 31)) & 1).flatten()
+        idx_all = (tiles[:, None] * TILE + lane[None, :]).flatten()
+        for s in range(0, idx_all.numel(), PLAIN_CHUNK):
+            idx = idx_all[s:s + PLAIN_CHUNK]
+            tmin, fmin = _test_cluster(tri_rows[c], ro[idx], rd[idx])
+            better = tmin < tb[idx]
+            tb[idx] = torch.where(better, tmin, tb[idx])
+            fb[idx] = torch.where(better, fmin, fb[idx])
+    return tb, fb
+
+
+def cluster_intersect_plain(worklist, counts, tri_rows, ro, rd, t0):
+    """Loop over worklist slots; at slot w, every tile with counts > w
+    tests its rays against its own cluster worklist[tile, w] (ids outside
+    [0, C) are skipped), with the strict merge."""
+    n_tiles, cap = worklist.shape
+    c_total = tri_rows.shape[0]
+    counts = torch.clamp(counts, max=cap)
+    o = ro.view(n_tiles, TILE, 3)
+    d = rd.view(n_tiles, TILE, 3)
+    tb = t0.clone().view(n_tiles, TILE)
+    fb = torch.full_like(tb, -1, dtype=torch.int32)
+    per_chunk = max(PLAIN_CHUNK // TILE, 1)
+    for w in range(int(counts.max()) if n_tiles else 0):
+        cid = worklist[:, w]
+        live = torch.nonzero((counts > w) & (cid >= 0)
+                             & (cid < c_total)).flatten()
+        for s in range(0, live.numel(), per_chunk):
+            tiles = live[s:s + per_chunk]
+            tmin, fmin = _test_cluster(tri_rows[cid[tiles].long()], o[tiles],
+                                       d[tiles])
+            better = tmin < tb[tiles]
+            tb[tiles] = torch.where(better, tmin, tb[tiles])
+            fb[tiles] = torch.where(better, fmin, fb[tiles])
+    return tb.view(-1), fb.view(-1)
+
+
+def _ray_specs(tri_rows, ro, rd, t0, n_tiles: int) -> dict:
+    r = n_tiles * TILE
+    c_total, leaf = tri_rows.shape[0], tri_rows.shape[1]
+    if leaf * 48 > SMEM_LIMIT:
+        raise ValueError(f"a {leaf}-triangle cluster does not fit in shared "
+                         f"memory (the kernels stage one cluster there)")
+    return {"tri_rows": (tri_rows, (c_total, leaf, 12), torch.float32),
+            "ro": (ro, (r, 3), torch.float32),
+            "rd": (rd, (r, 3), torch.float32),
+            "t0": (t0, (r,), torch.float32)}
+
+
+def _n_tiles(ro) -> int:
+    r = ro.shape[0]
+    if r % TILE:
+        raise ValueError(f"R={r} must be a multiple of {TILE}")
+    return r // TILE
+
+
+def cluster_intersect_mask(union, tri_rows, ro, rd, t0):
+    """union (R // TILE, CW) int32 wanted-cluster bits per tile (bits >= C
+    are ignored), tri_rows (C, L, 12) f32, ro/rd (R, 3) f32, t0 (R,) f32
+    seed. Returns (t (R,) f32, face (R,) int32, -1 where no cluster
+    won)."""
+    n_tiles = _n_tiles(ro)
+    cw = union.shape[1]
+    specs = _ray_specs(tri_rows, ro, rd, t0, n_tiles)
+    specs["union"] = (union, (n_tiles, cw), torch.int32)
+    if not on_cuda(specs):
+        return cluster_intersect_mask_plain(union, tri_rows, ro, rd, t0)
+    t_out = torch.empty_like(t0)
+    f_out = torch.empty((ro.shape[0],), dtype=torch.int32, device=ro.device)
+    launch("rk_cluster_intersect_mask", union.data_ptr(), cw,
+           tri_rows.data_ptr(), tri_rows.shape[0], tri_rows.shape[1],
+           ro.data_ptr(), rd.data_ptr(), t0.data_ptr(), t_out.data_ptr(),
+           f_out.data_ptr(), n_tiles)
+    cluster_intersect_mask.launches += 1
+    return t_out, f_out
+
+
+cluster_intersect_mask.launches = 0
+
+
+def cluster_intersect(worklist, counts, tri_rows, ro, rd, t0):
+    """worklist (R // TILE, cap) int32 cluster ids in test order, counts
+    (R // TILE,) int32 entries to test (clamped to cap; ids outside
+    [0, C) are skipped), tri_rows (C, L, 12) f32, ro/rd (R, 3) f32, t0
+    (R,) f32 seed. Returns (t (R,) f32, face (R,) int32, -1 where no
+    cluster won)."""
+    n_tiles = _n_tiles(ro)
+    cap = worklist.shape[1]
+    specs = _ray_specs(tri_rows, ro, rd, t0, n_tiles)
+    specs["worklist"] = (worklist, (n_tiles, cap), torch.int32)
+    specs["counts"] = (counts, (n_tiles,), torch.int32)
+    if not on_cuda(specs):
+        return cluster_intersect_plain(worklist, counts, tri_rows, ro, rd, t0)
+    t_out = torch.empty_like(t0)
+    f_out = torch.empty((ro.shape[0],), dtype=torch.int32, device=ro.device)
+    launch("rk_cluster_intersect", worklist.data_ptr(), counts.data_ptr(), cap,
+           tri_rows.data_ptr(), tri_rows.shape[0], tri_rows.shape[1],
+           ro.data_ptr(), rd.data_ptr(), t0.data_ptr(), t_out.data_ptr(),
+           f_out.data_ptr(), n_tiles)
+    cluster_intersect.launches += 1
+    return t_out, f_out
+
+
+cluster_intersect.launches = 0

@@ -1,28 +1,33 @@
-"""Walk of the encoded cluster top tree, per ray, emitting the
-wanted-cluster bitmask word-major plus one OR-union per walk tile
-(`raypt/kernels/onehot_walk.py`: `pallas_topwalk_cm_u`).
+"""Walk of the encoded cluster top tree, per ray
+(`raypt/kernels/onehot_walk.py`), in two forms:
+  * `topwalk_cm_u` (`pallas_topwalk_cm_u`): the wanted-cluster bitmask
+    word-major plus one OR-union per 2,048-ray walk tile;
+  * `topwalk_union` (`pallas_topwalk_union`): only the OR-union of each
+    256-ray tile; the per-ray mask never reaches device memory.
 
-On CUDA tensors this launches `csrc/onehot_walk.cu`; on CPU tensors it
-runs the plain torch version, `accel.ctree.walk_topwalk`, transposed,
-with the tile unions OR-folded in torch.
+On CUDA tensors both launch `csrc/onehot_walk.cu`; on CPU tensors they
+run the plain torch version, `accel.ctree.walk_topwalk`, with the tile
+unions OR-folded in torch.
 """
 from __future__ import annotations
 
 import torch
 
 from ..accel.ctree import ROW, walk_max_steps, walk_topwalk
-from ._build import launch, on_cuda
+from ._build import SMEM_LIMIT, launch, on_cuda
 
 RAY_TILE = 2048   # rays per union_pp row (the JAX walk program); the
                   # kernels' kRayTile
-SMEM_LIMIT = 232448   # shared memory a block may use on Hopper (227 KB)
 
 
-def tile_unions(mask_cm: torch.Tensor) -> torch.Tensor:
-    """(cwp, R) mask -> (R // RAY_TILE, cwp) OR over each tile's rays."""
+UNION_TILE = 256  # rays per topwalk_union row: one CUDA block
+
+
+def tile_unions(mask_cm: torch.Tensor, tile: int = RAY_TILE) -> torch.Tensor:
+    """(cwp, R) mask -> (R // tile, cwp) OR over each tile's rays."""
     cwp, r = mask_cm.shape
-    m = mask_cm.view(cwp, r // RAY_TILE, RAY_TILE)
-    w = RAY_TILE
+    m = mask_cm.view(cwp, r // tile, tile)
+    w = tile
     while w > 1:
         h = w // 2
         m = m[:, :, :h] | m[:, :, h:w]
@@ -35,6 +40,22 @@ def topwalk_cm_u_plain(table, ro, rd, t0, active, num_words: int):
     return mask_cm, tile_unions(mask_cm)
 
 
+def _check_table(table, num_words: int) -> None:
+    if table.shape[0] * 2 * ROW + num_words * 4 > SMEM_LIMIT:
+        raise ValueError(f"a {table.shape[0]}-row table does not fit in "
+                         f"shared memory (the kernel keeps the whole table "
+                         f"there); raise `leaf` in build_onehot")
+
+
+def _walk_specs(table, ro, rd, t0, active) -> dict:
+    r = ro.shape[0]
+    return {"table": (table, (table.shape[0], ROW), torch.bfloat16),
+            "ro": (ro, (r, 3), torch.float32),
+            "rd": (rd, (r, 3), torch.float32),
+            "t0": (t0, (r,), torch.float32),
+            "active": (active, (r,), torch.bool)}
+
+
 def topwalk_cm_u(table, ro, rd, t0, active, num_words: int):
     """table (Nt, 16) bf16, ro/rd (R, 3) f32 (rd normalized), t0 (R,)
     f32 best distance so far, active (R,) bool; R % RAY_TILE == 0.
@@ -44,16 +65,9 @@ def topwalk_cm_u(table, ro, rd, t0, active, num_words: int):
     nt = table.shape[0]
     if r % RAY_TILE:
         raise ValueError(f"R={r} must be a multiple of {RAY_TILE}")
-    if not on_cuda({"table": (table, (nt, ROW), torch.bfloat16),
-                    "ro": (ro, (r, 3), torch.float32),
-                    "rd": (rd, (r, 3), torch.float32),
-                    "t0": (t0, (r,), torch.float32),
-                    "active": (active, (r,), torch.bool)}):
+    if not on_cuda(_walk_specs(table, ro, rd, t0, active)):
         return topwalk_cm_u_plain(table, ro, rd, t0, active, num_words)
-    if nt * 2 * ROW + num_words * 4 > SMEM_LIMIT:
-        raise ValueError(f"a {nt}-row table does not fit in shared memory "
-                         f"(the kernel keeps the whole table there); raise "
-                         f"`leaf` in build_onehot")
+    _check_table(table, num_words)
     mask = torch.empty((num_words, r), dtype=torch.int32, device=ro.device)
     # zeroed: every block ORs its rays' union into its tile's row
     union_pp = torch.zeros((r // RAY_TILE, num_words), dtype=torch.int32,
@@ -66,3 +80,32 @@ def topwalk_cm_u(table, ro, rd, t0, active, num_words: int):
 
 
 topwalk_cm_u.launches = 0
+
+
+def topwalk_union_plain(table, ro, rd, t0, active, num_words: int):
+    mask = walk_topwalk(table, ro, rd, t0, active, num_words)
+    return tile_unions(mask.T.contiguous(), UNION_TILE)
+
+
+def topwalk_union(table, ro, rd, t0, active, num_words: int):
+    """The walk of topwalk_cm_u with the wanted-cluster bits OR-folded
+    over each UNION_TILE-ray tile (one tile per 256-thread block):
+    returns (R // UNION_TILE, num_words) int32; R % UNION_TILE == 0."""
+    r = ro.shape[0]
+    nt = table.shape[0]
+    if r % UNION_TILE:
+        raise ValueError(f"R={r} must be a multiple of {UNION_TILE}")
+    if not on_cuda(_walk_specs(table, ro, rd, t0, active)):
+        return topwalk_union_plain(table, ro, rd, t0, active, num_words)
+    _check_table(table, num_words)
+    # every word of every tile is stored by the kernel, zero or not
+    union = torch.empty((r // UNION_TILE, num_words), dtype=torch.int32,
+                        device=ro.device)
+    launch("rk_topwalk_union", table.data_ptr(), nt, ro.data_ptr(),
+           rd.data_ptr(), t0.data_ptr(), active.data_ptr(), union.data_ptr(),
+           r, num_words, walk_max_steps(nt))
+    topwalk_union.launches += 1
+    return union
+
+
+topwalk_union.launches = 0

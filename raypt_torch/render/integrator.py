@@ -5,8 +5,9 @@ runs without autograd and shading recomputes the hit differentiably,
 so `loss.backward()` of an image reaches mesh positions and materials
 through the shading glue only.
 
-The port renders `backend="onehot"` with `onehot_expand > 0`; other
-backends, refraction and textures raise (ROADMAP queue 1).
+The port renders `backend="onehot"` (both branches: `onehot_expand > 0`
+per-ray-exact, `onehot_expand == 0` dense-union) and `backend="cluster"`;
+other backends, refraction and textures raise (ROADMAP queue 1).
 """
 from __future__ import annotations
 
@@ -15,9 +16,10 @@ from typing import Callable, Optional
 
 import torch
 
+from ..accel.clusters import CLUSTER_LEAF, Clusters, build_clusters
 from ..accel.ctree import OnehotAccel, build_onehot
 from ..accel.lbvh import LBVH
-from ..accel.traverse import HitIds, find_closest_onehot
+from ..accel.traverse import HitIds, find_closest_cluster, find_closest_onehot
 from ..core.math3d import lerp, normalize, reflect
 from ..core.types import RenderConfig, Scene
 from ..rng.sampler import (Key, bounce_uniforms, frame_key,
@@ -29,24 +31,42 @@ Finder = Callable[..., HitIds]
 
 
 def make_finder(scene: Scene, cfg: RenderConfig, accel=None) -> Finder:
-    """The onehot finder over `accel`: an OnehotAccel, or an LBVH that is
-    clustered here at cfg.onehot_leaf. Its tensors move to the scene's
-    device."""
-    if cfg.backend != "onehot":
+    """The finder of cfg.backend over `accel`, moved to the scene's
+    device:
+      * "onehot": an OnehotAccel, or an LBVH from `host_bvh.build_sah`
+        clustered here at cfg.onehot_leaf; cfg.onehot_expand picks the
+        branch (> 0 per-ray-exact, 0 dense-union);
+      * "cluster": Clusters, or an LBVH clustered here at CLUSTER_LEAF.
+    Without an accel it raises: the device LBVH build is not ported."""
+    m = scene.mesh
+    if cfg.backend == "onehot":
+        if isinstance(accel, LBVH):
+            accel = build_onehot(accel, m.positions, m.faces, m.face_valid,
+                                 leaf=cfg.onehot_leaf)
+        kind = OnehotAccel
+    elif cfg.backend == "cluster":
+        if isinstance(accel, LBVH):
+            accel = build_clusters(accel, m.positions, m.faces, m.face_valid,
+                                   leaf=CLUSTER_LEAF)
+        kind = Clusters
+    else:
         raise NotImplementedError(
             f"backend {cfg.backend!r} is not ported; the port renders "
-            "backend='onehot' (ROADMAP queue 1 item 10)")
-    if isinstance(accel, LBVH):
-        m = scene.mesh
-        accel = build_onehot(accel, m.positions, m.faces, m.face_valid,
-                             leaf=cfg.onehot_leaf)
-    if not isinstance(accel, OnehotAccel):
+            "backend='onehot' and 'cluster' (ROADMAP queue 1 item 10)")
+    if not isinstance(accel, kind):
         raise NotImplementedError(
-            "pass an LBVH from accel.host_bvh.build_sah or an OnehotAccel: "
-            "the device LBVH build is not ported (ROADMAP queue 1)")
-    accel = accel.to(scene.mesh.positions.device)
+            f"pass an LBVH from accel.host_bvh.build_sah or a "
+            f"{kind.__name__}: the device LBVH build is not ported "
+            f"(ROADMAP queue 1)")
+    accel = accel.to(m.positions.device)
+    if kind is Clusters:
+        return partial(_cluster_finder, accel)
     return partial(find_closest_onehot, accel=accel,
                    expand_n=cfg.onehot_expand, compact_n=cfg.onehot_compact)
+
+
+def _cluster_finder(clusters: Clusters, scene: Scene, ro, rd, active=None):
+    return find_closest_cluster(scene, clusters, ro, rd, active=active)
 
 
 def _check_supported(scene: Scene, cfg: RenderConfig) -> None:
@@ -129,7 +149,7 @@ def trace_paths(scene: Scene, cfg: RenderConfig, skey: Key,
     return out
 
 
-def pixel_id_grid(cfg: RenderConfig, device="cpu") -> torch.Tensor:
+def pixel_id_grid(cfg: RenderConfig, device) -> torch.Tensor:
     """(H, W) int32 linear pixel ids (the RNG counter per pixel)."""
     return (torch.arange(cfg.height, dtype=torch.int32, device=device)[:, None]
             * cfg.width

@@ -1,5 +1,7 @@
 """raypt_torch's CUDA kernels against their plain torch versions on the
-card, bitwise. Marked `gpu`; skipped where torch sees no CUDA device.
+card, bitwise, and each render path through the kernels against the
+same render through the plain versions. Marked `gpu`; skipped where
+torch sees no CUDA device.
 This file imports no JAX, so it runs on the GPU machine with
 
     python -m pytest tests/test_torch_gpu.py --noconftest -o addopts='' \
@@ -10,10 +12,14 @@ from functools import partial
 import pytest
 import torch
 
+from raypt_torch.accel.clusters import (CLUSTER_LEAF, build_clusters,
+                                        tile_worklists)
 from raypt_torch.accel.ctree import build_onehot
 from raypt_torch.accel.host_bvh import build_sah
-from raypt_torch.accel.traverse import (KERNELS, PLAIN, find_closest_onehot,
-                                        onehot_inputs)
+from raypt_torch.accel.traverse import (DENSE_CHUNK, KERNELS, PLAIN,
+                                        find_closest_cluster,
+                                        find_closest_onehot, onehot_inputs,
+                                        wavefront_inputs)
 from raypt_torch.core.math3d import BIG
 from raypt_torch.core.types import RenderConfig
 from raypt_torch.render.integrator import make_finder, render_sample
@@ -27,27 +33,53 @@ GROUP = 8192
 CFG = RenderConfig(width=W, height=W, samples_per_pixel=1, num_bounces=3,
                    backend="onehot", onehot_leaf=384, onehot_expand=8192,
                    onehot_compact=GROUP)
+# the second slice's paths: the JAX package's onehot defaults (dense-union
+# branch, leaf 128) and the cluster backend
+DENSE = CFG.replace(onehot_leaf=128, onehot_expand=0, onehot_compact=0)
+CLUSTER = CFG.replace(backend="cluster")
 
 
 @pytest.fixture(scope="module")
 def gpu_scene():
-    """The bench scene at 256^2 on the card, with leaf-384 and leaf-16
-    accels (8 and 40 mask words)."""
+    """The bench scene at 256^2 on the card, with leaf-384, leaf-128 and
+    leaf-16 onehot accels (8, 8 and 40 mask words) and leaf-64 clusters
+    (under "cluster")."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     b = stanford_bunny()
     b.camera.viewport_width = b.camera.viewport_height = W
-    scene = b.freeze()
+    scene = b.freeze("cuda")
     m = scene.mesh
     bvh = build_sah(m)
     accels = {leaf: build_onehot(bvh, m.positions, m.faces, m.face_valid,
-                                 leaf=leaf).to("cuda") for leaf in (384, 16)}
-    return scene.to("cuda"), accels
+                                 leaf=leaf).to("cuda")
+              for leaf in (384, 128, 16)}
+    accels["cluster"] = build_clusters(bvh, m.positions, m.faces, m.face_valid,
+                                       leaf=CLUSTER_LEAF).to("cuda")
+    return scene, accels
 
 
-def _plain_finder(accel):
+def _plain_finder(accel, cfg=CFG):
+    if cfg.backend == "cluster":
+        return lambda s, ro, rd, active=None: find_closest_cluster(
+            s, accel, ro, rd, active, ops=PLAIN)
     return partial(find_closest_onehot, accel=accel, ops=PLAIN,
-                   expand_n=CFG.onehot_expand, compact_n=CFG.onehot_compact)
+                   expand_n=cfg.onehot_expand, compact_n=cfg.onehot_compact)
+
+
+def _waves(scene, cfg, accel, key):
+    """The (ro, rd, active) wavefront of every bounce of a render."""
+    waves = []
+    finder = make_finder(scene, cfg, accel)
+
+    def record(s, ro, rd, active=None):
+        waves.append((ro.reshape(-1, 3), rd.reshape(-1, 3),
+                      active.reshape(-1)))
+        return finder(s, ro, rd, active)
+
+    with torch.no_grad():
+        render_sample(scene, cfg, rng.key(key), record)
+    return waves
 
 
 def _bits_equal(a, b):
@@ -61,17 +93,7 @@ def test_stages_bitwise(gpu_scene, leaf, bounce):
     """Each stage on one bounce's wavefront, fed the kernel's outputs of
     the stage before it."""
     scene, accels = gpu_scene
-    waves = []
-    finder = make_finder(scene, CFG, accels[384])
-
-    def record(s, ro, rd, active=None):
-        waves.append((ro.reshape(-1, 3), rd.reshape(-1, 3),
-                      active.reshape(-1)))
-        return finder(s, ro, rd, active)
-
-    with torch.no_grad():
-        render_sample(scene, CFG, rng.key(1), record)
-    ro, rd, active = waves[bounce]
+    ro, rd, active = _waves(scene, CFG, accels[384], 1)[bounce]
     accel = accels[leaf]
     o, d, t, a, _, _ = onehot_inputs(scene, ro, rd, active, GROUP)
     kc = KERNELS.compact(o, d, t, a, GROUP)
@@ -94,14 +116,66 @@ def test_stages_bitwise(gpu_scene, leaf, bounce):
     assert _bits_equal(kut[a], put[a]) and torch.equal(kuf[a], puf[a])
 
 
-def test_render_bitwise_vs_plain_finder(gpu_scene):
+@pytest.mark.parametrize("leaf,bounce", [(128, 0), (128, 1), (16, 1)])
+def test_dense_union_stages_bitwise(gpu_scene, leaf, bounce):
+    """The union walk and the mask intersection on one bounce of the
+    dense-union render, the intersection fed the kernel's unions; the
+    first tile's rays all dead."""
     scene, accels = gpu_scene
+    ro, rd, active = _waves(scene, DENSE, accels[128], 3)[bounce]
+    active = active.clone()
+    active[:256] = False
+    accel = accels[leaf]
+    o, d, t, a, _, _ = wavefront_inputs(scene, ro, rd, active, DENSE_CHUNK)
+    nw = -(-accel.num_clusters // 32)
+    ku = KERNELS.walk_union(accel.table, o, d, t, a, nw)
+    assert torch.equal(ku, PLAIN.walk_union(accel.table, o, d, t, a, nw))
+    assert not bool(ku[0].any()) and bool(ku.any())
+    seed = torch.where(a, t, torch.full_like(t, -BIG))
+    args = (ku, accel.clusters.tri_rows, o, d, seed)
+    kt, kf = KERNELS.intersect_mask(*args)
+    pt, pf = PLAIN.intersect_mask(*args)
+    assert _bits_equal(kt, pt) and torch.equal(kf, pf)
+    assert int((kf >= 0).sum()) > 0
+
+
+@pytest.mark.parametrize("bounce", [0, 1])
+def test_cluster_stages_bitwise(gpu_scene, bounce):
+    """The worklist intersection on one bounce of the cluster render, and
+    the whole cluster finder at cap 2, where tiles overflow into the
+    fallback (primary-ray tiles see ~3 clusters), through the kernels
+    against the plain versions."""
+    scene, accels = gpu_scene
+    clusters = accels["cluster"]
+    ro, rd, active = _waves(scene, CLUSTER, clusters, 4)[bounce]
+    o, d, t, a, _, _ = wavefront_inputs(scene, ro, rd, active, DENSE_CHUNK)
+    seed = torch.where(a, t, torch.full_like(t, -BIG))
+    wl, cnt, _ = tile_worklists(clusters, o, d, seed, 256)
+    args = (wl, cnt, clusters.tri_rows, o, d, seed)
+    kt, kf = KERNELS.intersect(*args)
+    pt, pf = PLAIN.intersect(*args)
+    assert _bits_equal(kt, pt) and torch.equal(kf, pf)
+    assert int((kf >= 0).sum()) > 0
+    assert bool(tile_worklists(clusters, o, d, seed, 256, 2)[2].any())
+    k = find_closest_cluster(scene, clusters, ro, rd, active, cap=2)
+    p = find_closest_cluster(scene, clusters, ro, rd, active, cap=2,
+                             ops=PLAIN)
+    assert _bits_equal(k.t, p.t) and torch.equal(k.tri, p.tri)
+    assert torch.equal(k.sphere, p.sphere)
+
+
+@pytest.mark.parametrize("path", ["expand", "dense_union", "cluster"])
+def test_render_bitwise_vs_plain_finder(gpu_scene, path):
+    scene, accels = gpu_scene
+    cfg, accel = {"expand": (CFG, accels[384]),
+                  "dense_union": (DENSE, accels[128]),
+                  "cluster": (CLUSTER, accels["cluster"])}[path]
     with torch.no_grad():
-        img_k, tr_k = render_sample(scene, CFG, rng.key(2),
-                                    make_finder(scene, CFG, accels[384]),
+        img_k, tr_k = render_sample(scene, cfg, rng.key(2),
+                                    make_finder(scene, cfg, accel),
                                     return_alive=True)
-        img_p, tr_p = render_sample(scene, CFG, rng.key(2),
-                                    _plain_finder(accels[384]),
+        img_p, tr_p = render_sample(scene, cfg, rng.key(2),
+                                    _plain_finder(accel, cfg),
                                     return_alive=True)
     assert bool(torch.isfinite(img_k).all())
     assert _bits_equal(img_k, img_p) and torch.equal(tr_k, tr_p)

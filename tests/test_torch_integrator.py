@@ -10,6 +10,8 @@ import numpy as np
 import pytest
 import torch
 
+from raypt.accel.clusters import CLUSTER_LEAF
+from raypt.accel.clusters import build_clusters as jax_build_clusters
 from raypt.accel.ctree import build_onehot as jax_build_onehot
 from raypt.accel.host_bvh import build_sah as jax_build_sah
 from raypt.core.types import RenderConfig as JaxConfig
@@ -24,7 +26,8 @@ from raypt_torch.render import integrator as tint
 from raypt_torch.render.tonemap import to_display, to_u8
 from raypt_torch.rng import sampler as trng
 
-from test_torch_scene import jax_accel_to_port, jax_leaves
+from test_torch_scene import (jax_accel_to_port, jax_clusters_to_port,
+                              jax_leaves)
 
 torch.set_num_threads(2)
 
@@ -44,18 +47,32 @@ CFG = dict(width=W, height=W, samples_per_pixel=1, num_bounces=4,
 OUTSIDE_VIEW = dict(position=(30.0, -18.0, -200.0), angle_y=180.0)
 
 
-def _slice(camera=None):
-    """Render and differentiate the bench loss in both packages; camera
-    overrides the bench view's attributes."""
+def jax_accels(scene, cfg):
+    """The JAX package's accel for cfg.backend over its SAH tree of the
+    scene (onehot at cfg.onehot_leaf, clusters at CLUSTER_LEAF), and the
+    port's copy of it."""
+    m = scene.mesh
+    bvh = jax_build_sah(m)
+    if cfg.backend == "cluster":
+        accel = jax_build_clusters(bvh, m.positions, m.faces, m.face_valid,
+                                   leaf=CLUSTER_LEAF)
+        return accel, jax_clusters_to_port(accel)
+    accel = jax_build_onehot(bvh, m.positions, m.faces, m.face_valid,
+                             leaf=cfg.onehot_leaf)
+    return accel, jax_accel_to_port(accel)
+
+
+def run_slice(camera=None, cfg_kw=CFG):
+    """Render and differentiate the bench loss in both packages with the
+    same accel; camera overrides the bench view's attributes, cfg_kw
+    are both packages' RenderConfig fields."""
     b = jax_scenes.stanford_bunny()
     b.camera.viewport_width = b.camera.viewport_height = W
     for k, val in (camera or {}).items():
         setattr(b.camera, k, val)
     scene = b.freeze()
-    cfg = JaxConfig(**CFG)
-    accel = jax_build_onehot(jax_build_sah(scene.mesh), scene.mesh.positions,
-                             scene.mesh.faces, scene.mesh.face_valid,
-                             leaf=cfg.onehot_leaf)
+    cfg = JaxConfig(**cfg_kw)
+    accel, tacc = jax_accels(scene, cfg)
 
     def loss(v, a):
         s = scene.replace(mesh=scene.mesh.replace(positions=v),
@@ -69,9 +86,8 @@ def _slice(camera=None):
                                                has_aux=True)(
         scene.mesh.positions, scene.materials.albedo)
 
-    tscene = scene_from_numpy(jax_leaves(scene))
-    tacc = jax_accel_to_port(accel)
-    tcfg = RenderConfig(**CFG)
+    tscene = scene_from_numpy(jax_leaves(scene), "cpu")
+    tcfg = RenderConfig(**cfg_kw)
     v = tscene.mesh.positions.clone().requires_grad_(True)
     a = tscene.materials.albedo.clone().requires_grad_(True)
     s = tscene.replace(mesh=tscene.mesh.replace(positions=v),
@@ -90,12 +106,12 @@ def _slice(camera=None):
 
 @pytest.fixture(scope="module")
 def slice_run():
-    return _slice()
+    return run_slice()
 
 
 @pytest.fixture(scope="module")
 def outside_run():
-    return _slice(OUTSIDE_VIEW)
+    return run_slice(OUTSIDE_VIEW)
 
 
 def test_image_matches_jax(slice_run):
@@ -187,16 +203,23 @@ def test_display_and_png(slice_run, tmp_path):
 
 
 def test_unported_settings_raise(slice_run):
+    """Backends "pallas", "bvh" and "dense", refraction and a missing
+    accel raise; the onehot dense-union branch (onehot_expand=0) and the
+    cluster backend are ported (tests/test_torch_slice2.py renders
+    them)."""
     scene, acc, cfg = slice_run["scene"], slice_run["accel"], slice_run["cfg"]
-    for bad in (cfg.replace(backend="bvh"), cfg.replace(onehot_expand=0)):
+    for backend in ("pallas", "bvh", "dense"):
+        bad = cfg.replace(backend=backend)
         with pytest.raises(NotImplementedError):
             finder = tint.make_finder(scene, bad, acc)
             tint.render_sample(scene, bad, slice_run["skey"], finder)
     with pytest.raises(NotImplementedError):
         tint.render_sample(scene, cfg.replace(enable_refraction=True),
                            slice_run["skey"], tint.make_finder(scene, cfg, acc))
-    with pytest.raises(NotImplementedError):
-        tint.make_finder(scene, cfg, None)
+    for ok in (cfg, cfg.replace(onehot_expand=0), cfg.replace(backend="cluster")):
+        with pytest.raises(NotImplementedError):
+            tint.make_finder(scene, ok, None)
+    assert callable(tint.make_finder(scene, cfg.replace(onehot_expand=0), acc))
 
 
 def test_env_sampling_matches_jax():

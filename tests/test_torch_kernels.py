@@ -166,7 +166,7 @@ def test_onehot_finder_matches_bruteforce(bunny):
     rng = np.random.default_rng(5)
     scene_j, _ = bunny
     (_, _), acc = _accels(bunny, 384)
-    scene = scene_from_numpy(jax_leaves(scene_j))
+    scene = scene_from_numpy(jax_leaves(scene_j), "cpu")
     r = 1500                      # padded to the walk tile inside
     ro, rd, _, active = _wavefront(rng, scene_j, r)
     got = find_closest_onehot(scene, _t(ro), _t(rd), _t(active), accel=acc,

@@ -21,6 +21,7 @@ from raypt.scenes import builtin as jax_scenes
 
 from raypt_torch.accel import ctree as tctree
 from raypt_torch.accel import host_bvh as thost
+from raypt_torch.accel.clusters import Clusters
 from raypt_torch.accel.lbvh import LBVH
 from raypt_torch.core.camera import Camera as TorchCamera
 from raypt_torch.core.types import scene_from_numpy
@@ -59,6 +60,12 @@ def jax_accel_to_port(accel):
         np.asarray(jax.lax.bitcast_convert_type(table, jnp.uint16)))
 
 
+def jax_clusters_to_port(clusters) -> Clusters:
+    """Port Clusters from the JAX build_clusters output."""
+    return Clusters(**{k: torch.from_numpy(np.array(getattr(clusters, k)))
+                       for k in ("bmin", "bmax", "tri_rows", "valid")})
+
+
 def _builders(name):
     return getattr(jax_scenes, name)(), getattr(torch_scenes, name)()
 
@@ -70,8 +77,8 @@ def test_freeze_bitwise(name):
     reproduces the JAX leaves exactly."""
     jb, tb = _builders(name)
     leaves = jax_leaves(jb.freeze())
-    scene = tb.freeze()
-    bridged = scene_from_numpy(leaves)
+    scene = tb.freeze("cpu")
+    bridged = scene_from_numpy(leaves, "cpu")
     for key, ref in leaves.items():
         if key == "env.is_cube":
             assert scene.env.is_cube == ref
@@ -81,6 +88,21 @@ def test_freeze_bitwise(name):
             got = getattr(getattr(s, grp), field).numpy()
             assert got.dtype == ref.dtype and got.shape == ref.shape, key
             assert np.array_equal(got.view(np.uint8), ref.view(np.uint8)), key
+
+
+def test_entry_points_default_to_the_card():
+    """freeze() and scene_from_numpy() build on the card unless the
+    caller names a device: where torch has no CUDA they raise torch's own
+    error instead of returning CPU tensors."""
+    jb, tb = _builders("triangle_ground")
+    leaves = jax_leaves(jb.freeze())
+    if torch.cuda.is_available():
+        assert tb.freeze().mesh.positions.is_cuda
+        assert scene_from_numpy(leaves).mesh.positions.is_cuda
+        return
+    for build in (tb.freeze, lambda: scene_from_numpy(leaves)):
+        with pytest.raises((AssertionError, RuntimeError)):
+            build()
 
 
 @pytest.mark.parametrize("angles", [(0.0, 0.0), (0.0, 180.0), (-17.5, 33.0),
@@ -119,7 +141,7 @@ def test_sah_tree_bitwise_triangle_ground():
     """The whole SAH build, native library included, matches."""
     jb, tb = _builders("triangle_ground")
     ref = jax_build_sah(jb.freeze().mesh)
-    got = thost.build_sah(tb.freeze().mesh)
+    got = thost.build_sah(tb.freeze("cpu").mesh)
     for k in ("left", "skip", "bmin", "bmax", "leaf_face"):
         assert np.array_equal(getattr(got, k), np.asarray(getattr(ref, k))), k
 
@@ -131,7 +153,7 @@ def test_sah_conversion_bitwise_bunny():
     library. The host-tree -> LBVH conversion is held bitwise on the same
     host output, and the port's own tree must be well formed."""
     jb, tb = _builders("stanford_bunny")
-    mesh = tb.freeze().mesh
+    mesh = tb.freeze("cpu").mesh
     faces = mesh.faces.numpy()
     vidx = np.nonzero(mesh.face_valid.numpy())[0]
     bounds, meta, order = build_sah_host(mesh.positions.numpy(), faces[vidx])
@@ -157,7 +179,7 @@ def test_onehot_accel_bitwise(leaf):
     jbvh = jax_build_sah(jscene.mesh)
     ref = jax_build_onehot(jbvh, jscene.mesh.positions, jscene.mesh.faces,
                            jscene.mesh.face_valid, leaf=leaf)
-    tscene = torch_scenes.stanford_bunny().freeze()
+    tscene = torch_scenes.stanford_bunny().freeze("cpu")
     m = tscene.mesh
     got = tctree.build_onehot(jax_lbvh_to_port(jbvh), m.positions, m.faces,
                               m.face_valid, leaf=leaf)
