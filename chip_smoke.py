@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive raypt_torch's three render paths once on one NVIDIA GPU and
+"""Drive raypt_torch's render paths once on one NVIDIA GPU and
 check them, phase by phase; any failure raises and the exit code is not
 0. The paths render the bench scene (stanford_bunny at 1024^2, 1 spp, 4
 bounces, roulette) through:
@@ -11,6 +11,15 @@ bounces, roulette) through:
                expand 0, compact 0): topwalk_union, cluster_intersect_mask
   cluster      backend "cluster", clusters of 64 triangles:
                cluster_intersect
+  pallas       backend "pallas" (the Woop table built from the scene):
+               closest_dense, every ray against every triangle
+  unfused      the onehot finder's non-fused branch at leaf 128
+               (find_closest_onehot(..., use_pallas_intersect=False)):
+               topwalk_cm, then tile unions, ascending-id worklists and
+               the reference worklist intersection in torch
+  auto         RenderConfig's default backend, which resolves to "dense"
+               for this mesh; the port serves "dense" with the pallas
+               path's finder: closest_dense
 
 Phases:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions
@@ -21,30 +30,46 @@ Phases:
      times (kernel mean of 10, plain of 2, summed over the bounces) and
      the bound of each launch; then edge cases: all-dead and all-alive
      compaction groups, a tile of dead rays, the leaf-16 accel (1,026
-     clusters: 40 mask words, 33 union words) on 65,536 rays, and the
+     clusters: 40 mask words, 33 union words) on 65,536 rays, the
      cluster finder at cap 8, where tiles overflow into its fallback
+     (whose worklist intersection is also timed, with its peak memory,
+     at 2^22 and at STEP_PAIRS pairs a step), a tile of rays that hit
+     nothing, duplicated triangles tying within a triangle chunk and
+     across chunks, and tables of one chunk exactly and of a size that
+     needs padding
   4. each path's render through render_sample: every kernel of the path
      launches once per bounce and no other kernel launches, the image is
-     finite and bitwise equal to the render through the plain versions,
-     with equal traced counts
-  5. cross-checks on the card, bitwise: the union walk against the tile
+     finite and bitwise equal to the render through the plain versions
+     (on the auto path, to the pallas render), with equal traced counts
+  5. cross-checks on the card: bitwise, the union walk against the tile
      fold of topwalk_cm_u's masks, the dense mask intersection of those
-     unions against cluster_expand of the masks on live rays, and the
-     dense-union render at leaf 384 against the expand render
-  6. each path's bench loss (mean image) forward and backward w.r.t.
-     mesh positions and material albedo: finite grads, nonzero albedo
-     grad, median seconds of 3 runs after a warm-up, and one fwd+bwd
-     step traced with torch.profiler. The bench camera sits inside the
-     stand-in bunny, where no path reaches the sky, so the gradient
-     w.r.t. positions is about 0 there; for the expand path, from a view
-     outside the mesh (GRAD_VIEW, GRAD_WIDTH^2) it is not, and the card's
+     unions against cluster_expand of the masks on live rays, the
+     dense-union render at leaf 384 against the expand render, and the
+     mask-only walk against topwalk_cm_u's first words; closest_dense
+     against the torch.matmul route (matmul_closest) to DENSE_T_TOL on
+     all but DENSE_SHARE of the rays, the rays where they disagree held
+     against a float64 test of both faces; the non-fused finder at cap
+     2, whose
+     tiles overflow into residual rounds, against its kernel-free and
+     default-cap results
+  6. the bench loss (mean image) forward and backward w.r.t. mesh
+     positions and material albedo on every path but auto (the pallas
+     path's finder) and unfused (forward only there): finite grads, nonzero albedo grad, median
+     seconds of 3 runs after a warm-up, and one fwd+bwd step traced with
+     torch.profiler. The bench camera sits inside the stand-in bunny,
+     where no path reaches the sky, so the gradient w.r.t. positions is
+     about 0 there; for the expand and pallas paths, from a view outside
+     the mesh (GRAD_VIEW, GRAD_WIDTH^2) it is not, and the card's
      gradients through the kernels must agree with the CPU's through the
      plain versions to GRAD_RTOL of their largest magnitude
 
 The last line is {"ok": true, "device": {...}}; the line before it is
 the per-kernel JSON summary: "ms", "plain_ms" and "bound_ms" are summed
 over the four bounce wavefronts of the kernel's path (one frame's worth
-of launches), "launches" are counted in that path's render of phase 4.
+of launches), "launches" are counted in that path's render of phase 4;
+closest_dense's "library_ms" is matmul_closest, the same closest hit
+through torch.matmul, on the same wavefronts (several calls: no one
+torch call computes it).
 Run: python3 chip_smoke.py
 """
 import json
@@ -63,6 +88,16 @@ DENSE_LEAF = 128          # RenderConfig's default onehot_leaf
 MULTIWORD_LEAF = 16
 MULTIWORD_RAYS = 65536
 OVERFLOW_CAP = 8
+UNFUSED_CAP = 2           # the non-fused finder's forced residual rounds
+# closest_dense vs matmul_closest: a ray agrees when both pick the same
+# face and their t are within DENSE_T_TOL * (1 + |t|)
+# (tests/test_pallas.py's tolerance against the brute-force oracle;
+# cuBLAS sums the products in its own order). Near-grazing rays, where
+# t = -o'_w / d'_w divides by a small d'_w, and near-ties may disagree:
+# at most DENSE_SHARE of a wavefront's rays, and phase 5 holds each such
+# ray against a float64 test of both faces.
+DENSE_T_TOL = 2e-4
+DENSE_SHARE = 1e-4
 GRAD_VIEW = dict(position=(30.0, -18.0, -200.0), angle_y=180.0)
 GRAD_WIDTH = 128
 GRAD_RTOL = 1e-3
@@ -81,6 +116,12 @@ F32_OPS_PER_S = 67e12
 # seeded -BIG, so no hit can replace its result.
 WALK_OPS = 45
 MT_OPS = 57
+# f32 operations of one Woop ray-triangle test (dense_closest.cu): six
+# 3-term transforms (3 with an offset: 18 mul/add, 15 without), |d'_w|
+# and its compare (2), the negation and the division (2), u and v (4),
+# u + v (1), five compares (u, v, u + v, t > 0, t < best) and the
+# select of the carry (2)
+DENSE_OPS = 49
 
 KERNELS = {   # name -> (path, source, TPU kernel it replaces)
     "alive_compact": ("expand", "raypt_torch/csrc/compact.cu",
@@ -98,7 +139,15 @@ KERNELS = {   # name -> (path, source, TPU kernel it replaces)
                                "raypt/kernels/cluster_pallas.py:331"),
     "cluster_intersect": ("cluster", "raypt_torch/csrc/cluster_intersect.cu",
                           "raypt/kernels/cluster_pallas.py:104"),
+    "closest_dense": ("pallas", "raypt_torch/csrc/dense_closest.cu",
+                      "raypt/kernels/dense_pallas.py:84"),
+    # with a transpose after it, also pallas_topwalk (onehot_walk.py:169)
+    "topwalk_cm": ("unfused", "raypt_torch/csrc/onehot_walk.cu",
+                   "raypt/kernels/onehot_walk.py:190"),
 }
+KERNEL_PATHS = ("expand", "dense_union", "cluster", "pallas", "unfused")
+# paths that run another path's finder, and so its kernels
+SAME_FINDER = {"auto": "pallas"}
 
 
 def log(*a):
@@ -166,6 +215,8 @@ class Stats:
         self.ms = {k: 0.0 for k in KERNELS}
         self.plain_ms = {k: 0.0 for k in KERNELS}
         self.bound_ms = {k: 0.0 for k in KERNELS}
+        self.library_ms = {k: None for k in KERNELS}
+        self.topwalk_ms = 0.0   # topwalk_cm and its transpose, per frame
         self.bound_parts = {k: {"bytes": 0.0, "operations": 0.0}
                             for k in KERNELS}
 
@@ -191,6 +242,12 @@ class Stats:
         self.bound_parts[name]["operations"] += by_ops
         log(f"  {label:9s} {name:22s} kernel {k_ms:9.3f} ms   plain "
             f"{p_ms:9.3f} ms   bound {max(by_bytes, by_ops):8.4f} ms")
+
+    def time_library(self, name, label, fn, reps=2):
+        """CUDA-event time of the torch yardstick of one launch."""
+        ms = cuda_ms(fn, reps)
+        self.library_ms[name] = (self.library_ms[name] or 0.0) + ms
+        log(f"  {label:9s} {name:22s} library {ms:9.3f} ms")
 
     def bound_by(self, name):
         parts = self.bound_parts[name]
@@ -332,6 +389,153 @@ def compare_cluster(stats, label, scene, clusters, ro, rd, active, timed):
             f"{float(cnt.float().mean()):.2f}, max {int(cnt.max())}, live "
             f"ray-cluster tests {tests} "
             f"({tests / max(dn.TILE * int(cnt.sum()), 1):.4f} of all)")
+
+
+def live_tris(mats) -> int:
+    """Triangles of a Woop table whose map is not all zero: the only ones
+    that can hit (padding and degenerate faces have zero maps)."""
+    return int(((mats[0] != 0) | (mats[1] != 0) | (mats[2] != 0)).any(dim=0)
+               .sum())
+
+
+def matmul_closest(woop, ro, rd, t0, rows=8192, tri_chunk=2048):
+    """closest_dense's result through torch.matmul, the yardstick of its
+    library_ms: both transforms of a block of rows rays by tri_chunk
+    triangles as two products, then elementwise tests and a
+    min-reduction; the lowest id wins a tie, as in the kernel. Needs
+    float32 products (no TF32, which gets u, v and t wrong)."""
+    import torch
+    from raypt_torch.core.math3d import BIG
+    assert not torch.backends.cuda.matmul.allow_tf32
+    tcount = woop.num_tris
+    # (3, 3T) with [j, 3t + i] = M[t, i, j]: (rays @ w)[r, 3t + i] = (M ray)_i
+    w = woop.m.permute(2, 0, 1).reshape(3, tcount * 3)
+    cflat = woop.c.reshape(tcount * 3)
+    tb = t0.clone()
+    fb = torch.full(t0.shape, -1, dtype=torch.int32, device=t0.device)
+    for r0 in range(0, ro.shape[0], rows):
+        o, d = ro[r0:r0 + rows], rd[r0:r0 + rows]
+        cur = slice(r0, r0 + o.shape[0])
+        for c0 in range(0, tcount, tri_chunk):
+            n = min(tri_chunk, tcount - c0)
+            cols = slice(3 * c0, 3 * (c0 + n))
+            o_p = (o @ w[:, cols] + cflat[cols]).view(-1, n, 3)
+            d_p = (d @ w[:, cols]).view(-1, n, 3)
+            dz = d_p[..., 2]
+            ok = torch.abs(dz) > 1e-12
+            t = torch.where(ok, -o_p[..., 2] / torch.where(
+                ok, dz, torch.ones_like(dz)), torch.full_like(dz, BIG))
+            u = o_p[..., 0] + t * d_p[..., 0]
+            v = o_p[..., 1] + t * d_p[..., 1]
+            hit = (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > 0.0)
+            t = torch.where(hit, t, torch.full_like(t, BIG))
+            tmin, i = torch.min(t, dim=1)      # first index of the min
+            better = tmin < tb[cur]
+            tb[cur] = torch.where(better, tmin, tb[cur])
+            fb[cur] = torch.where(better, (i + c0).to(torch.int32), fb[cur])
+    return tb, fb
+
+
+def copy_most_hit(mats, chunk, faces, n):
+    """The six Woop matrices with copies of the n most-hit triangles of
+    the chunk of the last live triangle in free slots of that chunk (a
+    tie within a chunk) and of the n most-hit earlier ones in the table's
+    last chunk (a tie across chunks); faces (R,) int32 are the hits on
+    the table without copies. Returns (copied matrices, source ids)."""
+    import torch
+    n_live = live_tris(mats)
+    t_all = mats[0].shape[1]
+    last = (n_live - 1) // chunk       # chunk of the last live triangle
+    if (last + 1) * chunk - n_live < n + 16 or t_all // chunk - 1 <= last:
+        raise AssertionError("the table leaves no room for copies")
+    hits = torch.bincount(faces[faces >= 0].long(), minlength=t_all)
+    src = torch.cat([last * chunk + torch.topk(hits[last * chunk:n_live],
+                                               n).indices,
+                     torch.topk(hits[:last * chunk], n).indices])
+    ar = torch.arange(n, device=faces.device)
+    dst = torch.cat([n_live + 16 + ar, t_all - chunk + 16 + ar])
+    dup = [x.clone() for x in mats]
+    if any(bool(x[:, dst].any()) for x in dup):
+        raise AssertionError("a slot for a copy holds a live triangle")
+    for x in dup:
+        x[:, dst] = x[:, src]
+    return dup, src
+
+
+def hit64(scene, ro, rd, face):
+    """Float64 Moller-Trumbore test of each ray against its face (face
+    >= 0): (t, inside) with inside = u, v >= 0, u + v <= 1, t > 0."""
+    import torch
+    m = scene.mesh
+    f = m.faces.long()[face.long()]
+    p = m.positions.double()
+    p0, p1, p2 = p[f[:, 0]], p[f[:, 1]], p[f[:, 2]]
+    o, d = ro.double(), rd.double()
+    e1, e2 = p1 - p0, p2 - p0
+    pv = torch.linalg.cross(d, e2)
+    det = (e1 * pv).sum(-1)
+    tv = o - p0
+    q = torch.linalg.cross(tv, e1)
+    u = (tv * pv).sum(-1) / det
+    v = (d * q).sum(-1) / det
+    t = (e2 * q).sum(-1) / det
+    return t, (u >= 0) & (v >= 0) & (u + v <= 1) & (t > 0)
+
+
+def compare_pallas(stats, label, scene, mats, chunk, ro, rd, timed,
+                   woop=None):
+    """The pallas path's closest_dense on one wavefront (every ray, live
+    or dead, as the finder passes them), kernel against plain version;
+    when timed, also matmul_closest on the same rays (woop). Returns the
+    kernel's (t, face)."""
+    from functools import partial
+    from raypt_torch.accel.traverse import wavefront_inputs
+    from raypt_torch.kernels import dense_pallas as dp
+
+    o, d, t, _, _, _ = wavefront_inputs(scene, ro, rd, None, dp.RAY_TILE)
+    args = (*mats, o, d, t)
+    kernel = partial(dp.closest_dense, tri_chunk=chunk)
+    plain = partial(dp.closest_dense_plain, tri_chunk=chunk)
+    kt, kf = kernel(*args)
+    pt, pf = plain(*args)
+    stats.check("closest_dense", f"{label} t", kt, pt)
+    stats.check("closest_dense", f"{label} face", kf, pf)
+    if timed:
+        n_tris = live_tris(mats)
+        stats.time("closest_dense", label, kernel, plain, args,
+                   nbytes(*args, kt, kf), DENSE_OPS * o.shape[0] * n_tris)
+        stats.time_library("closest_dense", label,
+                           lambda: matmul_closest(woop, o, d, t))
+        log(f"  {label:9s} {o.shape[0]} rays x {n_tris} live triangles of "
+            f"{mats[0].shape[1]}; {int((kf >= 0).sum())} triangle hits")
+    return kt, kf
+
+
+def compare_unfused(stats, label, scene, accel, ro, rd, active, timed):
+    """The non-fused path's mask-only walk on one wavefront, kernel
+    against plain version, word-major and transposed (the (R, words)
+    form the finder takes). Returns the kernel's (words, R) mask."""
+    from raypt_torch.accel.ctree import walk_topwalk
+    from raypt_torch.accel.traverse import DENSE_CHUNK, wavefront_inputs
+    from raypt_torch.kernels import onehot_walk as wk
+
+    o, d, t, a, _, _ = wavefront_inputs(scene, ro, rd, active, DENSE_CHUNK)
+    nw = -(-accel.num_clusters // 32)
+    wargs = (accel.table, o, d, t, a, nw)
+    km = wk.topwalk_cm(*wargs)
+    stats.check("topwalk_cm", f"{label} mask", km, wk.topwalk_cm_plain(*wargs))
+    stats.check("topwalk_cm", f"{label} (R, words) mask", wk.topwalk(*wargs),
+                walk_topwalk(*wargs))
+    if timed:
+        visits = walk_visits(*wargs)
+        stats.time("topwalk_cm", label, wk.topwalk_cm, wk.topwalk_cm_plain,
+                   wargs, nbytes(accel.table, o, d, t, a, km),
+                   WALK_OPS * visits)
+        ms = cuda_ms(lambda: wk.topwalk(*wargs), 10)
+        stats.topwalk_ms += ms
+        log(f"  {label:9s} topwalk (kernel + transpose) {ms:9.3f} ms; walk "
+            f"visits {visits}, {nw} words")
+    return km
 
 
 def _dev_us(e, inclusive):
@@ -499,9 +703,14 @@ def main():
     log(f"phase 2: native SAH builder and CUDA kernels built in "
         f"{time.perf_counter() - t0:.1f} s")
 
+    from functools import partial
+
+    from raypt_torch.accel import clusters as cl
     from raypt_torch.accel.clusters import (CLUSTER_LEAF, build_clusters,
+                                            intersect_worklist,
                                             tile_union_counts, tile_worklists)
     from raypt_torch.accel.ctree import build_onehot
+    from raypt_torch.accel.dense import WoopTris, build_woop
     from raypt_torch.accel.host_bvh import build_sah
     from raypt_torch.accel.traverse import (DENSE_CHUNK, KERNELS as KOPS,
                                             PLAIN, find_closest_cluster,
@@ -512,8 +721,10 @@ def main():
     from raypt_torch.kernels import cluster_expand as ex
     from raypt_torch.kernels import cluster_pallas as dn
     from raypt_torch.kernels import compact as cp
+    from raypt_torch.kernels import dense_pallas as dp
     from raypt_torch.kernels import onehot_walk as wk
-    from raypt_torch.render.integrator import make_finder, render_sample
+    from raypt_torch.render.integrator import (make_finder, render_sample,
+                                               resolve_backend)
     from raypt_torch.rng.sampler import frame_key, key, sample_key
     from raypt_torch.scenes.builtin import stanford_bunny
 
@@ -528,7 +739,10 @@ def main():
                                    onehot_compact=COMPACT_N),
             "dense_union": base.replace(backend="onehot",
                                         onehot_leaf=DENSE_LEAF),
-            "cluster": base.replace(backend="cluster")}
+            "cluster": base.replace(backend="cluster"),
+            "pallas": base.replace(backend="pallas"),
+            "unfused": base.replace(backend="onehot", onehot_leaf=DENSE_LEAF),
+            "auto": base}
     t0 = time.perf_counter()
     m = scene.mesh
     bvh = build_sah(m)
@@ -540,31 +754,47 @@ def main():
               "cluster": build_clusters(bvh, m.positions, m.faces,
                                         m.face_valid,
                                         leaf=CLUSTER_LEAF).to(dev)}
+    accels["unfused"] = accels["dense_union"]
     accel16 = build_onehot(bvh, m.positions, m.faces, m.face_valid,
                            leaf=MULTIWORD_LEAF).to(dev)
+    woop = build_woop(m.positions, m.faces, m.face_valid).to(dev)
     log(f"scene: {int(m.face_valid.sum())} faces (padded {m.num_faces}); "
         f"C = {accels['expand'].num_clusters} / "
         f"{accels['dense_union'].num_clusters} / "
         f"{accels['cluster'].num_clusters} clusters at leaf {LEAF} / "
         f"{DENSE_LEAF} / {CLUSTER_LEAF} ({accel16.num_clusters} at leaf "
         f"{MULTIWORD_LEAF}); Nt = {accels['expand'].table.shape[0]} / "
-        f"{accels['dense_union'].table.shape[0]} top rows; host accel "
-        f"builds {time.perf_counter() - t0:.2f} s")
+        f"{accels['dense_union'].table.shape[0]} top rows; "
+        f"{int(woop.valid.sum())} Woop triangles of {woop.num_tris}; host "
+        f"accel builds {time.perf_counter() - t0:.2f} s")
     skey = sample_key(frame_key(key(0), 0), 0)
+    unfused_kw = dict(accel=accels["unfused"], expand_n=0, compact_n=0,
+                      use_pallas_intersect=False)
 
-    def plain_finder(path, accel):
-        cfg = cfgs[path]
+    def finder_of(path, ops=KOPS):
+        """The path's finder over the scene, through the kernels or, with
+        ops=PLAIN, through the plain versions."""
+        if path == "unfused":
+            return partial(find_closest_onehot, ops=ops, **unfused_kw)
+        finder = make_finder(scene, cfgs[path], accels.get(path))
+        if ops is KOPS:
+            return finder
+        if path in ("pallas", "auto"):
+            return partial(finder, ops=ops)
         if path == "cluster":
             return lambda s, ro, rd, active=None: find_closest_cluster(
-                s, accel, ro, rd, active, ops=PLAIN)
-        return lambda s, ro, rd, active=None: find_closest_onehot(
-            s, ro, rd, active, accel=accel, expand_n=cfg.onehot_expand,
-            compact_n=cfg.onehot_compact, ops=PLAIN)
+                s, accels[path], ro, rd, active, ops=ops)
+        cfg = cfgs[path]
+        return partial(find_closest_onehot, accel=accels[path], ops=ops,
+                       expand_n=cfg.onehot_expand,
+                       compact_n=cfg.onehot_compact)
+
+    pallas_mats, pallas_chunk = finder_of("pallas").args
 
     # phase 3: kernels vs plain versions on each path's wavefronts
     waves = {}
-    for path, cfg in cfgs.items():
-        finder = make_finder(scene, cfg, accels[path])
+    for path in KERNEL_PATHS:
+        finder = finder_of(path)
         rec = waves[path] = []
 
         def recording_finder(s, ro, rd, active=None, finder=finder, rec=rec):
@@ -573,17 +803,20 @@ def main():
             return finder(s, ro, rd, active)
 
         with torch.no_grad():
-            render_sample(scene, cfg, skey, recording_finder)
+            render_sample(scene, cfgs[path], skey, recording_finder)
     stats = Stats()
     compare = {"expand": compare_expand, "dense_union": compare_dense_union,
-               "cluster": compare_cluster}
-    for path in cfgs:
+               "cluster": compare_cluster, "unfused": compare_unfused,
+               "pallas": lambda st, label, sc, _, ro, rd, active, timed:
+               compare_pallas(st, label, sc, pallas_mats, pallas_chunk, ro,
+                              rd, timed, woop)}
+    for path in KERNEL_PATHS:
         log(f"phase 3 {path}: kernel vs plain, bitwise, per bounce wavefront")
         for b, (ro, rd, active) in enumerate(waves[path]):
             log(f"  bounce {b}: {int(active.sum())} live rays of "
                 f"{active.numel()}")
-            compare[path](stats, f"bounce {b}", scene, accels[path], ro, rd,
-                          active, timed=True)
+            compare[path](stats, f"bounce {b}", scene, accels.get(path), ro,
+                          rd, active, timed=True)
 
     # edge cases on the bounce-1 wavefronts
     ro, rd, active = waves["expand"][1]
@@ -595,10 +828,12 @@ def main():
     cwp16 = -(-accel16.num_clusters // 256) * 8
     nw16 = -(-accel16.num_clusters // 32)
     log(f"  multi-word: leaf {MULTIWORD_LEAF}, C = {accel16.num_clusters}, "
-        f"cwp = {cwp16}, union words {nw16}, Nt = {accel16.table.shape[0]}")
+        f"cwp = {cwp16}, union and mask-only words {nw16}, Nt = "
+        f"{accel16.table.shape[0]}")
     for path, cmp, acc in (("expand", compare_expand, accel16),
                            ("dense_union", compare_dense_union, accel16),
-                           ("cluster", compare_cluster, accel16.clusters)):
+                           ("cluster", compare_cluster, accel16.clusters),
+                           ("unfused", compare_unfused, accel16)):
         ro, rd, active = waves[path][1]
         cmp(stats, "multiword", scene, acc, ro[:MULTIWORD_RAYS].contiguous(),
             rd[:MULTIWORD_RAYS].contiguous(),
@@ -631,6 +866,75 @@ def main():
     log(f"  overflow: cap {OVERFLOW_CAP}, {n_over} of {o.shape[0] // dn.TILE} "
         f"tiles overflow; finder through kernels and plain bitwise equal "
         f"({time.perf_counter() - t0:.1f} s for both)")
+    # the fallback's worklist intersection (every ray of an overflowed
+    # tile against every cluster) at 2^22 and at STEP_PAIRS pairs a step
+    ov = torch.nonzero(tile_worklists(clusters, o, d, seed, dn.TILE,
+                                      OVERFLOW_CAP)[2]).flatten()
+    rays = (ov[:, None] * dn.TILE + torch.arange(dn.TILE, device=dev)
+            ).flatten()
+    every = torch.arange(clusters.num_clusters, dtype=torch.int32,
+                         device=dev).expand(ov.numel(), -1)
+    fb_args = (clusters, every, o[rays].contiguous(), d[rays].contiguous(),
+               seed[rays].contiguous(), dn.TILE)
+    step_pairs = cl.STEP_PAIRS
+    fb_out = []
+    for pairs in (1 << 22, step_pairs):
+        cl.STEP_PAIRS = pairs
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        fb_out.append(intersect_worklist(*fb_args))
+        torch.cuda.synchronize()
+        log(f"  overflow fallback's intersect_worklist at {pairs} pairs a "
+            f"step: {time.perf_counter() - t0:.3f} s, peak "
+            f"{(torch.cuda.max_memory_allocated() - held) / 2**20:.0f} MiB "
+            f"above the {held / 2**30:.2f} GiB held ({rays.numel()} rays x "
+            f"{clusters.num_clusters} clusters)")
+    cl.STEP_PAIRS = step_pairs
+    for x, y in zip(*fb_out):
+        if not bitwise_equal(x, y)[0]:
+            raise AssertionError("intersect_worklist depends on its step")
+    # closest_dense: a tile of rays that hit nothing (from far outside the
+    # scene, pointing away)
+    ro, rd, _ = waves["pallas"][1]
+    away_o, away_d = ro.clone(), rd.clone()
+    away_o[:dp.RAY_TILE] = 1e4
+    away_d[:dp.RAY_TILE] = 3.0 ** -0.5
+    kt, kf = compare_pallas(stats, "miss tile", scene, pallas_mats,
+                            pallas_chunk, away_o, away_d, timed=False)
+    if bool((kf[:dp.RAY_TILE] >= 0).any()) or \
+            bool((kt[:dp.RAY_TILE] != BIG).any()):
+        raise AssertionError("closest_dense: a ray of the miss tile hit")
+    # duplicated triangles: copies of the most-hit faces in free slots of
+    # the chunk of their source (a tie within a chunk) and of a later
+    # chunk (a tie across chunks); the lowest id must win, so the result
+    # equals the one without copies, bitwise
+    ro, rd, _ = waves["pallas"][0]
+    base_t, base_f = compare_pallas(stats, "no copies", scene, pallas_mats,
+                                    pallas_chunk, ro, rd, timed=False)
+    dup, src = copy_most_hit(pallas_mats, pallas_chunk, base_f, 32)
+    dt, dfc = compare_pallas(stats, "copies", scene, dup, pallas_chunk, ro,
+                             rd, timed=False)
+    tied = int(torch.isin(base_f, src).sum())
+    if not (torch.equal(dt.view(torch.int32), base_t.view(torch.int32))
+            and torch.equal(dfc, base_f)) or tied == 0:
+        raise AssertionError("closest_dense: copies of triangles changed "
+                             "the result (the lowest id must win a tie)")
+    log(f"  copies: 32 faces copied within their chunk, 32 into chunk "
+        f"{pallas_mats[0].shape[1] // pallas_chunk - 1}; {tied} rays hit a "
+        f"copied face, result unchanged")
+    # tables of one chunk exactly and of a size that needs padding
+    host_woop = woop.to("cpu")
+    for n in (pallas_chunk, 1000):
+        sub = WoopTris(m=host_woop.m[:n], c=host_woop.c[:n],
+                       valid=host_woop.valid[:n]).to(dev)
+        chunk = dp.pick_tri_chunk(n)
+        mats = dp.prepare_woop_mats(sub, chunk)
+        _, f = compare_pallas(stats, f"T={n}", scene, mats, chunk, ro, rd,
+                              timed=False)
+        log(f"  table of {n} triangles: chunk {chunk}, padded to "
+            f"{mats[0].shape[1]}; {int((f >= 0).sum())} hits")
     log("phase 3: all comparisons bitwise equal")
 
     # phase 4: each path through its kernels
@@ -640,42 +944,55 @@ def main():
                 "alive_uncompact": cp.alive_uncompact,
                 "topwalk_union": wk.topwalk_union,
                 "cluster_intersect_mask": dn.cluster_intersect_mask,
-                "cluster_intersect": dn.cluster_intersect}
+                "cluster_intersect": dn.cluster_intersect,
+                "closest_dense": dp.closest_dense,
+                "topwalk_cm": wk.topwalk_cm}
     launches = {}
     images = {}
     for path, cfg in cfgs.items():
-        finder = make_finder(scene, cfg, accels[path])
+        finder = finder_of(path)
         torch.cuda.synchronize()
         for fn in counters.values():
             fn.launches = 0
+        t0 = time.perf_counter()
         with torch.no_grad():
             img, traced = render_sample(scene, cfg, skey, finder,
                                         return_alive=True)
         torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
         counts = {k: fn.launches for k, fn in counters.items()}
         log(f"phase 4 {path}: launches {counts}")
+        kpath = SAME_FINDER.get(path, path)
         for k, n in counts.items():
-            want = BOUNCES if KERNELS[k][0] == path else 0
+            want = BOUNCES if KERNELS[k][0] == kpath else 0
             if n != want:
                 raise AssertionError(f"{path}: {k} launched {n} times, "
                                      f"expected {want}")
-            if want:
+            if want and kpath == path:
                 launches[k] = n
         if not bool(torch.isfinite(img).all()) or img.shape != (HEIGHT, WIDTH,
                                                                3):
             raise AssertionError(f"{path}: bad image {tuple(img.shape)}")
         log(f"phase 4 {path}: traced_per_bounce {traced.tolist()}, image mean "
-            f"{float(img.mean()):.6f}")
-        with torch.no_grad():
-            img_plain, traced_plain = render_sample(
-                scene, cfg, skey, plain_finder(path, accels[path]),
-                return_alive=True)
+            f"{float(img.mean()):.6f} ({secs:.2f} s)")
+        images[path] = (img, traced)
+        if path in SAME_FINDER:
+            ref = f"the {kpath} render"
+            if resolve_backend(scene, cfg) != "dense":
+                raise AssertionError(f"{path}: resolves to "
+                                     f"{resolve_backend(scene, cfg)!r}")
+            img_plain, traced_plain = images[kpath]
+        else:
+            ref = "the plain-finder render"
+            with torch.no_grad():
+                img_plain, traced_plain = render_sample(
+                    scene, cfg, skey, finder_of(path, PLAIN),
+                    return_alive=True)
         eq, err = bitwise_equal(img, img_plain)
         if not eq or not torch.equal(traced, traced_plain):
-            raise AssertionError(f"{path}: kernel and plain-finder renders "
-                                 f"differ (max abs err {err})")
-        log(f"phase 4 {path}: image bitwise equal to the plain-finder render")
-        images[path] = (img, traced)
+            raise AssertionError(f"{path}: render differs from {ref} (max "
+                                 f"abs err {err})")
+        log(f"phase 4 {path}: image bitwise equal to {ref}")
 
     # phase 5: cross-checks on the card
     acc = accels["dense_union"]
@@ -714,10 +1031,93 @@ def main():
                              f"from the expand render (max abs err {err})")
     log(f"phase 5: dense-union render at leaf {LEAF} bitwise equal to the "
         f"expand render")
+    for b, (ro, rd, active) in enumerate(waves["unfused"]):
+        o, d, t, a, _, _ = wavefront_inputs(scene, ro, rd, active, DENSE_CHUNK)
+        if not torch.equal(wk.topwalk_cm(acc.table, o, d, t, a, nw),
+                           wk.topwalk_cm_u(acc.table, o, d, t, a, cwp)[0][:nw]):
+            raise AssertionError(f"bounce {b}: the mask-only walk differs from "
+                                 f"topwalk_cm_u's first {nw} words")
+    log(f"phase 5: topwalk_cm == topwalk_cm_u's first {nw} of {cwp} words, "
+        f"bitwise, on all four non-fused wavefronts")
+    for b, (ro, rd, _) in enumerate(waves["pallas"]):
+        o, d, t, _, _, _ = wavefront_inputs(scene, ro, rd, None, dp.RAY_TILE)
+        kt, kf = dp.closest_dense(*pallas_mats, o, d, t,
+                                  tri_chunk=pallas_chunk)
+        mt, mf = matmul_closest(woop, o, d, t)
+        same = kf == mf
+        hit = same & (kf >= 0)
+        err = (kt - mt).abs()
+        far = hit & (err > DENSE_T_TOL * (1.0 + mt.abs()))
+        # hold the rays where they disagree against float64 tests
+        tr = torch.nonzero(far).flatten()
+        t64 = hit64(scene, o[tr], d[tr], kf[tr])[0]
+        k_err = (kt[tr].double() - t64).abs()
+        m_err = (mt[tr].double() - t64).abs()
+        fr = torch.nonzero(~same).flatten()
 
-    # phase 6: the bench loss forward and backward on each path
-    for path, cfg in cfgs.items():
-        bench_loss(path, scene, cfg, skey, accels[path])
+        def nearest64(face, fr=fr, o=o, d=d):
+            t_, inside = hit64(scene, o[fr], d[fr], face.clamp(min=0))
+            return torch.where((face >= 0) & inside, t_,
+                               torch.full_like(t_, torch.inf))
+
+        tk, tm = nearest64(kf[fr]), nearest64(mf[fr])
+        log(f"phase 5: closest_dense vs matmul_closest, bounce {b}: faces "
+            f"differ on {fr.numel()} of {same.numel()} rays (float64 test: "
+            f"nearer hit on the kernel's face {int((tk < tm).sum())}, on the "
+            f"matmul's {int((tm < tk).sum())}, neither "
+            f"{int((tk == tm).sum())}); same face, t beyond DENSE_T_TOL on "
+            f"{tr.numel()} (nearer the float64 t: the kernel's "
+            f"{int((k_err < m_err).sum())}, the matmul's "
+            f"{int((m_err < k_err).sum())}; largest |t - t64| kernel "
+            f"{float(k_err.max()) if tr.numel() else 0.0:.3e}, matmul "
+            f"{float(m_err.max()) if tr.numel() else 0.0:.3e}); on equal "
+            f"faces max |dt| {float(err[hit].max()):.3e}, max |dt| / "
+            f"(1 + |t|) {float((err / (1.0 + mt.abs()))[hit].max()):.3e}")
+        if fr.numel() + tr.numel() > DENSE_SHARE * same.numel():
+            raise AssertionError(f"bounce {b}: closest_dense and "
+                                 f"matmul_closest disagree on "
+                                 f"{fr.numel() + tr.numel()} rays, more than "
+                                 f"DENSE_SHARE")
+    ro, rd, active = (x[:MULTIWORD_RAYS].contiguous()
+                      for x in waves["unfused"][1])
+    o, d, t, a, _, _ = wavefront_inputs(scene, ro, rd, active, DENSE_CHUNK)
+    counts = tile_union_counts(wk.topwalk(acc.table, o, d, t, a, nw),
+                               dn.TILE)[1]
+    n_over = int((counts > UNFUSED_CAP).sum())
+    if n_over == 0:
+        raise AssertionError(f"no tile's union exceeds cap {UNFUSED_CAP}")
+    t0 = time.perf_counter()
+    results = [find_closest_onehot(scene, ro, rd, active, ops=ops,
+                                   **dict(unfused_kw, cap=cap))
+               for ops, cap in ((KOPS, UNFUSED_CAP), (PLAIN, UNFUSED_CAP),
+                                (KOPS, 0))]
+    for other in results[1:]:
+        for what in ("t", "tri", "sphere"):
+            eq, err = bitwise_equal(getattr(results[0], what),
+                                    getattr(other, what))
+            if not eq:
+                raise AssertionError(f"non-fused finder at cap {UNFUSED_CAP}: "
+                                     f"{what} differs (max abs err {err})")
+    log(f"phase 5: non-fused finder at cap {UNFUSED_CAP} on {MULTIWORD_RAYS} "
+        f"bounce-1 rays: {n_over} of {counts.numel()} tiles overflow (largest "
+        f"union {int(counts.max())}, {-(-int(counts.max()) // UNFUSED_CAP)} "
+        f"rounds); bitwise equal through kernels and plain versions and to "
+        f"the default cap ({time.perf_counter() - t0:.1f} s for the three)")
+
+    # phase 6: the bench loss forward and backward; forward only on the
+    # non-fused path, whose worklist intersection is plain torch (the auto
+    # path runs the pallas path's finder)
+    for path in ("expand", "dense_union", "cluster", "pallas"):
+        bench_loss(path, scene, cfgs[path], skey, accels.get(path))
+
+    def fwd():
+        with torch.no_grad():
+            return float(render_sample(scene, cfgs["unfused"], skey,
+                                       finder_of("unfused")).mean())
+
+    fwd_s = seconds(fwd)
+    log(f"phase 6 unfused: forward only, fwd s {[round(x, 4) for x in fwd_s]} "
+        f"median {statistics.median(fwd_s):.4f}")
 
     def outside_scene():
         b = stanford_bunny()
@@ -726,18 +1126,24 @@ def main():
             setattr(b.camera, k, val)
         return b.freeze("cpu")
 
-    gcfg = cfgs["expand"].replace(width=GRAD_WIDTH, height=GRAD_WIDTH)
-    grad_check(outside_scene,
-               lambda s: render_sample(s, gcfg, skey,
-                                       make_finder(s, gcfg, accels["expand"])),
-               dev)
+    for path in ("expand", "pallas"):
+        gcfg = cfgs[path].replace(width=GRAD_WIDTH, height=GRAD_WIDTH)
+        log(f"phase 6: card vs CPU gradients, {path} path")
+        grad_check(outside_scene,
+                   lambda s, gcfg=gcfg, acc=accels.get(path): render_sample(
+                       s, gcfg, skey, make_finder(s, gcfg, acc)),
+                   dev)
 
+    log(f"topwalk_cm and its transpose (pallas_topwalk's counterpart): "
+        f"{stats.topwalk_ms:.4f} ms per frame")
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[k], "max_abs_err": stats.err[k],
          "ms": round(stats.ms[k], 4), "plain_ms": round(stats.plain_ms[k], 4),
          "bound_ms": round(stats.bound_ms[k], 4),
-         "bound_by": stats.bound_by(k), "library_ms": None}
+         "bound_by": stats.bound_by(k),
+         "library_ms": (None if stats.library_ms[k] is None
+                        else round(stats.library_ms[k], 4))}
         for k, (_, src, rep) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,8 +4,10 @@ morton-contiguous blocks (`raypt/accel/clusters.py`'s `Clusters` and
 device with `.to(device)`; and the per-tile glue of the cluster finders,
 in torch on the clusters' device: the dense box cull into nearest-first
 worklists (`tile_worklists`), the union of per-ray masks over ray tiles
-(`tile_union_counts`) and the worklist intersection reference that the
-cluster finder's overflow fallback runs (`intersect_worklist`).
+(`tile_union_counts`), the ascending-id worklists of those unions
+(`worklist_slice`) and the worklist intersection reference
+(`intersect_worklist`) that the cluster finder's overflow fallback and
+the onehot finder's non-fused branch run.
 """
 from __future__ import annotations
 
@@ -14,7 +16,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..core.math3d import BIG, EPS, cross, dot
+from ..core.math3d import BIG, EPS, STEP_PAIRS, cross, dot
 from ..core.types import TensorTree
 from .lbvh import LBVH
 
@@ -135,8 +137,24 @@ def tile_union_counts(mask: torch.Tensor, tile: int):
     return union.contiguous(), counts.to(torch.int32)
 
 
-# ray-cluster pairs per step of the cull: a (group, C) slab test
-CULL_PAIRS = 1 << 24
+def worklist_slice(union: torch.Tensor, c_total: int, cap: int,
+                   round_: int = 0) -> torch.Tensor:
+    """The set bits of each tile's union (R // tile, CW) int32 below
+    c_total, as cluster ids in ascending order, sliced to entries
+    [round_ * cap, (round_ + 1) * cap): (R // tile, cap) int32, -1
+    padded. The JAX package sorts by top_k over c_total - id; a stable
+    compaction of the wanted bits gives the same list."""
+    n_tiles = union.shape[0]
+    dev = union.device
+    cid = torch.arange(c_total, dtype=torch.int32, device=dev)
+    wanted = ((union[:, (cid >> 5).long()] >> (cid & 31)) & 1).bool()
+    pos = torch.cumsum(wanted, dim=1, dtype=torch.int32) - 1 - round_ * cap
+    take = wanted & (pos >= 0) & (pos < cap)
+    wl = torch.full((n_tiles, cap), -1, dtype=torch.int32, device=dev)
+    tiles, cols = torch.nonzero(take, as_tuple=True)
+    wl[tiles, pos[tiles, cols].long()] = cols.to(torch.int32)
+    return wl
+
 
 
 @torch.no_grad()
@@ -149,7 +167,7 @@ def tile_worklists(clusters: Clusters, ro, rd, t0, tile: int,
 
     Returns (worklist (R // tile, cap) int32 [-1 pad], counts (R // tile,)
     int32 clamped to cap, overflow (R // tile,) bool: more than cap
-    clusters were hit). Tiles are culled in groups of about CULL_PAIRS
+    clusters were hit). Tiles are culled in groups of about STEP_PAIRS
     ray-cluster pairs, as the JAX package's lax.map does, so that no
     (R, C) temporary is built."""
     r = ro.shape[0]
@@ -159,7 +177,7 @@ def tile_worklists(clusters: Clusters, ro, rd, t0, tile: int,
                        torch.where(rd >= 0, torch.full_like(rd, 1e-12),
                                    torch.full_like(rd, -1e-12)))
     inv = 1.0 / safe
-    group = max(1, min(n_tiles, CULL_PAIRS // max(tile * c, 1)))
+    group = max(1, min(n_tiles, STEP_PAIRS // max(tile * c, 1)))
     while n_tiles % group:
         group -= 1
     k2 = min(c, cap)
@@ -190,6 +208,7 @@ def tile_worklists(clusters: Clusters, ro, rd, t0, tile: int,
     return wl, torch.clamp(counts, max=cap), counts > cap
 
 
+
 @torch.no_grad()
 def intersect_worklist(clusters: Clusters, worklist, ro, rd, t0,
                        tile: int):
@@ -199,13 +218,20 @@ def intersect_worklist(clusters: Clusters, worklist, ro, rd, t0,
     (-1 slots test nothing), a miss is inf, within a cluster the first
     slot of the smallest t wins (argmin), and the test is written with
     cross/dot. Across slots the carry takes a strictly smaller t. Tiles
-    are processed in chunks; none depends on another.
+    are processed in chunks of about STEP_PAIRS ray-triangle pairs a
+    slot; none depends on another.
 
     The cluster finder's overflow fallback runs this and not the
     worklist kernel, because the JAX package's fallback is this function:
     its tie and rounding rules decide which face an overflowed ray hits,
     and the kernel's (lowest face id at a tie, explicit operation order)
-    would pick another face where two triangles tie or round apart."""
+    would pick another face where two triangles tie or round apart.
+
+    A chunk of tiles scans its slots only up to the last one that any of
+    its tiles fills: both worklist builders pad with trailing -1, a -1
+    slot tests nothing, and inf < t never holds for a seed <= BIG, so
+    the result is the same. Reading the chunks' slot counts costs one
+    host sync."""
     r = ro.shape[0]
     n_tiles, cap = worklist.shape
     leaf = clusters.tri_rows.shape[1]
@@ -213,11 +239,16 @@ def intersect_worklist(clusters: Clusters, worklist, ro, rd, t0,
     d_all = rd.view(n_tiles, tile, 1, 3)
     tb = t0.reshape(n_tiles, tile).clone()
     fb = torch.full_like(tb, -1, dtype=torch.int32)
-    chunk = max(1, (1 << 22) // (tile * leaf))
-    for s0 in range(0, n_tiles, chunk):
+    chunk = max(1, STEP_PAIRS // (tile * leaf))
+    slot = torch.arange(1, cap + 1, device=worklist.device)
+    filled = torch.where(worklist >= 0, slot, 0).amax(dim=1)
+    starts = range(0, n_tiles, chunk)
+    ends = torch.stack([filled[s0:s0 + chunk].amax() for s0 in starts]
+                       ).tolist() if n_tiles else []
+    for s0, n_slots in zip(starts, ends):
         tiles = slice(s0, s0 + chunk)
         o, d = o_all[tiles], d_all[tiles]
-        for w in range(cap):
+        for w in range(n_slots):
             cid = worklist[tiles, w]
             rows = clusters.tri_rows[torch.clamp(cid, min=0).long()]
             p0 = rows[..., 0:3][:, None]             # (T, 1, leaf, 3)

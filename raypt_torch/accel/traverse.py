@@ -1,9 +1,11 @@
 """Closest-hit finders (`raypt/accel/traverse.py`): the brute-force toy
 oracle; the onehot finder, in its per-ray-exact branch (alive
-compaction, top-tree walk, cluster expansion, uncompaction) and its
+compaction, top-tree walk, cluster expansion, uncompaction), its
 dense-union branch (walk to per-tile unions, dense tile x cluster
-intersection); and the cluster finder (dense box cull into per-tile
-worklists, worklist intersection, overflow fallback).
+intersection) and its non-fused branch (walk to per-ray masks, tile
+unions, ascending-id worklists, the reference worklist intersection and
+its residual rounds); and the cluster finder (dense box cull into
+per-tile worklists, worklist intersection, overflow fallback).
 
 Finders return only discrete results and run without autograd; shading
 recomputes the chosen hit differentiably (`render.shading`). A triangle
@@ -18,15 +20,17 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from ..core.math3d import BIG, intersect_sphere, intersect_triangle
+from ..core.math3d import BIG, STEP_PAIRS, intersect_sphere, \
+    intersect_triangle
 from ..core.types import Scene
 from ..kernels import cluster_expand as _expand
 from ..kernels import cluster_pallas as _dense
 from ..kernels import compact as _compact
+from ..kernels import dense_pallas as _woop_kernel
 from ..kernels import onehot_walk as _walk
 from .clusters import (WORKLIST_CAP, Clusters, intersect_worklist,
-                       tile_worklists)
-from .ctree import OnehotAccel
+                       tile_union_counts, tile_worklists, worklist_slice)
+from .ctree import OnehotAccel, walk_topwalk
 
 
 @dataclasses.dataclass
@@ -71,19 +75,28 @@ def _closest_sphere(scene: Scene, ro, rd):
 
 @torch.no_grad()
 def find_closest_bruteforce(scene: Scene, ro, rd, active=None) -> HitIds:
-    """Every ray against every face: a toy-size oracle. rd normalized."""
+    """Every ray against every face: a toy-size oracle. rd normalized.
+    Rays go in chunks of about STEP_PAIRS pairs, so that no (R, F)
+    temporary is built; rays are independent, so chunking changes no
+    result."""
     ts, si = _closest_sphere(scene, ro, rd)
     m = scene.mesh
     f = m.faces.long()
     p0, p1, p2 = (m.positions[f[:, k]][None] for k in range(3))
     flat_o = ro.reshape(-1, 1, 3)
     flat_d = rd.reshape(-1, 1, 3)
-    hit, t, _, _ = intersect_triangle(flat_o, flat_d, p0, p1, p2)
-    t = torch.where(hit & m.face_valid[None], t, torch.full_like(t, BIG))
-    tt, ti = torch.min(t, dim=1)          # first index of the minimum
-    ti = torch.where(tt < BIG, ti.to(torch.int32), torch.full_like(ti, -1,
-                                                                   dtype=torch.int32))
-    tt, ti = tt.reshape(ts.shape), ti.reshape(ts.shape)
+    step = max(1, STEP_PAIRS // max(f.shape[0], 1))
+    tts, tis = [], []
+    for r0 in range(0, flat_o.shape[0], step):
+        hit, t, _, _ = intersect_triangle(flat_o[r0:r0 + step],
+                                          flat_d[r0:r0 + step], p0, p1, p2)
+        t = torch.where(hit & m.face_valid[None], t, torch.full_like(t, BIG))
+        tt, ti = torch.min(t, dim=1)      # first index of the minimum
+        tts.append(tt)
+        tis.append(torch.where(tt < BIG, ti.to(torch.int32),
+                               torch.full_like(ti, -1, dtype=torch.int32)))
+    tt = torch.cat(tts).reshape(ts.shape)
+    ti = torch.cat(tis).reshape(ts.shape)
     tri_wins = tt < ts
     minus1 = torch.full_like(si, -1)
     return HitIds(t=torch.minimum(ts, tt),
@@ -92,9 +105,9 @@ def find_closest_bruteforce(scene: Scene, ro, rd, active=None) -> HitIds:
 
 
 class FinderOps(NamedTuple):
-    """The kernel stages of the cluster finders. KERNELS dispatches on
-    the tensors' device (CUDA kernel or plain version); PLAIN always runs
-    the plain torch versions, to hold the kernels against on the card."""
+    """The kernel stages of the finders. KERNELS dispatches on the
+    tensors' device (CUDA kernel or plain version); PLAIN always runs the
+    plain torch versions, to hold the kernels against on the card."""
     compact: Callable          # onehot, per-ray-exact branch
     walk: Callable
     expand: Callable
@@ -102,17 +115,21 @@ class FinderOps(NamedTuple):
     walk_union: Callable       # onehot, dense-union branch
     intersect_mask: Callable
     intersect: Callable        # cluster finder
+    walk_mask: Callable        # onehot, non-fused branch
+    closest_dense: Callable    # dense and pallas (kernels/intersect.py)
 
 
 KERNELS = FinderOps(_compact.alive_compact, _walk.topwalk_cm_u,
                     _expand.cluster_expand, _compact.alive_uncompact,
                     _walk.topwalk_union, _dense.cluster_intersect_mask,
-                    _dense.cluster_intersect)
+                    _dense.cluster_intersect, _walk.topwalk,
+                    _woop_kernel.closest_dense)
 PLAIN = FinderOps(_compact.alive_compact_plain, _walk.topwalk_cm_u_plain,
                   _expand.cluster_expand_plain, _compact.alive_uncompact_plain,
                   _walk.topwalk_union_plain,
                   _dense.cluster_intersect_mask_plain,
-                  _dense.cluster_intersect_plain)
+                  _dense.cluster_intersect_plain, walk_topwalk,
+                  _woop_kernel.closest_dense_plain)
 
 # rays per padding chunk of the dense-union branch and the cluster
 # finder: 8 tiles (`max(8 * TILE, RAY_TILE)` in the JAX package)
@@ -165,16 +182,25 @@ def _hit_ids(t_best, face, alive, n: int, ts, si) -> HitIds:
 @torch.no_grad()
 def find_closest_onehot(scene: Scene, ro, rd, active=None, *,
                         accel: OnehotAccel, expand_n: int, compact_n: int,
+                        use_pallas_intersect: bool = True, cap: int = 0,
                         ops: FinderOps = KERNELS) -> HitIds:
-    """The onehot finder. expand_n > 0 selects the per-ray-exact branch:
-    compact live rays to the front of each compact_n group (when
-    compact_n > 0), walk the top tree to per-ray masks, test each ray's
-    wanted clusters, restore the ray order; the CUDA expansion runs one
-    thread per ray, so expand_n's value shapes nothing else. expand_n ==
-    0 selects the dense-union branch: walk the top tree to the union of
-    each 256-ray tile's wanted clusters and test every ray of a tile
-    against every cluster of its union; compact_n is not applied there,
-    as in the JAX package."""
+    """The onehot finder. With use_pallas_intersect set (the default),
+    expand_n > 0 selects the per-ray-exact branch: compact
+    live rays to the front of each compact_n group (when compact_n > 0),
+    walk the top tree to per-ray masks, test each ray's wanted clusters,
+    restore the ray order; the CUDA expansion runs one thread per ray, so
+    expand_n's value shapes nothing else. expand_n == 0 selects the
+    dense-union branch: walk the top tree to the union of each 256-ray
+    tile's wanted clusters and test every ray of a tile against every
+    cluster of its union; compact_n is not applied there, as in the JAX
+    package. use_pallas_intersect=False selects the non-fused branch
+    (`_onehot_unfused`), whatever expand_n; cap bounds its worklists
+    (WORKLIST_CAP when 0). The JAX package's use_pallas_walk is not
+    taken: `ops` alone chooses between a kernel and its plain version
+    (PLAIN.walk_mask is the plain walk that flag selects there)."""
+    if not use_pallas_intersect:
+        return _onehot_unfused(scene, ro, rd, active, accel,
+                               cap or WORKLIST_CAP, ops)
     if not expand_n:
         return _onehot_dense_union(scene, ro, rd, active, accel, ops)
     if scene.mesh.num_faces >= 1 << 24:
@@ -210,6 +236,40 @@ def _onehot_dense_union(scene: Scene, ro, rd, active, accel: OnehotAccel,
     seed = torch.where(flat_a, flat_t, torch.full_like(flat_t, -BIG))
     t_best, face = ops.intersect_mask(union, accel.clusters.tri_rows, flat_o,
                                       flat_d, seed)
+    return _hit_ids(t_best, face, flat_a, ro.reshape(-1, 3).shape[0], ts, si)
+
+
+def _onehot_unfused(scene: Scene, ro, rd, active, accel: OnehotAccel,
+                    cap: int, ops: FinderOps) -> HitIds:
+    """The non-fused branch (`traverse.py:683-688, 702-703, 730-782`):
+    the per-ray (R, words) mask from the mask-only walk (ops.walk_mask),
+    words unpadded, ceil(C / 32); each 256-ray tile's union and its count
+    of clusters; the union's first cap clusters in ascending id go to the
+    reference worklist intersection, and if any tile wants more than cap
+    (deciding costs one host read of the largest count), bounded residual
+    rounds take the next cap each, seeded with the result so far, until
+    the largest union is covered; a round's result replaces the carry
+    only where it found a face. Without those rounds a tile whose union
+    exceeds cap could miss its hit."""
+    flat_o, flat_d, flat_t, flat_a, ts, si = wavefront_inputs(
+        scene, ro, rd, active, DENSE_CHUNK)
+    c_total = accel.num_clusters
+    mask = ops.walk_mask(accel.table, flat_o, flat_d, flat_t, flat_a,
+                         -(-c_total // 32))
+    union, counts = tile_union_counts(mask, _dense.TILE)
+    seed = torch.where(flat_a, flat_t, torch.full_like(flat_t, -BIG))
+
+    def isect(round_, t_in):
+        return intersect_worklist(
+            accel.clusters, worklist_slice(union, c_total, cap, round_),
+            flat_o, flat_d, t_in, _dense.TILE)
+
+    t_best, face = isect(0, seed)
+    for r in range(1, -(-int(counts.max()) // cap)):
+        t_r, f_r = isect(r, t_best)
+        keep = f_r >= 0
+        t_best = torch.where(keep, t_r, t_best)
+        face = torch.where(keep, f_r, face)
     return _hit_ids(t_best, face, flat_a, ro.reshape(-1, 3).shape[0], ts, si)
 
 

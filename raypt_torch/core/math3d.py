@@ -12,6 +12,10 @@ import torch
 BIG = 1e30   # "no hit" distance
 EPS = 1e-8
 GLM_EPS = 1.1920929e-07  # std::numeric_limits<float>::epsilon()
+# ray-primitive pairs per step of the plain torch loops (brute force,
+# box cull, worklist intersection, the dense closest hit's plain
+# version): bounds their temporaries to ~64 MB a float32 array
+STEP_PAIRS = 1 << 24
 
 
 def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -1,18 +1,22 @@
 // Per-ray walk of the encoded cluster top tree, for Hopper (sm_90a).
 //
-// Replaces raypt/kernels/onehot_walk.py: pallas_topwalk_cm_u (:252) and
-// pallas_topwalk_union (:325), both with body _kernel (:61). Contract:
+// Replaces raypt/kernels/onehot_walk.py: pallas_topwalk_cm_u (:252),
+// pallas_topwalk_union (:325) and pallas_topwalk_cm (:190; with a
+// transpose after it, pallas_topwalk :169), all with body _kernel (:61).
+// Contract:
 // for each active ray, walk the skip-link top tree from node 0,
 // slab-testing each node box against the ray with the bound t0; a hit
 // internal node descends to its left child, anything else follows its
 // skip link; a hit leaf sets its cluster's bit (ids in the first cwp
 // words only). The table rows are the (Nt, 16) bf16 encoding of
 // raypt/accel/ctree.py; links decode as round(hi) * 128 + round(lo) - 1.
-// At most ceil((Nt + 1) / 4) * 4 steps. Two outputs, two launches:
+// At most ceil((Nt + 1) / 4) * 4 steps. Three modes, three entry points:
 //   * rk_topwalk: the word-major (cwp, R) int32 mask and union_pp
 //     (R / 2048, cwp), the OR of the masks of each 2048-ray walk tile;
 //   * rk_topwalk_union: only the (R / 256, cwp) OR over each 256-ray
-//     union tile; the per-ray mask never reaches device memory.
+//     union tile; the per-ray mask never reaches device memory;
+//   * rk_topwalk_mask: only the (cwp, R) mask, with no union; cwp is
+//     any word count (the non-fused branch passes ceil(C / 32) unpadded).
 //
 // What bounds it on this card: the dependent chain of node fetches and
 // slab tests per ray (tens of steps), and warp divergence, since the
@@ -27,7 +31,8 @@
 // 7,000 rows), so a node fetch is two 16-byte shared
 // loads and the row decodes in registers. Mask form: bits go straight
 // into the ray's own column of the mask (zeroed first), so no
-// per-thread array sits in local memory; the tile union is a warp
+// per-thread array sits in local memory (the mask-only mode stops
+// there); the tile union is a warp
 // __reduce_or_sync, a shared atomicOr per block, and one global atomicOr
 // per block and word. Union form: a block is one 256-ray union tile, a
 // wanted bit is a shared atomicOr into the tile's words, and the block
@@ -48,9 +53,12 @@ __device__ __forceinline__ int decode(float hi, float lo) {
     return (int)(rintf(hi) * 128.0f + rintf(lo)) - 1;
 }
 
-// kTileUnion: write only the block's union to unions[blockIdx.x * cwp +
-// w] (mask is not read); else the mask and the walk-tile union_pp.
-template <bool kTileUnion>
+// What a launch writes: the mask and the walk-tile union_pp; only the
+// block's union, to unions[blockIdx.x * cwp + w] (mask is not touched);
+// or only the mask (unions and the shared union words are not touched).
+enum Mode { kMaskAndUnionPP, kTileUnion, kMaskOnly };
+
+template <Mode kMode>
 __global__ void __launch_bounds__(kThreads)
 topwalk_kernel(const uint16_t* __restrict__ table, int nt,
                const float* __restrict__ ro, const float* __restrict__ rd,
@@ -61,11 +69,12 @@ topwalk_kernel(const uint16_t* __restrict__ table, int nt,
     int* s_union = reinterpret_cast<int*>(s_mem + nt * 2);  // cwp words
     const uint4* tab4 = reinterpret_cast<const uint4*>(table);
     for (int k = threadIdx.x; k < nt * 2; k += kThreads) s_mem[k] = tab4[k];
-    for (int w = threadIdx.x; w < cwp; w += kThreads) s_union[w] = 0;
+    if constexpr (kMode != kMaskOnly)
+        for (int w = threadIdx.x; w < cwp; w += kThreads) s_union[w] = 0;
     __syncthreads();
 
     const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
-    if constexpr (!kTileUnion)
+    if constexpr (kMode != kTileUnion)
         for (int w = 0; w < cwp; ++w) mask[w * r + i] = 0;
 
     if (active[i]) {
@@ -102,7 +111,7 @@ topwalk_kernel(const uint16_t* __restrict__ table, int nt,
             const int cid = decode(f[10], f[11]);
             if (hit && is_leaf && cid >= 0 && (cid >> 5) < cwp) {
                 const int bit = (int)(1u << (cid & 31));
-                if constexpr (kTileUnion)
+                if constexpr (kMode == kTileUnion)
                     atomicOr(&s_union[cid >> 5], bit);
                 else
                     mask[(long long)(cid >> 5) * r + i] |= bit;
@@ -111,12 +120,13 @@ topwalk_kernel(const uint16_t* __restrict__ table, int nt,
         }
     }
 
-    if constexpr (kTileUnion) {
+    if constexpr (kMode == kTileUnion) {
         __syncthreads();
         for (int w = threadIdx.x; w < cwp; w += kThreads)
             unions[(long long)blockIdx.x * cwp + w] = s_union[w];
         return;
     }
+    if constexpr (kMode == kMaskOnly) return;
     const int lane = threadIdx.x & 31;
     for (int w = 0; w < cwp; ++w) {
         const unsigned v = __reduce_or_sync(kFull, (unsigned)mask[w * r + i]);
@@ -128,13 +138,13 @@ topwalk_kernel(const uint16_t* __restrict__ table, int nt,
         if (s_union[w]) atomicOr(&unions[tile * cwp + w], s_union[w]);
 }
 
-// Dynamic shared memory of a launch: the table and cwp union words,
-// opted in above 48 KB. Returns a CUDA error code.
-template <bool kTileUnion>
+// Dynamic shared memory of a launch: the table and, in the union modes,
+// cwp union words, opted in above 48 KB. Returns a CUDA error code.
+template <Mode kMode>
 int prepare_smem(int nt, int cwp, size_t* smem) {
-    *smem = (size_t)nt * 32 + (size_t)cwp * 4;
+    *smem = (size_t)nt * 32 + (kMode == kMaskOnly ? 0 : (size_t)cwp * 4);
     if (*smem <= 48 * 1024) return 0;
-    return (int)cudaFuncSetAttribute(topwalk_kernel<kTileUnion>,
+    return (int)cudaFuncSetAttribute(topwalk_kernel<kMode>,
                                      cudaFuncAttributeMaxDynamicSharedMemorySize,
                                      (int)*smem);
 }
@@ -149,8 +159,8 @@ extern "C" int rk_topwalk(const uint16_t* table, int nt, const float* ro,
         return (int)cudaErrorInvalidValue;
     if (r == 0) return 0;
     size_t smem;
-    if (const int e = prepare_smem<false>(nt, cwp, &smem)) return e;
-    topwalk_kernel<false><<<(unsigned)(r / kThreads), kThreads, smem,
+    if (const int e = prepare_smem<kMaskAndUnionPP>(nt, cwp, &smem)) return e;
+    topwalk_kernel<kMaskAndUnionPP><<<(unsigned)(r / kThreads), kThreads, smem,
                             (cudaStream_t)stream>>>(
         table, nt, ro, rd, t0, active, mask, union_pp, r, cwp, max_steps);
     return (int)cudaGetLastError();
@@ -165,9 +175,25 @@ extern "C" int rk_topwalk_union(const uint16_t* table, int nt, const float* ro,
         return (int)cudaErrorInvalidValue;
     if (r == 0) return 0;
     size_t smem;
-    if (const int e = prepare_smem<true>(nt, cwp, &smem)) return e;
-    topwalk_kernel<true><<<(unsigned)(r / kThreads), kThreads, smem,
+    if (const int e = prepare_smem<kTileUnion>(nt, cwp, &smem)) return e;
+    topwalk_kernel<kTileUnion><<<(unsigned)(r / kThreads), kThreads, smem,
                            (cudaStream_t)stream>>>(
         table, nt, ro, rd, t0, active, nullptr, unions, r, cwp, max_steps);
+    return (int)cudaGetLastError();
+}
+
+// mask: (cw, r) int32, every word written; r a multiple of 256.
+extern "C" int rk_topwalk_mask(const uint16_t* table, int nt, const float* ro,
+                               const float* rd, const float* t0,
+                               const uint8_t* active, int* mask, long long r,
+                               int cw, int max_steps, void* stream) {
+    if (r % kThreads || nt <= 0 || cw <= 0)
+        return (int)cudaErrorInvalidValue;
+    if (r == 0) return 0;
+    size_t smem;
+    if (const int e = prepare_smem<kMaskOnly>(nt, cw, &smem)) return e;
+    topwalk_kernel<kMaskOnly><<<(unsigned)(r / kThreads), kThreads, smem,
+                                (cudaStream_t)stream>>>(
+        table, nt, ro, rd, t0, active, mask, nullptr, r, cw, max_steps);
     return (int)cudaGetLastError();
 }

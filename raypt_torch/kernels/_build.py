@@ -22,7 +22,7 @@ CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xcompiler", "-fPIC"]
 KERNEL_SOURCES = ("compact.cu", "onehot_walk.cu", "cluster_expand.cu",
-                  "cluster_intersect.cu")
+                  "cluster_intersect.cu", "dense_closest.cu")
 KERNEL_HEADERS = ("cluster_test.cuh",)
 SMEM_LIMIT = 232448   # shared memory a block may use on Hopper (227 KB)
 
@@ -55,6 +55,8 @@ def kernel_lib() -> ctypes.CDLL:
         "rk_topwalk": [p, i32, p, p, p, p, p, p, i64, i32, i32, p],
         # table, nt, ro, rd, t0, active -> unions; r, cwp, max_steps, stream
         "rk_topwalk_union": [p, i32, p, p, p, p, p, i64, i32, i32, p],
+        # table, nt, ro, rd, t0, active -> mask; r, cw, max_steps, stream
+        "rk_topwalk_mask": [p, i32, p, p, p, p, p, i64, i32, i32, p],
         # mask, union_pp, rows, c_total, leaf, ro, rd, seed -> t, face;
         # r, cwp, stream
         "rk_cluster_expand": [p, p, p, i32, i32, p, p, p, p, p, i64, i32, p],
@@ -65,6 +67,8 @@ def kernel_lib() -> ctypes.CDLL:
         # worklist, counts, cap, rows, c_total, leaf, ro, rd, seed -> t,
         # face; n_tiles, stream
         "rk_cluster_intersect": [p, p, i32, p, i32, i32, p, p, p, p, p, i64, p],
+        # wu, wv, ww, cu, cv, cw, n_tris, ro, rd, t0 -> t, face; r, stream
+        "rk_closest_dense": [p, p, p, p, p, p, i64, p, p, p, p, p, i64, p],
     }
     for fn, argtypes in sigs.items():
         getattr(lib, fn).argtypes = argtypes

@@ -1,11 +1,14 @@
 """Walk of the encoded cluster top tree, per ray
-(`raypt/kernels/onehot_walk.py`), in two forms:
+(`raypt/kernels/onehot_walk.py`), in three forms:
   * `topwalk_cm_u` (`pallas_topwalk_cm_u`): the wanted-cluster bitmask
     word-major plus one OR-union per 2,048-ray walk tile;
   * `topwalk_union` (`pallas_topwalk_union`): only the OR-union of each
-    256-ray tile; the per-ray mask never reaches device memory.
+    256-ray tile; the per-ray mask never reaches device memory;
+  * `topwalk_cm` (`pallas_topwalk_cm`): only the word-major mask, for
+    any word count; `topwalk` (`pallas_topwalk`) is its (R, words)
+    transpose.
 
-On CUDA tensors both launch `csrc/onehot_walk.cu`; on CPU tensors they
+On CUDA tensors they launch `csrc/onehot_walk.cu`; on CPU tensors they
 run the plain torch version, `accel.ctree.walk_topwalk`, with the tile
 unions OR-folded in torch.
 """
@@ -109,3 +112,38 @@ def topwalk_union(table, ro, rd, t0, active, num_words: int):
 
 
 topwalk_union.launches = 0
+
+
+def topwalk_cm_plain(table, ro, rd, t0, active, num_words: int):
+    return walk_topwalk(table, ro, rd, t0, active, num_words).T.contiguous()
+
+
+def topwalk_cm(table, ro, rd, t0, active, num_words: int):
+    """The walk's per-ray wanted-cluster bits only: returns (num_words, R)
+    int32, word-major; num_words need not be a multiple of 8, and bits of
+    clusters past num_words * 32 are dropped. R % UNION_TILE == 0 (one
+    256-thread block per 256 rays)."""
+    r = ro.shape[0]
+    nt = table.shape[0]
+    if r % UNION_TILE:
+        raise ValueError(f"R={r} must be a multiple of {UNION_TILE}")
+    if not on_cuda(_walk_specs(table, ro, rd, t0, active)):
+        return topwalk_cm_plain(table, ro, rd, t0, active, num_words)
+    _check_table(table, 0)
+    # every word of every ray is stored by the kernel, zero or not
+    mask = torch.empty((num_words, r), dtype=torch.int32, device=ro.device)
+    launch("rk_topwalk_mask", table.data_ptr(), nt, ro.data_ptr(),
+           rd.data_ptr(), t0.data_ptr(), active.data_ptr(), mask.data_ptr(),
+           r, num_words, walk_max_steps(nt))
+    topwalk_cm.launches += 1
+    return mask
+
+
+topwalk_cm.launches = 0
+
+
+def topwalk(table, ro, rd, t0, active, num_words: int):
+    """topwalk_cm transposed: (R, num_words) int32, contiguous (on CUDA
+    tensors the mask-only kernel, then a transpose). Its plain version is
+    `accel.ctree.walk_topwalk`."""
+    return topwalk_cm(table, ro, rd, t0, active, num_words).T.contiguous()

@@ -6,8 +6,9 @@ so `loss.backward()` of an image reaches mesh positions and materials
 through the shading glue only.
 
 The port renders `backend="onehot"` (both branches: `onehot_expand > 0`
-per-ray-exact, `onehot_expand == 0` dense-union) and `backend="cluster"`;
-other backends, refraction and textures raise (ROADMAP queue 1).
+per-ray-exact, `onehot_expand == 0` dense-union), `"cluster"`,
+`"bruteforce"`, `"dense"`, `"pallas"` and `"auto"` (`resolve_backend`);
+the `bvh` backends, refraction and textures raise (ROADMAP queue 1).
 """
 from __future__ import annotations
 
@@ -18,10 +19,13 @@ import torch
 
 from ..accel.clusters import CLUSTER_LEAF, Clusters, build_clusters
 from ..accel.ctree import OnehotAccel, build_onehot
+from ..accel.dense import WoopTris
 from ..accel.lbvh import LBVH
-from ..accel.traverse import HitIds, find_closest_cluster, find_closest_onehot
+from ..accel.traverse import (HitIds, find_closest_bruteforce,
+                              find_closest_cluster, find_closest_onehot)
 from ..core.math3d import lerp, normalize, reflect
 from ..core.types import RenderConfig, Scene
+from ..kernels.intersect import make_pallas_finder
 from ..rng.sampler import (Key, bounce_uniforms, frame_key,
                            random_point_on_sphere, sample_jitter, sample_key)
 from .envmap import build_env_quads, rotate_y_pi, sample_env_quads
@@ -30,29 +34,62 @@ from .shading import build_shade_tables, recompute_hit_packed
 Finder = Callable[..., HitIds]
 
 
+def resolve_backend(scene: Scene, cfg: RenderConfig, accel=None) -> str:
+    """cfg.backend, with "auto" resolved as the JAX package does: a
+    WoopTris -> "dense", an LBVH -> "bvh"; with neither, by the mesh's
+    padded face capacity: "dense" from 64 to 8,192 faces, "bruteforce"
+    below 64, "bvh" above 8,192."""
+    backend = cfg.backend
+    if backend == "auto":
+        faces = scene.mesh.num_faces
+        if isinstance(accel, WoopTris):
+            backend = "dense"
+        elif isinstance(accel, LBVH):
+            backend = "bvh"
+        elif faces <= 8192:
+            backend = "dense" if faces >= 64 else "bruteforce"
+        else:
+            backend = "bvh"
+    return backend
+
+
 def make_finder(scene: Scene, cfg: RenderConfig, accel=None) -> Finder:
-    """The finder of cfg.backend over `accel`, moved to the scene's
-    device:
+    """The finder of cfg.backend (`resolve_backend`) over `accel`, moved
+    to the scene's device:
+      * "bruteforce": every ray against every face; no accel;
+      * "dense" and "pallas": a WoopTris, or else the table built here
+        from the scene's mesh (any other accel is ignored), tested
+        against every ray by the dense closest-hit kernel. The JAX
+        package computes "dense" with XLA products and "pallas" with its
+        kernel; both return the same closest hit, so one finder serves
+        both;
       * "onehot": an OnehotAccel, or an LBVH from `host_bvh.build_sah`
         clustered here at cfg.onehot_leaf; cfg.onehot_expand picks the
         branch (> 0 per-ray-exact, 0 dense-union);
       * "cluster": Clusters, or an LBVH clustered here at CLUSTER_LEAF.
-    Without an accel it raises: the device LBVH build is not ported."""
+    "onehot" and "cluster" without an accel raise: the device LBVH build
+    is not ported. So do the `bvh` backends."""
     m = scene.mesh
-    if cfg.backend == "onehot":
+    backend = resolve_backend(scene, cfg, accel)
+    if backend == "bruteforce":
+        return find_closest_bruteforce
+    if backend in ("dense", "pallas"):
+        return make_pallas_finder(scene, cfg, accel)
+    if backend == "onehot":
         if isinstance(accel, LBVH):
             accel = build_onehot(accel, m.positions, m.faces, m.face_valid,
                                  leaf=cfg.onehot_leaf)
         kind = OnehotAccel
-    elif cfg.backend == "cluster":
+    elif backend == "cluster":
         if isinstance(accel, LBVH):
             accel = build_clusters(accel, m.positions, m.faces, m.face_valid,
                                    leaf=CLUSTER_LEAF)
         kind = Clusters
-    else:
+    elif backend in ("bvh", "bvh2", "bvh4"):
         raise NotImplementedError(
-            f"backend {cfg.backend!r} is not ported; the port renders "
-            "backend='onehot' and 'cluster' (ROADMAP queue 1 item 10)")
+            f"backend {backend!r} is not ported (ROADMAP queue 1 item 10)")
+    else:
+        raise ValueError(f"unknown backend {backend!r}")
     if not isinstance(accel, kind):
         raise NotImplementedError(
             f"pass an LBVH from accel.host_bvh.build_sah or a "

@@ -22,9 +22,13 @@ from raypt_torch.accel.traverse import (DENSE_CHUNK, KERNELS, PLAIN,
                                         wavefront_inputs)
 from raypt_torch.core.math3d import BIG
 from raypt_torch.core.types import RenderConfig
+from raypt_torch.kernels import dense_pallas as tdp
+from raypt_torch.kernels import onehot_walk as twk
 from raypt_torch.render.integrator import make_finder, render_sample
 from raypt_torch.rng import sampler as rng
 from raypt_torch.scenes.builtin import stanford_bunny
+
+from chip_smoke import copy_most_hit
 
 pytestmark = pytest.mark.gpu
 
@@ -37,6 +41,10 @@ CFG = RenderConfig(width=W, height=W, samples_per_pixel=1, num_bounces=3,
 # branch, leaf 128) and the cluster backend
 DENSE = CFG.replace(onehot_leaf=128, onehot_expand=0, onehot_compact=0)
 CLUSTER = CFG.replace(backend="cluster")
+# backends "pallas" and "dense" (one finder: the Woop table built from
+# the scene, closest_dense) and the onehot finder's non-fused branch at
+# leaf 128
+UNFUSED = dict(expand_n=0, compact_n=0, use_pallas_intersect=False)
 
 
 @pytest.fixture(scope="module")
@@ -67,10 +75,28 @@ def _plain_finder(accel, cfg=CFG):
                    expand_n=cfg.onehot_expand, compact_n=cfg.onehot_compact)
 
 
-def _waves(scene, cfg, accel, key):
+def _path(scene, accels, path):
+    """(cfg, finder through the kernels, finder through the plain
+    versions) of a render path."""
+    if path == "unfused":
+        return (DENSE, partial(find_closest_onehot, accel=accels[128],
+                               **UNFUSED),
+                partial(find_closest_onehot, accel=accels[128], ops=PLAIN,
+                        **UNFUSED))
+    if path in ("pallas", "auto"):
+        cfg = CFG.replace(backend=path)     # "auto" resolves to "dense"
+        finder = make_finder(scene, cfg)
+        return cfg, finder, partial(finder, ops=PLAIN)
+    cfg, accel = {"expand": (CFG, accels[384]),
+                  "dense_union": (DENSE, accels[128]),
+                  "cluster": (CLUSTER, accels["cluster"])}[path]
+    return cfg, make_finder(scene, cfg, accel), _plain_finder(accel, cfg)
+
+
+def _waves(scene, cfg, accel, key, finder=None):
     """The (ro, rd, active) wavefront of every bounce of a render."""
     waves = []
-    finder = make_finder(scene, cfg, accel)
+    finder = finder or make_finder(scene, cfg, accel)
 
     def record(s, ro, rd, active=None):
         waves.append((ro.reshape(-1, 3), rd.reshape(-1, 3),
@@ -88,11 +114,9 @@ def _bits_equal(a, b):
     return torch.equal(a, b)
 
 
-@pytest.mark.parametrize("leaf,bounce", [(384, 0), (384, 1), (16, 1)])
-def test_stages_bitwise(gpu_scene, leaf, bounce):
-    """Each stage on one bounce's wavefront, fed the kernel's outputs of
+def _expand_stages(scene, accels, leaf, bounce):
+    """The expand path's four stages, each fed the kernel's outputs of
     the stage before it."""
-    scene, accels = gpu_scene
     ro, rd, active = _waves(scene, CFG, accels[384], 1)[bounce]
     accel = accels[leaf]
     o, d, t, a, _, _ = onehot_inputs(scene, ro, rd, active, GROUP)
@@ -114,6 +138,61 @@ def test_stages_bitwise(gpu_scene, leaf, bounce):
     kut, kuf = KERNELS.uncompact(kt, kf, a, GROUP)
     put, puf = PLAIN.uncompact(kt, kf, a, GROUP)
     assert _bits_equal(kut[a], put[a]) and torch.equal(kuf[a], puf[a])
+
+
+def _walk_mask_stage(scene, accels, leaf, bounce):
+    """The non-fused path's mask-only walk, in both layouts."""
+    cfg, finder, _ = _path(scene, accels, "unfused")
+    ro, rd, active = _waves(scene, cfg, None, 5, finder)[bounce]
+    accel = accels[leaf]
+    o, d, t, a, _, _ = wavefront_inputs(scene, ro, rd, active, DENSE_CHUNK)
+    args = (accel.table, o, d, t, a, -(-accel.num_clusters // 32))
+    km = KERNELS.walk_mask(*args)
+    assert torch.equal(km, PLAIN.walk_mask(*args)) and bool(km.any())
+    assert torch.equal(twk.topwalk_cm(*args), km.T)
+
+
+def _closest_dense_stage(scene, accels, copies, bounce):
+    """closest_dense on the pallas path (every ray, as the finder passes
+    them); with copies, also on the table with copies of the most-hit
+    triangles within their chunk and across chunks
+    (`chip_smoke.copy_most_hit`), whose result must not change."""
+    cfg, finder, _ = _path(scene, accels, "pallas")
+    ro, rd, _ = _waves(scene, cfg, None, 5, finder)[bounce]
+    mats, chunk = finder.args
+    o, d, t, _, _, _ = wavefront_inputs(scene, ro, rd, None, tdp.RAY_TILE)
+    kt, kf = KERNELS.closest_dense(*mats, o, d, t, tri_chunk=chunk)
+    pt, pf = PLAIN.closest_dense(*mats, o, d, t, tri_chunk=chunk)
+    assert _bits_equal(kt, pt) and torch.equal(kf, pf)
+    assert int((kf >= 0).sum()) > o.shape[0] // 2
+    if copies:
+        dup, src = copy_most_hit(mats, chunk, kf, 16)
+        dt, df = KERNELS.closest_dense(*dup, o, d, t, tri_chunk=chunk)
+        assert _bits_equal(dt, kt) and torch.equal(df, kf)
+        assert int(torch.isin(kf, src).sum()) > 0
+        pt, pf = PLAIN.closest_dense(*dup, o, d, t, tri_chunk=chunk)
+        assert _bits_equal(dt, pt) and torch.equal(df, pf)
+
+
+@pytest.mark.parametrize("stage,leaf,bounce", [
+    ("expand", 384, 0), ("expand", 384, 1), ("expand", 16, 1),
+    ("walk_mask", 128, 1), ("walk_mask", 16, 1),
+    ("closest_dense", None, 0), ("closest_dense", None, 2),
+    ("closest_dense_copies", None, 0)])
+def test_stages_bitwise(gpu_scene, stage, leaf, bounce):
+    """Each kernel stage against its plain version on one bounce's
+    wavefront of its render path: the expand path's four (leaf 384, and
+    leaf 16 with 40 mask words), the non-fused path's mask-only walk
+    (leaf 128: 5 words; leaf 16: 33, not a multiple of 8) and the pallas
+    path's closest_dense, also where copied triangles tie with their
+    sources and the lowest id must win."""
+    scene, accels = gpu_scene
+    if stage == "expand":
+        _expand_stages(scene, accels, leaf, bounce)
+    elif stage == "walk_mask":
+        _walk_mask_stage(scene, accels, leaf, bounce)
+    else:
+        _closest_dense_stage(scene, accels, stage.endswith("copies"), bounce)
 
 
 @pytest.mark.parametrize("leaf,bounce", [(128, 0), (128, 1), (16, 1)])
@@ -164,18 +243,15 @@ def test_cluster_stages_bitwise(gpu_scene, bounce):
     assert torch.equal(k.sphere, p.sphere)
 
 
-@pytest.mark.parametrize("path", ["expand", "dense_union", "cluster"])
+@pytest.mark.parametrize("path", ["expand", "dense_union", "cluster",
+                                  "pallas", "auto", "unfused"])
 def test_render_bitwise_vs_plain_finder(gpu_scene, path):
     scene, accels = gpu_scene
-    cfg, accel = {"expand": (CFG, accels[384]),
-                  "dense_union": (DENSE, accels[128]),
-                  "cluster": (CLUSTER, accels["cluster"])}[path]
+    cfg, finder, plain = _path(scene, accels, path)
     with torch.no_grad():
-        img_k, tr_k = render_sample(scene, cfg, rng.key(2),
-                                    make_finder(scene, cfg, accel),
+        img_k, tr_k = render_sample(scene, cfg, rng.key(2), finder,
                                     return_alive=True)
-        img_p, tr_p = render_sample(scene, cfg, rng.key(2),
-                                    _plain_finder(accel, cfg),
+        img_p, tr_p = render_sample(scene, cfg, rng.key(2), plain,
                                     return_alive=True)
     assert bool(torch.isfinite(img_k).all())
     assert _bits_equal(img_k, img_p) and torch.equal(tr_k, tr_p)

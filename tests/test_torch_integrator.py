@@ -13,6 +13,7 @@ import torch
 from raypt.accel.clusters import CLUSTER_LEAF
 from raypt.accel.clusters import build_clusters as jax_build_clusters
 from raypt.accel.ctree import build_onehot as jax_build_onehot
+from raypt.accel.dense import build_woop as jax_build_woop
 from raypt.accel.host_bvh import build_sah as jax_build_sah
 from raypt.core.types import RenderConfig as JaxConfig
 from raypt.render import integrator as jint
@@ -20,6 +21,7 @@ from raypt.render.tonemap import to_display as jax_to_display
 from raypt.rng import frame_key, sample_key
 from raypt.scenes import builtin as jax_scenes
 
+from raypt_torch.accel.dense import woop_from_numpy
 from raypt_torch.core.types import EnvMap, RenderConfig, scene_from_numpy
 from raypt_torch.io.image import write_png
 from raypt_torch.render import integrator as tint
@@ -48,10 +50,14 @@ OUTSIDE_VIEW = dict(position=(30.0, -18.0, -200.0), angle_y=180.0)
 
 
 def jax_accels(scene, cfg):
-    """The JAX package's accel for cfg.backend over its SAH tree of the
-    scene (onehot at cfg.onehot_leaf, clusters at CLUSTER_LEAF), and the
-    port's copy of it."""
+    """The JAX package's accel for cfg.backend (the Woop table for
+    "pallas" and "dense"; over its SAH tree of the scene, onehot at
+    cfg.onehot_leaf, clusters at CLUSTER_LEAF), and the port's copy of
+    it."""
     m = scene.mesh
+    if cfg.backend in ("pallas", "dense"):
+        woop = jax_build_woop(m.positions, m.faces, m.face_valid)
+        return woop, woop_from_numpy(woop.m, woop.c, woop.valid, "cpu")
     bvh = jax_build_sah(m)
     if cfg.backend == "cluster":
         accel = jax_build_clusters(bvh, m.positions, m.faces, m.face_valid,
@@ -203,16 +209,22 @@ def test_display_and_png(slice_run, tmp_path):
 
 
 def test_unported_settings_raise(slice_run):
-    """Backends "pallas", "bvh" and "dense", refraction and a missing
-    accel raise; the onehot dense-union branch (onehot_expand=0) and the
-    cluster backend are ported (tests/test_torch_slice2.py renders
-    them)."""
+    """Backends "bvh", "bvh2" and "bvh4", refraction and a missing onehot
+    or cluster accel raise, and an unknown backend is an error; the
+    onehot dense-union branch (onehot_expand=0), the cluster backend
+    (tests/test_torch_slice2.py renders them) and "pallas" and "dense"
+    (tests/test_torch_dense.py) are ported."""
     scene, acc, cfg = slice_run["scene"], slice_run["accel"], slice_run["cfg"]
-    for backend in ("pallas", "bvh", "dense"):
+    for backend in ("bvh", "bvh2", "bvh4"):
         bad = cfg.replace(backend=backend)
         with pytest.raises(NotImplementedError):
             finder = tint.make_finder(scene, bad, acc)
             tint.render_sample(scene, bad, slice_run["skey"], finder)
+    with pytest.raises(ValueError):
+        tint.make_finder(scene, cfg.replace(backend="nope"), acc)
+    for ported in ("pallas", "dense"):
+        assert callable(tint.make_finder(scene, cfg.replace(backend=ported),
+                                         acc))
     with pytest.raises(NotImplementedError):
         tint.render_sample(scene, cfg.replace(enable_refraction=True),
                            slice_run["skey"], tint.make_finder(scene, cfg, acc))
