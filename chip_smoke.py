@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive raypt_torch's render paths once on one NVIDIA GPU and
 check them, phase by phase; any failure raises and the exit code is not
-0. The paths render the bench scene (stanford_bunny at 1024^2, 1 spp, 4
+0. Six paths render the bench scene (stanford_bunny at 1024^2, 1 spp, 4
 bounces, roulette) through:
 
   expand       backend "onehot", leaf 384, expand 8192, compact 32768
@@ -21,6 +21,18 @@ bounces, roulette) through:
                for this mesh; the port serves "dense" with the pallas
                path's finder: closest_dense
 
+and a seventh renders the config-4 scene (scripts/baseline_config4.py:
+config4_scene at 1024^2, 8 bounces, roulette, refraction, key 7):
+
+  config4      backend "onehot" with build_onehot(build_sah(mesh),
+               leaf=128, with_woop=True), the finder's Woop branch:
+               topwalk_cm (then a transpose and the tile unions in
+               torch), cluster_intersect_mask_woop
+
+cluster_intersect_grouped lies on no path, as in the JAX package: phase 3
+holds it on the cluster path's wavefronts against its plain version and
+against cluster_intersect.
+
 Phases:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions
   2. build the native SAH builder and the CUDA kernels from source (one
@@ -36,7 +48,19 @@ Phases:
      at 2^22 and at STEP_PAIRS pairs a step), a tile of rays that hit
      nothing, duplicated triangles tying within a triangle chunk and
      across chunks, and tables of one chunk exactly and of a size that
-     needs padding
+     needs padding. On the config-4 path: the mask-only walk and
+     cluster_intersect_mask_woop on all eight bounces (the Woop kernel
+     timed, with matmul_woop, the same closest hit through torch.bmm, as
+     its library yardstick, and the Moller-Trumbore cluster_intersect_mask
+     on the same unions and clusters); then a union with stray bits >= C, triangles
+     turned into the miss encoding (a zero-area triangle's rows), rays
+     parallel to a triangle's plane (d'_w = +-0), copies of triangles in
+     a higher free lane of their cluster (the lowest lane wins) and in a
+     later cluster (the strict merge keeps the first), and a tile of dead
+     rays. cluster_intersect_grouped for G = 2, 3, 4 at cap GROUP_CAP on
+     the cluster path's four wavefronts (G = 4 timed), and on worklists
+     whose counts were cut below the list (valid ids past counts, tested
+     within the last group: only the plain version must match)
   4. each path's render through render_sample: every kernel of the path
      launches once per bounce and no other kernel launches, the image is
      finite and bitwise equal to the render through the plain versions
@@ -45,7 +69,11 @@ Phases:
      fold of topwalk_cm_u's masks, the dense mask intersection of those
      unions against cluster_expand of the masks on live rays, the
      dense-union render at leaf 384 against the expand render, and the
-     mask-only walk against topwalk_cm_u's first words; closest_dense
+     mask-only walk against topwalk_cm_u's first words; the Woop finder
+     against the Moller-Trumbore dense-union finder on the same leaf-128
+     clusters, on config4's wavefronts (same hits, t within WOOP_T_RTOL /
+     WOOP_T_ATOL, faces apart only at near-ties, on all but DENSE_SHARE
+     of the rays, each disagreeing ray tested in float64); closest_dense
      against the torch.matmul route (matmul_closest) to DENSE_T_TOL on
      all but DENSE_SHARE of the rays, the rays where they disagree held
      against a float64 test of both faces; the non-fused finder at cap
@@ -61,15 +89,21 @@ Phases:
      about 0 there; for the expand and pallas paths, from a view outside
      the mesh (GRAD_VIEW, GRAD_WIDTH^2) it is not, and the card's
      gradients through the kernels must agree with the CPU's through the
-     plain versions to GRAD_RTOL of their largest magnitude
+     plain versions to GRAD_RTOL of their largest magnitude. On the
+     config-4 path also the forward frame at C4_SPP samples (median of 3
+     after a warm-up) with its segment rates, and the card-vs-CPU
+     gradient check from the scene's own view, through textures and glass
 
 The last line is {"ok": true, "device": {...}}; the line before it is
 the per-kernel JSON summary: "ms", "plain_ms" and "bound_ms" are summed
-over the four bounce wavefronts of the kernel's path (one frame's worth
-of launches), "launches" are counted in that path's render of phase 4;
-closest_dense's "library_ms" is matmul_closest, the same closest hit
-through torch.matmul, on the same wavefronts (several calls: no one
-torch call computes it).
+over the bounce wavefronts of the kernel's path (one frame's worth of
+launches: four, eight on config4; the grouped kernel's on the cluster
+path's four), "launches" are counted in that path's render of phase 4
+(0 for cluster_intersect_grouped, which no path runs); closest_dense's
+"library_ms" is matmul_closest, the same closest hit through
+torch.matmul, and cluster_intersect_mask_woop's is matmul_woop, through
+torch.bmm, on the same wavefronts (several calls each: no one torch
+call computes either).
 Run: python3 chip_smoke.py
 """
 import json
@@ -122,28 +156,57 @@ MT_OPS = 57
 # u + v (1), five compares (u, v, u + v, t > 0, t < best) and the
 # select of the carry (2)
 DENSE_OPS = 49
+# f32 operations of one Woop ray-triangle test of a cluster
+# (cluster_intersect.cu: test_cluster_woop): six 4-term sums (42 mul/add),
+# the negation and the division (2), u and v (4), u + v (1), four
+# compares (4), the miss select (1), the compare with the cluster's best
+# and its two selects (3)
+WOOP_OPS = 57
 
-KERNELS = {   # name -> (path, source, TPU kernel it replaces)
-    "alive_compact": ("expand", "raypt_torch/csrc/compact.cu",
+# the config-4 path (scripts/baseline_config4.py)
+C4_BOUNCES = 8
+C4_LEAF = 128
+C4_SPP = 4
+C4_KEY = 7
+# the Woop finder vs the Moller-Trumbore dense-union finder: a ray agrees
+# when both hit or both miss, t within WOOP_T_RTOL / WOOP_T_ATOL
+# (tests/test_onehot.py:270-274) and the faces are equal or their t a
+# near-tie; at most DENSE_SHARE of a wavefront may disagree, each such ray
+# held against float64 tests of both faces
+WOOP_T_RTOL, WOOP_T_ATOL = 1e-3, 1e-4
+# the grouped kernel's check: worklists GROUP_CAP wide, which no G divides
+GROUPS = (2, 3, 4)
+GROUP_CAP = 61
+COPIES = 16              # triangles copied for the Woop kernel's tie checks
+
+KERNELS = {   # name -> (paths that launch it, source, TPU kernel it replaces)
+    "alive_compact": (("expand",), "raypt_torch/csrc/compact.cu",
                       "raypt/kernels/compact.py:180"),
-    "topwalk_cm_u": ("expand", "raypt_torch/csrc/onehot_walk.cu",
+    "topwalk_cm_u": (("expand",), "raypt_torch/csrc/onehot_walk.cu",
                      "raypt/kernels/onehot_walk.py:252"),
-    "cluster_expand": ("expand", "raypt_torch/csrc/cluster_expand.cu",
+    "cluster_expand": (("expand",), "raypt_torch/csrc/cluster_expand.cu",
                        "raypt/kernels/cluster_expand.py:246"),
-    "alive_uncompact": ("expand", "raypt_torch/csrc/compact.cu",
+    "alive_uncompact": (("expand",), "raypt_torch/csrc/compact.cu",
                         "raypt/kernels/compact.py:218"),
-    "topwalk_union": ("dense_union", "raypt_torch/csrc/onehot_walk.cu",
+    "topwalk_union": (("dense_union",), "raypt_torch/csrc/onehot_walk.cu",
                       "raypt/kernels/onehot_walk.py:325"),
-    "cluster_intersect_mask": ("dense_union",
+    "cluster_intersect_mask": (("dense_union",),
                                "raypt_torch/csrc/cluster_intersect.cu",
                                "raypt/kernels/cluster_pallas.py:331"),
-    "cluster_intersect": ("cluster", "raypt_torch/csrc/cluster_intersect.cu",
+    "cluster_intersect": (("cluster",),
+                          "raypt_torch/csrc/cluster_intersect.cu",
                           "raypt/kernels/cluster_pallas.py:104"),
-    "closest_dense": ("pallas", "raypt_torch/csrc/dense_closest.cu",
+    "closest_dense": (("pallas",), "raypt_torch/csrc/dense_closest.cu",
                       "raypt/kernels/dense_pallas.py:84"),
-    # with a transpose after it, also pallas_topwalk (onehot_walk.py:169)
-    "topwalk_cm": ("unfused", "raypt_torch/csrc/onehot_walk.cu",
+    # with a transpose after it, also pallas_topwalk (onehot_walk.py:169);
+    # its row's times and launches are the unfused path's
+    "topwalk_cm": (("unfused", "config4"), "raypt_torch/csrc/onehot_walk.cu",
                    "raypt/kernels/onehot_walk.py:190"),
+    "cluster_intersect_mask_woop": (("config4",),
+                                    "raypt_torch/csrc/cluster_intersect.cu",
+                                    "raypt/kernels/cluster_pallas.py:486"),
+    "cluster_intersect_grouped": ((), "raypt_torch/csrc/cluster_intersect.cu",
+                                  "raypt/kernels/cluster_pallas.py:183"),
 }
 KERNEL_PATHS = ("expand", "dense_union", "cluster", "pallas", "unfused")
 # paths that run another path's finder, and so its kernels
@@ -538,6 +601,324 @@ def compare_unfused(stats, label, scene, accel, ro, rd, active, timed):
     return km
 
 
+def matmul_woop(union, woop_cm, ro, rd, t0, tiles_per_call=512):
+    """cluster_intersect_mask_woop's result through torch.bmm, the
+    yardstick of its library_ms: the k-th cluster of every tile's union
+    (ascending id), for k = 0, 1, ..., as batched products of each
+    (tile, cluster) pair's (3L, 4) table by the tile's (4, 2 x 256) rays
+    [o; 1 | d; 0], then the elementwise tests and the strict merge; the
+    lowest lane wins a tie within a cluster, as in the kernel. Needs
+    float32 products (no TF32)."""
+    import torch
+    from raypt_torch.core.math3d import BIG
+    from raypt_torch.kernels.cluster_pallas import TILE, _valid_union
+    assert not torch.backends.cuda.matmul.allow_tf32
+    c_total, leaf = woop_cm.shape[0], woop_cm.shape[2] // 3
+    n_tiles = union.shape[0]
+    cid = torch.arange(c_total, device=union.device)
+    wanted = ((_valid_union(union, c_total)[:, cid >> 5] >> (cid & 31)) & 1
+              ).bool()
+    # the wanted ids of each tile first, in ascending order
+    order = torch.sort((~wanted).to(torch.int8), dim=1, stable=True).indices
+    counts = wanted.sum(dim=1)
+    one = torch.ones((n_tiles, TILE, 1), device=ro.device)
+    rays = torch.cat([torch.cat([ro.view(n_tiles, TILE, 3), one], -1),
+                      torch.cat([rd.view(n_tiles, TILE, 3), 0 * one], -1)],
+                     dim=1).transpose(1, 2)            # (n_tiles, 4, 2T)
+    tab = woop_cm.transpose(1, 2)                      # (C, 3L, 4)
+    tb = t0.view(n_tiles, TILE).clone()
+    pb = torch.full(tb.shape, -1, dtype=torch.int32, device=t0.device)
+    for k in range(int(counts.max()) if n_tiles else 0):
+        live = torch.nonzero(counts > k).flatten()
+        for s0 in range(0, live.numel(), tiles_per_call):
+            tiles = live[s0:s0 + tiles_per_call]
+            c = order[tiles, k]
+            out = torch.bmm(tab[c], rays[tiles])        # (m, 3L, 2T)
+            ou, du = out[:, :leaf, :TILE], out[:, :leaf, TILE:]
+            ov, dv = out[:, leaf:2 * leaf, :TILE], out[:, leaf:2 * leaf, TILE:]
+            ow, dw = out[:, 2 * leaf:, :TILE], out[:, 2 * leaf:, TILE:]
+            tq = -ow / dw
+            u = ou + tq * du
+            v = ov + tq * dv
+            hit = (tq > 0.0) & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
+            t = torch.where(hit, tq, torch.full_like(tq, BIG))
+            tmin, lane = torch.min(t, dim=1)         # first index of the min
+            better = tmin < tb[tiles]
+            tb[tiles] = torch.where(better, tmin, tb[tiles])
+            pb[tiles] = torch.where(better, (c[:, None] * leaf + lane).to(
+                torch.int32), pb[tiles])
+    return tb.view(-1), pb.view(-1)
+
+
+def compare_woop(stats, label, scene, accel, ro, rd, active, timed):
+    """The config-4 path's stages on one wavefront: the mask-only walk
+    (untimed: its row is the unfused path's) and cluster_intersect_mask_woop
+    on the kernel walk's tile unions, kernel against plain version; when
+    timed, also matmul_woop. Returns (union, o, d, alive, seed, t, packed)
+    of the kernels."""
+    import torch
+    from raypt_torch.accel.clusters import tile_union_counts
+    from raypt_torch.accel.traverse import DENSE_CHUNK, wavefront_inputs
+    from raypt_torch.core.math3d import BIG
+    from raypt_torch.kernels import cluster_pallas as dn
+    mask = compare_unfused(stats, label, scene, accel, ro, rd, active,
+                           timed=False)
+    union, counts = tile_union_counts(mask.T.contiguous(), dn.TILE)
+    o, d, t, a, _, _ = wavefront_inputs(scene, ro, rd, active, DENSE_CHUNK)
+    seed = torch.where(a, t, torch.full_like(t, -BIG))
+    args = (union, accel.woop_cm, o, d, seed)
+    kt, kp = dn.cluster_intersect_mask_woop(*args)
+    pt, pp = dn.cluster_intersect_mask_woop_plain(*args)
+    stats.check("cluster_intersect_mask_woop", f"{label} t", kt, pt)
+    stats.check("cluster_intersect_mask_woop", f"{label} packed", kp, pp)
+    if timed:
+        leaf = accel.woop_cm.shape[2] // 3
+        tests = live_tests(a, counts, dn.TILE)
+        stats.time("cluster_intersect_mask_woop", label,
+                   dn.cluster_intersect_mask_woop,
+                   dn.cluster_intersect_mask_woop_plain, args,
+                   nbytes(union, accel.woop_cm, o, d, seed, kt, kp),
+                   WOOP_OPS * leaf * tests)
+        stats.time_library("cluster_intersect_mask_woop", label,
+                           lambda: matmul_woop(*args), reps=1)
+        _, mp = matmul_woop(*args)
+        mt_ms = cuda_ms(lambda: dn.cluster_intersect_mask(
+            union, accel.clusters.tri_rows, o, d, seed), 10)
+        log(f"  {label:9s} cluster_intersect_mask (Moller-Trumbore) on the "
+            f"same unions {mt_ms:9.3f} ms")
+        log(f"  {label:9s} union clusters per tile "
+            f"{float(counts.float().mean()):.2f}, max {int(counts.max())}, "
+            f"live ray-cluster tests {tests} "
+            f"({tests / max(dn.TILE * int(counts.sum()), 1):.4f} of all); "
+            f"{int((kp >= 0).sum())} hits; matmul_woop's packed differs on "
+            f"{int((mp != kp).sum())} rays")
+    return union, o, d, a, seed, kt, kp
+
+
+def woop_lanes(woop_cm):
+    """(C, 4, 3, L) view of a Woop table: [c, k, row, lane]."""
+    return woop_cm.view(woop_cm.shape[0], 4, 3, -1)
+
+
+def free_lanes(woop_cm):
+    """(C, L) bool: lanes that hold the miss encoding (padding)."""
+    w = woop_lanes(woop_cm)
+    return ((w[:, :3] == 0).all(dim=1).all(dim=1) & (w[:, 3, 0] == 0)
+            & (w[:, 3, 1] == 0) & (w[:, 3, 2] == 1))
+
+
+def woop_edges(stats, accel, union, o, d, seed, kt, kp):
+    """Edge cases of cluster_intersect_mask_woop on one wavefront's
+    inputs and kernel result (kt, kp), each kernel against plain version:
+    stray union bits >= C and an extra word of ones; the most-hit
+    triangles turned into the miss encoding; a tile of rays parallel to a
+    triangle's plane; copies of the most-hit triangles in a higher free
+    lane of their cluster and in a free lane of a later cluster (whose
+    bit is then set wherever the source's is): a copy never wins; and a
+    tile of dead rays (seed -BIG) with its union kept."""
+    import torch
+    from raypt_torch.core.math3d import BIG
+    from raypt_torch.kernels import cluster_pallas as dn
+    c_total, leaf = accel.woop_cm.shape[0], accel.woop_cm.shape[2] // 3
+    name = "cluster_intersect_mask_woop"
+
+    def run(what, u=union, w=accel.woop_cm, oo=o, dd=d, sd=seed):
+        args = (u.contiguous(), w.contiguous(), oo, dd, sd)
+        t_, p_ = dn.cluster_intersect_mask_woop(*args)
+        pt, pp = dn.cluster_intersect_mask_woop_plain(*args)
+        stats.check(name, f"{what} t", t_, pt)
+        stats.check(name, f"{what} packed", p_, pp)
+        return t_, p_
+
+    def same_as_base(what, t_, p_):
+        if not (bitwise_equal(t_, kt)[0] and torch.equal(p_, kp)):
+            raise AssertionError(f"{name}: {what} changed the result")
+
+    stray = union.clone()
+    if c_total % 32:
+        stray[:, -1] |= 1 << (c_total % 32)
+    stray = torch.cat([stray, torch.full_like(stray[:, :1], -1)], dim=1)
+    same_as_base("stray bits", *run("stray bits", u=stray))
+
+    hits = torch.bincount(kp[kp >= 0].long(), minlength=c_total * leaf)
+    top = torch.topk(hits, COPIES).indices               # packed ids
+    miss = accel.woop_cm.clone()
+    mw = woop_lanes(miss)
+    for pid in top.tolist():
+        c, j = divmod(pid, leaf)
+        mw[c, :, :, j] = 0.0
+        mw[c, 3, 2, j] = 1.0
+    _, p_ = run("miss encoding", w=miss)
+    if bool(torch.isin(p_, top).any()):
+        raise AssertionError(f"{name}: a triangle in the miss encoding won")
+
+    # a tile of rays with d = (a1, -a0, 0) (or its negation) for the w row
+    # (a0, a1, a2, a3) of a most-hit triangle: d'_w = +-0 exactly
+    w = woop_lanes(accel.woop_cm)
+    for pid in top.tolist():
+        c, j = divmod(pid, leaf)
+        a0, a1 = w[c, 0, 2, j], w[c, 1, 2, j]
+        if bool(a0 != 0) or bool(a1 != 0):
+            break
+    par_d = d.clone()
+    sign = torch.where(torch.arange(dn.TILE, device=d.device) % 2 == 0,
+                       1.0, -1.0)
+    par_d[:dn.TILE] = torch.stack([a1 * sign, -a0 * sign,
+                                   torch.zeros_like(sign)], dim=-1)
+    par_u = union.clone()
+    par_u[0, c >> 5] |= 1 << (c & 31)
+    par_s = seed.clone()
+    par_s[:dn.TILE] = BIG
+    _, p_ = run("parallel rays", u=par_u, dd=par_d.contiguous(), sd=par_s)
+    if bool((p_[:dn.TILE] == pid).any()):
+        raise AssertionError(f"{name}: a ray parallel to a triangle's plane "
+                             f"hit it")
+
+    free = free_lanes(accel.woop_cm)
+    lane = torch.arange(leaf, device=free.device)
+    within, across = accel.woop_cm.clone(), accel.woop_cm.clone()
+    cw_, aw_ = woop_lanes(within), woop_lanes(across)
+    copies_in, copies_out = [], []
+    across_u = union.clone()
+    for pid in top.tolist():
+        c, j = divmod(pid, leaf)
+        higher = torch.nonzero(free[c] & (lane > j)).flatten()
+        if higher.numel():
+            jj = int(higher[-1])
+            free[c, jj] = False
+            cw_[c, :, :, jj] = cw_[c, :, :, j]
+            copies_in.append(c * leaf + jj)
+        later = torch.nonzero(free[c + 1:].any(dim=1)).flatten()
+        if later.numel():
+            c2 = c + 1 + int(later[0])
+            jj = int(torch.nonzero(free[c2]).flatten()[-1])
+            free[c2, jj] = False
+            aw_[c2, :, :, jj] = aw_[c, :, :, j]
+            copies_out.append(c2 * leaf + jj)
+            has = ((union[:, c >> 5] >> (c & 31)) & 1).bool()
+            across_u[has, c2 >> 5] |= 1 << (c2 & 31)
+    if not copies_in or not copies_out:
+        raise AssertionError(f"{name}: no free lane for the copies")
+    for what, tab, u, ids in (("copies within clusters", within, union,
+                               copies_in),
+                              ("copies in later clusters", across, across_u,
+                               copies_out)):
+        t_, p_ = run(what, u=u, w=tab)
+        if bool(torch.isin(p_, torch.tensor(ids, device=p_.device)).any()):
+            raise AssertionError(f"{name}: a copy won over its source "
+                                 f"({what})")
+        if what == "copies within clusters":
+            same_as_base(what, t_, p_)
+    dead = seed.clone()
+    dead[:dn.TILE] = -BIG
+    t_, p_ = run("dead tile", sd=dead)
+    if bool((t_[:dn.TILE] != -BIG).any()) or bool((p_[:dn.TILE] != -1).any()):
+        raise AssertionError(f"{name}: a dead ray took a hit")
+    log(f"  edges: stray bits (+ a word of ones) unchanged; {COPIES} "
+        f"most-hit triangles in the miss encoding never win; a tile "
+        f"parallel to triangle {pid}'s plane; {len(copies_in)} copies in a "
+        f"higher lane of their cluster (result unchanged) and "
+        f"{len(copies_out)} in a later cluster never win; a dead tile keeps "
+        f"-BIG; union words {union.shape[1]}, C = {c_total}")
+
+
+def compare_grouped(stats, label, scene, clusters, ro, rd, active, timed,
+                    edges):
+    """cluster_intersect_grouped on one wavefront of the cluster path, at
+    cap WORKLIST_CAP - 1 (no G divides it; the cluster path's worklists)
+    for every G in GROUPS, kernel against plain version and against
+    cluster_intersect; G = 4 timed. With edges, also at GROUP_CAP (counts
+    clamped, so the rounded-up slots past cap must be skipped) against
+    both, and with counts cut below the list (valid ids past counts,
+    tested within the last group) against the plain version only."""
+    from functools import partial
+
+    import torch
+    from raypt_torch.accel.clusters import WORKLIST_CAP, tile_worklists
+    from raypt_torch.accel.traverse import DENSE_CHUNK, wavefront_inputs
+    from raypt_torch.core.math3d import BIG
+    from raypt_torch.kernels import cluster_pallas as dn
+
+    name = "cluster_intersect_grouped"
+    o, d, t, a, _, _ = wavefront_inputs(scene, ro, rd, active, DENSE_CHUNK)
+    seed = torch.where(a, t, torch.full_like(t, -BIG))
+    rows = clusters.tri_rows
+    tiles = torch.arange(o.shape[0] // dn.TILE, device=o.device)
+    changed = []
+    for cap in (WORKLIST_CAP - 1, GROUP_CAP) if edges else (WORKLIST_CAP - 1,):
+        wl, cnt, _ = tile_worklists(clusters, o, d, seed, dn.TILE, cap)
+        cut = torch.clamp(cnt - (tiles % 4).to(cnt.dtype), min=0)
+        variants = [("", cnt)] + ([(" cut", cut)] if edges else [])
+        for what, c_ in variants:
+            args = (wl, c_, rows, o, d, seed)
+            ut, uf = dn.cluster_intersect(*args)
+            for g in GROUPS:
+                kt, kf = dn.cluster_intersect_grouped(*args, group=g)
+                pt, pf = dn.cluster_intersect_grouped_plain(*args, group=g)
+                tag = f"{label} cap {cap} G={g}{what}"
+                stats.check(name, f"{tag} t", kt, pt)
+                stats.check(name, f"{tag} face", kf, pf)
+                if what:
+                    changed.append(int((kf != uf).sum()))
+                elif not (bitwise_equal(kt, ut)[0] and torch.equal(kf, uf)):
+                    raise AssertionError(f"{name}: {tag} differs from "
+                                         f"cluster_intersect")
+        if cap == WORKLIST_CAP - 1 and timed:
+            iargs = (wl, cnt, rows, o, d, seed)
+            stats.time(name, label, partial(dn.cluster_intersect_grouped,
+                                            group=4),
+                       partial(dn.cluster_intersect_grouped_plain, group=4),
+                       iargs, nbytes(*iargs, kt, kf),
+                       MT_OPS * rows.shape[1] * live_tests(a, cnt, dn.TILE))
+    log(f"  {label:9s} grouped: G {GROUPS} at cap "
+        f"{(WORKLIST_CAP - 1, GROUP_CAP) if edges else WORKLIST_CAP - 1} "
+        f"equal to cluster_intersect" + (
+            f"; with counts cut, faces differ from cluster_intersect's at the "
+            f"cut counts on {changed} rays" if edges else ""))
+
+
+def compare_finders_woop_mt(scene, accel, waves):
+    """The Woop finder against the Moller-Trumbore dense-union finder on
+    the same clusters, on every wavefront: hits, t and faces (module
+    docstring, phase 5)."""
+    import torch
+    from raypt_torch.accel.traverse import find_closest_onehot
+    mt_accel = accel.replace(woop_cm=None, fid_flat=None)
+    for b, (ro, rd, active) in enumerate(waves):
+        kw = dict(expand_n=0, compact_n=0)
+        w = find_closest_onehot(scene, ro, rd, active, accel=accel, **kw)
+        m = find_closest_onehot(scene, ro, rd, active, accel=mt_accel, **kw)
+        if not torch.equal(w.sphere, m.sphere):
+            raise AssertionError(f"bounce {b}: sphere hits differ")
+        wh, mh = w.tri >= 0, m.tri >= 0
+        both = wh & mh
+        close = torch.isclose(w.t, m.t, rtol=WOOP_T_RTOL, atol=WOOP_T_ATOL)
+        hit_diff = torch.nonzero(wh != mh).flatten()
+        t_diff = torch.nonzero(both & ~close).flatten()
+        face_diff = torch.nonzero(both & close & (w.tri != m.tri)).flatten()
+        bad = torch.cat([hit_diff, t_diff])
+
+        def nearest64(face, idx):
+            t_, inside = hit64(scene, ro[idx], rd[idx], face.clamp(min=0))
+            return torch.where((face >= 0) & inside, t_,
+                               torch.full_like(t_, torch.inf))
+
+        tw, tm = nearest64(w.tri[bad], bad), nearest64(m.tri[bad], bad)
+        err = (w.t - m.t).abs()[both]
+        log(f"phase 5: Woop vs Moller-Trumbore finder, bounce {b}: "
+            f"{int(active.sum())} live rays, {int(wh.sum())} / {int(mh.sum())}"
+            f" triangle hits; hit only by one: {hit_diff.numel()}, t apart: "
+            f"{t_diff.numel()} (float64 test of the two faces: the Woop "
+            f"face's hit nearer {int((tw < tm).sum())}, the other's "
+            f"{int((tm < tw).sum())}, equal {int((tw == tm).sum())}); faces "
+            f"apart at near-ties: {face_diff.numel()}; max |dt| on shared "
+            f"hits {float(err.max()) if err.numel() else 0.0:.3e}")
+        if bad.numel() > DENSE_SHARE * active.numel():
+            raise AssertionError(f"bounce {b}: the Woop and Moller-Trumbore "
+                                 f"finders disagree on {bad.numel()} rays, "
+                                 f"more than DENSE_SHARE")
+
+
 def _dev_us(e, inclusive):
     """Device microseconds of a profiler key average (torch renamed the
     cuda_* fields to device_*)."""
@@ -578,10 +959,10 @@ def profile_step(label, step):
                 f"x{e.count:<5d} {e.key[:90]}")
 
 
-def grad_check(build_scene, render, dev):
-    """Bench-loss gradients from GRAD_VIEW on the card through the
-    kernels and on the CPU through the plain versions; render(scene)
-    gives the image."""
+def grad_check(build_scene, render, dev, view):
+    """Mean-image gradients on the card through the kernels and on the
+    CPU through the plain versions; build_scene() gives the scene on the
+    CPU, render(scene) the image, view names the camera in the log."""
     import torch
     grads = []
     for where in (dev, torch.device("cpu")):
@@ -598,7 +979,7 @@ def grad_check(build_scene, render, dev):
         big = float(p.abs().max())
         err = float((g - p).abs().max())
         rows = int((p.abs().sum(dim=1) > 0).sum())
-        log(f"phase 6: {GRAD_WIDTH}^2 outside view, grad {name}: "
+        log(f"phase 6: {GRAD_WIDTH}^2 {view}, grad {name}: "
             f"{rows} nonzero rows, max {big:.3e}, card vs CPU max abs err "
             f"{err:.3e} ({err / max(big, 1e-30):.2e} of max)")
         if not bool(torch.isfinite(g).all()) or big == 0.0:
@@ -723,10 +1104,11 @@ def main():
     from raypt_torch.kernels import compact as cp
     from raypt_torch.kernels import dense_pallas as dp
     from raypt_torch.kernels import onehot_walk as wk
-    from raypt_torch.render.integrator import (make_finder, render_sample,
-                                               resolve_backend)
+    from raypt_torch.render.integrator import (make_finder, render_frame,
+                                               render_sample, resolve_backend)
     from raypt_torch.rng.sampler import frame_key, key, sample_key
     from raypt_torch.scenes.builtin import stanford_bunny
+    from raypt_torch.scenes.config4 import config4_scene
 
     builder = stanford_bunny()
     builder.camera.viewport_width = WIDTH
@@ -771,12 +1153,37 @@ def main():
     unfused_kw = dict(accel=accels["unfused"], expand_n=0, compact_n=0,
                       use_pallas_intersect=False)
 
+    c4b = config4_scene()
+    c4b.camera.viewport_width = WIDTH
+    c4b.camera.viewport_height = HEIGHT
+    scene4 = c4b.freeze(dev)
+    m4 = scene4.mesh
+    t0 = time.perf_counter()
+    accel4 = build_onehot(build_sah(m4), m4.positions, m4.faces,
+                          m4.face_valid, leaf=C4_LEAF, with_woop=True).to(dev)
+    log(f"config4: {int(m4.face_valid.sum())} faces (padded {m4.num_faces}), "
+        f"textures {tuple(scene4.textures.shape)}, equirect env "
+        f"{tuple(scene4.env.data.shape)}; C = {accel4.num_clusters} clusters "
+        f"at leaf {C4_LEAF}, Nt = {accel4.table.shape[0]} top rows, Woop "
+        f"table {tuple(accel4.woop_cm.shape)}; host accel build "
+        f"{time.perf_counter() - t0:.2f} s")
+    cfgs["config4"] = RenderConfig(
+        width=WIDTH, height=HEIGHT, samples_per_pixel=1,
+        num_bounces=C4_BOUNCES, russian_roulette=True, enable_refraction=True,
+        backend="onehot", onehot_leaf=C4_LEAF)
+    accels["config4"] = accel4
+    scenes = {path: scene for path in cfgs}
+    scenes["config4"] = scene4
+    skeys = {path: skey for path in cfgs}
+    skeys["config4"] = sample_key(frame_key(key(C4_KEY), 0), 0)
+    bounces = {path: cfg.num_bounces for path, cfg in cfgs.items()}
+
     def finder_of(path, ops=KOPS):
         """The path's finder over the scene, through the kernels or, with
         ops=PLAIN, through the plain versions."""
         if path == "unfused":
             return partial(find_closest_onehot, ops=ops, **unfused_kw)
-        finder = make_finder(scene, cfgs[path], accels.get(path))
+        finder = make_finder(scenes[path], cfgs[path], accels.get(path))
         if ops is KOPS:
             return finder
         if path in ("pallas", "auto"):
@@ -793,7 +1200,7 @@ def main():
 
     # phase 3: kernels vs plain versions on each path's wavefronts
     waves = {}
-    for path in KERNEL_PATHS:
+    for path in KERNEL_PATHS + ("config4",):
         finder = finder_of(path)
         rec = waves[path] = []
 
@@ -803,20 +1210,32 @@ def main():
             return finder(s, ro, rd, active)
 
         with torch.no_grad():
-            render_sample(scene, cfgs[path], skey, recording_finder)
+            render_sample(scenes[path], cfgs[path], skeys[path],
+                          recording_finder)
     stats = Stats()
     compare = {"expand": compare_expand, "dense_union": compare_dense_union,
                "cluster": compare_cluster, "unfused": compare_unfused,
+               "config4": compare_woop,
                "pallas": lambda st, label, sc, _, ro, rd, active, timed:
                compare_pallas(st, label, sc, pallas_mats, pallas_chunk, ro,
                               rd, timed, woop)}
-    for path in KERNEL_PATHS:
+    for path in KERNEL_PATHS + ("config4",):
         log(f"phase 3 {path}: kernel vs plain, bitwise, per bounce wavefront")
         for b, (ro, rd, active) in enumerate(waves[path]):
             log(f"  bounce {b}: {int(active.sum())} live rays of "
                 f"{active.numel()}")
-            compare[path](stats, f"bounce {b}", scene, accels.get(path), ro,
-                          rd, active, timed=True)
+            compare[path](stats, f"bounce {b}", scenes[path],
+                          accels.get(path), ro, rd, active, timed=True)
+    log("phase 3 grouped: cluster_intersect_grouped on the cluster path's "
+        "wavefronts")
+    for b, (ro, rd, active) in enumerate(waves["cluster"]):
+        compare_grouped(stats, f"bounce {b}", scene, accels["cluster"], ro, rd,
+                        active, timed=True, edges=b == 1)
+    log("phase 3 config4 edges: cluster_intersect_mask_woop on the bounce-0 "
+        "wavefront")
+    union, o, d, _, seed, kt, kp = compare_woop(
+        stats, "c4 edges", scene4, accel4, *waves["config4"][0], timed=False)
+    woop_edges(stats, accel4, union, o, d, seed, kt, kp)
 
     # edge cases on the bounce-1 wavefronts
     ro, rd, active = waves["expand"][1]
@@ -946,8 +1365,10 @@ def main():
                 "cluster_intersect_mask": dn.cluster_intersect_mask,
                 "cluster_intersect": dn.cluster_intersect,
                 "closest_dense": dp.closest_dense,
-                "topwalk_cm": wk.topwalk_cm}
-    launches = {}
+                "topwalk_cm": wk.topwalk_cm,
+                "cluster_intersect_mask_woop": dn.cluster_intersect_mask_woop,
+                "cluster_intersect_grouped": dn.cluster_intersect_grouped}
+    launches = {k: 0 for k in KERNELS}
     images = {}
     for path, cfg in cfgs.items():
         finder = finder_of(path)
@@ -956,7 +1377,7 @@ def main():
             fn.launches = 0
         t0 = time.perf_counter()
         with torch.no_grad():
-            img, traced = render_sample(scene, cfg, skey, finder,
+            img, traced = render_sample(scenes[path], cfg, skeys[path], finder,
                                         return_alive=True)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
@@ -964,11 +1385,11 @@ def main():
         log(f"phase 4 {path}: launches {counts}")
         kpath = SAME_FINDER.get(path, path)
         for k, n in counts.items():
-            want = BOUNCES if KERNELS[k][0] == kpath else 0
+            want = bounces[path] if kpath in KERNELS[k][0] else 0
             if n != want:
                 raise AssertionError(f"{path}: {k} launched {n} times, "
                                      f"expected {want}")
-            if want and kpath == path:
+            if want and path == KERNELS[k][0][0]:
                 launches[k] = n
         if not bool(torch.isfinite(img).all()) or img.shape != (HEIGHT, WIDTH,
                                                                3):
@@ -986,7 +1407,7 @@ def main():
             ref = "the plain-finder render"
             with torch.no_grad():
                 img_plain, traced_plain = render_sample(
-                    scene, cfg, skey, finder_of(path, PLAIN),
+                    scenes[path], cfg, skeys[path], finder_of(path, PLAIN),
                     return_alive=True)
         eq, err = bitwise_equal(img, img_plain)
         if not eq or not torch.equal(traced, traced_plain):
@@ -1103,12 +1524,40 @@ def main():
         f"union {int(counts.max())}, {-(-int(counts.max()) // UNFUSED_CAP)} "
         f"rounds); bitwise equal through kernels and plain versions and to "
         f"the default cap ({time.perf_counter() - t0:.1f} s for the three)")
+    compare_finders_woop_mt(scene4, accel4, waves["config4"])
 
     # phase 6: the bench loss forward and backward; forward only on the
     # non-fused path, whose worklist intersection is plain torch (the auto
     # path runs the pallas path's finder)
-    for path in ("expand", "dense_union", "cluster", "pallas"):
-        bench_loss(path, scene, cfgs[path], skey, accels.get(path))
+    for path in ("expand", "dense_union", "cluster", "pallas", "config4"):
+        bench_loss(path, scenes[path], cfgs[path], skeys[path],
+                   accels.get(path))
+
+    # the config-4 frame: C4_SPP samples through render_frame, as
+    # scripts/baseline_config4.py renders it
+    cfg4f = cfgs["config4"].replace(samples_per_pixel=C4_SPP)
+    finder4 = make_finder(scene4, cfg4f, accel4)
+
+    def frame():
+        with torch.no_grad():
+            return render_frame(scene4, cfg4f, key(C4_KEY), finder=finder4)
+
+    frame_s = seconds(frame)
+    img = frame()
+    traced = 0
+    with torch.no_grad():
+        for i in range(C4_SPP):
+            traced += int(render_sample(
+                scene4, cfg4f, sample_key(frame_key(key(C4_KEY), 0), i),
+                finder4, return_alive=True)[1].sum())
+    med = statistics.median(frame_s)
+    if not bool(torch.isfinite(img).all()):
+        raise AssertionError("config4: the frame is not finite")
+    log(f"phase 6 config4 frame: {C4_SPP} spp, {C4_BOUNCES} bounces, s "
+        f"{[round(x, 4) for x in frame_s]} median {med:.4f}; upper-bound "
+        f"rate {WIDTH * HEIGHT * C4_SPP * C4_BOUNCES / med / 1e6:.3f} "
+        f"Mray-seg/s; traced segments {traced} -> {traced / med / 1e6:.3f} "
+        f"Mray-seg/s; image mean {float(img.mean()):.6f}")
 
     def fwd():
         with torch.no_grad():
@@ -1126,13 +1575,21 @@ def main():
             setattr(b.camera, k, val)
         return b.freeze("cpu")
 
-    for path in ("expand", "pallas"):
+    def config4_view():
+        b = config4_scene()
+        b.camera.viewport_width = b.camera.viewport_height = GRAD_WIDTH
+        return b.freeze("cpu")
+
+    for path, build in (("expand", outside_scene), ("pallas", outside_scene),
+                        ("config4", config4_view)):
         gcfg = cfgs[path].replace(width=GRAD_WIDTH, height=GRAD_WIDTH)
         log(f"phase 6: card vs CPU gradients, {path} path")
-        grad_check(outside_scene,
-                   lambda s, gcfg=gcfg, acc=accels.get(path): render_sample(
-                       s, gcfg, skey, make_finder(s, gcfg, acc)),
-                   dev)
+        grad_check(build,
+                   lambda s, gcfg=gcfg, acc=accels.get(path),
+                   k=skeys[path]: render_sample(
+                       s, gcfg, k, make_finder(s, gcfg, acc)),
+                   dev, "outside view" if build is outside_scene else
+                   "config4's view")
 
     log(f"topwalk_cm and its transpose (pallas_topwalk's counterpart): "
         f"{stats.topwalk_ms:.4f} ms per frame")

@@ -1,8 +1,8 @@
 """raypt_torch: the raypt path tracer ported to PyTorch and CUDA.
 
 It mirrors the JAX package `raypt` module by module and is held against
-it in the tests. This package imports torch and numpy only. The render
-path's four kernels are CUDA C++ for Hopper under `csrc/`, built on
+it in the tests. This package imports torch and numpy only. The
+finders' eleven kernels are CUDA C++ for Hopper under `csrc/`, built on
 first use (`kernels/_build.py`); on CPU tensors each kernel's plain
 torch version runs instead.
 
@@ -11,6 +11,7 @@ torch version runs instead.
   raypt_torch.accel    host SAH tree, clusters, top tree, finders
   raypt_torch.kernels  the CUDA kernels' wrappers and plain versions
   raypt_torch.render   integrator, shading, environment, tonemap
-  raypt_torch.io       OBJ, PNG, native SAH builder
-  raypt_torch.scenes   the bench bunny and the triangle-on-ground scene
+  raypt_torch.io       OBJ, glTF, Radiance .hdr, PNG, native SAH builder
+  raypt_torch.scenes   the bench bunny, the triangle-on-ground scene, the
+                       textured demo and the config-4 scene
 """

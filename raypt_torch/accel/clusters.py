@@ -7,7 +7,8 @@ worklists (`tile_worklists`), the union of per-ray masks over ray tiles
 (`tile_union_counts`), the ascending-id worklists of those unions
 (`worklist_slice`) and the worklist intersection reference
 (`intersect_worklist`) that the cluster finder's overflow fallback and
-the onehot finder's non-fused branch run.
+the onehot finder's non-fused branch run; and the Woop table of the
+clusters' triangles (`build_woop_cm`), built on the host.
 """
 from __future__ import annotations
 
@@ -116,6 +117,41 @@ def build_clusters(bvh: LBVH, positions, faces, face_valid,
     return Clusters(bmin=torch.from_numpy(bmin), bmax=torch.from_numpy(bmax),
                     tri_rows=torch.from_numpy(tri_rows),
                     valid=torch.from_numpy(cvalid))
+
+
+def build_woop_cm(clusters: Clusters):
+    """Woop affine table of every cluster triangle (`build_woop_cm`), for
+    the Woop mask intersection (`kernels.cluster_pallas.
+    cluster_intersect_mask_woop`): per triangle (p0, e1, e2), W = [e1 e2
+    n]^-1 with the unit normal n maps world points to unit-triangle
+    coordinates (u, v, w); A = W, b = -W p0. Inverted in float64 on the
+    host, so the cast to float32 is the only rounding; degenerate and
+    padded triangles encode a miss, A = 0, b = (0, 0, 1).
+
+    Returns (woop_cm (C, 4, 3L) f32 with woop_cm[c, k, r*L + j] the k-th
+    coefficient (A[r, 0..2], b[r]) of row r of triangle j, fid_flat (C*L,)
+    int32 face ids), on the clusters' device."""
+    rows = clusters.tri_rows
+    c, leaf, _ = rows.shape
+    rows_np = rows.detach().cpu().numpy().astype(np.float64)
+    p0, e1, e2 = rows_np[..., 0:3], rows_np[..., 3:6], rows_np[..., 6:9]
+    n = np.cross(e1, e2)
+    nl = np.linalg.norm(n, axis=-1, keepdims=True)
+    ok = nl[..., 0] > 1e-20
+    n = n / np.where(nl > 1e-20, nl, 1.0)
+    m = np.stack([e1, e2, n], axis=-1)           # (C, L, 3, 3) columns
+    safe_m = np.where(ok[..., None, None], m,
+                      np.broadcast_to(np.eye(3), m.shape))
+    w = np.linalg.inv(safe_m)                    # rows u, v, w
+    b = -np.einsum("clij,clj->cli", w, p0)
+    a4 = np.concatenate([w, b[..., None]], axis=-1)    # (C, L, 3, 4)
+    miss = np.zeros((3, 4))
+    miss[2, 3] = 1.0
+    a4 = np.where(ok[..., None, None], a4, miss)
+    woop_cm = np.transpose(a4, (0, 3, 2, 1)).reshape(c, 4, 3 * leaf)
+    fid_flat = rows[..., 9].contiguous().view(torch.int32).reshape(c * leaf)
+    return (torch.from_numpy(woop_cm.astype(np.float32)).to(rows.device),
+            fid_flat.contiguous())
 
 
 def tile_union_counts(mask: torch.Tensor, tile: int):

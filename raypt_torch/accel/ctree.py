@@ -14,13 +14,15 @@ and become a torch.bfloat16 tensor at the end.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
 
 from ..core.math3d import BIG
 from ..core.types import TensorTree
-from .clusters import Clusters, build_clusters, cluster_capacity, cluster_cut
+from .clusters import (Clusters, build_clusters, build_woop_cm,
+                       cluster_capacity, cluster_cut)
 from .lbvh import LBVH
 
 ROW = 16
@@ -173,9 +175,13 @@ def encode_topwalk_table(tree: ClusterTree) -> np.ndarray:
 
 @dataclasses.dataclass
 class OnehotAccel(TensorTree):
-    """The onehot finder's accel: clusters plus the encoded top tree."""
+    """The onehot finder's accel: clusters plus the encoded top tree, and
+    optionally the clusters' Woop table (`build_woop_cm`; the JAX
+    package's 4-tuple accel), which selects the finder's Woop branch."""
     clusters: Clusters
     table: torch.Tensor      # (Nt, 16) bfloat16
+    woop_cm: Optional[torch.Tensor] = None    # (C, 4, 3L) f32
+    fid_flat: Optional[torch.Tensor] = None   # (C * L,) int32
 
     @property
     def num_clusters(self) -> int:
@@ -187,25 +193,36 @@ def _table_tensor(table_u16: np.ndarray) -> torch.Tensor:
         np.array(table_u16, np.uint16).view(np.int16)).view(torch.bfloat16)
 
 
-def build_onehot(bvh: LBVH, positions, faces, face_valid,
-                 leaf: int) -> OnehotAccel:
+def build_onehot(bvh: LBVH, positions, faces, face_valid, leaf: int,
+                 with_woop: bool = False) -> OnehotAccel:
     """Clusters and encoded top-tree table for a mesh (tensors or numpy
-    arrays; built on the host, returned on the CPU)."""
+    arrays; built on the host, returned on the CPU); with_woop adds the
+    clusters' Woop table."""
     clusters = build_clusters(bvh, positions, faces, face_valid, leaf=leaf)
     table = encode_topwalk_table(build_cluster_tree(bvh, leaf=leaf))
-    return OnehotAccel(clusters=clusters, table=_table_tensor(table))
+    woop_cm = fid_flat = None
+    if with_woop:
+        woop_cm, fid_flat = build_woop_cm(clusters)
+    return OnehotAccel(clusters=clusters, table=_table_tensor(table),
+                       woop_cm=woop_cm, fid_flat=fid_flat)
 
 
-def onehot_accel_from_numpy(tri_rows, bmin, bmax, valid,
-                            table_u16) -> OnehotAccel:
+def onehot_accel_from_numpy(tri_rows, bmin, bmax, valid, table_u16,
+                            woop_cm=None, fid_flat=None) -> OnehotAccel:
     """The accel from arrays of the JAX package's build_onehot output:
-    Clusters' leaves and the table's bf16 bits as uint16."""
+    Clusters' leaves, the table's bf16 bits as uint16 and, from a
+    `with_woop=True` build, the Woop table and face ids."""
     clusters = Clusters(
         bmin=torch.from_numpy(np.array(bmin, np.float32)),
         bmax=torch.from_numpy(np.array(bmax, np.float32)),
         tri_rows=torch.from_numpy(np.array(tri_rows, np.float32)),
         valid=torch.from_numpy(np.array(valid, bool)))
-    return OnehotAccel(clusters=clusters, table=_table_tensor(table_u16))
+    woop = None if woop_cm is None else torch.from_numpy(
+        np.array(woop_cm, np.float32))
+    fids = None if fid_flat is None else torch.from_numpy(
+        np.array(fid_flat, np.int32))
+    return OnehotAccel(clusters=clusters, table=_table_tensor(table_u16),
+                       woop_cm=woop, fid_flat=fids)
 
 
 def table_bits(table: torch.Tensor) -> np.ndarray:

@@ -2,9 +2,11 @@
 oracle; the onehot finder, in its per-ray-exact branch (alive
 compaction, top-tree walk, cluster expansion, uncompaction), its
 dense-union branch (walk to per-tile unions, dense tile x cluster
-intersection) and its non-fused branch (walk to per-ray masks, tile
-unions, ascending-id worklists, the reference worklist intersection and
-its residual rounds); and the cluster finder (dense box cull into
+intersection), its Woop branch (walk to per-ray masks, tile unions,
+dense tile x cluster intersection with the Woop test) and its non-fused
+branch (walk to per-ray masks, tile unions, ascending-id worklists, the
+reference worklist intersection and its residual rounds); and the
+cluster finder (dense box cull into
 per-tile worklists, worklist intersection, overflow fallback).
 
 Finders return only discrete results and run without autograd; shading
@@ -115,21 +117,24 @@ class FinderOps(NamedTuple):
     walk_union: Callable       # onehot, dense-union branch
     intersect_mask: Callable
     intersect: Callable        # cluster finder
-    walk_mask: Callable        # onehot, non-fused branch
+    walk_mask: Callable        # onehot, non-fused and Woop branches
     closest_dense: Callable    # dense and pallas (kernels/intersect.py)
+    intersect_woop: Callable   # onehot, Woop branch
 
 
 KERNELS = FinderOps(_compact.alive_compact, _walk.topwalk_cm_u,
                     _expand.cluster_expand, _compact.alive_uncompact,
                     _walk.topwalk_union, _dense.cluster_intersect_mask,
                     _dense.cluster_intersect, _walk.topwalk,
-                    _woop_kernel.closest_dense)
+                    _woop_kernel.closest_dense,
+                    _dense.cluster_intersect_mask_woop)
 PLAIN = FinderOps(_compact.alive_compact_plain, _walk.topwalk_cm_u_plain,
                   _expand.cluster_expand_plain, _compact.alive_uncompact_plain,
                   _walk.topwalk_union_plain,
                   _dense.cluster_intersect_mask_plain,
                   _dense.cluster_intersect_plain, walk_topwalk,
-                  _woop_kernel.closest_dense_plain)
+                  _woop_kernel.closest_dense_plain,
+                  _dense.cluster_intersect_mask_woop_plain)
 
 # rays per padding chunk of the dense-union branch and the cluster
 # finder: 8 tiles (`max(8 * TILE, RAY_TILE)` in the JAX package)
@@ -184,8 +189,10 @@ def find_closest_onehot(scene: Scene, ro, rd, active=None, *,
                         accel: OnehotAccel, expand_n: int, compact_n: int,
                         use_pallas_intersect: bool = True, cap: int = 0,
                         ops: FinderOps = KERNELS) -> HitIds:
-    """The onehot finder. With use_pallas_intersect set (the default),
-    expand_n > 0 selects the per-ray-exact branch: compact
+    """The onehot finder. With use_pallas_intersect set (the default), an
+    accel that carries a Woop table selects the Woop branch
+    (`_onehot_woop`), whatever expand_n; otherwise expand_n > 0 selects
+    the per-ray-exact branch: compact
     live rays to the front of each compact_n group (when compact_n > 0),
     walk the top tree to per-ray masks, test each ray's wanted clusters,
     restore the ray order; the CUDA expansion runs one thread per ray, so
@@ -201,6 +208,8 @@ def find_closest_onehot(scene: Scene, ro, rd, active=None, *,
     if not use_pallas_intersect:
         return _onehot_unfused(scene, ro, rd, active, accel,
                                cap or WORKLIST_CAP, ops)
+    if accel.woop_cm is not None:
+        return _onehot_woop(scene, ro, rd, active, accel, ops)
     if not expand_n:
         return _onehot_dense_union(scene, ro, rd, active, accel, ops)
     if scene.mesh.num_faces >= 1 << 24:
@@ -236,6 +245,27 @@ def _onehot_dense_union(scene: Scene, ro, rd, active, accel: OnehotAccel,
     seed = torch.where(flat_a, flat_t, torch.full_like(flat_t, -BIG))
     t_best, face = ops.intersect_mask(union, accel.clusters.tri_rows, flat_o,
                                       flat_d, seed)
+    return _hit_ids(t_best, face, flat_a, ro.reshape(-1, 3).shape[0], ts, si)
+
+
+def _onehot_woop(scene: Scene, ro, rd, active, accel: OnehotAccel,
+                 ops: FinderOps) -> HitIds:
+    """The Woop branch (`traverse.py:544, 683-685, 702-720`): the per-ray
+    (R, words) mask from the mask-only walk, words ceil(C / 32); each
+    256-ray tile's union; every ray of a tile against every cluster of
+    its union with the Woop test; face = fid_flat[packed]. Dead rays seed
+    -BIG. There are no residual rounds and no compaction."""
+    flat_o, flat_d, flat_t, flat_a, ts, si = wavefront_inputs(
+        scene, ro, rd, active, DENSE_CHUNK)
+    mask = ops.walk_mask(accel.table, flat_o, flat_d, flat_t, flat_a,
+                         -(-accel.num_clusters // 32))
+    union, _ = tile_union_counts(mask, _dense.TILE)
+    seed = torch.where(flat_a, flat_t, torch.full_like(flat_t, -BIG))
+    t_best, packed = ops.intersect_woop(union, accel.woop_cm, flat_o, flat_d,
+                                        seed)
+    face = torch.where(packed >= 0,
+                       accel.fid_flat[torch.clamp(packed, min=0).long()],
+                       torch.full_like(packed, -1))
     return _hit_ids(t_best, face, flat_a, ro.reshape(-1, 3).shape[0], ts, si)
 
 

@@ -46,6 +46,27 @@ def lerp(a, b, t):
     return a + (b - a) * t
 
 
+def refract(d: torch.Tensor, n: torch.Tensor, eta) -> torch.Tensor:
+    """glm::refract for unit d and a unit n facing against d, eta =
+    n_incident / n_transmitted; the zero vector on total internal
+    reflection."""
+    cos_i = -dot_keep(d, n)
+    k = 1.0 - eta * eta * (1.0 - cos_i * cos_i)
+    tir = k < 0.0
+    # sqrt at a safe argument on TIR lanes, so sqrt'(0) = inf cannot
+    # reach a gradient through the unselected branch
+    k_safe = torch.where(tir, torch.ones_like(k), torch.clamp(k, min=0.0))
+    out = eta * d + (eta * cos_i - torch.sqrt(k_safe)) * n
+    return torch.where(tir, torch.zeros_like(out), out)
+
+
+def schlick_fresnel(cos_i, ior_a, ior_b):
+    """Schlick's reflectance from index ior_a into ior_b at incidence
+    cosine cos_i (>= 0)."""
+    r0 = ((ior_a - ior_b) / (ior_a + ior_b)) ** 2
+    return r0 + (1.0 - r0) * (1.0 - cos_i) ** 5
+
+
 def intersect_sphere(ro, rd, center, radius):
     """glm::intersectRaySphere semantics for normalized rd: the far root
     when the ray starts inside; returns (hit, t) with t = BIG on a miss.

@@ -48,11 +48,22 @@ class SceneBuilder:
         self._normals: list = []
         self._uvs: list = []
         self._faces: list = []                   # (v0, v1, v2, material)
+        self._textures: list = []                # (H, W, 3) f32 arrays
         self.env = env if env is not None else EnvMap.constant()
 
     def add_material(self, material: MaterialDef) -> int:
         self._materials.append(material)
         return len(self._materials) - 1
+
+    def add_texture(self, image) -> int:
+        """An albedo texture (H, W, 3) float in [0, 1]; every texture of
+        a scene has one resolution (they freeze into one stack). Returns
+        the id for MaterialDef(texture=...)."""
+        img = np.asarray(image, np.float32)
+        if self._textures and img.shape != self._textures[0].shape:
+            raise ValueError("all textures must share one resolution")
+        self._textures.append(img)
+        return len(self._textures) - 1
 
     def add_sphere(self, center, radius: float, material: int = 0) -> None:
         self._spheres.append((tuple(map(float, center)), float(radius),
@@ -137,8 +148,11 @@ class SceneBuilder:
             face_material=_fill((cf,), [f[3] for f in self._faces], 0,
                                 np.int32),
             face_valid=torch.from_numpy(np.arange(cf) < nface))
+        textures = (torch.from_numpy(np.stack(self._textures))
+                    if self._textures else None)
         return Scene(materials=materials, spheres=spheres, mesh=mesh,
-                     env=self.env, camera=self.camera.rays()).to(device)
+                     env=self.env, camera=self.camera.rays(),
+                     textures=textures).to(device)
 
     @property
     def num_faces(self) -> int:

@@ -124,9 +124,9 @@ class RenderConfig:
     """Static render parameters, with the JAX package's fields and
     defaults. The port renders `backend="onehot"` (its defaults,
     `onehot_expand=0`, select the dense-union branch; `onehot_expand > 0`
-    the per-ray-exact one), `"cluster"`, `"bruteforce"`, `"dense"`,
-    `"pallas"` and `"auto"`; the `bvh` backends and refraction raise
-    where they are read."""
+    the per-ray-exact one; an accel with a Woop table the Woop branch),
+    `"cluster"`, `"bruteforce"`, `"dense"`, `"pallas"` and `"auto"`; the
+    `bvh` backends raise where they are read."""
     width: int = 1024
     height: int = 768
     samples_per_pixel: int = 5

@@ -64,9 +64,14 @@ def kernel_lib() -> ctypes.CDLL:
         # n_tiles, stream
         "rk_cluster_intersect_mask": [p, i32, p, i32, i32, p, p, p, p, p, i64,
                                       p],
-        # worklist, counts, cap, rows, c_total, leaf, ro, rd, seed -> t,
-        # face; n_tiles, stream
-        "rk_cluster_intersect": [p, p, i32, p, i32, i32, p, p, p, p, p, i64, p],
+        # unions, cw, woop, c_total, leaf, ro, rd, seed -> t, packed;
+        # n_tiles, stream
+        "rk_cluster_intersect_mask_woop": [p, i32, p, i32, i32, p, p, p, p, p,
+                                           i64, p],
+        # worklist, counts, cap, group, rows, c_total, leaf, ro, rd, seed
+        # -> t, face; n_tiles, stream
+        "rk_cluster_intersect": [p, p, i32, i32, p, i32, i32, p, p, p, p, p,
+                                 i64, p],
         # wu, wv, ww, cu, cv, cw, n_tris, ro, rd, t0 -> t, face; r, stream
         "rk_closest_dense": [p, p, p, p, p, p, i64, p, p, p, p, p, i64, p],
     }

@@ -2,20 +2,31 @@
 (`raypt/kernels/cluster_pallas.py`): every ray of a tile is tested
 against every triangle of each cluster the tile names, either the set
 bits of the tile's wanted-cluster union (`cluster_intersect_mask`,
-`pallas_cluster_intersect_mask`) or the first `counts` entries of the
-tile's worklist (`cluster_intersect`, `pallas_cluster_intersect`).
+`pallas_cluster_intersect_mask`; `cluster_intersect_mask_woop`,
+`pallas_cluster_intersect_mask_woop`, with the Woop test) or the first
+`counts` entries of the tile's worklist (`cluster_intersect`,
+`pallas_cluster_intersect`; `cluster_intersect_grouped`,
+`pallas_cluster_intersect_grouped`, which rounds the count up to a
+multiple of its group).
 
 Merge rules, which decide the exact result: within a cluster the
-smallest t wins, and among triangles with that t the lowest face id;
-across clusters, in the tile's order (ascending id for the union, list
-order for the worklist), a cluster replaces the ray's carry only when
-its t is strictly smaller; the carry starts at the seed with face -1.
+smallest t wins, and among triangles with that t the lowest face id (the
+Woop kernel: the lowest lane); across clusters, in the tile's order
+(ascending id for the union, list order for the worklist), a cluster
+replaces the ray's carry only when its t is strictly smaller; the carry
+starts at the seed with face -1.
 
 `_test_cluster` is the Moller-Trumbore test of one cluster in the Pallas
 kernel's operation order, written as separate elementwise ops so that
 torch on the card rounds after every operation exactly as the kernels,
 built with -fmad=false, do. The expansion kernel's plain version
 (`kernels/cluster_expand.py`) uses it too.
+
+`_test_cluster_woop` is the Woop test of one cluster in the operation
+order of `csrc/cluster_intersect.cu`: six 4-term sums over [o; 1] and
+[d; 0], the homogeneous terms included (a3 * 0 turns a -0.0 sum into
++0.0, which sets the sign of the division's infinity), then t = -o'w /
+d'w, u = o'u + t d'u, v = o'v + t d'v.
 
 On CUDA tensors each wrapper launches `csrc/cluster_intersect.cu`; on
 CPU tensors it runs its plain torch version.
@@ -71,6 +82,33 @@ def _test_cluster(blk: torch.Tensor, o: torch.Tensor, d: torch.Tensor):
     return tmin, fmin
 
 
+def _test_cluster_woop(tab: torch.Tensor, o: torch.Tensor, d: torch.Tensor):
+    """tab (4, 3L) one cluster's Woop table, o/d (n, 3) rays -> (tmin
+    (n,), lane (n,) int32 of the lowest lane with that t); tmin = BIG
+    when nothing is hit."""
+    leaf = tab.shape[1] // 3
+    ox, oy, oz = o[:, 0:1], o[:, 1:2], o[:, 2:3]
+    dx, dy, dz = d[:, 0:1], d[:, 1:2], d[:, 2:3]
+
+    def transform(r):
+        a0, a1, a2, a3 = (tab[k, r * leaf:(r + 1) * leaf] for k in range(4))
+        return (a0 * ox + a1 * oy + a2 * oz + a3 * 1.0,
+                a0 * dx + a1 * dy + a2 * dz + a3 * 0.0)
+
+    (ou, du), (ov, dv), (ow, dw) = transform(0), transform(1), transform(2)
+    tq = -ow / dw
+    u = ou + tq * du
+    v = ov + tq * dv
+    hit = (tq > 0.0) & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
+    t = torch.where(hit, tq, torch.full_like(tq, BIG))
+    tmin = torch.amin(t, dim=-1)
+    lane = torch.arange(leaf, dtype=torch.int32, device=t.device).expand(
+        t.shape)
+    lmin = torch.amin(torch.where(t <= tmin[:, None], lane,
+                                  torch.full_like(lane, BIG_I)), dim=-1)
+    return tmin, lmin
+
+
 def _valid_union(union: torch.Tensor, c_total: int) -> torch.Tensor:
     """The union with every bit >= c_total cleared (the wrapper guard of
     `pallas_cluster_intersect_mask`, applied to every word)."""
@@ -101,6 +139,43 @@ def cluster_intersect_mask_plain(union, tri_rows, ro, rd, t0):
     return tb, fb
 
 
+def cluster_intersect_mask_woop_plain(union, woop_cm, ro, rd, t0):
+    """Loop over cluster ids 0..C-1; test every ray of each tile whose
+    union has the cluster's bit with the Woop test, with the strict
+    merge; the result's second half is packed = cid * L + lane."""
+    c_total, leaf = woop_cm.shape[0], woop_cm.shape[2] // 3
+    union = _valid_union(union, c_total)
+    tb = t0.clone()
+    pb = torch.full_like(t0, -1, dtype=torch.int32)
+    lane = torch.arange(TILE, device=ro.device)
+    for c in range(c_total):
+        tiles = torch.nonzero((union[:, c >> 5] >> (c & 31)) & 1).flatten()
+        idx_all = (tiles[:, None] * TILE + lane[None, :]).flatten()
+        for s in range(0, idx_all.numel(), PLAIN_CHUNK):
+            idx = idx_all[s:s + PLAIN_CHUNK]
+            tmin, lmin = _test_cluster_woop(woop_cm[c], ro[idx], rd[idx])
+            better = tmin < tb[idx]
+            tb[idx] = torch.where(better, tmin, tb[idx])
+            pb[idx] = torch.where(better, c * leaf + lmin, pb[idx])
+    return tb, pb
+
+
+def _grouped_counts(counts, cap: int, group: int):
+    """Slots the grouped kernel visits: min(counts, cap) rounded up to a
+    multiple of group, at most cap."""
+    n = torch.clamp(counts, max=cap)
+    return torch.clamp((n + group - 1) // group * group, max=cap)
+
+
+def cluster_intersect_grouped_plain(worklist, counts, tri_rows, ro, rd, t0,
+                                    group: int = 4):
+    """The worklist intersection over the slots `_grouped_counts` gives:
+    a valid id in a slot past counts but within the group is tested."""
+    return cluster_intersect_plain(
+        worklist, _grouped_counts(counts, worklist.shape[1], group),
+        tri_rows, ro, rd, t0)
+
+
 def cluster_intersect_plain(worklist, counts, tri_rows, ro, rd, t0):
     """Loop over worklist slots; at slot w, every tile with counts > w
     tests its rays against its own cluster worklist[tile, w] (ids outside
@@ -127,16 +202,23 @@ def cluster_intersect_plain(worklist, counts, tri_rows, ro, rd, t0):
     return tb.view(-1), fb.view(-1)
 
 
-def _ray_specs(tri_rows, ro, rd, t0, n_tiles: int) -> dict:
+def _ray_specs(table, shape, ro, rd, t0, n_tiles: int) -> dict:
+    """Checks of the rays and of the cluster table, (C, L, 12) or Woop
+    (C, 4, 3L): the kernels stage one cluster's 48 L bytes in shared
+    memory."""
+    if 4 * shape[1] * shape[2] > SMEM_LIMIT:
+        raise ValueError(f"a cluster of {tuple(shape[1:])} floats does not "
+                         f"fit in shared memory (the kernels stage one "
+                         f"cluster there)")
     r = n_tiles * TILE
-    c_total, leaf = tri_rows.shape[0], tri_rows.shape[1]
-    if leaf * 48 > SMEM_LIMIT:
-        raise ValueError(f"a {leaf}-triangle cluster does not fit in shared "
-                         f"memory (the kernels stage one cluster there)")
-    return {"tri_rows": (tri_rows, (c_total, leaf, 12), torch.float32),
+    return {"table": (table, shape, torch.float32),
             "ro": (ro, (r, 3), torch.float32),
             "rd": (rd, (r, 3), torch.float32),
             "t0": (t0, (r,), torch.float32)}
+
+
+def _rows_shape(tri_rows):
+    return tri_rows.shape[0], tri_rows.shape[1], 12
 
 
 def _n_tiles(ro) -> int:
@@ -153,7 +235,7 @@ def cluster_intersect_mask(union, tri_rows, ro, rd, t0):
     won)."""
     n_tiles = _n_tiles(ro)
     cw = union.shape[1]
-    specs = _ray_specs(tri_rows, ro, rd, t0, n_tiles)
+    specs = _ray_specs(tri_rows, _rows_shape(tri_rows), ro, rd, t0, n_tiles)
     specs["union"] = (union, (n_tiles, cw), torch.int32)
     if not on_cuda(specs):
         return cluster_intersect_mask_plain(union, tri_rows, ro, rd, t0)
@@ -170,27 +252,84 @@ def cluster_intersect_mask(union, tri_rows, ro, rd, t0):
 cluster_intersect_mask.launches = 0
 
 
+def cluster_intersect_mask_woop(union, woop_cm, ro, rd, t0):
+    """union (R // TILE, CW) int32 wanted-cluster bits per tile (bits >= C
+    are ignored), woop_cm (C, 4, 3L) f32 (`accel.clusters.build_woop_cm`),
+    ro/rd (R, 3) f32, t0 (R,) f32 seed. Returns (t (R,) f32, packed (R,)
+    int32 = cid * L + lane, -1 where no cluster won); the face id is
+    fid_flat[packed]."""
+    n_tiles = _n_tiles(ro)
+    cw = union.shape[1]
+    specs = _ray_specs(woop_cm, (woop_cm.shape[0], 4,
+                                 woop_cm.shape[2] // 3 * 3), ro, rd, t0,
+                       n_tiles)
+    specs["union"] = (union, (n_tiles, cw), torch.int32)
+    if not on_cuda(specs):
+        return cluster_intersect_mask_woop_plain(union, woop_cm, ro, rd, t0)
+    t_out = torch.empty_like(t0)
+    p_out = torch.empty((ro.shape[0],), dtype=torch.int32, device=ro.device)
+    launch("rk_cluster_intersect_mask_woop", union.data_ptr(), cw,
+           woop_cm.data_ptr(), woop_cm.shape[0], woop_cm.shape[2] // 3,
+           ro.data_ptr(), rd.data_ptr(), t0.data_ptr(), t_out.data_ptr(),
+           p_out.data_ptr(), n_tiles)
+    cluster_intersect_mask_woop.launches += 1
+    return t_out, p_out
+
+
+cluster_intersect_mask_woop.launches = 0
+
+
 def cluster_intersect(worklist, counts, tri_rows, ro, rd, t0):
     """worklist (R // TILE, cap) int32 cluster ids in test order, counts
     (R // TILE,) int32 entries to test (clamped to cap; ids outside
     [0, C) are skipped), tri_rows (C, L, 12) f32, ro/rd (R, 3) f32, t0
     (R,) f32 seed. Returns (t (R,) f32, face (R,) int32, -1 where no
     cluster won)."""
-    n_tiles = _n_tiles(ro)
-    cap = worklist.shape[1]
-    specs = _ray_specs(tri_rows, ro, rd, t0, n_tiles)
-    specs["worklist"] = (worklist, (n_tiles, cap), torch.int32)
-    specs["counts"] = (counts, (n_tiles,), torch.int32)
-    if not on_cuda(specs):
+    out = _worklist_kernel(worklist, counts, tri_rows, ro, rd, t0, 1)
+    if out is None:
         return cluster_intersect_plain(worklist, counts, tri_rows, ro, rd, t0)
-    t_out = torch.empty_like(t0)
-    f_out = torch.empty((ro.shape[0],), dtype=torch.int32, device=ro.device)
-    launch("rk_cluster_intersect", worklist.data_ptr(), counts.data_ptr(), cap,
-           tri_rows.data_ptr(), tri_rows.shape[0], tri_rows.shape[1],
-           ro.data_ptr(), rd.data_ptr(), t0.data_ptr(), t_out.data_ptr(),
-           f_out.data_ptr(), n_tiles)
     cluster_intersect.launches += 1
-    return t_out, f_out
+    return out
 
 
 cluster_intersect.launches = 0
+
+
+def cluster_intersect_grouped(worklist, counts, tri_rows, ro, rd, t0,
+                              group: int = 4):
+    """`cluster_intersect` in groups of `group` worklist entries
+    (`pallas_cluster_intersect_grouped`): the slots visited are min(counts,
+    cap) rounded up to a multiple of group, at most cap, so a valid id in
+    a slot past counts but within the last group is tested; -1 slots and
+    ids outside [0, C) are skipped."""
+    if group < 1:
+        raise ValueError(f"group must be >= 1, got {group}")
+    out = _worklist_kernel(worklist, counts, tri_rows, ro, rd, t0, group)
+    if out is None:
+        return cluster_intersect_grouped_plain(worklist, counts, tri_rows, ro,
+                                               rd, t0, group)
+    cluster_intersect_grouped.launches += 1
+    return out
+
+
+cluster_intersect_grouped.launches = 0
+
+
+def _worklist_kernel(worklist, counts, tri_rows, ro, rd, t0, group: int):
+    """Check the worklist kernel's inputs; on CUDA tensors launch it with
+    `group` and return (t, face), on CPU tensors return None (the caller
+    runs its plain version)."""
+    n_tiles = _n_tiles(ro)
+    cap = worklist.shape[1]
+    specs = _ray_specs(tri_rows, _rows_shape(tri_rows), ro, rd, t0, n_tiles)
+    specs["worklist"] = (worklist, (n_tiles, cap), torch.int32)
+    specs["counts"] = (counts, (n_tiles,), torch.int32)
+    if not on_cuda(specs):
+        return None
+    t_out = torch.empty_like(t0)
+    f_out = torch.empty((ro.shape[0],), dtype=torch.int32, device=ro.device)
+    launch("rk_cluster_intersect", worklist.data_ptr(), counts.data_ptr(), cap,
+           group, tri_rows.data_ptr(), tri_rows.shape[0], tri_rows.shape[1],
+           ro.data_ptr(), rd.data_ptr(), t0.data_ptr(), t_out.data_ptr(),
+           f_out.data_ptr(), n_tiles)
+    return t_out, f_out

@@ -5,10 +5,12 @@ runs without autograd and shading recomputes the hit differentiably,
 so `loss.backward()` of an image reaches mesh positions and materials
 through the shading glue only.
 
-The port renders `backend="onehot"` (both branches: `onehot_expand > 0`
-per-ray-exact, `onehot_expand == 0` dense-union), `"cluster"`,
-`"bruteforce"`, `"dense"`, `"pallas"` and `"auto"` (`resolve_backend`);
-the `bvh` backends, refraction and textures raise (ROADMAP queue 1).
+The port renders `backend="onehot"` (its branches: `onehot_expand > 0`
+per-ray-exact, `onehot_expand == 0` dense-union, and with a Woop table in
+the accel the Woop branch), `"cluster"`, `"bruteforce"`, `"dense"`,
+`"pallas"` and `"auto"` (`resolve_backend`), with albedo textures and,
+under `cfg.enable_refraction`, the dielectric lobe; the `bvh` backends
+raise (ROADMAP queue 1).
 """
 from __future__ import annotations
 
@@ -23,13 +25,16 @@ from ..accel.dense import WoopTris
 from ..accel.lbvh import LBVH
 from ..accel.traverse import (HitIds, find_closest_bruteforce,
                               find_closest_cluster, find_closest_onehot)
-from ..core.math3d import lerp, normalize, reflect
+from ..core.math3d import (dot, lerp, normalize, reflect, refract,
+                           schlick_fresnel)
 from ..core.types import RenderConfig, Scene
 from ..kernels.intersect import make_pallas_finder
 from ..rng.sampler import (Key, bounce_uniforms, frame_key,
-                           random_point_on_sphere, sample_jitter, sample_key)
+                           random_point_on_sphere, refraction_uniform,
+                           sample_jitter, sample_key)
 from .envmap import build_env_quads, rotate_y_pi, sample_env_quads
-from .shading import build_shade_tables, recompute_hit_packed
+from .shading import (build_shade_tables, recompute_hit_packed,
+                      sample_albedo_texture)
 
 Finder = Callable[..., HitIds]
 
@@ -64,8 +69,11 @@ def make_finder(scene: Scene, cfg: RenderConfig, accel=None) -> Finder:
         kernel; both return the same closest hit, so one finder serves
         both;
       * "onehot": an OnehotAccel, or an LBVH from `host_bvh.build_sah`
-        clustered here at cfg.onehot_leaf; cfg.onehot_expand picks the
-        branch (> 0 per-ray-exact, 0 dense-union);
+        clustered here at cfg.onehot_leaf (without a Woop table, as in
+        the JAX package); an accel built with `with_woop=True` takes the
+        Woop branch, whatever cfg.onehot_expand; otherwise
+        cfg.onehot_expand picks the branch (> 0 per-ray-exact, 0
+        dense-union);
       * "cluster": Clusters, or an LBVH clustered here at CLUSTER_LEAF.
     "onehot" and "cluster" without an accel raise: the device LBVH build
     is not ported. So do the `bvh` backends."""
@@ -106,15 +114,6 @@ def _cluster_finder(clusters: Clusters, scene: Scene, ro, rd, active=None):
     return find_closest_cluster(scene, clusters, ro, rd, active=active)
 
 
-def _check_supported(scene: Scene, cfg: RenderConfig) -> None:
-    if cfg.enable_refraction:
-        raise NotImplementedError("the refraction lobe is not ported "
-                                  "(ROADMAP queue 1 item 8)")
-    if scene.textures is not None:
-        raise NotImplementedError("albedo textures are not ported "
-                                  "(ROADMAP queue 1 item 8)")
-
-
 def trace_paths(scene: Scene, cfg: RenderConfig, skey: Key,
                 ro: torch.Tensor, rd: torch.Tensor, finder: Finder,
                 pixel_ids: torch.Tensor, return_alive: bool = False):
@@ -122,7 +121,6 @@ def trace_paths(scene: Scene, cfg: RenderConfig, skey: Key,
     bounces -> linear radiance (..., 3); with return_alive also the
     (num_bounces,) int32 counts of rays alive at the start of each
     bounce (the segments actually traced)."""
-    _check_supported(scene, cfg)
     rd = normalize(rd)
     tables = build_shade_tables(scene)
     env_quads, env_hw = build_env_quads(scene.env)
@@ -154,6 +152,10 @@ def trace_paths(scene: Scene, cfg: RenderConfig, skey: Key,
         u = bounce_uniforms(skey, b, pixel_ids)
         albedo, specular = mp[..., 0:3], mp[..., 6:9]
         roughness, spec_pct = mp[..., 9], mp[..., 10]
+        if scene.textures is not None:
+            tex_id = torch.round(mp[..., 11]).to(torch.int32)
+            albedo = albedo * sample_albedo_texture(scene.textures, tex_id,
+                                                    hit.uv)
         do_spec = (u[..., 0] < spec_pct).to(torch.float32)[..., None]
         tp_mult = lerp(albedo, specular, do_spec)
         sph = random_point_on_sphere(u[..., 1], u[..., 2])
@@ -163,6 +165,36 @@ def trace_paths(scene: Scene, cfg: RenderConfig, skey: Key,
                                       (roughness * roughness)[..., None]))
         new_dir = normalize(lerp(diffuse_dir, specular_dir, do_spec))
         new_ro = hit.position + hit.normal * cfg.normal_offset
+        if cfg.enable_refraction:
+            # dielectric lobe: reflect with Schlick probability or on
+            # total internal reflection, else refract; the albedo tints
+            # the path. The geometry uses a normal facing the ray
+            # (sphere normals point outward).
+            refr_pct = mp[..., 12]
+            ior = torch.clamp(mp[..., 13], min=1.0 + 1e-6)
+            do_refr = (u[..., 0] >= spec_pct) & (u[..., 0]
+                                                 < spec_pct + refr_pct)
+            entering = dot(rd, hit.normal) < 0.0
+            n_face = torch.where(entering[..., None], hit.normal,
+                                 -hit.normal)
+            eta = torch.where(hit.front_face, 1.0 / ior, ior)
+            cos_i = torch.clamp(-dot(rd, n_face), 0.0, 1.0)
+            tir = 1.0 - eta * eta * (1.0 - cos_i * cos_i) < 0.0
+            fres = schlick_fresnel(cos_i, 1.0, ior)
+            u_f = refraction_uniform(skey, b, pixel_ids)
+            do_reflect = tir | (u_f < fres)
+            trans_dir = normalize(refract(rd, n_face, eta[..., None]))
+            glass_dir = torch.where(do_reflect[..., None],
+                                    normalize(reflect(rd, n_face)), trans_dir)
+            new_dir = torch.where(do_refr[..., None], glass_dir, new_dir)
+            tp_mult = torch.where(do_refr[..., None], albedo, tp_mult)
+            # a reflected ray stays on the incident side; a transmitted
+            # one steps through the surface
+            off = torch.full_like(cos_i, cfg.normal_offset)
+            side = torch.where(do_reflect, off, -off)
+            new_ro = torch.where(do_refr[..., None],
+                                 hit.position + n_face * side[..., None],
+                                 new_ro)
 
         throughput = torch.where(hit_now[..., None], throughput * tp_mult,
                                  throughput)

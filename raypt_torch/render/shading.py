@@ -105,3 +105,28 @@ def recompute_hit_packed(tables: ShadeTables, ro, rd, ids: HitIds):
     hit = Hit(valid=is_tri | is_sph, t=t, position=pos, normal=normal, uv=uv,
               mat_id=mat_id, front_face=front)
     return hit, matprops
+
+
+def sample_albedo_texture(textures: torch.Tensor, tex_id: torch.Tensor,
+                          uv: torch.Tensor) -> torch.Tensor:
+    """Bilinear sample of the albedo texture stack (K, TH, TW, 3) at hit
+    uvs (..., 2), wrapped by floor-mod (uvs may lie outside [0, 1]);
+    tex_id < 0 (untextured) gives 1.0."""
+    k, th, tw = textures.shape[0], textures.shape[1], textures.shape[2]
+    x = uv[..., 0] * tw - 0.5
+    y = (1.0 - uv[..., 1]) * th - 0.5
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    fx = (x - x0)[..., None]
+    fy = (y - y0)[..., None]
+    x0i = torch.remainder(x0.to(torch.int64), tw)
+    x1i = torch.remainder(x0i + 1, tw)
+    y0i = torch.remainder(y0.to(torch.int64), th)
+    y1i = torch.remainder(y0i + 1, th)
+    ti = torch.clamp(tex_id, 0, k - 1).long()
+    a = textures[ti, y0i, x0i]
+    b = textures[ti, y0i, x1i]
+    c = textures[ti, y1i, x0i]
+    d = textures[ti, y1i, x1i]
+    rgb = (a * (1 - fx) + b * fx) * (1 - fy) + (c * (1 - fx) + d * fx) * fy
+    return torch.where((tex_id >= 0)[..., None], rgb, torch.ones_like(rgb))

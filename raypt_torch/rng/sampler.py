@@ -83,6 +83,14 @@ def bounce_uniforms(skey: Key, bounce: int, pixel_ids: torch.Tensor):
     return _per_pixel_uniforms(fold_in(skey, bounce), pixel_ids, 4)
 
 
+def refraction_uniform(skey: Key, bounce: int, pixel_ids: torch.Tensor):
+    """One U[0,1) per pixel and bounce, the dielectric lobe's fresnel
+    reflect/transmit pick, from its own folded key, so the four bounce
+    draws do not change."""
+    return _per_pixel_uniforms(fold_in(fold_in(skey, 0x5EF7AC7), bounce),
+                               pixel_ids, 1)[..., 0]
+
+
 def random_point_on_sphere(u_z: torch.Tensor, u_a: torch.Tensor):
     """z = 2*u1 - 1; a = 2*pi*u2; r = sqrt(1 - z^2); (r cos a, r sin a, z)."""
     z = u_z * 2.0 - 1.0

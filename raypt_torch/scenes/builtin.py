@@ -1,5 +1,6 @@
 """Built-in scenes of the render path (`raypt/scenes/builtin.py`):
-the bench's Stanford bunny and the minimal triangle-on-ground scene.
+the bench's Stanford bunny, the minimal triangle-on-ground scene and the
+small textured scene (`textured_demo`).
 
 Assets are looked up in RAYPT_DATA_DIR, then `<repo>/data`. Without
 `stanford-bunny.obj` the bunny is a 5,120-triangle icosphere stand-in,
@@ -165,4 +166,51 @@ def stanford_bunny(builder: SceneBuilder | None = None) -> SceneBuilder:
     if builder is None:
         b.camera.position = (32.5, -2.0, 0.0)
         b.camera.angle_y = 180.0
+    return b
+
+
+def textured_demo(checker_res: int = 64) -> SceneBuilder:
+    """A small textured scene: a checker-textured ground (uvs to 4), two
+    icospheres of 320 triangles, an emissive sphere light and an HDR
+    gradient sky as an equirect panorama."""
+    h, w = 64, 128
+    ys = np.linspace(0, 1, h, dtype=np.float32)[:, None, None]
+    sky = ((1 - ys) * np.array([2.5, 3.0, 4.0], np.float32)
+           + ys * np.array([0.4, 0.3, 0.25], np.float32))
+    env = EnvMap(data=torch.from_numpy(np.broadcast_to(sky, (h, w, 3)).copy()),
+                 is_cube=False)
+    b = SceneBuilder(env=env)
+
+    check = (np.indices((checker_res, checker_res)).sum(0) // 8 % 2
+             ).astype(np.float32)
+    tid = b.add_texture(np.stack([check, check * 0.6 + 0.2, 1.0 - check], -1))
+    floor_mat = b.add_material(MaterialDef(albedo=(0.9, 0.9, 0.9),
+                                           texture=tid))
+    g = 12.0
+    pos = np.array([[-g, -1, g], [g, -1, g], [g, -1, -g], [-g, -1, -g]],
+                   np.float32)
+    nrm = np.tile([[0, 1, 0]], (4, 1)).astype(np.float32)
+    uv = np.array([[0, 0], [4, 0], [4, 4], [0, 4]], np.float32)
+    b.add_mesh(pos, nrm, np.array([[0, 1, 2], [0, 2, 3]]), uvs=uv,
+               material=floor_mat)
+
+    ico = _icosphere(2)
+    glossy = b.add_material(MaterialDef(albedo=(0.9, 0.6, 0.3),
+                                        specular=(0.9, 0.9, 0.9),
+                                        specular_percent=0.4, roughness=0.15))
+    t = np.eye(4, dtype=np.float32)
+    t[:3, 3] = (-1.5, 0.2, -5)
+    b.add_mesh(ico["positions"], ico["normals"], ico["faces"], transform=t,
+               material=glossy)
+    diffuse = b.add_material(MaterialDef(albedo=(0.3, 0.5, 0.9)))
+    t2 = np.eye(4, dtype=np.float32) * 0.7
+    t2[3, 3] = 1.0
+    t2[:3, 3] = (1.6, -0.3, -4.2)
+    b.add_mesh(ico["positions"], ico["normals"], ico["faces"], transform=t2,
+               material=diffuse)
+
+    light = b.add_material(MaterialDef(albedo=(0, 0, 0),
+                                       emissive=(12.0, 11.0, 9.0)))
+    b.add_sphere((0, 4.0, -4), 0.8, light)
+    b.camera.position = (0, 0.6, 1.5)
     return b

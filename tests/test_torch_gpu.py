@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from raypt_torch.accel.clusters import (CLUSTER_LEAF, build_clusters,
-                                        tile_worklists)
+                                        tile_union_counts, tile_worklists)
 from raypt_torch.accel.ctree import build_onehot
 from raypt_torch.accel.host_bvh import build_sah
 from raypt_torch.accel.traverse import (DENSE_CHUNK, KERNELS, PLAIN,
@@ -22,11 +22,13 @@ from raypt_torch.accel.traverse import (DENSE_CHUNK, KERNELS, PLAIN,
                                         wavefront_inputs)
 from raypt_torch.core.math3d import BIG
 from raypt_torch.core.types import RenderConfig
+from raypt_torch.kernels import cluster_pallas as tdn
 from raypt_torch.kernels import dense_pallas as tdp
 from raypt_torch.kernels import onehot_walk as twk
 from raypt_torch.render.integrator import make_finder, render_sample
 from raypt_torch.rng import sampler as rng
 from raypt_torch.scenes.builtin import stanford_bunny
+from raypt_torch.scenes.config4 import config4_scene
 
 from chip_smoke import copy_most_hit
 
@@ -45,13 +47,17 @@ CLUSTER = CFG.replace(backend="cluster")
 # the scene, closest_dense) and the onehot finder's non-fused branch at
 # leaf 128
 UNFUSED = dict(expand_n=0, compact_n=0, use_pallas_intersect=False)
+# the config-4 path: 8 bounces, refraction, the onehot finder's Woop
+# branch on a leaf-128 accel built with_woop
+C4 = DENSE.replace(num_bounces=8, enable_refraction=True)
 
 
 @pytest.fixture(scope="module")
-def gpu_scene():
+def gpu_scene(tmp_path_factory):
     """The bench scene at 256^2 on the card, with leaf-384, leaf-128 and
     leaf-16 onehot accels (8, 8 and 40 mask words) and leaf-64 clusters
-    (under "cluster")."""
+    (under "cluster"); under "config4", the config-4 scene at 256^2 and
+    its leaf-128 accel with the Woop table."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     b = stanford_bunny()
@@ -64,6 +70,13 @@ def gpu_scene():
               for leaf in (384, 128, 16)}
     accels["cluster"] = build_clusters(bvh, m.positions, m.faces, m.face_valid,
                                        leaf=CLUSTER_LEAF).to("cuda")
+    b4 = config4_scene(str(tmp_path_factory.mktemp("c4") / "sky.hdr"))
+    b4.camera.viewport_width = b4.camera.viewport_height = W
+    scene4 = b4.freeze("cuda")
+    m4 = scene4.mesh
+    accels["config4"] = (scene4, build_onehot(
+        build_sah(m4), m4.positions, m4.faces, m4.face_valid, leaf=128,
+        with_woop=True).to("cuda"))
     return scene, accels
 
 
@@ -83,6 +96,11 @@ def _path(scene, accels, path):
                                **UNFUSED),
                 partial(find_closest_onehot, accel=accels[128], ops=PLAIN,
                         **UNFUSED))
+    if path == "config4":
+        acc = accels["config4"][1]
+        return (C4, make_finder(accels["config4"][0], C4, acc),
+                partial(find_closest_onehot, accel=acc, ops=PLAIN,
+                        expand_n=0, compact_n=0))
     if path in ("pallas", "auto"):
         cfg = CFG.replace(backend=path)     # "auto" resolves to "dense"
         finder = make_finder(scene, cfg)
@@ -174,23 +192,75 @@ def _closest_dense_stage(scene, accels, copies, bounce):
         assert _bits_equal(dt, pt) and torch.equal(df, pf)
 
 
+def _woop_stage(accels, bounce):
+    """The config-4 path's Woop intersection on the kernel walk's tile
+    unions, with the first tile's seeds -BIG (dead rays) and a stray
+    union bit >= C in every tile."""
+    scene4, acc = accels["config4"]
+    cfg, finder, _ = _path(None, accels, "config4")
+    ro, rd, active = _waves(scene4, cfg, None, 6, finder)[bounce]
+    o, d, t, a, _, _ = wavefront_inputs(scene4, ro, rd, active, DENSE_CHUNK)
+    mask = KERNELS.walk_mask(acc.table, o, d, t, a, -(-acc.num_clusters // 32))
+    union = tile_union_counts(mask, tdn.TILE)[0]
+    if acc.num_clusters % 32:
+        union[:, -1] |= 1 << (acc.num_clusters % 32)
+    seed = torch.where(a, t, torch.full_like(t, -BIG))
+    seed[:tdn.TILE] = -BIG
+    args = (union, acc.woop_cm, o, d, seed)
+    kt, kp = KERNELS.intersect_woop(*args)
+    pt, pp = PLAIN.intersect_woop(*args)
+    assert _bits_equal(kt, pt) and torch.equal(kp, pp)
+    assert int((kp >= 0).sum()) > 0 and not bool((kp[:tdn.TILE] >= 0).any())
+
+
+def _grouped_stage(scene, accels, bounce):
+    """cluster_intersect_grouped for G = 2, 3, 4 on worklists 61 wide (no
+    G divides it) of one bounce of the cluster render: bitwise equal to
+    its plain version and to cluster_intersect; with counts cut below
+    the list (valid ids past counts), to its plain version."""
+    clusters = accels["cluster"]
+    ro, rd, active = _waves(scene, CLUSTER, clusters, 4)[bounce]
+    o, d, t, a, _, _ = wavefront_inputs(scene, ro, rd, active, DENSE_CHUNK)
+    seed = torch.where(a, t, torch.full_like(t, -BIG))
+    wl, cnt, _ = tile_worklists(clusters, o, d, seed, 256, 61)
+    tiles = torch.arange(cnt.numel(), device=cnt.device)
+    cut = torch.clamp(cnt - (tiles % 4).to(cnt.dtype), min=0)
+    for c_ in (cnt, cut):
+        args = (wl, c_, clusters.tri_rows, o, d, seed)
+        ut, uf = KERNELS.intersect(*args)
+        for g in (2, 3, 4):
+            kt, kf = tdn.cluster_intersect_grouped(*args, group=g)
+            pt, pf = tdn.cluster_intersect_grouped_plain(*args, group=g)
+            assert _bits_equal(kt, pt) and torch.equal(kf, pf)
+            if c_ is cnt:
+                assert _bits_equal(kt, ut) and torch.equal(kf, uf)
+    assert int((uf >= 0).sum()) > 0
+
+
 @pytest.mark.parametrize("stage,leaf,bounce", [
     ("expand", 384, 0), ("expand", 384, 1), ("expand", 16, 1),
     ("walk_mask", 128, 1), ("walk_mask", 16, 1),
     ("closest_dense", None, 0), ("closest_dense", None, 2),
-    ("closest_dense_copies", None, 0)])
+    ("closest_dense_copies", None, 0), ("woop", None, 0), ("woop", None, 1),
+    ("grouped", None, 1)])
 def test_stages_bitwise(gpu_scene, stage, leaf, bounce):
     """Each kernel stage against its plain version on one bounce's
     wavefront of its render path: the expand path's four (leaf 384, and
     leaf 16 with 40 mask words), the non-fused path's mask-only walk
-    (leaf 128: 5 words; leaf 16: 33, not a multiple of 8) and the pallas
+    (leaf 128: 5 words; leaf 16: 33, not a multiple of 8), the pallas
     path's closest_dense, also where copied triangles tie with their
-    sources and the lowest id must win."""
+    sources and the lowest id must win, the config-4 path's Woop
+    intersection and the grouped worklist intersection on the cluster
+    path's wavefront."""
     scene, accels = gpu_scene
     if stage == "expand":
         _expand_stages(scene, accels, leaf, bounce)
     elif stage == "walk_mask":
         _walk_mask_stage(scene, accels, leaf, bounce)
+    elif stage == "woop":
+        _woop_stage(accels, bounce)
+    elif stage == "grouped":
+        _grouped_stage(scene, accels, bounce)
     else:
         _closest_dense_stage(scene, accels, stage.endswith("copies"), bounce)
 
@@ -244,10 +314,12 @@ def test_cluster_stages_bitwise(gpu_scene, bounce):
 
 
 @pytest.mark.parametrize("path", ["expand", "dense_union", "cluster",
-                                  "pallas", "auto", "unfused"])
+                                  "pallas", "auto", "unfused", "config4"])
 def test_render_bitwise_vs_plain_finder(gpu_scene, path):
     scene, accels = gpu_scene
     cfg, finder, plain = _path(scene, accels, path)
+    if path == "config4":
+        scene = accels["config4"][0]
     with torch.no_grad():
         img_k, tr_k = render_sample(scene, cfg, rng.key(2), finder,
                                     return_alive=True)

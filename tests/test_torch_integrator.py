@@ -209,11 +209,13 @@ def test_display_and_png(slice_run, tmp_path):
 
 
 def test_unported_settings_raise(slice_run):
-    """Backends "bvh", "bvh2" and "bvh4", refraction and a missing onehot
-    or cluster accel raise, and an unknown backend is an error; the
-    onehot dense-union branch (onehot_expand=0), the cluster backend
-    (tests/test_torch_slice2.py renders them) and "pallas" and "dense"
-    (tests/test_torch_dense.py) are ported."""
+    """Backends "bvh", "bvh2" and "bvh4" and a missing onehot or cluster
+    accel raise, and an unknown backend is an error; the onehot
+    dense-union branch (onehot_expand=0), the cluster backend
+    (tests/test_torch_slice2.py renders them), "pallas" and "dense"
+    (tests/test_torch_dense.py) and the refraction lobe
+    (tests/test_torch_config4.py) are ported: a render with
+    enable_refraction is finite."""
     scene, acc, cfg = slice_run["scene"], slice_run["accel"], slice_run["cfg"]
     for backend in ("bvh", "bvh2", "bvh4"):
         bad = cfg.replace(backend=backend)
@@ -225,9 +227,11 @@ def test_unported_settings_raise(slice_run):
     for ported in ("pallas", "dense"):
         assert callable(tint.make_finder(scene, cfg.replace(backend=ported),
                                          acc))
-    with pytest.raises(NotImplementedError):
-        tint.render_sample(scene, cfg.replace(enable_refraction=True),
-                           slice_run["skey"], tint.make_finder(scene, cfg, acc))
+    with torch.no_grad():
+        img = tint.render_sample(scene, cfg.replace(enable_refraction=True),
+                                 slice_run["skey"],
+                                 tint.make_finder(scene, cfg, acc))
+    assert bool(torch.isfinite(img).all())
     for ok in (cfg, cfg.replace(onehot_expand=0), cfg.replace(backend="cluster")):
         with pytest.raises(NotImplementedError):
             tint.make_finder(scene, ok, None)

@@ -52,12 +52,14 @@ def jax_lbvh_to_port(bvh) -> LBVH:
 
 
 def jax_accel_to_port(accel):
-    """Port OnehotAccel from the JAX build_onehot output."""
-    clusters, table = accel
+    """Port OnehotAccel from the JAX build_onehot output, the pair or,
+    with with_woop=True, the 4-tuple with the Woop table."""
+    clusters, table = accel[0], accel[1]
     return tctree.onehot_accel_from_numpy(
         np.asarray(clusters.tri_rows), np.asarray(clusters.bmin),
         np.asarray(clusters.bmax), np.asarray(clusters.valid),
-        np.asarray(jax.lax.bitcast_convert_type(table, jnp.uint16)))
+        np.asarray(jax.lax.bitcast_convert_type(table, jnp.uint16)),
+        *(np.asarray(x) for x in accel[2:4]))
 
 
 def jax_clusters_to_port(clusters) -> Clusters:
