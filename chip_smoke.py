@@ -93,6 +93,14 @@ Phases:
      config-4 path also the forward frame at C4_SPP samples (median of 3
      after a warm-up) with its segment rates, and the card-vs-CPU
      gradient check from the scene's own view, through textures and glass
+  7. the scripts/ probes (raypt_torch/probes/, on no path): each probe
+     kernel against its plain version, bitwise, at its script's default
+     sizes, with CUDA-event times (kernel mean of 10, plain of 2) for
+     every mode and cycle count the script runs; the speculative walk
+     also against topwalk_cm (timed beside it), the gathers beside
+     torch.index_select (their library_ms), and the expansion
+     diagnostics' v1/v2/v3 maxima and rays whose cluster count is not
+     their mask's popcount (which fails the phase)
 
 The last line is {"ok": true, "device": {...}}; the line before it is
 the per-kernel JSON summary: "ms", "plain_ms" and "bound_ms" are summed
@@ -103,7 +111,10 @@ path's four), "launches" are counted in that path's render of phase 4
 "library_ms" is matmul_closest, the same closest hit through
 torch.matmul, and cluster_intersect_mask_woop's is matmul_woop, through
 torch.bmm, on the same wavefronts (several calls each: no one torch
-call computes either).
+call computes either). A probe's "ms", "plain_ms", "bound_ms" and
+"library_ms" are summed over the modes and cycle counts of phase 7, its
+"launches" are 0 (no render path runs it). Times are given to six
+significant digits.
 Run: python3 chip_smoke.py
 """
 import json
@@ -162,6 +173,12 @@ DENSE_OPS = 49
 # compares (4), the miss select (1), the compare with the cluster's best
 # and its two selects (3)
 WOOP_OPS = 57
+# f32 operations per ray-cluster round trip of the expansion diagnostics
+# (csrc/expand_diag.cu): the slot's two 3-term sums of 3 rows (12) and
+# their split (2 subtractions x 6), the ray's rebuilt 6 rows (12), their
+# errors (6 subtractions, 6 abs), the row maxima and the two into v2/v3
+# (6), and the v1 check (sub, abs, max: 3)
+DIAG_OPS = 57
 
 # the config-4 path (scripts/baseline_config4.py)
 C4_BOUNCES = 8
@@ -207,6 +224,29 @@ KERNELS = {   # name -> (paths that launch it, source, TPU kernel it replaces)
                                     "raypt/kernels/cluster_pallas.py:486"),
     "cluster_intersect_grouped": ((), "raypt_torch/csrc/cluster_intersect.cu",
                                   "raypt/kernels/cluster_pallas.py:183"),
+    # the scripts/ probes (raypt_torch/probes/), on no path: phase 7
+    "walk_spec": ((), "raypt_torch/csrc/onehot_walk.cu",
+                  "scripts/tpu_walk_spec_probe.py:146"),
+    "permute_probe": ((), "raypt_torch/csrc/regroup.cu",
+                      "scripts/tpu_permute_probe.py:73"),
+    "permute_probe2": ((), "raypt_torch/csrc/regroup.cu",
+                       "scripts/tpu_permute_probe2.py:71"),
+    "sel_probe": ((), "raypt_torch/csrc/regroup.cu",
+                  "scripts/tpu_sel_probe.py:71"),
+    "cycle_budget": ((), "raypt_torch/csrc/regroup.cu",
+                     "scripts/tpu_cycle_budget.py:72"),
+    "expand_debug_stage12": ((), "raypt_torch/csrc/expand_diag.cu",
+                             "scripts/tpu_expand_debug.py:44"),
+    "expand_debug_stage34": ((), "raypt_torch/csrc/expand_diag.cu",
+                             "scripts/tpu_expand_debug.py:95"),
+    "expand_debug_stage5": ((), "raypt_torch/csrc/expand_diag.cu",
+                            "scripts/tpu_expand_debug.py:151"),
+    "expand_diag2": ((), "raypt_torch/csrc/expand_diag.cu",
+                     "scripts/tpu_expand_diag2.py:172"),
+    "pallas_gather_test": ((), "raypt_torch/csrc/gather.cu",
+                           "scripts/pallas_gather_test.py:17"),
+    "pallas_gather_test2": ((), "raypt_torch/csrc/gather.cu",
+                            "scripts/pallas_gather_test2.py:14"),
 }
 KERNEL_PATHS = ("expand", "dense_union", "cluster", "pallas", "unfused")
 # paths that run another path's finder, and so its kernels
@@ -268,6 +308,11 @@ def live_tests(alive, clusters_per_tile, tile) -> int:
     return int((live * clusters_per_tile.to(live.dtype)).sum())
 
 
+def sig6(x: float) -> float:
+    """x to six significant digits (the probes' bounds are microseconds)."""
+    return float(f"{x:.6g}")
+
+
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
@@ -303,8 +348,8 @@ class Stats:
         self.bound_ms[name] += max(by_bytes, by_ops)
         self.bound_parts[name]["bytes"] += by_bytes
         self.bound_parts[name]["operations"] += by_ops
-        log(f"  {label:9s} {name:22s} kernel {k_ms:9.3f} ms   plain "
-            f"{p_ms:9.3f} ms   bound {max(by_bytes, by_ops):8.4f} ms")
+        log(f"  {label:9s} {name:22s} kernel {k_ms:9.4f} ms   plain "
+            f"{p_ms:9.3f} ms   bound {max(by_bytes, by_ops):.4g} ms")
 
     def time_library(self, name, label, fn, reps=2):
         """CUDA-event time of the torch yardstick of one launch."""
@@ -930,6 +975,23 @@ def _dev_us(e, inclusive):
     raise AttributeError(f"profiler event has none of {names}")
 
 
+def graph_us_per_call(fn, calls=20):
+    """Device microseconds per call of `fn`, replayed from a CUDA graph of
+    `calls` calls, so no host work runs between its kernels (mean of 10
+    replays after a warm-up)."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return 1e3 * cuda_ms(graph.replay, 10) / calls
+
+
 def profile_step(label, step):
     """Trace one call of `step` and log the device time: the top kernels
     by self time and the top backward ops by inclusive time, as shares
@@ -1053,6 +1115,216 @@ def bench_loss(label, scene, cfg, skey, accel):
         f"{segs / statistics.median(fb_s) / 1e6:.3f} Mray-seg/s; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     profile_step(label, fwd_bwd)
+
+
+def probe_counters():
+    """Each probe kernel's wrapper, whose `launches` count it (one wrapper
+    serves both permute probes, one both gather probes)."""
+    from raypt_torch.probes import (expand_debug, expand_diag2, gather,
+                                    regroup, walk_spec_probe)
+    return {"walk_spec": walk_spec_probe.topwalk_spec,
+            "permute_probe": regroup.permute,
+            "permute_probe2": regroup.permute,
+            "sel_probe": regroup.sel,
+            "cycle_budget": regroup.cycle,
+            "expand_debug_stage12": expand_debug.stage12,
+            "expand_debug_stage34": expand_debug.stage34,
+            "expand_debug_stage5": expand_debug.stage5,
+            "expand_diag2": expand_diag2.diag,
+            "pallas_gather_test": gather.gather_rows,
+            "pallas_gather_test2": gather.gather_rows}
+
+
+def _lanes_used(per_cycle, n):
+    """(lanes selected in at least one cycle, selections summed over the
+    cycles) of one program, from each cycle's selected lanes."""
+    import torch
+    seen = torch.zeros(n, dtype=torch.bool)
+    total = 0
+    for lanes in per_cycle:
+        seen[lanes.cpu()] = True
+        total += lanes.numel()
+    return int(seen.sum()), total
+
+
+def probes_phase(stats):
+    """Phase 7: each scripts/ probe's kernel against its plain version,
+    bitwise, at the script's default sizes, timed for every mode and
+    cycle count the script runs (the JSON line sums them). Bounds count
+    what the run's data needs: of the lanes a probe selects at least once
+    (all of x where its output carries x), the input rows its output
+    depends on (cycle_budget: row 0; the split3 payloads: 18 of 24 rows;
+    the diagnostics: rays with a wanted cluster, the unpadded mask),
+    every output, and the f32 operations on the selected lanes and used
+    slots."""
+    import torch
+    from raypt_torch.kernels import onehot_walk as wk
+    from raypt_torch.probes import (cycle_budget, expand_debug, expand_diag2,
+                                    gather, pallas_gather_test,
+                                    pallas_gather_test2, permute_probe,
+                                    permute_probe2, regroup, sel_probe,
+                                    walk_spec_probe)
+    t_start = time.perf_counter()
+    log("phase 7: the scripts/ probes, kernel vs plain version, bitwise, at "
+        "the scripts' default sizes")
+
+    # P1: the speculative walk on the bench wavefront (WS_SIZE, WS_LEAF)
+    args = walk_spec_probe.wavefront("cuda", walk_spec_probe.SIZE,
+                                     walk_spec_probe.LEAF)
+    spec = walk_spec_probe.topwalk_spec(*args)
+    stats.check("walk_spec", "primary-ray mask", spec,
+                wk.topwalk_cm_plain(*args))
+    stats.check("walk_spec", "mask vs topwalk_cm", spec, wk.topwalk_cm(*args))
+    visits = walk_visits(*args)
+    stats.time("walk_spec", "spec", walk_spec_probe.topwalk_spec,
+               wk.topwalk_cm_plain, args, nbytes(*args[:5], spec),
+               WALK_OPS * visits)
+    base_ms = cuda_ms(lambda: wk.topwalk_cm(*args), 10)
+    log(f"  spec      topwalk_cm on the same rays {base_ms:9.3f} ms "
+        f"(speculative {stats.ms['walk_spec']:.4f} ms); {args[1].shape[0]} "
+        f"rays, Nt {args[0].shape[0]} rows, {args[5]} words, {visits} node "
+        f"visits")
+
+    # P2, P3: permute, summed and chained
+    n, progs = permute_probe.N, permute_probe.PROGS
+    x = permute_probe.inputs("cuda")
+    for name, chain, modes, cycles in (
+            ("permute_probe", False, (False,), permute_probe.ITERS),
+            ("permute_probe2", True, (True, False), permute_probe2.ITERS)):
+        for fixed in modes:
+            for iters in cycles:
+                a = (x, iters, n, chain, fixed)
+                what = f"{iters} cycles{' fixed' if fixed else ''}"
+                stats.check(name, what, regroup.permute(*a),
+                            regroup.permute_plain(*a))
+                used, total = _lanes_used(
+                    [regroup.permute_lanes(n, 0 if fixed else c, "cpu")
+                     for c in range(iters)], n)
+                x_in = nbytes(x) if chain else 4 * 8 * used * progs
+                stats.time(name, what[:9], regroup.permute,
+                           regroup.permute_plain, a, x_in + nbytes(x),
+                           progs * 8 * total * (4 if chain else 3))
+
+    # P4: sel (the four variants are one function)
+    n = sel_probe.N
+    xs = sel_probe.inputs("cuda")
+    for iters in sel_probe.ITERS:
+        a = (xs, iters, n)
+        out = regroup.sel(*a)
+        stats.check("sel_probe", f"{iters} cycles", out, regroup.sel_plain(*a))
+        per, slots = [], 0
+        for c in range(iters):
+            rank_m = regroup.sel_slots(n, c, "cpu")
+            per.append(torch.nonzero(rank_m >= 0).flatten())
+            slots += int(torch.unique(rank_m[rank_m >= 0]).numel())
+        used, total = _lanes_used(per, n)
+        # y reads rows 0-17; per lane 18 slot adds and 6 output adds, per
+        # slot the two adds of each of y's 6 rows
+        stats.time("sel_probe", f"{iters} cyc", regroup.sel, regroup.sel_plain,
+                   a, 2 * 18 * used * sel_probe.PROGS + nbytes(out),
+                   sel_probe.PROGS * (24 * total + 12 * slots))
+        log(f"  sel_probe {iters} cycles: {total} lane-slots in all (the "
+            f"shifted-sum rank gives no interested lane a slot), output "
+            f"{'all zero' if not bool(out.any()) else 'nonzero'}")
+
+    # P5: cycle_budget's three modes
+    n, progs = cycle_budget.N, cycle_budget.PROGS
+    xc = cycle_budget.inputs("cuda")
+    for mode in regroup.CYCLE_MODES:
+        for iters in (16, cycle_budget.ITERS):
+            a = (xc, iters, n, mode)
+            out = regroup.cycle(*a)
+            stats.check("cycle_budget", f"{mode} {iters} cycles", out,
+                        regroup.cycle_plain(*a))
+            members = [regroup.cycle_members(n, c, mode, "cpu")
+                       for c in range(iters)]
+            used, total = _lanes_used([m[0] for m in members], n)
+            slots = sum(int(torch.unique(m[1]).numel()) for m in members)
+            # the output is row 0 of z, which only row 0 of x reaches: per
+            # lane one slot add and one output add, per slot y's mul, add
+            x_in = 0 if mode == "no_mm" else 4 * used * progs
+            ops = total if mode == "no_mm" else 2 * total + 2 * slots
+            stats.time("cycle_budget", f"{mode[:5]} {iters}", regroup.cycle,
+                       regroup.cycle_plain, a, x_in + nbytes(out),
+                       progs * ops)
+
+    # P6-P8: the expansion's stages
+    wkt, pages, pay, _, pages2 = expand_debug.inputs("cuda")
+    n = pages.shape[2]
+    m, rank = expand_debug.stage12(wkt, pages)
+    pm, prank = expand_debug.stage12_plain(wkt, pages)
+    stats.check("expand_debug_stage12", "m", m, pm)
+    stats.check("expand_debug_stage12", "rank", rank, prank)
+    stats.time("expand_debug_stage12", "stage12", expand_debug.stage12,
+               expand_debug.stage12_plain, (wkt, pages),
+               nbytes(wkt) + 4 * n + nbytes(m, rank), n)
+    go, gsel = expand_debug.stage34(pay, m)
+    pgo, pgsel = expand_debug.stage34_plain(pay, m)
+    stats.check("expand_debug_stage34", "go", go, pgo)
+    stats.check("expand_debug_stage34", "gsel", gsel, pgsel)
+    nsel = int((gsel[0] != -1).sum())
+    stats.time("expand_debug_stage34", "stage34", expand_debug.stage34,
+               expand_debug.stage34_plain, (pay, m),
+               2 * 18 * nsel + nbytes(m, go, gsel), 36 * nsel)
+    m5 = expand_debug.stage5(wkt, pages2)
+    stats.check("expand_debug_stage5", "m", m5,
+                expand_debug.stage5_plain(wkt, pages2))
+    stats.time("expand_debug_stage5", "stage5", expand_debug.stage5,
+               expand_debug.stage5_plain, (wkt, pages2),
+               nbytes(wkt) + 4 * pages2.shape[2] + nbytes(m5), 0)
+    log(f"  stages: {nsel} of {n} lanes selected, the payload back bitwise")
+
+    # P9: the expansion's control flow on the 256^2 leaf-64 wavefront
+    ro, rd, mask_cm, mask = expand_diag2.wavefront(
+        "cuda", expand_diag2.SIZE, expand_diag2.LEAF)
+    pay9, otrue = expand_diag2.payload(ro, rd)
+    a = (mask_cm, pay9, otrue, expand_diag2.N)
+    out = expand_diag2.diag(*a)
+    for what, k_, p_ in zip(("v1", "v2", "nc", "v3"), out,
+                            expand_diag2.diag_plain(*a)):
+        stats.check("expand_diag2", what, k_, p_)
+    pop = expand_diag2.popcount(mask)
+    nc_bad = int((out[2][0].long() != pop).sum())
+    pairs = int(out[2].sum())
+    wanting = int((out[2] > 0).sum())   # rays with a wanted cluster
+    # the unpadded mask, 18 payload rows (bf16) and 6 truth rows (f32) of
+    # the rays that want a cluster, every output
+    stats.time("expand_diag2", "diag", expand_diag2.diag,
+               expand_diag2.diag_plain, a,
+               nbytes(mask, *out) + (2 * 18 + 4 * 6) * wanting,
+               DIAG_OPS * pairs)
+    log(f"  diag: {ro.shape[0]} rays, {ro.shape[0] // expand_diag2.N} "
+        f"programs, {mask_cm.shape[0]} words, {pairs} ray-cluster round "
+        f"trips; v1 max {float(out[0].max())}, v2 max {float(out[1].max())}, "
+        f"v3 max {float(out[3].max())}; nc != popcount on {nc_bad} rays")
+    if nc_bad:
+        raise AssertionError(f"expand_diag2: {nc_bad} rays not reached by "
+                             f"every wanted cluster exactly once")
+
+    # P10, P11: the gathers, beside torch.index_select
+    table, idx = pallas_gather_test.inputs("cuda")
+    moved = (nbytes(idx) + table.shape[1] * 4 * int(torch.unique(idx).numel())
+             + idx.shape[0] * table.shape[1] * 4)
+    for name, bodies in (("pallas_gather_test", (("index", False),)),
+                         ("pallas_gather_test2", pallas_gather_test2.VARIANTS)):
+        for body, clip in bodies:
+            a = (table, idx, clip)
+            out = gather.gather_rows(*a)
+            stats.check(name, body, out, gather.gather_rows_plain(*a))
+            stats.check(name, f"{body} vs index_select", out,
+                        torch.index_select(table, 0, idx))
+            stats.time(name, body[:9], gather.gather_rows,
+                       gather.gather_rows_plain, a, moved, 0)
+            stats.time_library(name, body[:9],
+                               lambda: torch.index_select(table, 0, idx), 10)
+    k_us = graph_us_per_call(lambda: gather.gather_rows(table, idx))
+    l_us = graph_us_per_call(lambda: torch.index_select(table, 0, idx))
+    log(f"  gather of {idx.numel()} rows replayed from a CUDA graph (no host "
+        f"work between calls): kernel {k_us:.3f} us a call "
+        f"({idx.numel() / k_us:.1f} M rows/s), index_select {l_us:.3f} us; "
+        f"the CUDA-event times above include each call's host work")
+    log(f"phase 7: all probe kernels bitwise equal to their plain versions "
+        f"({time.perf_counter() - t_start:.1f} s)")
 
 
 def main():
@@ -1367,7 +1639,8 @@ def main():
                 "closest_dense": dp.closest_dense,
                 "topwalk_cm": wk.topwalk_cm,
                 "cluster_intersect_mask_woop": dn.cluster_intersect_mask_woop,
-                "cluster_intersect_grouped": dn.cluster_intersect_grouped}
+                "cluster_intersect_grouped": dn.cluster_intersect_grouped,
+                **probe_counters()}
     launches = {k: 0 for k in KERNELS}
     images = {}
     for path, cfg in cfgs.items():
@@ -1591,16 +1864,19 @@ def main():
                    dev, "outside view" if build is outside_scene else
                    "config4's view")
 
+    # phase 7: the scripts/ probes
+    probes_phase(stats)
+
     log(f"topwalk_cm and its transpose (pallas_topwalk's counterpart): "
         f"{stats.topwalk_ms:.4f} ms per frame")
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[k], "max_abs_err": stats.err[k],
-         "ms": round(stats.ms[k], 4), "plain_ms": round(stats.plain_ms[k], 4),
-         "bound_ms": round(stats.bound_ms[k], 4),
+         "ms": sig6(stats.ms[k]), "plain_ms": sig6(stats.plain_ms[k]),
+         "bound_ms": sig6(stats.bound_ms[k]),
          "bound_by": stats.bound_by(k),
          "library_ms": (None if stats.library_ms[k] is None
-                        else round(stats.library_ms[k], 4))}
+                        else sig6(stats.library_ms[k]))}
         for k, (_, src, rep) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,13 +10,20 @@
 // skip link; a hit leaf sets its cluster's bit (ids in the first cwp
 // words only). The table rows are the (Nt, 16) bf16 encoding of
 // raypt/accel/ctree.py; links decode as round(hi) * 128 + round(lo) - 1.
-// At most ceil((Nt + 1) / 4) * 4 steps. Three modes, three entry points:
+// At most ceil((Nt + 1) / 4) * 4 steps. Four modes, four entry points:
 //   * rk_topwalk: the word-major (cwp, R) int32 mask and union_pp
 //     (R / 2048, cwp), the OR of the masks of each 2048-ray walk tile;
 //   * rk_topwalk_union: only the (R / 256, cwp) OR over each 256-ray
 //     union tile; the per-ray mask never reaches device memory;
 //   * rk_topwalk_mask: only the (cwp, R) mask, with no union; cwp is
-//     any word count (the non-fused branch passes ceil(C / 32) unpadded).
+//     any word count (the non-fused branch passes ceil(C / 32) unpadded);
+//   * rk_topwalk_mask_spec: the mask of rk_topwalk_mask by a speculative
+//     walk (scripts/tpu_walk_spec_probe.py: topwalk_spec :146, body
+//     _kernel_spec :45): the node's row is carried in registers, and
+//     both successor rows (left child and skip link) are loaded from
+//     shared memory before the slab test decides which one to keep; a
+//     link outside the table loads a zero row, which the walk never
+//     takes (the step that would take it ends the walk or never runs).
 //
 // What bounds it on this card: the dependent chain of node fetches and
 // slab tests per ray (tens of steps), and warp divergence, since the
@@ -55,8 +62,21 @@ __device__ __forceinline__ int decode(float hi, float lo) {
 
 // What a launch writes: the mask and the walk-tile union_pp; only the
 // block's union, to unions[blockIdx.x * cwp + w] (mask is not touched);
-// or only the mask (unions and the shared union words are not touched).
-enum Mode { kMaskAndUnionPP, kTileUnion, kMaskOnly };
+// or only the mask (unions and the shared union words are not touched),
+// by the plain walk or by the speculative one.
+enum Mode { kMaskAndUnionPP, kTileUnion, kMaskOnly, kMaskSpec };
+
+// Row `node` of the shared table as two 16-byte words; a node outside
+// the table reads as a zero row (the speculative loads only).
+__device__ __forceinline__ void load_row(const uint4* s_tab, int nt, int node,
+                                         uint4* a, uint4* b) {
+    if ((unsigned)node < (unsigned)nt) {
+        *a = s_tab[node * 2];
+        *b = s_tab[node * 2 + 1];
+    } else {
+        *a = *b = make_uint4(0u, 0u, 0u, 0u);
+    }
+}
 
 template <Mode kMode>
 __global__ void __launch_bounds__(kThreads)
@@ -69,7 +89,8 @@ topwalk_kernel(const uint16_t* __restrict__ table, int nt,
     int* s_union = reinterpret_cast<int*>(s_mem + nt * 2);  // cwp words
     const uint4* tab4 = reinterpret_cast<const uint4*>(table);
     for (int k = threadIdx.x; k < nt * 2; k += kThreads) s_mem[k] = tab4[k];
-    if constexpr (kMode != kMaskOnly)
+    constexpr bool kMaskOut = kMode == kMaskOnly || kMode == kMaskSpec;
+    if constexpr (!kMaskOut)
         for (int w = threadIdx.x; w < cwp; w += kThreads) s_union[w] = 0;
     __syncthreads();
 
@@ -87,15 +108,30 @@ topwalk_kernel(const uint16_t* __restrict__ table, int nt,
         }
         const float tb = t0[i];
         int node = 0;
+        uint4 ra, rb;   // the speculative walk's carried row
+        if constexpr (kMode == kMaskSpec) load_row(s_mem, nt, 0, &ra, &rb);
         for (int step = 0; step < max_steps && node >= 0; ++step) {
             // one row = 16 bf16 = two 16-byte shared loads; element 2k is
             // the low half of 32-bit word k
-            const uint4 a = s_mem[node * 2], b = s_mem[node * 2 + 1];
+            uint4 a, b;
+            if constexpr (kMode == kMaskSpec) {
+                a = ra;
+                b = rb;
+            } else {
+                a = s_mem[node * 2];
+                b = s_mem[node * 2 + 1];
+            }
             const unsigned wd[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
             float f[16];
             for (int k = 0; k < 8; ++k) {
                 f[2 * k] = __uint_as_float(wd[k] << 16);
                 f[2 * k + 1] = __uint_as_float(wd[k] & 0xffff0000u);
+            }
+            const int left = decode(f[6], f[7]), skip = decode(f[8], f[9]);
+            uint4 la, lb, sa, sb;   // speculative: both successors' rows,
+            if constexpr (kMode == kMaskSpec) {   // loaded before the test
+                load_row(s_mem, nt, left, &la, &lb);
+                load_row(s_mem, nt, skip, &sa, &sb);
             }
             const float tn1x = (f[0] - ox) * inv[0], tn2x = (f[3] - ox) * inv[0];
             const float tn1y = (f[1] - oy) * inv[1], tn2y = (f[4] - oy) * inv[1];
@@ -116,7 +152,12 @@ topwalk_kernel(const uint16_t* __restrict__ table, int nt,
                 else
                     mask[(long long)(cid >> 5) * r + i] |= bit;
             }
-            node = (hit && !is_leaf) ? decode(f[6], f[7]) : decode(f[8], f[9]);
+            const bool take_left = hit && !is_leaf;
+            if constexpr (kMode == kMaskSpec) {
+                ra = take_left ? la : sa;
+                rb = take_left ? lb : sb;
+            }
+            node = take_left ? left : skip;
         }
     }
 
@@ -126,7 +167,7 @@ topwalk_kernel(const uint16_t* __restrict__ table, int nt,
             unions[(long long)blockIdx.x * cwp + w] = s_union[w];
         return;
     }
-    if constexpr (kMode == kMaskOnly) return;
+    if constexpr (kMaskOut) return;
     const int lane = threadIdx.x & 31;
     for (int w = 0; w < cwp; ++w) {
         const unsigned v = __reduce_or_sync(kFull, (unsigned)mask[w * r + i]);
@@ -142,7 +183,8 @@ topwalk_kernel(const uint16_t* __restrict__ table, int nt,
 // cwp union words, opted in above 48 KB. Returns a CUDA error code.
 template <Mode kMode>
 int prepare_smem(int nt, int cwp, size_t* smem) {
-    *smem = (size_t)nt * 32 + (kMode == kMaskOnly ? 0 : (size_t)cwp * 4);
+    *smem = (size_t)nt * 32 +
+            (kMode == kMaskOnly || kMode == kMaskSpec ? 0 : (size_t)cwp * 4);
     if (*smem <= 48 * 1024) return 0;
     return (int)cudaFuncSetAttribute(topwalk_kernel<kMode>,
                                      cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -193,6 +235,22 @@ extern "C" int rk_topwalk_mask(const uint16_t* table, int nt, const float* ro,
     size_t smem;
     if (const int e = prepare_smem<kMaskOnly>(nt, cw, &smem)) return e;
     topwalk_kernel<kMaskOnly><<<(unsigned)(r / kThreads), kThreads, smem,
+                                (cudaStream_t)stream>>>(
+        table, nt, ro, rd, t0, active, mask, nullptr, r, cw, max_steps);
+    return (int)cudaGetLastError();
+}
+
+// The mask of rk_topwalk_mask by the speculative walk (kMaskSpec).
+extern "C" int rk_topwalk_mask_spec(const uint16_t* table, int nt, const float* ro,
+                                    const float* rd, const float* t0,
+                                    const uint8_t* active, int* mask, long long r,
+                                    int cw, int max_steps, void* stream) {
+    if (r % kThreads || nt <= 0 || cw <= 0)
+        return (int)cudaErrorInvalidValue;
+    if (r == 0) return 0;
+    size_t smem;
+    if (const int e = prepare_smem<kMaskSpec>(nt, cw, &smem)) return e;
+    topwalk_kernel<kMaskSpec><<<(unsigned)(r / kThreads), kThreads, smem,
                                 (cudaStream_t)stream>>>(
         table, nt, ro, rd, t0, active, mask, nullptr, r, cw, max_steps);
     return (int)cudaGetLastError();

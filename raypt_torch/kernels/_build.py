@@ -22,8 +22,9 @@ CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xcompiler", "-fPIC"]
 KERNEL_SOURCES = ("compact.cu", "onehot_walk.cu", "cluster_expand.cu",
-                  "cluster_intersect.cu", "dense_closest.cu")
-KERNEL_HEADERS = ("cluster_test.cuh",)
+                  "cluster_intersect.cu", "dense_closest.cu", "gather.cu",
+                  "expand_diag.cu", "regroup.cu")
+KERNEL_HEADERS = ("cluster_test.cuh", "block_scan.cuh")
 SMEM_LIMIT = 232448   # shared memory a block may use on Hopper (227 KB)
 
 
@@ -57,6 +58,7 @@ def kernel_lib() -> ctypes.CDLL:
         "rk_topwalk_union": [p, i32, p, p, p, p, p, i64, i32, i32, p],
         # table, nt, ro, rd, t0, active -> mask; r, cw, max_steps, stream
         "rk_topwalk_mask": [p, i32, p, p, p, p, p, i64, i32, i32, p],
+        "rk_topwalk_mask_spec": [p, i32, p, p, p, p, p, i64, i32, i32, p],
         # mask, union_pp, rows, c_total, leaf, ro, rd, seed -> t, face;
         # r, cwp, stream
         "rk_cluster_expand": [p, p, p, i32, i32, p, p, p, p, p, i64, i32, p],
@@ -74,6 +76,23 @@ def kernel_lib() -> ctypes.CDLL:
                                  i64, p],
         # wu, wv, ww, cu, cv, cw, n_tris, ro, rd, t0 -> t, face; r, stream
         "rk_closest_dense": [p, p, p, p, p, p, i64, p, p, p, p, p, i64, p],
+        # the scripts/ probes (raypt_torch/probes/)
+        # table, n, w, idx -> out; rows, clip, stream
+        "rk_gather_rows": [p, i64, i32, p, p, i64, i32, p],
+        # wk, mask, pages, n -> m, rank; stream
+        "rk_expand_stage12": [p, p, i32, i32, p, p, p],
+        # pay, m, n -> go, gsel; stream
+        "rk_expand_stage34": [p, p, i32, p, p, p],
+        # wk, mask, pages, n_total -> m; stream
+        "rk_expand_stage5": [p, p, i32, i64, p, p],
+        # mask, cwp, pay, otrue, r, n -> v1, v2, nc, v3; stream
+        "rk_expand_diag": [p, i32, p, p, i64, i32, p, p, p, p, p],
+        # x -> out; len, n, iters, chain, fixed_s, stream
+        "rk_permute": [p, p, i64, i32, i32, i32, i32, p],
+        # x -> out; len, n, iters, stream
+        "rk_sel": [p, p, i64, i32, i32, p],
+        # x -> out; len, n, iters, mode, stream
+        "rk_cycle": [p, p, i64, i32, i32, i32, p],
     }
     for fn, argtypes in sigs.items():
         getattr(lib, fn).argtypes = argtypes

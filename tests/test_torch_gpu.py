@@ -327,3 +327,72 @@ def test_render_bitwise_vs_plain_finder(gpu_scene, path):
                                     return_alive=True)
     assert bool(torch.isfinite(img_k).all())
     assert _bits_equal(img_k, img_p) and torch.equal(tr_k, tr_p)
+
+
+def _probe_case(probe):
+    """(kernel outputs, plain outputs) of one scripts/ probe kernel at a
+    size between the CPU tests' and the script's defaults."""
+    from raypt_torch.probes import (expand_debug, expand_diag2, gather,
+                                    regroup, walk_spec_probe)
+    from raypt_torch.probes.pallas_gather_test import inputs as gather_in
+    name, _, arg = probe.partition(":")
+    g = torch.Generator().manual_seed(5)
+
+    def rows(n_rows, n, progs):
+        return torch.randn((n_rows, n * progs), generator=g).to("cuda")
+
+    if name == "gather":
+        table, idx = gather_in("cuda")
+        if arg == "oob":
+            idx = idx.clone()
+            idx[::5] = torch.tensor([-3, 32768, 40000, -1],
+                                    device="cuda").repeat(52)[:idx[::5].numel()]
+        clip = arg != "fill"
+        return (gather.gather_rows(table, idx, clip),
+                gather.gather_rows_plain(table, idx, clip))
+    if name == "stages":
+        wk, pages, pay, _, pages2 = expand_debug.inputs("cuda")
+        m = expand_debug.stage12(wk, pages)[0]
+        return ((*expand_debug.stage12(wk, pages),
+                 *expand_debug.stage34(pay, m), expand_debug.stage5(wk, pages2)),
+                (*expand_debug.stage12_plain(wk, pages),
+                 *expand_debug.stage34_plain(pay, m),
+                 expand_debug.stage5_plain(wk, pages2)))
+    if name == "diag":
+        ro, rd, mask_cm, _ = expand_diag2.wavefront("cuda", 64)
+        pay, otrue = expand_diag2.payload(ro, rd)
+        return (expand_diag2.diag(mask_cm, pay, otrue, 2048),
+                expand_diag2.diag_plain(mask_cm, pay, otrue, 2048))
+    if name == "permute":
+        x = rows(8, 8192, 8)
+        chain, fixed = arg in ("chain", "chain_fixed"), arg.endswith("fixed")
+        return (regroup.permute(x, 8, 8192, chain, fixed),
+                regroup.permute_plain(x, 8, 8192, chain, fixed))
+    if name == "sel":
+        x = rows(24, 2048, 8).to(torch.bfloat16)
+        return regroup.sel(x, 16, 2048), regroup.sel_plain(x, 16, 2048)
+    if name == "cycle":
+        x = rows(24, 8192, 8)
+        return (regroup.cycle(x, 16, 8192, arg),
+                regroup.cycle_plain(x, 16, 8192, arg))
+    args = walk_spec_probe.wavefront("cuda", 256, int(arg))
+    spec = walk_spec_probe.topwalk_spec(*args)
+    return ((spec, spec), (twk.topwalk_cm(*args), twk.topwalk_cm_plain(*args)))
+
+
+@pytest.mark.parametrize("probe", [
+    "gather:fill", "gather:clip", "gather:oob", "stages", "diag", "permute:sum",
+    "permute:sum_fixed", "permute:chain", "permute:chain_fixed", "sel",
+    "cycle:full", "cycle:no_mm", "cycle:fixed_s", "walk_spec:512",
+    "walk_spec:16"])
+def test_probe_kernels_bitwise(probe):
+    """Each kernel of raypt_torch/probes/ (the scripts/ probes) against its
+    plain version; the speculative walk also against topwalk_cm."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    got, want = _probe_case(probe)
+    if isinstance(got, torch.Tensor):
+        got, want = (got,), (want,)
+    for a, b in zip(got, want):
+        assert _bits_equal(a, b)
+    assert any(bool(a.any()) for a in got) or probe == "sel"
