@@ -60,7 +60,16 @@ Phases:
      rays. cluster_intersect_grouped for G = 2, 3, 4 at cap GROUP_CAP on
      the cluster path's four wavefronts (G = 4 timed), and on worklists
      whose counts were cut below the list (valid ids past counts, tested
-     within the last group: only the plain version must match)
+     within the last group: only the plain version must match).
+     cluster_expand and cluster_intersect_mask on merge_case's synthetic
+     clusters at leaves MERGE_LEAVES (ties across and within clusters, a
+     cluster one ray of a block wants, dead, mixed and one-live tiles,
+     stray bits, triangles whose det reaches 2^126), and the kernels'
+     1 / det (the correctly rounded reciprocal) against the
+     division over all 2^32 bit patterns (inv_det_sweep). The SM clock is
+     sampled (nvidia-smi) while each path's kernels are timed; phase 2
+     reads the instructions a triangle test takes in each intersection
+     kernel's inner loop from cuobjdump -sass of the built library
   4. each path's render through render_sample: every kernel of the path
      launches once per bounce and no other kernel launches, the image is
      finite and bitwise equal to the render through the plain versions
@@ -119,6 +128,8 @@ Run: python3 chip_smoke.py
 """
 import json
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -195,6 +206,12 @@ WOOP_T_RTOL, WOOP_T_ATOL = 1e-3, 1e-4
 GROUPS = (2, 3, 4)
 GROUP_CAP = 61
 COPIES = 16              # triangles copied for the Woop kernel's tie checks
+# the merge-rule cases (merge_case): clusters, rays, planted ties of each
+# kind, and the leaves the card checks them at
+MERGE_C = 40
+MERGE_RAYS = 4096
+MERGE_PLANTS = 8
+MERGE_LEAVES = (16, 64, 128, 384)
 
 KERNELS = {   # name -> (paths that launch it, source, TPU kernel it replaces)
     "alive_compact": (("expand",), "raypt_torch/csrc/compact.cu",
@@ -568,6 +585,157 @@ def copy_most_hit(mats, chunk, faces, n):
     for x in dup:
         x[:, dst] = x[:, src]
     return dup, src
+
+
+def merge_case(leaf, device, c_total=MERGE_C, r=MERGE_RAYS, seed=0,
+               stray=False, giant=False):
+    """Seeded synthetic inputs of the cluster kernels' merge rules: C
+    clusters of `leaf` random triangles (face ids 1000 + c * leaf + j) and
+    R rays, each aimed at one triangle and wanting its cluster and up to
+    four others. Planted:
+      * across: a triangle copied into a higher cluster with a lower face
+        id; rays at it want both clusters, and the lower cluster must win
+        (with its face id, the higher one);
+      * within: a triangle copied into another slot of its cluster with a
+        lower face id, which must win;
+      * in rays 0-1023 one cluster is wanted by ray 7 alone (a cluster
+        one ray of a cluster_expand block wants);
+      * tile 1 (rays 256-511) all dead (seed -BIG) and tile 2 mixed (every
+        other ray dead, seeds -BIG, 0, -0 and nan), both with nonzero
+        masks; in tile 3 one ray is live;
+      * with stray: bits >= C set in the last word of every mask and union,
+        every padding mask word and an extra union word all ones (the JAX
+        kernels guard only the last word, so only the card takes these);
+      * with giant: in every fourth cluster a triangle with edges of 5e18
+        or 3e19, far from the rest, whose det reaches 2^126 and inf (the
+        kernels' exact reciprocal path).
+    Returns a dict of tensors on `device`: tri_rows (C, L, 12), mask_cm
+    (cwp, R), union_pp (R / 2048, cwp), union (R / 256, cw, or cw + 1 with
+    stray), ro, rd, seed, and the planted live rays as across / within
+    (n, 3) int64: ray id, the face that must win, the face it ties with."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    cw = -(-c_total // 32)
+    cwp = -(-cw // 8) * 8
+    p0 = rng.uniform(-8.0, 8.0, (c_total, leaf, 3))
+    e1 = 0.3 * rng.normal(size=(c_total, leaf, 3))
+    e2 = 0.3 * rng.normal(size=(c_total, leaf, 3))
+    fid = 1000 + np.arange(c_total * leaf).reshape(c_total, leaf)
+    used, across, within = set(), [], []
+
+    def free(*slots):
+        if any(s in used for s in slots) or len(set(slots)) < len(slots):
+            return False
+        used.update(slots)
+        return True
+
+    def copy(src, dst, face):
+        for x in (p0, e1, e2):
+            x[dst] = x[src]
+        fid[dst] = face
+
+    while len(across) < MERGE_PLANTS:
+        a = int(rng.integers(0, c_total - 1))
+        b = int(rng.integers(a + 1, c_total))
+        src, dst = (a, int(rng.integers(leaf))), (b, int(rng.integers(leaf)))
+        if free(src, dst):
+            copy(src, dst, 10 + len(across))
+            across.append((src, dst))
+    while len(within) < MERGE_PLANTS:
+        c = int(rng.integers(c_total))
+        src, dst = (c, int(rng.integers(leaf))), (c, int(rng.integers(leaf)))
+        if free(src, dst):
+            copy(src, dst, 500 + len(within))
+            within.append((src, dst))
+
+    if giant:
+        for k, c in enumerate(range(0, c_total, 4)):
+            j = next(j for j in range(leaf) if (c, j) not in used)
+            used.add((c, j))
+            p0[c, j] = 1e20 + rng.uniform(-1e18, 1e18, 3)
+            e1[c, j], e2[c, j] = (5e18, 3e19)[k % 2] * rng.normal(size=(2, 3))
+    target = np.stack([rng.integers(0, c_total, r), rng.integers(0, leaf, r)],
+                      axis=1)
+    want = rng.random((r, c_total)) < 4.0 / c_total
+    ids = np.arange(r)
+    plant = {3: across, 11: within}
+    planted = {3: [], 11: []}
+    for i in ids:
+        pairs = plant.get(i % 16)
+        if pairs:
+            src, dst = pairs[i // 16 % MERGE_PLANTS]
+            target[i] = src
+            want[i, dst[0]] = True
+            planted[i % 16].append((i, src, dst))
+    single = min(set(range(c_total)) - {x[0] for pair in across + within
+                                        for x in pair})
+    target[7] = (single, 0)
+    want[ids, target[:, 0]] = True
+    want[:1024, single] = False
+    want[7, single] = True
+    point = (p0[target[:, 0], target[:, 1]] + 0.25 * e1[target[:, 0], target[:, 1]]
+             + 0.25 * e2[target[:, 0], target[:, 1]])
+    n = rng.normal(size=(r, 3))
+    n /= np.linalg.norm(n, axis=1, keepdims=True)
+    ro = (point + n * rng.uniform(0.2, 1.0, (r, 1))).astype(np.float32)
+    rd = (-n).astype(np.float32)
+    sd = np.where(rng.random(r) < 0.7, 1e30,
+                  rng.uniform(0.1, 5.0, r)).astype(np.float32)
+    sd[ids % 16 == 3] = sd[ids % 16 == 11] = np.float32(1e30)
+    sd[256:512] = -1e30
+    sd[512:768:2] = np.resize(np.array([-1e30, 0.0, -0.0, np.nan], np.float32),
+                              128)
+    sd[768:1024] = -1e30
+    sd[777] = np.float32(1e30)
+
+    bits = np.zeros((cwp, r), np.uint64)
+    for c in range(c_total):
+        bits[c >> 5] |= want[:, c].astype(np.uint64) << np.uint64(c & 31)
+    if stray:
+        if c_total % 32:
+            bits[cw - 1] |= np.uint64((0xFFFFFFFF << (c_total % 32)) & 0xFFFFFFFF)
+        bits[cw:] = 0xFFFFFFFF
+    mask_cm = bits.astype(np.uint32).view(np.int32)
+    union_pp = np.bitwise_or.reduce(mask_cm.reshape(cwp, r // 2048, 2048),
+                                    axis=2).T
+    union = np.bitwise_or.reduce(mask_cm[:cw].reshape(cw, r // 256, 256),
+                                 axis=2).T
+    if stray:
+        union = np.concatenate([union, np.full((r // 256, 1), -1, np.int32)],
+                               axis=1)
+    rows = np.zeros((c_total, leaf, 12), np.float32)
+    rows[..., 0:3], rows[..., 3:6], rows[..., 6:9] = p0, e1, e2
+    rows[..., 9] = fid.astype(np.int32).view(np.float32)
+
+    def rays(kind):   # across: the source's face wins; within: the copy's
+        out = [(i, fid[src], fid[dst]) if kind == 3 else (i, fid[dst], fid[src])
+               for i, src, dst in planted[kind] if sd[i] > 0]
+        return torch.tensor(out, dtype=torch.int64, device=device)
+
+    case = {"tri_rows": rows, "mask_cm": mask_cm, "union_pp": union_pp,
+            "union": union, "ro": ro, "rd": rd, "seed": sd}
+    case = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+            for k, v in case.items()}
+    case["across"], case["within"] = rays(3), rays(11)
+    return case
+
+
+def check_planted(case, face, label):
+    """The planted ties of `merge_case` resolved by the merge rules: a
+    planted ray that hits one of its two tied faces has the one that must
+    win, and most planted rays hit one (the rest hit another triangle
+    first)."""
+    for kind in ("across", "within"):
+        ray, win, lose = case[kind].unbind(1)
+        got = face[ray].long()
+        tied = (got == win) | (got == lose)
+        if bool((got[tied] != win[tied]).any()) or \
+                2 * int(tied.sum()) < ray.numel():
+            raise AssertionError(
+                f"{label}: {kind} ties resolved wrongly ({int(tied.sum())} of "
+                f"{ray.numel()} planted rays hit a tied face, "
+                f"{int((got[tied] != win[tied]).sum())} with the wrong one)")
 
 
 def hit64(scene, ro, rd, face):
@@ -992,6 +1160,85 @@ def graph_us_per_call(fn, calls=20):
     return 1e3 * cuda_ms(graph.replay, 10) / calls
 
 
+# kernels whose inner loop runs one triangle test per reciprocal
+# (MUFU.RCP: __frcp_rn or an IEEE division), by function name
+SASS_KERNELS = ("cluster_expand_kernel", "cluster_intersect_mask_kernel",
+                "cluster_intersect_kernel", "cluster_intersect_mask_woop_kernel",
+                "closest_dense_kernel")
+
+
+def sass_per_test(lib_path):
+    """Instructions per triangle test in the inner loop of each of
+    SASS_KERNELS, read from `cuobjdump -sass` of the built library: the
+    shortest loop (a backward branch to an earlier instruction) that
+    holds a reciprocal, its instruction count over its reciprocals (two
+    a pass where a thread tests two rays, more where the compiler
+    unrolled the loop). Returns name -> (instructions, reciprocals)."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                          text=True, check=True).stdout
+    funcs, body = {}, None
+    for line in sass.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = next((k for k in SASS_KERNELS
+                         if re.search(rf"\d{k}(E|ILb0E)", m.group(1))), None)
+            body = funcs.setdefault(name, []) if name else None
+            continue
+        m = re.match(r"\s*(\.L_x_\d+):", line)
+        if body is not None and m:
+            body.append((m.group(1), None))
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+([^;]+);", line)
+        if body is not None and m:
+            body.append((int(m.group(1), 16), m.group(2).strip()))
+    out = {}
+    for name, body in funcs.items():
+        ins, at = [], {}   # at: label or address -> instruction index
+        for key, text in body:
+            at[key] = len(ins)
+            if text is not None:
+                ins.append(text)
+        best = None
+        for end, text in enumerate(ins):
+            m = re.search(r"\bBRA\b.*?(\.L_x_\d+|0x[0-9a-f]+)", text)
+            if not m:
+                continue
+            tgt = m.group(1)
+            start = at.get(int(tgt, 16) if tgt.startswith("0x") else tgt)
+            if start is None or start > end:
+                continue
+            rcp = sum("MUFU.RCP" in x for x in ins[start:end + 1])
+            if rcp and (best is None or end + 1 - start < best[0]):
+                best = (end + 1 - start, rcp)
+        if best:
+            out[name] = best
+    return out
+
+
+class SmClock:
+    """The SM clock (MHz) from nvidia-smi every 250 ms while the block
+    runs; `samples` after it."""
+
+    def __enter__(self):
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,"
+             "nounits", "-lms", "250"], stdout=subprocess.PIPE, text=True)
+        return self
+
+    def __exit__(self, *exc):
+        self.proc.terminate()
+        out = self.proc.communicate(timeout=30)[0]
+        self.samples = [int(x) for x in out.split() if x.isdigit()]
+
+    def summary(self):
+        s = sorted(self.samples)
+        if not s:
+            return "SM clock not read"
+        return (f"SM clock {s[len(s) // 2]} MHz median, {s[0]}-{s[-1]} over "
+                f"{len(s)} samples")
+
+
 def profile_step(label, step):
     """Trace one call of `step` and log the device time: the top kernels
     by self time and the top backward ops by inclusive time, as shares
@@ -1352,9 +1599,15 @@ def main():
     from raypt_torch.kernels import _build
     t0 = time.perf_counter()
     native.load()
-    _build.kernel_lib()
+    lib = _build.kernel_lib()
     log(f"phase 2: native SAH builder and CUDA kernels built in "
         f"{time.perf_counter() - t0:.1f} s")
+    try:
+        for name, (n_ins, n_rcp) in sass_per_test(lib._name).items():
+            log(f"  SASS {name}: {n_ins / n_rcp:.1f} instructions a triangle "
+                f"test ({n_ins} in its inner loop, {n_rcp} tests)")
+    except (OSError, subprocess.CalledProcessError) as e:
+        log(f"  SASS not read: {e}")
 
     from functools import partial
 
@@ -1493,11 +1746,13 @@ def main():
                               rd, timed, woop)}
     for path in KERNEL_PATHS + ("config4",):
         log(f"phase 3 {path}: kernel vs plain, bitwise, per bounce wavefront")
-        for b, (ro, rd, active) in enumerate(waves[path]):
-            log(f"  bounce {b}: {int(active.sum())} live rays of "
-                f"{active.numel()}")
-            compare[path](stats, f"bounce {b}", scenes[path],
-                          accels.get(path), ro, rd, active, timed=True)
+        with SmClock() as clock:
+            for b, (ro, rd, active) in enumerate(waves[path]):
+                log(f"  bounce {b}: {int(active.sum())} live rays of "
+                    f"{active.numel()}")
+                compare[path](stats, f"bounce {b}", scenes[path],
+                              accels.get(path), ro, rd, active, timed=True)
+        log(f"  {path}: {clock.summary()}")
     log("phase 3 grouped: cluster_intersect_grouped on the cluster path's "
         "wavefronts")
     for b, (ro, rd, active) in enumerate(waves["cluster"]):
@@ -1508,6 +1763,36 @@ def main():
     union, o, d, _, seed, kt, kp = compare_woop(
         stats, "c4 edges", scene4, accel4, *waves["config4"][0], timed=False)
     woop_edges(stats, accel4, union, o, d, seed, kt, kp)
+    log("phase 3 merge rules: cluster_expand and cluster_intersect_mask on "
+        "merge_case's synthetic clusters")
+    for leaf in MERGE_LEAVES:
+        for stray in (False, True):
+            case = merge_case(leaf, dev, seed=leaf, stray=stray, giant=stray)
+            rays = (case["ro"], case["rd"], case["seed"])
+            label = f"merge leaf {leaf}{' stray, giant' if stray else ''}"
+            for name, kernel, plain, args in (
+                    ("cluster_expand", ex.cluster_expand,
+                     ex.cluster_expand_plain,
+                     (case["mask_cm"], case["union_pp"], case["tri_rows"],
+                      *rays)),
+                    ("cluster_intersect_mask", dn.cluster_intersect_mask,
+                     dn.cluster_intersect_mask_plain,
+                     (case["union"], case["tri_rows"], *rays))):
+                kt, kf = kernel(*args)
+                pt, pf = plain(*args)
+                stats.check(name, f"{label} t", kt, pt)
+                stats.check(name, f"{label} face", kf, pf)
+                check_planted(case, kf, f"{name} {label}")
+    log(f"  leaves {MERGE_LEAVES}, with and without stray bits and giant "
+        f"triangles: bitwise, the planted ties resolved by the merge rules")
+    bad, first_bad = dn.inv_det_sweep()
+    if bad:
+        raise AssertionError(f"1 / det: the kernels' reciprocal differs from "
+                             f"the division on {bad} bit patterns (first "
+                             f"{first_bad:#010x})")
+    log("  1 / det: the kernels' reciprocal (its fast path, __frcp_rn where "
+        "|det| >= 2^126) bitwise equal to the division on all 2^32 bit "
+        "patterns of det")
 
     # edge cases on the bounce-1 wavefronts
     ro, rd, active = waves["expand"][1]

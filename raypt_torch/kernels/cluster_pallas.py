@@ -29,7 +29,10 @@ order of `csrc/cluster_intersect.cu`: six 4-term sums over [o; 1] and
 d'w, u = o'u + t d'u, v = o'v + t d'v.
 
 On CUDA tensors each wrapper launches `csrc/cluster_intersect.cu`; on
-CPU tensors it runs its plain torch version.
+CPU tensors it runs its plain torch version. The kernels compute 1 / det
+as the correctly rounded reciprocal where `_test_cluster` divides a
+select by a select; `inv_det_sweep` holds the two bitwise equal on the
+card.
 """
 from __future__ import annotations
 
@@ -107,6 +110,24 @@ def _test_cluster_woop(tab: torch.Tensor, o: torch.Tensor, d: torch.Tensor):
     lmin = torch.amin(torch.where(t <= tmin[:, None], lane,
                                   torch.full_like(lane, BIG_I)), dim=-1)
     return tmin, lmin
+
+
+def inv_det_sweep(device="cuda"):
+    """The kernels' 1 / det (`csrc/cluster_test.cuh`: `inv_det_of`, the
+    reciprocal's fast path, and `__frcp_rn` where |det| >= 2^126) against
+    the division of `_test_cluster`, (ok ? 1 : 0) / (ok ? det : 1) with
+    ok = |det| > 1e-8, over all 2^32 f32 bit patterns of det in one launch
+    on the card. Returns (patterns whose results differ in any bit, the
+    lowest such pattern or None)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"the sweep runs on a CUDA device, not {device}")
+    bad = torch.zeros(1, dtype=torch.int64, device=device)
+    first = torch.full((1,), -1, dtype=torch.int32, device=device)
+    with torch.cuda.device(device):
+        launch("rk_inv_det_sweep", 1.0, bad.data_ptr(), first.data_ptr())
+    n = int(bad.item())
+    return n, (int(first.item()) & 0xFFFFFFFF) if n else None
 
 
 def _valid_union(union: torch.Tensor, c_total: int) -> torch.Tensor:

@@ -2,11 +2,10 @@
 the bench's Stanford bunny, the minimal triangle-on-ground scene and the
 small textured scene (`textured_demo`).
 
-Assets are looked up in RAYPT_DATA_DIR, then `<repo>/data`. Without
+Assets are looked up in RAYPT_DATA_DIR, `<repo>/data`, then the
+reference data mount, as in the JAX package. Without
 `stanford-bunny.obj` the bunny is a 5,120-triangle icosphere stand-in,
-as in the JAX package. The sunset cubemap is a DDS file whose loader is
-not ported yet: when it is present, `load_reference_envmap` raises
-rather than render another sky than the JAX package would.
+and without the sunset DDS cubemap the sky is procedural.
 """
 from __future__ import annotations
 
@@ -19,11 +18,13 @@ import torch
 
 from ..core.scene import MaterialDef, SceneBuilder
 from ..core.types import EnvMap
+from ..io.dds import load_env_cubemap
 from ..io.obj import load_obj, smooth_normals
 
 _DATA_CANDIDATES = (
     os.environ.get("RAYPT_DATA_DIR", ""),
     os.path.join(os.path.dirname(__file__), "..", "..", "data"),
+    "/root/reference/data",
 )
 
 
@@ -56,16 +57,14 @@ def _procedural_sky(h: int = 64) -> EnvMap:
     return EnvMap(data=torch.from_numpy(np.stack(faces)), is_cube=True)
 
 
+@lru_cache(maxsize=1)
 def load_reference_envmap() -> EnvMap:
-    """The procedural sky; raises when the sunset cubemap is present,
-    because its DDS/BCn loader is not ported (ROADMAP queue 1)."""
+    """The sunset cubemap (6, H, W, 3), or the procedural sky when the
+    DDS is absent."""
     p = _find_asset("sunset_uncompressed.dds")
-    if p is not None:
-        raise NotImplementedError(
-            f"{p} found, but the DDS/BCn loaders are not ported yet "
-            "(ROADMAP queue 1); the port would render another sky than "
-            "the JAX package")
-    return _procedural_sky()
+    if p is None:
+        return _procedural_sky()
+    return EnvMap(data=torch.from_numpy(load_env_cubemap(p)), is_cube=True)
 
 
 def _icosphere(subdiv: int = 4):

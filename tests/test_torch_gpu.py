@@ -22,6 +22,7 @@ from raypt_torch.accel.traverse import (DENSE_CHUNK, KERNELS, PLAIN,
                                         wavefront_inputs)
 from raypt_torch.core.math3d import BIG
 from raypt_torch.core.types import RenderConfig
+from raypt_torch.kernels import cluster_expand as tex
 from raypt_torch.kernels import cluster_pallas as tdn
 from raypt_torch.kernels import dense_pallas as tdp
 from raypt_torch.kernels import onehot_walk as twk
@@ -30,7 +31,7 @@ from raypt_torch.rng import sampler as rng
 from raypt_torch.scenes.builtin import stanford_bunny
 from raypt_torch.scenes.config4 import config4_scene
 
-from chip_smoke import copy_most_hit
+from chip_smoke import MERGE_LEAVES, check_planted, copy_most_hit, merge_case
 
 pytestmark = pytest.mark.gpu
 
@@ -327,6 +328,44 @@ def test_render_bitwise_vs_plain_finder(gpu_scene, path):
                                     return_alive=True)
     assert bool(torch.isfinite(img_k).all())
     assert _bits_equal(img_k, img_p) and torch.equal(tr_k, tr_p)
+
+
+@pytest.mark.parametrize("kernel", ["expand", "mask"])
+@pytest.mark.parametrize("leaf", MERGE_LEAVES)
+def test_merge_cases_bitwise(kernel, leaf):
+    """cluster_expand and cluster_intersect_mask against their plain
+    versions on `chip_smoke.merge_case`'s synthetic clusters: a triangle
+    copied into a higher cluster with a lower face id (the lower cluster
+    must win) and within its cluster (the lower id must win), a cluster
+    that one ray of a block wants, an all-dead, a mixed and a one-live
+    tile with nonzero masks, and, the second time, bits >= C set in every
+    mask and union word past the clusters and triangles whose det reaches
+    2^126 and inf (the exact reciprocal's path)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    for stray in (False, True):
+        case = merge_case(leaf, "cuda", seed=leaf, stray=stray, giant=stray)
+        rays = (case["ro"], case["rd"], case["seed"])
+        if kernel == "expand":
+            args = (case["mask_cm"], case["union_pp"], case["tri_rows"], *rays)
+            kt, kf = tex.cluster_expand(*args)
+            pt, pf = tex.cluster_expand_plain(*args)
+        else:
+            args = (case["union"], case["tri_rows"], *rays)
+            kt, kf = tdn.cluster_intersect_mask(*args)
+            pt, pf = tdn.cluster_intersect_mask_plain(*args)
+        assert _bits_equal(kt, pt) and torch.equal(kf, pf)
+        check_planted(case, kf, kernel)
+
+
+def test_inv_det_sweep():
+    """The kernels' 1 / det (the reciprocal's fast path, its exact path
+    where the fast one asks for a redo) is bitwise the Pallas kernel's
+    division of a select by a select for all 2^32 bit patterns of det,
+    in one launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    assert tdn.inv_det_sweep() == (0, None)
 
 
 def _probe_case(probe):
