@@ -49,27 +49,35 @@ Phases:
      nothing, duplicated triangles tying within a triangle chunk and
      across chunks, and tables of one chunk exactly and of a size that
      needs padding. On the config-4 path: the mask-only walk and
-     cluster_intersect_mask_woop on all eight bounces (the Woop kernel
-     timed, with matmul_woop, the same closest hit through torch.bmm, as
-     its library yardstick, and the Moller-Trumbore cluster_intersect_mask
-     on the same unions and clusters); then a union with stray bits >= C, triangles
+     cluster_intersect_mask_woop on all eight bounces, both timed (the
+     Woop kernel with matmul_woop, the same closest hit through torch.bmm,
+     as its library yardstick, and the Moller-Trumbore
+     cluster_intersect_mask on the same unions and clusters; the live rays
+     a tile and the share of tests the dead rays would take); then a union
+     with stray bits >= C, triangles
      turned into the miss encoding (a zero-area triangle's rows), rays
      parallel to a triangle's plane (d'_w = +-0), copies of triangles in
      a higher free lane of their cluster (the lowest lane wins) and in a
-     later cluster (the strict merge keeps the first), and a tile of dead
-     rays. cluster_intersect_grouped for G = 2, 3, 4 at cap GROUP_CAP on
+     later cluster (the strict merge keeps the first), a tile of dead
+     rays, and a mixed, a one-live and a last-warp-only tile.
+     cluster_intersect_grouped for G = 2, 3, 4 at cap GROUP_CAP on
      the cluster path's four wavefronts (G = 4 timed), and on worklists
      whose counts were cut below the list (valid ids past counts, tested
      within the last group: only the plain version must match).
-     cluster_expand and cluster_intersect_mask on merge_case's synthetic
-     clusters at leaves MERGE_LEAVES (ties across and within clusters, a
+     cluster_expand, cluster_intersect_mask and, on the clusters' Woop
+     table, cluster_intersect_mask_woop on merge_case's synthetic
+     clusters at leaves MERGE_LEAVES (the Woop kernel also at
+     WOOP_ODD_LEAF, which no 4 divides; ties across and within clusters, a
      cluster one ray of a block wants, dead, mixed and one-live tiles,
-     stray bits, triangles whose det reaches 2^126), and the kernels'
+     stray bits, triangles whose det reaches 2^126), the mask-only walk
+     on a dead, a one-live and a last-warp-only block (walk_layouts) at
+     leaves 128 and 16, and the kernels'
      1 / det (the correctly rounded reciprocal) against the
      division over all 2^32 bit patterns (inv_det_sweep). The SM clock is
      sampled (nvidia-smi) while each path's kernels are timed; phase 2
      reads the instructions a triangle test takes in each intersection
-     kernel's inner loop from cuobjdump -sass of the built library
+     kernel's inner loop, and a walk step in the mask-only walk's, from
+     cuobjdump -sass of the built library
   4. each path's render through render_sample: every kernel of the path
      launches once per bounce and no other kernel launches, the image is
      finite and bitwise equal to the render through the plain versions
@@ -113,10 +121,12 @@ Phases:
 
 The last line is {"ok": true, "device": {...}}; the line before it is
 the per-kernel JSON summary: "ms", "plain_ms" and "bound_ms" are summed
-over the bounce wavefronts of the kernel's path (one frame's worth of
-launches: four, eight on config4; the grouped kernel's on the cluster
-path's four), "launches" are counted in that path's render of phase 4
-(0 for cluster_intersect_grouped, which no path runs); closest_dense's
+over the bounce wavefronts of the kernel's paths (one frame's worth of
+launches of each: four, eight on config4; topwalk_cm's over the unfused
+path's four and config4's eight, which the log also gives apart; the
+grouped kernel's on the cluster path's four), "launches" are counted in
+those paths' renders of phase 4 (0 for cluster_intersect_grouped, which
+no path runs); closest_dense's
 "library_ms" is matmul_closest, the same closest hit through
 torch.matmul, and cluster_intersect_mask_woop's is matmul_woop, through
 torch.bmm, on the same wavefronts (several calls each: no one torch
@@ -169,8 +179,13 @@ F32_OPS_PER_S = 67e12
 # compares, 15 for the three link/id decodes) and of one ray-triangle
 # Moller-Trumbore test with its merge (cluster_test.cuh: 50 arithmetic,
 # 7 compares and selects). Only live rays need tests: a dead ray is
-# seeded -BIG, so no hit can replace its result.
+# seeded -BIG, so no hit can replace its result. The mask-only walk
+# (mask_walk.cuh) decodes each row once a block that has a live ray, so
+# its steps take WALK_OPS - ROW_DECODE_OPS each and its rows
+# ROW_DECODE_OPS once a busy block.
 WALK_OPS = 45
+ROW_DECODE_OPS = 15
+WALK_BLOCK = 256   # rays a block of the walk kernels (onehot_walk.cu kThreads)
 MT_OPS = 57
 # f32 operations of one Woop ray-triangle test (dense_closest.cu): six
 # 3-term transforms (3 with an offset: 18 mul/add, 15 without), |d'_w|
@@ -212,6 +227,9 @@ MERGE_C = 40
 MERGE_RAYS = 4096
 MERGE_PLANTS = 8
 MERGE_LEAVES = (16, 64, 128, 384)
+# and a leaf no 4 divides, where the Woop kernel loads a lane at a time
+# (WoopTest<1> of csrc/cluster_intersect.cu), checked for it alone
+WOOP_ODD_LEAF = 18
 
 KERNELS = {   # name -> (paths that launch it, source, TPU kernel it replaces)
     "alive_compact": (("expand",), "raypt_torch/csrc/compact.cu",
@@ -233,7 +251,7 @@ KERNELS = {   # name -> (paths that launch it, source, TPU kernel it replaces)
     "closest_dense": (("pallas",), "raypt_torch/csrc/dense_closest.cu",
                       "raypt/kernels/dense_pallas.py:84"),
     # with a transpose after it, also pallas_topwalk (onehot_walk.py:169);
-    # its row's times and launches are the unfused path's
+    # its row's times and launches are the unfused path's and config4's
     "topwalk_cm": (("unfused", "config4"), "raypt_torch/csrc/onehot_walk.cu",
                    "raypt/kernels/onehot_walk.py:190"),
     "cluster_intersect_mask_woop": (("config4",),
@@ -341,9 +359,14 @@ class Stats:
         self.plain_ms = {k: 0.0 for k in KERNELS}
         self.bound_ms = {k: 0.0 for k in KERNELS}
         self.library_ms = {k: None for k in KERNELS}
-        self.topwalk_ms = 0.0   # topwalk_cm and its transpose, per frame
+        # topwalk_cm and its transpose, per frame of each path
+        self.topwalk_ms = {}
         self.bound_parts = {k: {"bytes": 0.0, "operations": 0.0}
                             for k in KERNELS}
+        # the path whose wavefronts are being timed, and each kernel's
+        # (ms, plain_ms, bound_ms, launches timed) per path
+        self.path = None
+        self.by_path = {}
 
     def check(self, name, what, a, b, where=None):
         eq, err = bitwise_equal(a, b, where)
@@ -365,6 +388,9 @@ class Stats:
         self.bound_ms[name] += max(by_bytes, by_ops)
         self.bound_parts[name]["bytes"] += by_bytes
         self.bound_parts[name]["operations"] += by_ops
+        part = self.by_path.setdefault((name, self.path), [0.0, 0.0, 0.0, 0])
+        for k, x in enumerate((k_ms, p_ms, max(by_bytes, by_ops), 1)):
+            part[k] += x
         log(f"  {label:9s} {name:22s} kernel {k_ms:9.4f} ms   plain "
             f"{p_ms:9.3f} ms   bound {max(by_bytes, by_ops):.4g} ms")
 
@@ -738,6 +764,46 @@ def check_planted(case, face, label):
                 f"{int((got[tied] != win[tied]).sum())} with the wrong one)")
 
 
+def woop_merge(case):
+    """merge_case's clusters as the Woop kernel takes them: (woop_cm,
+    fid_flat) from build_woop_cm, and the case with its planted ties as
+    the Woop rules resolve them (check_planted's input): across clusters
+    the lower cluster still wins, within a cluster the lower lane (not
+    the lower face id)."""
+    from types import SimpleNamespace
+
+    import torch
+    from raypt_torch.accel.clusters import build_woop_cm
+    woop_cm, fid = build_woop_cm(SimpleNamespace(tri_rows=case["tri_rows"]))
+    within = case["within"].clone()
+    if within.numel():
+        def slot(face):
+            return torch.nonzero(fid[None, :].long() == face[:, None])[:, 1]
+        win = within[:, 1].clone()
+        swap = slot(within[:, 1]) > slot(within[:, 2])
+        within[swap, 1] = within[swap, 2]
+        within[swap, 2] = win[swap]
+    return woop_cm, fid, dict(case, within=within)
+
+
+def woop_faces(packed, fid):
+    """The face ids of the Woop kernel's packed results (-1 stays)."""
+    import torch
+    return torch.where(packed >= 0, fid[packed.clamp(min=0).long()],
+                       torch.full_like(packed, -1))
+
+
+def walk_layouts(active):
+    """active (R,) bool, R >= 768, with its first three 256-ray blocks
+    rewritten: block 0 all dead, block 1 with one live ray (its ray 77),
+    block 2 live only in its last warp (rays 224-255)."""
+    a = active.clone()
+    a[:768] = False
+    a[256 + 77] = True
+    a[768 - 32:768] = True
+    return a
+
+
 def hit64(scene, ro, rd, face):
     """Float64 Moller-Trumbore test of each ray against its face (face
     >= 0): (t, inside) with inside = u, v >= 0, u + v <= 1, t > 0."""
@@ -803,14 +869,22 @@ def compare_unfused(stats, label, scene, accel, ro, rd, active, timed):
     stats.check("topwalk_cm", f"{label} (R, words) mask", wk.topwalk(*wargs),
                 walk_topwalk(*wargs))
     if timed:
+        # what the function needs: the table once, a live ray's origin,
+        # direction and t, every ray's flag and mask column
         visits = walk_visits(*wargs)
+        live = int(a.sum())
+        busy = int(a.view(-1, WALK_BLOCK).any(dim=1).sum())
+        moved = (nbytes(accel.table, a, km)
+                 + live * (o.shape[1] + d.shape[1] + 1) * o.element_size())
+        ops = ((WALK_OPS - ROW_DECODE_OPS) * visits
+               + ROW_DECODE_OPS * accel.table.shape[0] * busy)
         stats.time("topwalk_cm", label, wk.topwalk_cm, wk.topwalk_cm_plain,
-                   wargs, nbytes(accel.table, o, d, t, a, km),
-                   WALK_OPS * visits)
+                   wargs, moved, ops)
         ms = cuda_ms(lambda: wk.topwalk(*wargs), 10)
-        stats.topwalk_ms += ms
+        stats.topwalk_ms[stats.path] = stats.topwalk_ms.get(stats.path,
+                                                            0.0) + ms
         log(f"  {label:9s} topwalk (kernel + transpose) {ms:9.3f} ms; walk "
-            f"visits {visits}, {nw} words")
+            f"visits {visits}, {nw} words, {busy} blocks with a live ray")
     return km
 
 
@@ -865,17 +939,19 @@ def matmul_woop(union, woop_cm, ro, rd, t0, tiles_per_call=512):
 
 def compare_woop(stats, label, scene, accel, ro, rd, active, timed):
     """The config-4 path's stages on one wavefront: the mask-only walk
-    (untimed: its row is the unfused path's) and cluster_intersect_mask_woop
-    on the kernel walk's tile unions, kernel against plain version; when
-    timed, also matmul_woop. Returns (union, o, d, alive, seed, t, packed)
-    of the kernels."""
+    and cluster_intersect_mask_woop on the kernel walk's tile unions,
+    kernel against plain version; when timed, both kernels (the walk's
+    times are kept apart from the unfused path's as well as summed into
+    its row), matmul_woop, the live rays a tile and the share of the
+    tile x union tests that dead rays would take (the kernel skips them).
+    Returns (union, o, d, alive, seed, t, packed) of the kernels."""
     import torch
     from raypt_torch.accel.clusters import tile_union_counts
     from raypt_torch.accel.traverse import DENSE_CHUNK, wavefront_inputs
     from raypt_torch.core.math3d import BIG
     from raypt_torch.kernels import cluster_pallas as dn
     mask = compare_unfused(stats, label, scene, accel, ro, rd, active,
-                           timed=False)
+                           timed=timed)
     union, counts = tile_union_counts(mask.T.contiguous(), dn.TILE)
     o, d, t, a, _, _ = wavefront_inputs(scene, ro, rd, active, DENSE_CHUNK)
     seed = torch.where(a, t, torch.full_like(t, -BIG))
@@ -899,12 +975,19 @@ def compare_woop(stats, label, scene, accel, ro, rd, active, timed):
             union, accel.clusters.tri_rows, o, d, seed), 10)
         log(f"  {label:9s} cluster_intersect_mask (Moller-Trumbore) on the "
             f"same unions {mt_ms:9.3f} ms")
+        live = a.view(-1, dn.TILE).sum(dim=1)
+        busy = counts > 0
         log(f"  {label:9s} union clusters per tile "
             f"{float(counts.float().mean()):.2f}, max {int(counts.max())}, "
             f"live ray-cluster tests {tests} "
             f"({tests / max(dn.TILE * int(counts.sum()), 1):.4f} of all); "
             f"{int((kp >= 0).sum())} hits; matmul_woop's packed differs on "
             f"{int((mp != kp).sum())} rays")
+        log(f"  {label:9s} live rays a tile {float(live.float().mean()):.2f} "
+            f"({float(live[busy].float().mean()) if bool(busy.any()) else 0.0:.2f}"
+            f" over the {int(busy.sum())} tiles with a union); tests of dead "
+            f"rays skipped: "
+            f"{1.0 - tests / max(dn.TILE * int(counts.sum()), 1):.4f} of all")
     return union, o, d, a, seed, kt, kp
 
 
@@ -1027,12 +1110,32 @@ def woop_edges(stats, accel, union, o, d, seed, kt, kp):
     t_, p_ = run("dead tile", sd=dead)
     if bool((t_[:dn.TILE] != -BIG).any()) or bool((p_[:dn.TILE] != -1).any()):
         raise AssertionError(f"{name}: a dead ray took a hit")
+    # tile 1 mixed (every other ray dead, seeds -BIG, 0, -0 and nan), tile
+    # 2 with one live ray, tile 3 live only in its last warp: dead rays
+    # keep (seed, -1) bitwise, live ones the result of the all-live tile
+    lane = torch.arange(dn.TILE, device=seed.device)
+    kill = torch.zeros_like(seed, dtype=torch.bool)
+    kill[dn.TILE:2 * dn.TILE] = lane % 2 == 1
+    kill[2 * dn.TILE:3 * dn.TILE] = lane != 77
+    kill[3 * dn.TILE:4 * dn.TILE] = lane < dn.TILE - 32
+    bad = torch.tensor([-BIG, 0.0, -0.0, float("nan")], device=seed.device)
+    sd = torch.where(kill, bad[torch.arange(seed.numel(), device=seed.device)
+                               // 2 % 4], seed)
+    t_, p_ = run("mixed, one-live and last-warp tiles", sd=sd)
+    keep = ~kill
+    if not (bitwise_equal(t_, sd, where=kill)[0] and bool((p_[kill] == -1).all())
+            and bitwise_equal(t_, kt, where=keep)[0]
+            and torch.equal(p_[keep], kp[keep])):
+        raise AssertionError(f"{name}: the mixed, one-live or last-warp tiles "
+                             f"changed a dead ray or a live ray's result")
     log(f"  edges: stray bits (+ a word of ones) unchanged; {COPIES} "
         f"most-hit triangles in the miss encoding never win; a tile "
         f"parallel to triangle {pid}'s plane; {len(copies_in)} copies in a "
         f"higher lane of their cluster (result unchanged) and "
         f"{len(copies_out)} in a later cluster never win; a dead tile keeps "
-        f"-BIG; union words {union.shape[1]}, C = {c_total}")
+        f"-BIG; a mixed, a one-live and a last-warp-only tile keep their dead "
+        f"rays' seeds and their live rays' results; union words "
+        f"{union.shape[1]}, C = {c_total}")
 
 
 def compare_grouped(stats, label, scene, clusters, ro, rd, active, timed,
@@ -1160,20 +1263,30 @@ def graph_us_per_call(fn, calls=20):
     return 1e3 * cuda_ms(graph.replay, 10) / calls
 
 
-# kernels whose inner loop runs one triangle test per reciprocal
-# (MUFU.RCP: __frcp_rn or an IEEE division), by function name
-SASS_KERNELS = ("cluster_expand_kernel", "cluster_intersect_mask_kernel",
-                "cluster_intersect_kernel", "cluster_intersect_mask_woop_kernel",
-                "closest_dense_kernel")
+# the inner loops read from the SASS: label -> (pattern of the kernel's
+# mangled name, the instruction that marks one unit of work, the marks
+# a unit). A triangle test takes one reciprocal (MUFU.RCP: __frcp_rn or
+# an IEEE division); a walk step two 16-byte shared loads of its row.
+SASS_LOOPS = {
+    "cluster_expand_kernel": (r"\d+cluster_expand_kernelE", "MUFU.RCP", 1),
+    "union_kernel<MtTest>": (r"\d+union_kernelINS_6MtTestE", "MUFU.RCP", 1),
+    "cluster_intersect_kernel": (r"\d+cluster_intersect_kernelE", "MUFU.RCP",
+                                 1),
+    "union_kernel<WoopTest<4>>": (r"\d+union_kernelINS_8WoopTestILi4E",
+                                  "MUFU.RCP", 1),
+    "closest_dense_kernel": (r"\d+closest_dense_kernelE", "MUFU.RCP", 1),
+    "topwalk_mask_kernel": (r"\d+topwalk_mask_kernelE", "LDS.128", 2),
+}
 
 
 def sass_per_test(lib_path):
-    """Instructions per triangle test in the inner loop of each of
-    SASS_KERNELS, read from `cuobjdump -sass` of the built library: the
-    shortest loop (a backward branch to an earlier instruction) that
-    holds a reciprocal, its instruction count over its reciprocals (two
-    a pass where a thread tests two rays, more where the compiler
-    unrolled the loop). Returns name -> (instructions, reciprocals)."""
+    """Instructions per unit of work (a triangle test, a walk step) in the
+    inner loop of each of SASS_LOOPS, read from `cuobjdump -sass` of the
+    built library: the shortest loop (a backward branch to an earlier
+    instruction) that holds the unit's mark, its instruction count over
+    its units (two a pass where a thread tests two rays or walks two
+    rays, more where the compiler unrolled the loop). Returns label ->
+    (instructions, units)."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "-sass", lib_path], capture_output=True,
                           text=True, check=True).stdout
@@ -1181,8 +1294,8 @@ def sass_per_test(lib_path):
     for line in sass.splitlines():
         m = re.match(r"\s*Function : (\S+)", line)
         if m:
-            name = next((k for k in SASS_KERNELS
-                         if re.search(rf"\d{k}(E|ILb0E)", m.group(1))), None)
+            name = next((k for k, (pat, _, _) in SASS_LOOPS.items()
+                         if re.search(pat, m.group(1))), None)
             body = funcs.setdefault(name, []) if name else None
             continue
         m = re.match(r"\s*(\.L_x_\d+):", line)
@@ -1194,6 +1307,7 @@ def sass_per_test(lib_path):
             body.append((int(m.group(1), 16), m.group(2).strip()))
     out = {}
     for name, body in funcs.items():
+        _, mark, per_unit = SASS_LOOPS[name]
         ins, at = [], {}   # at: label or address -> instruction index
         for key, text in body:
             at[key] = len(ins)
@@ -1208,9 +1322,9 @@ def sass_per_test(lib_path):
             start = at.get(int(tgt, 16) if tgt.startswith("0x") else tgt)
             if start is None or start > end:
                 continue
-            rcp = sum("MUFU.RCP" in x for x in ins[start:end + 1])
-            if rcp and (best is None or end + 1 - start < best[0]):
-                best = (end + 1 - start, rcp)
+            units = sum(mark in x for x in ins[start:end + 1]) / per_unit
+            if units and (best is None or end + 1 - start < best[0]):
+                best = (end + 1 - start, units)
         if best:
             out[name] = best
     return out
@@ -1603,9 +1717,10 @@ def main():
     log(f"phase 2: native SAH builder and CUDA kernels built in "
         f"{time.perf_counter() - t0:.1f} s")
     try:
-        for name, (n_ins, n_rcp) in sass_per_test(lib._name).items():
-            log(f"  SASS {name}: {n_ins / n_rcp:.1f} instructions a triangle "
-                f"test ({n_ins} in its inner loop, {n_rcp} tests)")
+        for name, (n_ins, n_units) in sass_per_test(lib._name).items():
+            unit = "walk step" if "walk" in name else "triangle test"
+            log(f"  SASS {name}: {n_ins / n_units:.1f} instructions a {unit} "
+                f"({n_ins} in its inner loop, {n_units:g} {unit}s)")
     except (OSError, subprocess.CalledProcessError) as e:
         log(f"  SASS not read: {e}")
 
@@ -1746,6 +1861,7 @@ def main():
                               rd, timed, woop)}
     for path in KERNEL_PATHS + ("config4",):
         log(f"phase 3 {path}: kernel vs plain, bitwise, per bounce wavefront")
+        stats.path = path
         with SmClock() as clock:
             for b, (ro, rd, active) in enumerate(waves[path]):
                 log(f"  bounce {b}: {int(active.sum())} live rays of "
@@ -1753,6 +1869,7 @@ def main():
                 compare[path](stats, f"bounce {b}", scenes[path],
                               accels.get(path), ro, rd, active, timed=True)
         log(f"  {path}: {clock.summary()}")
+    stats.path = None
     log("phase 3 grouped: cluster_intersect_grouped on the cluster path's "
         "wavefronts")
     for b, (ro, rd, active) in enumerate(waves["cluster"]):
@@ -1763,12 +1880,13 @@ def main():
     union, o, d, _, seed, kt, kp = compare_woop(
         stats, "c4 edges", scene4, accel4, *waves["config4"][0], timed=False)
     woop_edges(stats, accel4, union, o, d, seed, kt, kp)
-    log("phase 3 merge rules: cluster_expand and cluster_intersect_mask on "
-        "merge_case's synthetic clusters")
-    for leaf in MERGE_LEAVES:
+    log("phase 3 merge rules: cluster_expand, cluster_intersect_mask and "
+        "cluster_intersect_mask_woop on merge_case's synthetic clusters")
+    for leaf in MERGE_LEAVES + (WOOP_ODD_LEAF,):
         for stray in (False, True):
             case = merge_case(leaf, dev, seed=leaf, stray=stray, giant=stray)
             rays = (case["ro"], case["rd"], case["seed"])
+            woop_cm, fid, woop_case = woop_merge(case)
             label = f"merge leaf {leaf}{' stray, giant' if stray else ''}"
             for name, kernel, plain, args in (
                     ("cluster_expand", ex.cluster_expand,
@@ -1777,14 +1895,26 @@ def main():
                       *rays)),
                     ("cluster_intersect_mask", dn.cluster_intersect_mask,
                      dn.cluster_intersect_mask_plain,
-                     (case["union"], case["tri_rows"], *rays))):
+                     (case["union"], case["tri_rows"], *rays)),
+                    ("cluster_intersect_mask_woop",
+                     dn.cluster_intersect_mask_woop,
+                     dn.cluster_intersect_mask_woop_plain,
+                     (case["union"], woop_cm, *rays))):
+                if leaf == WOOP_ODD_LEAF and (
+                        name != "cluster_intersect_mask_woop"):
+                    continue
                 kt, kf = kernel(*args)
                 pt, pf = plain(*args)
                 stats.check(name, f"{label} t", kt, pt)
                 stats.check(name, f"{label} face", kf, pf)
-                check_planted(case, kf, f"{name} {label}")
-    log(f"  leaves {MERGE_LEAVES}, with and without stray bits and giant "
-        f"triangles: bitwise, the planted ties resolved by the merge rules")
+                if name == "cluster_intersect_mask_woop":
+                    check_planted(woop_case, woop_faces(kf, fid),
+                                  f"{name} {label}")
+                else:
+                    check_planted(case, kf, f"{name} {label}")
+    log(f"  leaves {MERGE_LEAVES} (the Woop kernel also {WOOP_ODD_LEAF}), "
+        f"with and without stray bits and giant triangles: bitwise, the "
+        f"planted ties resolved by the merge rules")
     bad, first_bad = dn.inv_det_sweep()
     if bad:
         raise AssertionError(f"1 / det: the kernels' reciprocal differs from "
@@ -1814,6 +1944,14 @@ def main():
         cmp(stats, "multiword", scene, acc, ro[:MULTIWORD_RAYS].contiguous(),
             rd[:MULTIWORD_RAYS].contiguous(),
             active[:MULTIWORD_RAYS].contiguous(), timed=False)
+    # the mask-only walk on a dead, a one-live and a last-warp-only block
+    for acc, what in ((accels["unfused"], f"leaf {DENSE_LEAF}"),
+                      (accel16, f"leaf {MULTIWORD_LEAF}")):
+        ro, rd, active = waves["unfused"][1]
+        compare_unfused(stats, "layouts", scene, acc, ro, rd,
+                        walk_layouts(active), timed=False)
+        log(f"  walk layouts ({what}): a dead, a one-live and a "
+            f"last-warp-only block, bitwise")
     for path, cmp in (("dense_union", compare_dense_union),
                       ("cluster", compare_cluster)):
         ro, rd, active = waves[path][1]
@@ -1947,8 +2085,8 @@ def main():
             if n != want:
                 raise AssertionError(f"{path}: {k} launched {n} times, "
                                      f"expected {want}")
-            if want and path == KERNELS[k][0][0]:
-                launches[k] = n
+            if want and path in KERNELS[k][0]:
+                launches[k] += n
         if not bool(torch.isfinite(img).all()) or img.shape != (HEIGHT, WIDTH,
                                                                3):
             raise AssertionError(f"{path}: bad image {tuple(img.shape)}")
@@ -2152,8 +2290,15 @@ def main():
     # phase 7: the scripts/ probes
     probes_phase(stats)
 
-    log(f"topwalk_cm and its transpose (pallas_topwalk's counterpart): "
-        f"{stats.topwalk_ms:.4f} ms per frame")
+    for path, ms in stats.topwalk_ms.items():
+        log(f"topwalk_cm and its transpose (pallas_topwalk's counterpart), "
+            f"{path}: {ms:.4f} ms per frame")
+    for name, (paths, _, _) in KERNELS.items():
+        if len(paths) > 1:
+            for path in paths:
+                k_ms, p_ms, b_ms, n = stats.by_path[(name, path)]
+                log(f"{name}, {path}: {k_ms:.4f} ms per frame ({n} launches "
+                    f"timed), plain {p_ms:.3f}, bound {b_ms:.4g}")
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[k], "max_abs_err": stats.err[k],

@@ -27,28 +27,34 @@
 // What bounds it on this card: the triangle tests, ~57 flops (Moller-
 // Trumbore) or ~56 (Woop: six 4-term sums, a division, u, v and the
 // tests) for each of L triangles of each cluster for each ray of the
-// tile (the union or worklist is per tile), ~70 instructions each
-// without fused multiply-adds. The table is read once per tile and
+// tile (the union or worklist is per tile; the union kernels test only
+// its live rays), ~70 instructions each without fused multiply-adds. The table is read once per tile and
 // cluster (6 KB at leaf 128, 3 KB at leaf 64) and stays in L2.
 //
 // What the design does about it: one block per tile. The cluster loop
 // is uniform across the block, so no warp diverges on which cluster to
 // test: the block stages the cluster's 48 L bytes in shared memory and
 // every thread reads each triangle as a broadcast.
-//   * The union kernel (Moller-Trumbore) does only work that can change
-//     the result. A ray whose seed is not > 0 (a dead ray is seeded
-//     -BIG) keeps its seed and face -1 untested: every candidate t lies
-//     in (0, inf], so nothing could replace it. The live rays are packed
-//     to the low slots of shared memory by a block scan, so warps are
-//     whole-live or idle; 128 threads take two rays each (kRays), which
-//     share each triangle's three shared loads (two ran faster on the
-//     card than one or four); the next cluster is staged with cp.async
-//     (double-buffered) while this one is tested, one barrier a cluster.
+//   * The two union kernels are one template over the test (MtTest,
+//     WoopTest) and do only work that can change the result. A ray whose
+//     seed is not > 0 (a dead ray is seeded -BIG) keeps its seed and id
+//     -1 untested: every candidate t lies in (0, inf], so nothing could
+//     replace it. The live rays are packed to the low slots of shared
+//     memory by a block scan, so warps are whole-live or idle; each
+//     thread takes kRays rays, which share each triangle's shared loads;
+//     the next cluster is staged with cp.async (double-buffered) while
+//     this one is tested, one barrier a cluster. A tile with few live
+//     rays is latency-bound: one warp would walk all L triangles of
+//     each cluster. So the Woop kernel spreads each live ray's triangles
+//     over as many threads as the tile has to spare (up to kMaxSplit,
+//     consecutive lanes of a warp) and reduces their (t, id) by
+//     shuffles, which keeps the rule: the lowest lane wins a tie.
+//   * The Woop test reads four lanes' coefficients with one 16-byte
+//     shared load (the table is lane-minor) where L % 4 == 0.
 //   * All three Moller-Trumbore kernels take the reciprocal's fast path
 //     (cluster_test.cuh).
-//   * The Woop union kernel and the worklist kernel test every ray of the
-//     tile with one thread a ray, staging each cluster between two
-//     barriers.
+//   * The worklist kernel tests every ray of the tile with one thread a
+//     ray, staging each cluster between two barriers.
 // The TPU kernels' two-level word summary, de Bruijn bit scan and 8-tile
 // SMEM blocks, and the Woop kernel's MXU contraction of (4, 3L) by
 // (4, 2T) rays, are TPU devices with no counterpart: here the scan is
@@ -64,12 +70,10 @@
 namespace {
 
 constexpr int kTile = 256;
-constexpr int kRays = 2;                   // the union kernel: rays a thread
-constexpr int kMaskThreads = kTile / kRays;
 
-// Stages cluster c's 48 L bytes (L * 3 float4: the L rows of the
-// (C, L, 12) table, or the (4, 3L) Woop table) in shared memory with the
-// whole block. Every thread of the block calls it with the same c.
+// Stages cluster c's 48 L bytes (the L rows of its (C, L, 12) table) in
+// shared memory with the whole block. Every thread of the block calls it
+// with the same c.
 __device__ __forceinline__ void stage_cluster(const float4* __restrict__ rows4,
                                               int c, int leaf, float4* s_tri) {
     __syncthreads();   // the previous cluster's rows are read by all
@@ -98,109 +102,169 @@ __device__ __forceinline__ void test_cluster(const float4* s_tri, int leaf,
     merge(tmin[0], fmin[0], tb, fb);
 }
 
-// The Woop test of each staged triangle of cluster c, s_w[k * 3L + r * L
-// + j] the k-th coefficient of row r (u, v, w) of triangle j, in the
-// operation order of _test_cluster_woop (kernels/cluster_pallas.py): the
-// homogeneous terms a3 * 1 and a3 * 0 included. Merges packed = c * L +
-// lane into (tb, pb).
-__device__ __forceinline__ void test_cluster_woop(const float* s_w, int c,
-                                                  int leaf, const rk::Ray& ray,
-                                                  float& tb, int& pb) {
-    const int l3 = 3 * leaf;
-    float tmin = rk::kBig;
-    int lmin = 0;
-    for (int j = 0; j < leaf; ++j) {
-        float o[3], d[3];
-#pragma unroll
-        for (int r = 0; r < 3; ++r) {
-            const float* a = s_w + r * leaf + j;
-            const float a0 = a[0], a1 = a[l3], a2 = a[2 * l3], a3 = a[3 * l3];
-            o[r] = a0 * ray.ox + a1 * ray.oy + a2 * ray.oz + a3 * 1.0f;
-            d[r] = a0 * ray.dx + a1 * ray.dy + a2 * ray.dz + a3 * 0.0f;
-        }
-        const float tq = -o[2] / d[2];   // parallel rays: +-inf or nan
-        const float u = o[0] + tq * d[0];
-        const float v = o[1] + tq * d[1];
-        const bool hit = tq > 0.0f && u >= 0.0f && v >= 0.0f && u + v <= 1.0f;
-        const float t = hit ? tq : rk::kBig;
-        if (t < tmin) {   // ascending lanes: the lowest lane wins a tie
-            tmin = t;
-            lmin = j;
-        }
+// The union kernels' tests. fold<N>(tri, leaf, c, part, split, rays, t,
+// id) gives each of the N rays (smallest t, its id) over the staged
+// cluster c's triangles part, part + split, ... (groups of V lanes for
+// the Woop test): the id is the face id (MtTest) or packed = c * L +
+// lane (WoopTest), and over all parts the smallest (t, id) is the
+// cluster's result under its rule. kThreads threads a tile, kRays rays
+// a thread; a tile with few live rays spreads each ray's triangles over
+// up to kMaxSplit threads (1: never).
+struct MtTest {   // the (C, L, 12) rows, cluster_test.cuh
+    static constexpr int kThreads = 128;
+    static constexpr int kRays = 2;
+    static constexpr int kMinBlocks = 6;
+    static constexpr int kMaxSplit = 1;
+    template <int N>
+    __device__ static __forceinline__ void fold(const float4* tri, int leaf, int,
+                                                int part, int split,
+                                                const rk::Ray (&r)[N],
+                                                float (&t)[N], int (&id)[N]) {
+        rk::fold_cluster(tri + part * 3, tri + leaf * 3, 3 * split, r, t, id);
     }
-    if (tmin < tb) {
-        tb = tmin;
-        pb = c * leaf + lmin;
+};
+
+// V of a row's consecutive lanes from shared memory (one 16-byte load
+// for four).
+template <int V>
+__device__ __forceinline__ void load_lanes(const float* p, float (&a)[V]) {
+    if constexpr (V == 4) {
+        const float4 q = *reinterpret_cast<const float4*>(p);
+        a[0] = q.x;
+        a[1] = q.y;
+        a[2] = q.z;
+        a[3] = q.w;
+    } else {
+#pragma unroll
+        for (int v = 0; v < V; ++v) a[v] = p[v];
     }
 }
 
-__global__ void __launch_bounds__(kMaskThreads, 6)
-cluster_intersect_mask_kernel(const int* __restrict__ unions, int cw,
-                              const float* __restrict__ rows, int c_total, int leaf,
-                              const float* __restrict__ ro,
-                              const float* __restrict__ rd,
-                              const float* __restrict__ seed,
-                              float* __restrict__ t_out, int* __restrict__ face_out) {
-    extern __shared__ float4 s_tri[];   // two staged clusters, 2 * 3L
-    __shared__ float s_ray[7][kTile];   // the live rays, packed: o, d, seed
-    __shared__ int s_id[kTile];         // their ids in the tile
-    __shared__ int s_scan[33];
+// Row r (0: u, 1: v, 2: w) of lanes j .. j + V - 1 of a staged Woop
+// table for N rays: o'[v][n] and d'[v][n], the 4-term sums of
+// _test_cluster_woop (kernels/cluster_pallas.py) in its order, the
+// homogeneous terms a3 * 1 and a3 * 0 included. s_w[k * 3L + r * L + j]
+// is the k-th coefficient of row r of triangle j.
+template <int V, int N>
+__device__ __forceinline__ void woop_row(const float* s_w, int leaf, int r, int j,
+                                         const rk::Ray (&ray)[N],
+                                         float (&o)[V][N], float (&d)[V][N]) {
+    const float* p = s_w + r * leaf + j;
+    const int l3 = 3 * leaf;
+    float a0[V], a1[V], a2[V], a3[V];
+    load_lanes<V>(p, a0);
+    load_lanes<V>(p + l3, a1);
+    load_lanes<V>(p + 2 * l3, a2);
+    load_lanes<V>(p + 3 * l3, a3);
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+#pragma unroll
+        for (int n = 0; n < N; ++n) {
+            o[v][n] = a0[v] * ray[n].ox + a1[v] * ray[n].oy + a2[v] * ray[n].oz +
+                      a3[v] * 1.0f;
+            d[v][n] = a0[v] * ray[n].dx + a1[v] * ray[n].dy + a2[v] * ray[n].dz +
+                      a3[v] * 0.0f;
+        }
+    }
+}
+
+// The Woop test of the (C, 4, 3L) table (accel/clusters.py::
+// build_woop_cm), V lanes at a time (V = 4 needs L % 4 == 0): t = -o'w /
+// d'w (an IEEE division; parallel rays give +-inf or nan), u = o'u + t
+// d'u, v = o'v + t d'v; a part's lanes in ascending order, so the lowest
+// lane wins a tie.
+template <int V>
+struct WoopTest {
+    static constexpr int kThreads = 512;
+    static constexpr int kRays = 2;
+    static constexpr int kMinBlocks = 2;
+    static constexpr int kMaxSplit = 32;
+    template <int N>
+    __device__ static __forceinline__ void fold(const float4* tri, int leaf, int c,
+                                                int part, int split,
+                                                const rk::Ray (&r)[N],
+                                                float (&tmin)[N], int (&id)[N]) {
+        const float* s_w = reinterpret_cast<const float*>(tri);
+        int lmin[N];
+#pragma unroll
+        for (int n = 0; n < N; ++n) {
+            tmin[n] = rk::kBig;
+            lmin[n] = 0;
+        }
+        for (int j = part * V; j < leaf; j += V * split) {
+            float o[V][N], d[V][N], tq[V][N], u[V][N];
+            woop_row<V, N>(s_w, leaf, 2, j, r, o, d);
+#pragma unroll
+            for (int v = 0; v < V; ++v)
+#pragma unroll
+                for (int n = 0; n < N; ++n) tq[v][n] = -o[v][n] / d[v][n];
+            woop_row<V, N>(s_w, leaf, 0, j, r, o, d);
+#pragma unroll
+            for (int v = 0; v < V; ++v)
+#pragma unroll
+                for (int n = 0; n < N; ++n) u[v][n] = o[v][n] + tq[v][n] * d[v][n];
+            woop_row<V, N>(s_w, leaf, 1, j, r, o, d);
+#pragma unroll
+            for (int v = 0; v < V; ++v) {
+#pragma unroll
+                for (int n = 0; n < N; ++n) {
+                    const float vv = o[v][n] + tq[v][n] * d[v][n];
+                    const bool hit = tq[v][n] > 0.0f && u[v][n] >= 0.0f &&
+                                     vv >= 0.0f && u[v][n] + vv <= 1.0f;
+                    const float t = hit ? tq[v][n] : rk::kBig;
+                    if (t < tmin[n]) {
+                        tmin[n] = t;
+                        lmin[n] = j + v;
+                    }
+                }
+            }
+        }
+#pragma unroll
+        for (int n = 0; n < N; ++n) id[n] = c * leaf + lmin[n];
+    }
+};
+
+// Tests the block's n_live packed rays (s_ray, ids s_id in the tile)
+// against every cluster of the tile's union with N rays a thread, and
+// writes each ray's (t, id). With kSplit, 2^log_split consecutive
+// threads (within a warp) share the thread's rays, each testing every
+// 2^log_split-th of a cluster's triangles, and their results are
+// reduced by shuffles before the merge. Every thread of the block calls
+// it.
+template <class Test, int N, bool kSplit>
+__device__ __forceinline__ void test_union(
+    const int* __restrict__ unions, int cw, const float4* __restrict__ rows4,
+    int c_total, int leaf, int n_live, int log_split,
+    const float (*s_ray)[kTile], const int* s_id, float4* s_tri, long long first,
+    float* __restrict__ t_out, int* __restrict__ id_out) {
+    constexpr int kThreads = Test::kThreads;
     const int l3 = leaf * 3;
     const int tid = threadIdx.x;
-    const long long first = (long long)blockIdx.x * kTile;
-
-    // pack the live rays (the tile's rays tid + h * kMaskThreads)
-    bool live[kRays];
-    float sd[kRays];
-    int n_live, cnt = 0;
-#pragma unroll
-    for (int h = 0; h < kRays; ++h) {
-        const long long i = first + tid + h * kMaskThreads;
-        sd[h] = seed[i];
-        live[h] = sd[h] > 0.0f;   // false for -BIG and nan seeds
-        cnt += live[h];
-        if (!live[h]) {
-            t_out[i] = sd[h];
-            face_out[i] = -1;
-        }
-    }
-    int pos = rk::block_exclusive_scan(cnt, s_scan, &n_live);
-    if (n_live == 0) return;   // uniform across the block
-#pragma unroll
-    for (int h = 0; h < kRays; ++h) {
-        if (!live[h]) continue;
-        const int k = tid + h * kMaskThreads;
-        const long long i = first + k;
-#pragma unroll
-        for (int e = 0; e < 3; ++e) {
-            s_ray[e][pos] = ro[i * 3 + e];
-            s_ray[3 + e][pos] = rd[i * 3 + e];
-        }
-        s_ray[6][pos] = sd[h];
-        s_id[pos++] = k;
-    }
-
-    const float4* rows4 = reinterpret_cast<const float4*>(rows);
     rk::BitWalk walk(
         [=](int w) { return (unsigned)unions[(long long)blockIdx.x * cw + w]; }, cw,
         c_total);
     int c = walk.next();
-    if (c >= 0) rk::stage_async(rows4 + (long long)c * l3, s_tri, l3, kMaskThreads);
+    if (c >= 0) rk::stage_async(rows4 + (long long)c * l3, s_tri, l3, kThreads);
     __syncthreads();   // the packed rays are written
 
-    // the thread's slots tid + h * na; a slot past the live rays repeats
-    // the first and is not written
-    const int na = (n_live + kRays - 1) / kRays;
-    const bool active = tid < na;
-    int slot[kRays];
-    bool own[kRays];
-    rk::Ray rays[kRays];
-    float tb[kRays];
-    int fb[kRays];
+    // the thread's slots g + h * na (g: its group of 2^log_split threads);
+    // a slot past the live rays repeats the first and is not written
+    const int split = kSplit ? 1 << log_split : 1;
+    const int part = kSplit ? tid & (split - 1) : 0;
+    const int g = kSplit ? tid >> log_split : tid;
+    const int na = (n_live + N - 1) / N;
+    const bool active = g < na;
+    // with kSplit a warp tests (and shuffles) together if any of it is active
+    const bool run = kSplit ? ((tid & ~31) >> log_split) < na : active;
+    int slot[N];
+    bool own[N];
+    rk::Ray rays[N];
+    float tb[N];
+    int fb[N];
 #pragma unroll
-    for (int h = 0; h < kRays; ++h) {
-        own[h] = active && tid + h * na < n_live;
-        slot[h] = own[h] ? tid + h * na : 0;
+    for (int h = 0; h < N; ++h) {
+        own[h] = active && g + h * na < n_live;
+        slot[h] = own[h] ? g + h * na : 0;
         const int q = slot[h];
         rays[h] = {s_ray[0][q], s_ray[1][q], s_ray[2][q],
                    s_ray[3][q], s_ray[4][q], s_ray[5][q]};
@@ -213,54 +277,98 @@ cluster_intersect_mask_kernel(const int* __restrict__ unions, int cw,
         const int next = walk.next();
         if (next >= 0)
             rk::stage_async(rows4 + (long long)next * l3, s_tri + ((k + 1) & 1) * l3,
-                            l3, kMaskThreads);
-        if (active) {   // one triangle's shared loads serve the thread's rays
-            const float4* tri = s_tri + (k & 1) * l3;
-            float ct[kRays];
-            int cf[kRays];
-            rk::fold_cluster(tri, tri + l3, 3, rays, ct, cf);
+                            l3, kThreads);
+        if (run) {   // one triangle's shared loads serve the thread's rays
+            float ct[N];
+            int cf[N];
+            Test::template fold<N>(s_tri + (k & 1) * l3, leaf, c, part, split, rays,
+                                   ct, cf);
+            if constexpr (kSplit) {
+                for (int off = split >> 1; off > 0; off >>= 1) {
 #pragma unroll
-            for (int h = 0; h < kRays; ++h) merge(ct[h], cf[h], tb[h], fb[h]);
+                    for (int h = 0; h < N; ++h) {
+                        const float t2 = __shfl_xor_sync(0xffffffffu, ct[h], off);
+                        const int f2 = __shfl_xor_sync(0xffffffffu, cf[h], off);
+                        if (t2 < ct[h] || (t2 == ct[h] && f2 < cf[h])) {
+                            ct[h] = t2;
+                            cf[h] = f2;
+                        }
+                    }
+                }
+            }
+#pragma unroll
+            for (int h = 0; h < N; ++h) merge(ct[h], cf[h], tb[h], fb[h]);
         }
         c = next;
     }
 #pragma unroll
-    for (int h = 0; h < kRays; ++h) {
-        if (!own[h]) continue;
+    for (int h = 0; h < N; ++h) {
+        if (!own[h] || part != 0) continue;
         t_out[first + s_id[slot[h]]] = tb[h];
-        face_out[first + s_id[slot[h]]] = fb[h];
+        id_out[first + s_id[slot[h]]] = fb[h];
     }
 }
 
-__global__ void __launch_bounds__(kTile)
-cluster_intersect_mask_woop_kernel(const int* __restrict__ unions, int cw,
-                                   const float* __restrict__ woop, int c_total,
-                                   int leaf, const float* __restrict__ ro,
-                                   const float* __restrict__ rd,
-                                   const float* __restrict__ seed,
-                                   float* __restrict__ t_out,
-                                   int* __restrict__ packed_out) {
-    extern __shared__ float4 s_tri[];   // leaf * 3
-    const long long tile = blockIdx.x;
-    const long long i = tile * kTile + threadIdx.x;
-    const rk::Ray ray = rk::load_ray(ro, rd, i);
-    const float4* rows4 = reinterpret_cast<const float4*>(woop);
-    float tb = seed[i];
-    int fb = -1;
-    for (int w = 0; w < cw && w * 32 < c_total; ++w) {
-        unsigned bits = (unsigned)unions[tile * cw + w];
-        const int valid = c_total - w * 32;   // bits of this word naming clusters
-        if (valid < 32) bits &= (1u << valid) - 1u;
-        while (bits) {
-            const int c = w * 32 + (__ffs(bits) - 1);
-            bits &= bits - 1u;
-            stage_cluster(rows4, c, leaf, s_tri);
-            test_cluster_woop(reinterpret_cast<const float*>(s_tri), c, leaf, ray, tb,
-                              fb);
+// Each tile's rays against every cluster of its union (`Test` on the
+// cluster's table), Test::kThreads threads a tile.
+template <class Test>
+__global__ void __launch_bounds__(Test::kThreads, Test::kMinBlocks)
+union_kernel(const int* __restrict__ unions, int cw, const float* __restrict__ rows,
+             int c_total, int leaf, const float* __restrict__ ro,
+             const float* __restrict__ rd, const float* __restrict__ seed,
+             float* __restrict__ t_out, int* __restrict__ id_out) {
+    constexpr int kRays = Test::kRays, kThreads = Test::kThreads;
+    constexpr int kPack = (kTile + kThreads - 1) / kThreads;   // rays to pack
+    extern __shared__ float4 s_tri[];   // two staged clusters, 2 * 3L
+    __shared__ float s_ray[7][kTile];   // the live rays, packed: o, d, seed
+    __shared__ int s_id[kTile];         // their ids in the tile
+    __shared__ int s_scan[33];
+    const int tid = threadIdx.x;
+    const long long first = (long long)blockIdx.x * kTile;
+
+    // pack the live rays (the tile's rays tid + h * kThreads)
+    bool live[kPack];
+    float sd[kPack];
+    int n_live, cnt = 0;
+#pragma unroll
+    for (int h = 0; h < kPack; ++h) {
+        const int k = tid + h * kThreads;
+        const long long i = first + k;
+        const bool in = kThreads * kPack == kTile || k < kTile;
+        sd[h] = in ? seed[i] : 0.0f;
+        live[h] = sd[h] > 0.0f;   // false for -BIG and nan seeds
+        cnt += live[h];
+        if (!live[h] && in) {
+            t_out[i] = sd[h];
+            id_out[i] = -1;
         }
     }
-    t_out[i] = tb;
-    packed_out[i] = fb;
+    int pos = rk::block_exclusive_scan(cnt, s_scan, &n_live);
+    if (n_live == 0) return;   // uniform across the block
+#pragma unroll
+    for (int h = 0; h < kPack; ++h) {
+        if (!live[h]) continue;
+        const int k = tid + h * kThreads;
+        const long long i = first + k;
+#pragma unroll
+        for (int e = 0; e < 3; ++e) {
+            s_ray[e][pos] = ro[i * 3 + e];
+            s_ray[3 + e][pos] = rd[i * 3 + e];
+        }
+        s_ray[6][pos] = sd[h];
+        s_id[pos++] = k;
+    }
+    const float4* rows4 = reinterpret_cast<const float4*>(rows);
+    int log_split = 0;   // uniform across the block: the widest split that
+    if constexpr (Test::kMaxSplit > 1) {   // fits the live rays
+        const int groups = (n_live + kRays - 1) / kRays;
+        while ((2 << log_split) <= Test::kMaxSplit &&
+               (groups << (log_split + 1)) <= kThreads)
+            ++log_split;
+    }
+    test_union<Test, kRays, (Test::kMaxSplit > 1)>(
+        unions, cw, rows4, c_total, leaf, n_live, log_split, s_ray, s_id, s_tri,
+        first, t_out, id_out);
 }
 
 // 1 / det as the kernels get it (rk::inv_det_of's fast path, and its
@@ -325,8 +433,24 @@ int prepare_smem(K kernel, int leaf, size_t* smem) {
                                      (int)*smem);
 }
 
-bool bad_mask_args(int cw, int c_total, int leaf, long long n_tiles) {
-    return cw <= 0 || c_total <= 0 || leaf <= 0 || n_tiles < 0;
+// Launches union_kernel<Test>: two staged clusters of dynamic shared
+// memory a block, one block a tile.
+template <class Test>
+int launch_union(const int* unions, int cw, const float* rows, int c_total,
+                 int leaf, const float* ro, const float* rd, const float* seed,
+                 float* t_out, int* id_out, long long n_tiles, void* stream) {
+    if (cw <= 0 || c_total <= 0 || leaf <= 0 || n_tiles < 0)
+        return (int)cudaErrorInvalidValue;
+    if (n_tiles == 0) return 0;
+    const size_t smem = (size_t)leaf * 3 * 2 * sizeof(float4);
+    if (const cudaError_t e = cudaFuncSetAttribute(
+            union_kernel<Test>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            (int)smem))
+        return (int)e;
+    union_kernel<Test><<<(unsigned)n_tiles, Test::kThreads, smem,
+                         (cudaStream_t)stream>>>(unions, cw, rows, c_total, leaf,
+                                                 ro, rd, seed, t_out, id_out);
+    return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -336,34 +460,22 @@ extern "C" int rk_cluster_intersect_mask(const int* unions, int cw, const float*
                                          const float* rd, const float* seed,
                                          float* t_out, int* face_out,
                                          long long n_tiles, void* stream) {
-    if (bad_mask_args(cw, c_total, leaf, n_tiles)) return (int)cudaErrorInvalidValue;
-    if (n_tiles == 0) return 0;
-    const size_t smem = (size_t)leaf * 3 * 2 * sizeof(float4);
-    if (const cudaError_t e = cudaFuncSetAttribute(
-            cluster_intersect_mask_kernel,
-            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem))
-        return (int)e;
-    cluster_intersect_mask_kernel<<<(unsigned)n_tiles, kMaskThreads, smem,
-                                    (cudaStream_t)stream>>>(
-        unions, cw, rows, c_total, leaf, ro, rd, seed, t_out, face_out);
-    return (int)cudaGetLastError();
+    return launch_union<MtTest>(unions, cw, rows, c_total, leaf, ro, rd, seed,
+                                t_out, face_out, n_tiles, stream);
 }
 
+// packed_out = cid * L + lane; four lanes a shared load where L % 4 == 0.
 extern "C" int rk_cluster_intersect_mask_woop(const int* unions, int cw,
                                               const float* woop, int c_total,
                                               int leaf, const float* ro,
                                               const float* rd, const float* seed,
                                               float* t_out, int* packed_out,
                                               long long n_tiles, void* stream) {
-    if (bad_mask_args(cw, c_total, leaf, n_tiles)) return (int)cudaErrorInvalidValue;
-    if (n_tiles == 0) return 0;
-    size_t smem;
-    if (const int e = prepare_smem(cluster_intersect_mask_woop_kernel, leaf, &smem))
-        return e;
-    cluster_intersect_mask_woop_kernel<<<(unsigned)n_tiles, kTile, smem,
-                                         (cudaStream_t)stream>>>(
-        unions, cw, woop, c_total, leaf, ro, rd, seed, t_out, packed_out);
-    return (int)cudaGetLastError();
+    if (leaf % 4 == 0)
+        return launch_union<WoopTest<4>>(unions, cw, woop, c_total, leaf, ro, rd,
+                                         seed, t_out, packed_out, n_tiles, stream);
+    return launch_union<WoopTest<1>>(unions, cw, woop, c_total, leaf, ro, rd, seed,
+                                     t_out, packed_out, n_tiles, stream);
 }
 
 extern "C" int rk_cluster_intersect(const int* worklist, const int* counts, int cap,

@@ -25,29 +25,53 @@
 //     link outside the table loads a zero row, which the walk never
 //     takes (the step that would take it ends the walk or never runs).
 //
-// What bounds it on this card: the dependent chain of node fetches and
-// slab tests per ray (tens of steps), and warp divergence, since the
-// rays of a warp leave the walk after different step counts. Memory
+// What bounds it on this card: the node fetches and slab tests of each
+// ray (tens of steps), issued until the longest walk of the warp ends,
+// since the rays of a warp leave the walk after different step counts,
+// and the shared loads of the rows, which are broadcasts only where a
+// warp's rays walk the same nodes. Memory
 // traffic is small: 29 bytes of ray in, cwp * 4 bytes of mask out (none
 // in the union form).
 //
-// What the design does about it: one thread per ray, the whole table in
-// shared memory (89 rows on the icosphere stand-in, 773 rows = 24.7 KB
-// on the 69k-triangle bunny at leaf 384; dynamic shared memory, with
-// the 48 KB opt-in above that, up to the 227 KB a block may use, about
-// 7,000 rows), so a node fetch is two 16-byte shared
-// loads and the row decodes in registers. Mask form: bits go straight
-// into the ray's own column of the mask (zeroed first), so no
-// per-thread array sits in local memory (the mask-only mode stops
-// there); the tile union is a warp
-// __reduce_or_sync, a shared atomicOr per block, and one global atomicOr
-// per block and word. Union form: a block is one 256-ray union tile, a
-// wanted bit is a shared atomicOr into the tile's words, and the block
-// stores every word once at the end, so the union is written whole and
-// needs no zeroing. The TPU kernel's radix one-hot MXU fetch and its
-// in-register OR-fold over lanes have no counterpart.
+// What the design does about it: the whole table in shared memory (89
+// rows on the icosphere stand-in, 773 rows = 24.7 KB on the 69k-triangle
+// bunny at leaf 384; dynamic shared memory, with the 48 KB opt-in above
+// that, up to the 227 KB a block may use, about 7,000 rows), so a node
+// fetch is two 16-byte shared loads (the bf16 row decodes in registers,
+// except in the mask-only form, below). One thread walks one ray, and
+// the rays of a warp are neighbours: they walk much the same nodes, so
+// a row load is mostly a broadcast (packing keeps them in pixel order).
+// (Interleaving two or three walks in a thread, packed or not, and
+// refilling a thread from the packed rays when a walk ends are
+// walk_designs.cu's variants of the mask-only form; each measured slower
+// on the card, `python -m raypt_torch.kernels.sweep`.)
+//   * Mask form (rk_topwalk): bits go straight into the ray's own column
+//     of the mask (zeroed first); the tile union is a warp
+//     __reduce_or_sync, a shared atomicOr per block, and one global
+//     atomicOr per block and word. Union form (rk_topwalk_union): a block
+//     is one 256-ray union tile, a wanted bit is a shared atomicOr into
+//     the tile's words, and the block stores every word once at the end,
+//     so the union is written whole and needs no zeroing.
+//   * Mask-only form (rk_topwalk_mask, topwalk_mask_kernel): a block
+//     whose rays are all dead (most blocks of a late bounce) writes their
+//     zero columns and stops before it loads the table; a block scan
+//     packs the live rays in pixel order onto the first threads, so its
+//     warps hold only walking rays; the block decodes the table once into
+//     f32 bounds, links and flags (32 bytes a row, as the bf16 rows),
+//     which takes the unpacking and link decoding out of every step (the
+//     same values, so the same walk); a ray's mask word is built in a
+//     register and stored once, when the walk moves to another word (the
+//     words skipped are stored as zeros then, the rest when the walk
+//     ends), and a word that comes back after it was stored (leaves out
+//     of id order) is ORed into memory, so any leaf order gives the same
+//     mask; no word is read back otherwise.
+// The TPU kernel's radix one-hot MXU fetch and its in-register OR-fold
+// over lanes have no counterpart.
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "block_scan.cuh"
+#include "mask_walk.cuh"
 
 namespace {
 
@@ -56,15 +80,11 @@ constexpr int kRayTile = 2048;   // rays per union_pp row (the JAX walk program)
 static_assert(kRayTile % kThreads == 0, "a block lies in one walk tile");
 constexpr unsigned kFull = 0xffffffffu;
 
-__device__ __forceinline__ int decode(float hi, float lo) {
-    return (int)(rintf(hi) * 128.0f + rintf(lo)) - 1;
-}
-
-// What a launch writes: the mask and the walk-tile union_pp; only the
-// block's union, to unions[blockIdx.x * cwp + w] (mask is not touched);
-// or only the mask (unions and the shared union words are not touched),
-// by the plain walk or by the speculative one.
-enum Mode { kMaskAndUnionPP, kTileUnion, kMaskOnly, kMaskSpec };
+// What a launch of topwalk_kernel writes: the mask and the walk-tile
+// union_pp; only the block's union, to unions[blockIdx.x * cwp + w]
+// (mask is not touched); or only the mask by the speculative walk
+// (unions and the shared union words are not touched).
+enum Mode { kMaskAndUnionPP, kTileUnion, kMaskSpec };
 
 // Row `node` of the shared table as two 16-byte words; a node outside
 // the table reads as a zero row (the speculative loads only).
@@ -89,7 +109,7 @@ topwalk_kernel(const uint16_t* __restrict__ table, int nt,
     int* s_union = reinterpret_cast<int*>(s_mem + nt * 2);  // cwp words
     const uint4* tab4 = reinterpret_cast<const uint4*>(table);
     for (int k = threadIdx.x; k < nt * 2; k += kThreads) s_mem[k] = tab4[k];
-    constexpr bool kMaskOut = kMode == kMaskOnly || kMode == kMaskSpec;
+    constexpr bool kMaskOut = kMode == kMaskSpec;
     if constexpr (!kMaskOut)
         for (int w = threadIdx.x; w < cwp; w += kThreads) s_union[w] = 0;
     __syncthreads();
@@ -127,7 +147,8 @@ topwalk_kernel(const uint16_t* __restrict__ table, int nt,
                 f[2 * k] = __uint_as_float(wd[k] << 16);
                 f[2 * k + 1] = __uint_as_float(wd[k] & 0xffff0000u);
             }
-            const int left = decode(f[6], f[7]), skip = decode(f[8], f[9]);
+            const int left = rk::decode_link(f[6], f[7]);
+            const int skip = rk::decode_link(f[8], f[9]);
             uint4 la, lb, sa, sb;   // speculative: both successors' rows,
             if constexpr (kMode == kMaskSpec) {   // loaded before the test
                 load_row(s_mem, nt, left, &la, &lb);
@@ -144,7 +165,7 @@ topwalk_kernel(const uint16_t* __restrict__ table, int nt,
             const bool hit = tfar >= tnear && tnear < tb && tfar > 0.0f &&
                              nonempty && f[13] > 0.5f;
             const bool is_leaf = f[12] > 0.5f;
-            const int cid = decode(f[10], f[11]);
+            const int cid = rk::decode_link(f[10], f[11]);
             if (hit && is_leaf && cid >= 0 && (cid >> 5) < cwp) {
                 const int bit = (int)(1u << (cid & 31));
                 if constexpr (kMode == kTileUnion)
@@ -183,12 +204,46 @@ topwalk_kernel(const uint16_t* __restrict__ table, int nt,
 // cwp union words, opted in above 48 KB. Returns a CUDA error code.
 template <Mode kMode>
 int prepare_smem(int nt, int cwp, size_t* smem) {
-    *smem = (size_t)nt * 32 +
-            (kMode == kMaskOnly || kMode == kMaskSpec ? 0 : (size_t)cwp * 4);
+    *smem = (size_t)nt * 32 + (kMode == kMaskSpec ? 0 : (size_t)cwp * 4);
     if (*smem <= 48 * 1024) return 0;
     return (int)cudaFuncSetAttribute(topwalk_kernel<kMode>,
                                      cudaFuncAttributeMaxDynamicSharedMemorySize,
                                      (int)*smem);
+}
+
+// The mask-only walk (rk_topwalk_mask): kThreads rays a block, its live
+// rays packed in pixel order onto its first threads, one a thread; the
+// step and the mask column are mask_walk.cuh's.
+__global__ void __launch_bounds__(kThreads)
+topwalk_mask_kernel(const uint16_t* __restrict__ table, int nt,
+                    const float* __restrict__ ro, const float* __restrict__ rd,
+                    const float* __restrict__ t0, const uint8_t* __restrict__ active,
+                    int* __restrict__ mask, long long r, int cwp, int max_steps) {
+    extern __shared__ float4 s_row[];   // nt * 2: the decoded table
+    __shared__ int s_warp[33];
+    __shared__ int s_list[kThreads];    // the live rays, in pixel order
+    const long long base = (long long)blockIdx.x * kThreads;
+    const bool live = active[base + threadIdx.x];
+    // a dead ray's column is zeros; a block without a live ray is done
+    if (!live)
+        for (int w = 0; w < cwp; ++w) mask[w * r + base + threadIdx.x] = 0;
+    int n;
+    const int at = rk::block_exclusive_scan(live, s_warp, &n);
+    if (n == 0) return;   // uniform across the block
+    if (live) s_list[at] = threadIdx.x;
+    rk::decode_table(table, nt, cwp, s_row);
+    __syncthreads();
+    if ((int)threadIdx.x >= n) return;
+    const long long i = base + s_list[threadIdx.x];
+    const rk::WalkRay ray = rk::load_walk_ray(ro, rd, t0, i);
+    rk::MaskColumn col{mask + i, -1, -1, 0u};
+    int node = 0;
+    for (int step = 0; step < max_steps && node >= 0; ++step) {
+        int cid;
+        node = rk::walk_step(s_row, node, ray, &cid);
+        if (cid >= 0) col.add(r, cid);
+    }
+    col.finish(r, cwp);
 }
 
 }  // namespace
@@ -229,14 +284,20 @@ extern "C" int rk_topwalk_mask(const uint16_t* table, int nt, const float* ro,
                                const float* rd, const float* t0,
                                const uint8_t* active, int* mask, long long r,
                                int cw, int max_steps, void* stream) {
-    if (r % kThreads || nt <= 0 || cw <= 0)
+    if (r % kThreads || nt <= 0 || nt >= 1 << 15 || cw <= 0)   // links: 15 bits
         return (int)cudaErrorInvalidValue;
     if (r == 0) return 0;
-    size_t smem;
-    if (const int e = prepare_smem<kMaskOnly>(nt, cw, &smem)) return e;
-    topwalk_kernel<kMaskOnly><<<(unsigned)(r / kThreads), kThreads, smem,
-                                (cudaStream_t)stream>>>(
-        table, nt, ro, rd, t0, active, mask, nullptr, r, cw, max_steps);
+    // the static list and scan words (under kThreads + 64 ints) count
+    // against the 48 KB default too
+    const size_t smem = (size_t)nt * 32;
+    if (smem + sizeof(int) * (kThreads + 64) > 48 * 1024)
+        if (const cudaError_t e = cudaFuncSetAttribute(
+                topwalk_mask_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                (int)smem))
+            return (int)e;
+    topwalk_mask_kernel<<<(unsigned)(r / kThreads), kThreads, smem,
+                          (cudaStream_t)stream>>>(
+        table, nt, ro, rd, t0, active, mask, r, cw, max_steps);
     return (int)cudaGetLastError();
 }
 

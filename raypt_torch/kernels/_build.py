@@ -24,7 +24,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 KERNEL_SOURCES = ("compact.cu", "onehot_walk.cu", "cluster_expand.cu",
                   "cluster_intersect.cu", "dense_closest.cu", "gather.cu",
                   "expand_diag.cu", "regroup.cu")
-KERNEL_HEADERS = ("cluster_test.cuh", "block_scan.cuh")
+KERNEL_HEADERS = ("cluster_test.cuh", "block_scan.cuh", "mask_walk.cuh")
 SMEM_LIMIT = 232448   # shared memory a block may use on Hopper (227 KB)
 
 

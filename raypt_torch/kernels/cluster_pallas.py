@@ -223,14 +223,22 @@ def cluster_intersect_plain(worklist, counts, tri_rows, ro, rd, t0):
     return tb.view(-1), fb.view(-1)
 
 
-def _ray_specs(table, shape, ro, rd, t0, n_tiles: int) -> dict:
+# the union kernels' static shared memory: a tile's packed live rays
+# (seven floats and an id each) and the scan's words
+UNION_SMEM = 4 * (8 * TILE + 33)
+
+
+def _ray_specs(table, shape, ro, rd, t0, n_tiles: int,
+               union: bool = False) -> dict:
     """Checks of the rays and of the cluster table, (C, L, 12) or Woop
-    (C, 4, 3L): the kernels stage one cluster's 48 L bytes in shared
-    memory."""
-    if 4 * shape[1] * shape[2] > SMEM_LIMIT:
+    (C, 4, 3L): the worklist kernel stages one cluster's 48 L bytes in
+    shared memory, the union kernels two and their packed rays."""
+    staged = 4 * shape[1] * shape[2]
+    if (2 * staged + UNION_SMEM if union else staged) > SMEM_LIMIT:
         raise ValueError(f"a cluster of {tuple(shape[1:])} floats does not "
-                         f"fit in shared memory (the kernels stage one "
-                         f"cluster there)")
+                         f"fit in shared memory (the kernels stage "
+                         f"{'two clusters' if union else 'one cluster'} "
+                         f"there)")
     r = n_tiles * TILE
     return {"table": (table, shape, torch.float32),
             "ro": (ro, (r, 3), torch.float32),
@@ -256,7 +264,8 @@ def cluster_intersect_mask(union, tri_rows, ro, rd, t0):
     won)."""
     n_tiles = _n_tiles(ro)
     cw = union.shape[1]
-    specs = _ray_specs(tri_rows, _rows_shape(tri_rows), ro, rd, t0, n_tiles)
+    specs = _ray_specs(tri_rows, _rows_shape(tri_rows), ro, rd, t0, n_tiles,
+                       union=True)
     specs["union"] = (union, (n_tiles, cw), torch.int32)
     if not on_cuda(specs):
         return cluster_intersect_mask_plain(union, tri_rows, ro, rd, t0)
@@ -283,7 +292,7 @@ def cluster_intersect_mask_woop(union, woop_cm, ro, rd, t0):
     cw = union.shape[1]
     specs = _ray_specs(woop_cm, (woop_cm.shape[0], 4,
                                  woop_cm.shape[2] // 3 * 3), ro, rd, t0,
-                       n_tiles)
+                       n_tiles, union=True)
     specs["union"] = (union, (n_tiles, cw), torch.int32)
     if not on_cuda(specs):
         return cluster_intersect_mask_woop_plain(union, woop_cm, ro, rd, t0)

@@ -129,7 +129,8 @@ def topwalk_cm(table, ro, rd, t0, active, num_words: int):
         raise ValueError(f"R={r} must be a multiple of {UNION_TILE}")
     if not on_cuda(_walk_specs(table, ro, rd, t0, active)):
         return topwalk_cm_plain(table, ro, rd, t0, active, num_words)
-    _check_table(table, 0)
+    # beside the table, the block's packed rays and its scan's 33 words
+    _check_table(table, UNION_TILE + 33)
     # every word of every ray is stored by the kernel, zero or not
     mask = torch.empty((num_words, r), dtype=torch.int32, device=ro.device)
     launch("rk_topwalk_mask", table.data_ptr(), nt, ro.data_ptr(),

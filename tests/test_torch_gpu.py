@@ -31,7 +31,9 @@ from raypt_torch.rng import sampler as rng
 from raypt_torch.scenes.builtin import stanford_bunny
 from raypt_torch.scenes.config4 import config4_scene
 
-from chip_smoke import MERGE_LEAVES, check_planted, copy_most_hit, merge_case
+from chip_smoke import (MERGE_LEAVES, WOOP_ODD_LEAF, check_planted,
+                        copy_most_hit, merge_case, walk_layouts, woop_faces,
+                        woop_merge)
 
 pytestmark = pytest.mark.gpu
 
@@ -159,10 +161,14 @@ def _expand_stages(scene, accels, leaf, bounce):
     assert _bits_equal(kut[a], put[a]) and torch.equal(kuf[a], puf[a])
 
 
-def _walk_mask_stage(scene, accels, leaf, bounce):
-    """The non-fused path's mask-only walk, in both layouts."""
+def _walk_mask_stage(scene, accels, leaf, bounce, edges=False):
+    """The non-fused path's mask-only walk, in both layouts; with edges,
+    on a dead, a one-live and a last-warp-only block
+    (`chip_smoke.walk_layouts`)."""
     cfg, finder, _ = _path(scene, accels, "unfused")
     ro, rd, active = _waves(scene, cfg, None, 5, finder)[bounce]
+    if edges:
+        active = walk_layouts(active)
     accel = accels[leaf]
     o, d, t, a, _, _ = wavefront_inputs(scene, ro, rd, active, DENSE_CHUNK)
     args = (accel.table, o, d, t, a, -(-accel.num_clusters // 32))
@@ -241,6 +247,7 @@ def _grouped_stage(scene, accels, bounce):
 @pytest.mark.parametrize("stage,leaf,bounce", [
     ("expand", 384, 0), ("expand", 384, 1), ("expand", 16, 1),
     ("walk_mask", 128, 1), ("walk_mask", 16, 1),
+    ("walk_edges", 128, 1), ("walk_edges", 16, 1),
     ("closest_dense", None, 0), ("closest_dense", None, 2),
     ("closest_dense_copies", None, 0), ("woop", None, 0), ("woop", None, 1),
     ("grouped", None, 1)])
@@ -248,7 +255,8 @@ def test_stages_bitwise(gpu_scene, stage, leaf, bounce):
     """Each kernel stage against its plain version on one bounce's
     wavefront of its render path: the expand path's four (leaf 384, and
     leaf 16 with 40 mask words), the non-fused path's mask-only walk
-    (leaf 128: 5 words; leaf 16: 33, not a multiple of 8), the pallas
+    (leaf 128: 5 words; leaf 16: 33, not a multiple of 8; also on a
+    dead, a one-live and a last-warp-only block), the pallas
     path's closest_dense, also where copied triangles tie with their
     sources and the lowest id must win, the config-4 path's Woop
     intersection and the grouped worklist intersection on the cluster
@@ -256,8 +264,8 @@ def test_stages_bitwise(gpu_scene, stage, leaf, bounce):
     scene, accels = gpu_scene
     if stage == "expand":
         _expand_stages(scene, accels, leaf, bounce)
-    elif stage == "walk_mask":
-        _walk_mask_stage(scene, accels, leaf, bounce)
+    elif stage.startswith("walk"):
+        _walk_mask_stage(scene, accels, leaf, bounce, stage == "walk_edges")
     elif stage == "woop":
         _woop_stage(accels, bounce)
     elif stage == "grouped":
@@ -330,17 +338,21 @@ def test_render_bitwise_vs_plain_finder(gpu_scene, path):
     assert _bits_equal(img_k, img_p) and torch.equal(tr_k, tr_p)
 
 
-@pytest.mark.parametrize("kernel", ["expand", "mask"])
-@pytest.mark.parametrize("leaf", MERGE_LEAVES)
-def test_merge_cases_bitwise(kernel, leaf):
-    """cluster_expand and cluster_intersect_mask against their plain
-    versions on `chip_smoke.merge_case`'s synthetic clusters: a triangle
-    copied into a higher cluster with a lower face id (the lower cluster
-    must win) and within its cluster (the lower id must win), a cluster
-    that one ray of a block wants, an all-dead, a mixed and a one-live
-    tile with nonzero masks, and, the second time, bits >= C set in every
-    mask and union word past the clusters and triangles whose det reaches
-    2^126 and inf (the exact reciprocal's path)."""
+@pytest.mark.parametrize("leaf,kernel", [
+    (leaf, kernel) for leaf in MERGE_LEAVES
+    for kernel in ("expand", "mask", "woop")] + [(WOOP_ODD_LEAF, "woop")])
+def test_merge_cases_bitwise(leaf, kernel):
+    """cluster_expand, cluster_intersect_mask and, on the clusters' Woop
+    table, cluster_intersect_mask_woop against their plain versions on
+    `chip_smoke.merge_case`'s synthetic clusters: a triangle copied into
+    a higher cluster with a lower face id (the lower cluster must win)
+    and within its cluster (the lower id must win; Woop: the lower
+    lane), a cluster that one ray of a block wants, an all-dead, a mixed
+    and a one-live tile with nonzero masks, and, the second time, bits
+    >= C set in every mask and union word past the clusters and
+    triangles whose det reaches 2^126 and inf (the exact reciprocal's
+    path). The Woop kernel also at a leaf no 4 divides, where it loads
+    one lane at a time."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     for stray in (False, True):
@@ -350,12 +362,20 @@ def test_merge_cases_bitwise(kernel, leaf):
             args = (case["mask_cm"], case["union_pp"], case["tri_rows"], *rays)
             kt, kf = tex.cluster_expand(*args)
             pt, pf = tex.cluster_expand_plain(*args)
+        elif kernel == "woop":
+            woop_cm, fid, planted = woop_merge(case)
+            args = (case["union"], woop_cm, *rays)
+            kt, kf = tdn.cluster_intersect_mask_woop(*args)
+            pt, pf = tdn.cluster_intersect_mask_woop_plain(*args)
         else:
             args = (case["union"], case["tri_rows"], *rays)
             kt, kf = tdn.cluster_intersect_mask(*args)
             pt, pf = tdn.cluster_intersect_mask_plain(*args)
         assert _bits_equal(kt, pt) and torch.equal(kf, pf)
-        check_planted(case, kf, kernel)
+        if kernel == "woop":
+            check_planted(planted, woop_faces(kf, fid), kernel)
+        else:
+            check_planted(case, kf, kernel)
 
 
 def test_inv_det_sweep():

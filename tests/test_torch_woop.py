@@ -286,3 +286,71 @@ def test_woop_wrapper_checks(soup):
     with pytest.raises(ValueError):
         tdn.cluster_intersect_grouped(wl, cnt, tacc.clusters.tri_rows, _t(ro),
                                       _t(rd), t0, group=0)
+
+
+@pytest.mark.parametrize("kernel", ["mask", "woop"])
+def test_union_wrappers_check_shared_memory(kernel):
+    """The union kernels stage two clusters and the tile's packed rays in
+    shared memory: a leaf whose two clusters do not fit there is refused
+    by the wrapper (on CPU tensors too, before the plain version runs),
+    one that fits by a margin is taken."""
+    ro = torch.zeros((tdn.TILE, 3))
+    t0 = torch.full((tdn.TILE,), -BIG)
+    union = torch.zeros((1, 1), dtype=torch.int32)
+    fits = (tdn.SMEM_LIMIT - tdn.UNION_SMEM) // (2 * 48)
+    for leaf, ok in ((fits, True), (fits + 1, False)):
+        if kernel == "mask":
+            table = torch.zeros((1, leaf, 12))
+            fn = tdn.cluster_intersect_mask
+        else:
+            table = torch.zeros((1, 4, 3 * leaf))
+            fn = tdn.cluster_intersect_mask_woop
+        if ok:
+            t, f = fn(union, table, ro, ro, t0)
+            assert torch.equal(t, t0) and bool((f == -1).all())
+        else:
+            with pytest.raises(ValueError):
+                fn(union, table, ro, ro, t0)
+
+
+def test_sweep_sets_constants():
+    """`kernels.sweep` builds the Woop kernel's variants by setting named
+    constants in one scope of its source: exactly those lines change, and
+    a constant the scope lacks raises."""
+    import os
+
+    from raypt_torch.kernels import sweep
+    from raypt_torch.kernels._build import CSRC_DIR
+    with open(os.path.join(CSRC_DIR, "cluster_intersect.cu")) as f:
+        src = f.read()
+    for consts in sweep.WOOP_VARIANTS.values():
+        out = sweep._set(src, "struct WoopTest {", consts)
+        changed = [b for a, b in zip(src.splitlines(), out.splitlines())
+                   if a != b]
+        assert len(out.splitlines()) == len(src.splitlines())
+        for line in changed:
+            name, value = line.split("constexpr int ")[1].split(" = ")
+            assert consts[name] == int(value.split(";")[0])
+    with pytest.raises(ValueError):
+        sweep._set(src, "struct WoopTest {", {"kNoSuchConstant": 1})
+
+
+def test_sweep_walk_designs():
+    """Each walk design the sweep times is one instance of
+    `csrc/walk_designs.cu`'s template, with a C entry point of its own,
+    and the sources it builds are in the checkout."""
+    import os
+    import re
+
+    from raypt_torch.kernels import sweep
+    from raypt_torch.kernels._build import CSRC_DIR, KERNEL_HEADERS
+    with open(os.path.join(CSRC_DIR, "walk_designs.cu")) as f:
+        src = f.read()
+    made = re.findall(r"^RK_WALK_DESIGN\((\w+), (\d+), (\d+), (\w+)\)$", src,
+                      re.M)
+    assert [m[0] for m in made] == list(sweep.WALK_DESIGNS)
+    for name, rays, walks, packed in made:
+        assert 1 <= int(walks) <= int(rays)
+        assert packed == "true" or rays == walks
+    for h in KERNEL_HEADERS:
+        assert os.path.exists(os.path.join(CSRC_DIR, h))

@@ -25,18 +25,27 @@ from raypt_torch.kernels import onehot_walk as twk
 from test_torch_cluster import (R, _finders_agree, _onehot, _t, _wavefront,
                                 bunny)  # noqa: F401  (bunny is a fixture)
 
+from chip_smoke import walk_layouts
+
 torch.set_num_threads(2)
 
 
-@pytest.mark.parametrize("leaf", [16, 128])
-def test_topwalk_bitwise(bunny, leaf):
+@pytest.mark.parametrize("leaf,blocks", [
+    (16, "random"), (128, "random"), (16, "edges"), (128, "edges")],
+    ids=["16", "128", "16-edges", "128-edges"])
+def test_topwalk_bitwise(bunny, leaf, blocks):
     """The mask-only walk, with ~40% dead rays, against
     pallas_topwalk(interpret=True), bitwise, in both layouts: leaf 16
     has 1,026 clusters in 33 words (not a multiple of 8), leaf 128 130
-    in 5."""
+    in 5. With blocks "edges", the 256-ray blocks the CUDA kernel packs
+    include an all-dead one, one with a single live ray and one live
+    only in its last warp (`chip_smoke.walk_layouts`): their dead rays'
+    columns are all zero."""
     rng = np.random.default_rng(100 + leaf)
     (_, jtable), acc = _onehot(bunny, leaf)
     ro, rd, t0, active = _wavefront(rng, bunny[0])
+    if blocks == "edges":
+        active = walk_layouts(_t(active)).numpy()
     nw = -(-acc.num_clusters // 32)
     ref = np.asarray(pallas_topwalk(
         jtable, jnp.asarray(ro), jnp.asarray(rd), jnp.asarray(t0),
@@ -49,6 +58,9 @@ def test_topwalk_bitwise(bunny, leaf):
     for fn in (twk.topwalk_cm, twk.topwalk_cm_plain):
         got = fn(*args)
         assert got.shape == (nw, R) and np.array_equal(got.numpy(), ref.T)
+    if blocks == "edges":
+        assert not ref[~active].any()
+        assert ref[256 + 77].any() and ref[768 - 32:768].any(axis=1).sum() > 8
 
 
 @pytest.mark.parametrize("cap,round_", [(512, 0), (512, 1), (8, 0), (8, 1),
