@@ -47,8 +47,13 @@ Phases:
      (whose worklist intersection is also timed, with its peak memory,
      at 2^22 and at STEP_PAIRS pairs a step), a tile of rays that hit
      nothing, duplicated triangles tying within a triangle chunk and
-     across chunks, and tables of one chunk exactly and of a size that
-     needs padding. On the config-4 path: the mask-only walk and
+     across chunks, tables of one chunk exactly and of a size that
+     needs padding, and zero maps among the real triangles (tables of
+     256 slots and of all the scene's, rays of one tile and of a whole
+     wavefront, seeds -BIG, nan and below every hit: zero_maps_table,
+     edge_seeds). Per bounce the log gives the share of tests the
+     kernels skip: closest_dense's on zero-ww triangles, the worklist
+     kernel's on dead rays. On the config-4 path: the mask-only walk and
      cluster_intersect_mask_woop on all eight bounces, both timed (the
      Woop kernel with matmul_woop, the same closest hit through torch.bmm,
      as its library yardstick, and the Moller-Trumbore
@@ -69,15 +74,20 @@ Phases:
      clusters at leaves MERGE_LEAVES (the Woop kernel also at
      WOOP_ODD_LEAF, which no 4 divides; ties across and within clusters, a
      cluster one ray of a block wants, dead, mixed and one-live tiles,
-     stray bits, triangles whose det reaches 2^126), the mask-only walk
-     on a dead, a one-live and a last-warp-only block (walk_layouts) at
-     leaves 128 and 16, and the kernels'
-     1 / det (the correctly rounded reciprocal) against the
+     stray bits, triangles whose det reaches 2^126), and
+     cluster_intersect and cluster_intersect_grouped (G in WL_GROUPS) on
+     the same clusters as worklists (worklist_merge: lists in descending
+     and ascending id, counts at, above and below their lengths, with the
+     stray bits also ids outside [0, C) and counts above cap), the
+     mask-only walk on a dead, a one-live and a last-warp-only block
+     (walk_layouts) at leaves 128 and 16, and the kernels' 1 / det (the
+     correctly rounded reciprocal) against the
      division over all 2^32 bit patterns (inv_det_sweep). The SM clock is
      sampled (nvidia-smi) while each path's kernels are timed; phase 2
      reads the instructions a triangle test takes in each intersection
-     kernel's inner loop, and a walk step in the mask-only walk's, from
-     cuobjdump -sass of the built library
+     kernel's inner loop (the union template's three instances, the
+     expansion, closest_dense), and a walk step in the mask-only walk's,
+     from cuobjdump -sass of the built library
   4. each path's render through render_sample: every kernel of the path
      launches once per bounce and no other kernel launches, the image is
      finite and bitwise equal to the render through the plain versions
@@ -230,6 +240,10 @@ MERGE_LEAVES = (16, 64, 128, 384)
 # and a leaf no 4 divides, where the Woop kernel loads a lane at a time
 # (WoopTest<1> of csrc/cluster_intersect.cu), checked for it alone
 WOOP_ODD_LEAF = 18
+# slots of a merge case's worklists past the longest list
+# (worklist_merge), and the groups the grouped kernel is held at there
+WL_PAD = 3
+WL_GROUPS = (2, 3)
 
 KERNELS = {   # name -> (paths that launch it, source, TPU kernel it replaces)
     "alive_compact": (("expand",), "raypt_torch/csrc/compact.cu",
@@ -536,10 +550,12 @@ def compare_cluster(stats, label, scene, clusters, ro, rd, active, timed):
                    dn.cluster_intersect_plain, iargs,
                    nbytes(wl, cnt, rows, o, d, seed, kt, kf),
                    MT_OPS * rows.shape[1] * tests)
+        every = dn.TILE * int(cnt.clamp(max=wl.shape[1]).sum())
         log(f"  {label:9s} worklist clusters per tile "
             f"{float(cnt.float().mean()):.2f}, max {int(cnt.max())}, live "
-            f"ray-cluster tests {tests} "
-            f"({tests / max(dn.TILE * int(cnt.sum()), 1):.4f} of all)")
+            f"ray-cluster tests {tests} ({tests / max(every, 1):.4f} of "
+            f"all); dead rays' tests skipped: {every - tests} "
+            f"({(every - tests) / max(every, 1):.4f} of all)")
 
 
 def live_tris(mats) -> int:
@@ -547,6 +563,13 @@ def live_tris(mats) -> int:
     that can hit (padding and degenerate faces have zero maps)."""
     return int(((mats[0] != 0) | (mats[1] != 0) | (mats[2] != 0)).any(dim=0)
                .sum())
+
+
+def zero_ww(mats) -> int:
+    """Triangles of a Woop table whose ww row is all zero (either sign):
+    no ray can hit one (d'_w is +-0 or nan), so closest_dense never
+    tests them."""
+    return int((mats[2] == 0).all(dim=0).sum())
 
 
 def matmul_closest(woop, ro, rd, t0, rows=8192, tri_chunk=2048):
@@ -611,6 +634,35 @@ def copy_most_hit(mats, chunk, faces, n):
     for x in dup:
         x[:, dst] = x[:, src]
     return dup, src
+
+
+def zero_maps_table(mats, n):
+    """The first n slots of a Woop table's six matrices with zero maps
+    written over every 9th slot from slot 4, +0.0 and -0.0 in turn, among
+    the real triangles (the table's own zero slots, padding and
+    degenerate faces, stay): closest_dense must skip them wherever they
+    sit. Returns (the matrices, the zero slots' mask)."""
+    import torch
+    out = [x[:, :n].contiguous().clone() for x in mats]
+    zero = torch.arange(4, n, 9, device=out[0].device)
+    for x in out:
+        x[:, zero] = 0.0
+        x[:, zero[::2]] = -0.0
+    return out, (out[2] == 0).all(dim=0)
+
+
+def edge_seeds(t0):
+    """t0 with every 5th ray's seed -BIG, nan or 1e-6 (below every hit) in
+    turn: each of those rays keeps its seed, with face -1. Returns (the
+    seeds, the mask of those rays)."""
+    import torch
+    from raypt_torch.core.math3d import BIG
+    t = t0.clone()
+    fixed = torch.zeros_like(t, dtype=torch.bool)
+    fixed[::5] = True
+    vals = torch.tensor([-BIG, float("nan"), 1e-6], device=t.device)
+    t[fixed] = vals[torch.arange(int(fixed.sum()), device=t.device) % 3]
+    return t, fixed
 
 
 def merge_case(leaf, device, c_total=MERGE_C, r=MERGE_RAYS, seed=0,
@@ -786,6 +838,55 @@ def woop_merge(case):
     return woop_cm, fid, dict(case, within=within)
 
 
+def worklist_merge(case, stray=False, seed=0):
+    """merge_case's clusters as the worklist kernels take them. Each
+    tile's wanted clusters (its union's bits below C) are listed in
+    descending id in even tiles and ascending id in odd ones, in a
+    worklist WL_PAD slots wider than the longest list; the slots past a
+    list hold random ids in [0, C). counts: the list's length, 2 more in
+    tiles 4k + 1 (slots past the list are tested), 1 less in tiles 4k + 2
+    (the list is cut). With stray: ids outside [0, C) inside every list
+    and in the padding, and counts above cap in tiles 4k + 3. Returns
+    (worklist (n_tiles, cap) int32, counts (n_tiles,) int32, the case
+    with its planted ties as list order resolves them: across clusters
+    the earlier slot wins, the lower cluster in odd tiles and the higher
+    in even ones; within a cluster the lower face id; the planted rays of
+    cut tiles are left out)."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    c_total = case["tri_rows"].shape[0]
+    union = case["union"].cpu().numpy().view(np.uint32)
+    lists = []
+    for k, words in enumerate(union):
+        ids = [c for c in range(c_total) if words[c >> 5] >> (c & 31) & 1]
+        ids = ids[::-1] if k % 2 == 0 else ids
+        if stray:
+            ids.insert(len(ids) // 2, (-1, c_total, c_total + 7, -5)[k % 4])
+        lists.append(ids)
+    cap = max(map(len, lists)) + WL_PAD
+    wl = rng.integers(0, c_total, (len(lists), cap)).astype(np.int32)
+    if stray:
+        wl[:, -1] = np.resize(np.array([c_total, -1, -2**31, 2**31 - 1],
+                                       np.int32), len(lists))
+    counts = np.zeros(len(lists), np.int32)
+    for k, ids in enumerate(lists):
+        wl[k, :len(ids)] = ids
+        counts[k] = len(ids) + (0, 2, -1, cap + 5 if stray else 0)[k % 4]
+    dev = case["ro"].device
+    planted = dict(case)
+    for kind in ("across", "within"):
+        rows = case[kind].clone()
+        tile = rows[:, 0] // 256
+        if kind == "across":
+            even = tile % 2 == 0
+            rows[even, 1], rows[even, 2] = case[kind][even, 2], case[kind][
+                even, 1]
+        planted[kind] = rows[tile % 4 != 2]
+    return (torch.from_numpy(wl).to(dev), torch.from_numpy(counts).to(dev),
+            planted)
+
+
 def woop_faces(packed, fid):
     """The face ids of the Woop kernel's packed results (-1 stays)."""
     import torch
@@ -848,8 +949,12 @@ def compare_pallas(stats, label, scene, mats, chunk, ro, rd, timed,
                    nbytes(*args, kt, kf), DENSE_OPS * o.shape[0] * n_tris)
         stats.time_library("closest_dense", label,
                            lambda: matmul_closest(woop, o, d, t))
+        zero = zero_ww(mats)
         log(f"  {label:9s} {o.shape[0]} rays x {n_tris} live triangles of "
-            f"{mats[0].shape[1]}; {int((kf >= 0).sum())} triangle hits")
+            f"{mats[0].shape[1]}; {int((kf >= 0).sum())} triangle hits; "
+            f"zero-ww triangles' tests skipped: {zero} of "
+            f"{mats[0].shape[1]} triangles "
+            f"({zero / mats[0].shape[1]:.4f} of all tests)")
     return kt, kf
 
 
@@ -1269,9 +1374,10 @@ def graph_us_per_call(fn, calls=20):
 # an IEEE division); a walk step two 16-byte shared loads of its row.
 SASS_LOOPS = {
     "cluster_expand_kernel": (r"\d+cluster_expand_kernelE", "MUFU.RCP", 1),
-    "union_kernel<MtTest>": (r"\d+union_kernelINS_6MtTestE", "MUFU.RCP", 1),
-    "cluster_intersect_kernel": (r"\d+cluster_intersect_kernelE", "MUFU.RCP",
-                                 1),
+    "union_kernel<MtTest, UnionSource>": (
+        r"\d+union_kernelINS_6MtTestENS_11UnionSourceE", "MUFU.RCP", 1),
+    "union_kernel<MtTest, ListSource>": (
+        r"\d+union_kernelINS_6MtTestENS_10ListSourceE", "MUFU.RCP", 1),
     "union_kernel<WoopTest<4>>": (r"\d+union_kernelINS_8WoopTestILi4E",
                                   "MUFU.RCP", 1),
     "closest_dense_kernel": (r"\d+closest_dense_kernelE", "MUFU.RCP", 1),
@@ -1887,19 +1993,27 @@ def main():
             case = merge_case(leaf, dev, seed=leaf, stray=stray, giant=stray)
             rays = (case["ro"], case["rd"], case["seed"])
             woop_cm, fid, woop_case = woop_merge(case)
+            wl, wcnt, wl_case = worklist_merge(case, stray=stray, seed=leaf)
+            wargs = (wl, wcnt, case["tri_rows"], *rays)
             label = f"merge leaf {leaf}{' stray, giant' if stray else ''}"
-            for name, kernel, plain, args in (
-                    ("cluster_expand", ex.cluster_expand,
-                     ex.cluster_expand_plain,
-                     (case["mask_cm"], case["union_pp"], case["tri_rows"],
-                      *rays)),
-                    ("cluster_intersect_mask", dn.cluster_intersect_mask,
-                     dn.cluster_intersect_mask_plain,
-                     (case["union"], case["tri_rows"], *rays)),
-                    ("cluster_intersect_mask_woop",
-                     dn.cluster_intersect_mask_woop,
-                     dn.cluster_intersect_mask_woop_plain,
-                     (case["union"], woop_cm, *rays))):
+            # name, kernel, plain version, args, planted ties, face of id
+            cases = [
+                ("cluster_expand", ex.cluster_expand, ex.cluster_expand_plain,
+                 (case["mask_cm"], case["union_pp"], case["tri_rows"], *rays),
+                 case, None),
+                ("cluster_intersect_mask", dn.cluster_intersect_mask,
+                 dn.cluster_intersect_mask_plain,
+                 (case["union"], case["tri_rows"], *rays), case, None),
+                ("cluster_intersect_mask_woop", dn.cluster_intersect_mask_woop,
+                 dn.cluster_intersect_mask_woop_plain,
+                 (case["union"], woop_cm, *rays), woop_case, fid),
+                ("cluster_intersect", dn.cluster_intersect,
+                 dn.cluster_intersect_plain, wargs, wl_case, None)]
+            cases += [("cluster_intersect_grouped",
+                       partial(dn.cluster_intersect_grouped, group=g),
+                       partial(dn.cluster_intersect_grouped_plain, group=g),
+                       wargs, wl_case, None) for g in WL_GROUPS]
+            for name, kernel, plain, args, planted, ids in cases:
                 if leaf == WOOP_ODD_LEAF and (
                         name != "cluster_intersect_mask_woop"):
                     continue
@@ -1907,14 +2021,15 @@ def main():
                 pt, pf = plain(*args)
                 stats.check(name, f"{label} t", kt, pt)
                 stats.check(name, f"{label} face", kf, pf)
-                if name == "cluster_intersect_mask_woop":
-                    check_planted(woop_case, woop_faces(kf, fid),
-                                  f"{name} {label}")
-                else:
-                    check_planted(case, kf, f"{name} {label}")
+                check_planted(planted, kf if ids is None else
+                              woop_faces(kf, fid), f"{name} {label}")
     log(f"  leaves {MERGE_LEAVES} (the Woop kernel also {WOOP_ODD_LEAF}), "
         f"with and without stray bits and giant triangles: bitwise, the "
-        f"planted ties resolved by the merge rules")
+        f"planted ties resolved by the merge rules; the worklist kernel "
+        f"(and the grouped one, G {WL_GROUPS}) on the same clusters as "
+        f"worklists in descending and ascending id, with counts at, above "
+        f"and below the lists' lengths, and, with the stray bits, ids "
+        f"outside [0, C) and counts above cap")
     bad, first_bad = dn.inv_det_sweep()
     if bad:
         raise AssertionError(f"1 / det: the kernels' reciprocal differs from "
@@ -2049,6 +2164,33 @@ def main():
                               timed=False)
         log(f"  table of {n} triangles: chunk {chunk}, padded to "
             f"{mats[0].shape[1]}; {int((f >= 0).sum())} hits")
+    # zero maps among the real triangles, at 256 slots and at all the
+    # table's, on rays of one tile and of the whole bounce-0 wavefront,
+    # every 5th seeded -BIG, nan or 1e-6
+    o, d, t, _, _, _ = wavefront_inputs(scene, *waves["pallas"][0][:2], None,
+                                        dp.RAY_TILE)
+    t, fixed = edge_seeds(t)
+    for n in (256, pallas_mats[0].shape[1]):
+        mats, zero = zero_maps_table(pallas_mats, n)
+        chunk = dp.pick_tri_chunk(n)
+        for r in (dp.RAY_TILE, o.shape[0]):
+            args = (*mats, o[:r], d[:r], t[:r])
+            kt, kf = dp.closest_dense(*args, tri_chunk=chunk)
+            pt, pf = dp.closest_dense_plain(*args, tri_chunk=chunk)
+            label = f"zero maps T={n} R={r}"
+            stats.check("closest_dense", f"{label} t", kt, pt)
+            stats.check("closest_dense", f"{label} face", kf, pf)
+            fx = fixed[:r]
+            if not (bitwise_equal(kt[fx], t[:r][fx])[0]
+                    and bool((kf[fx] == -1).all())) or \
+                    bool(zero[kf[kf >= 0].long()].any()):
+                raise AssertionError(f"closest_dense {label}: a fixed seed "
+                                     f"changed or a zero map was hit")
+        before = int((pallas_mats[2][:, :n] == 0).all(dim=0).sum())
+        log(f"  zero maps: {int(zero.sum())} of {n} slots, "
+            f"{int(zero.sum()) - before} of them written over real "
+            f"triangles; rays of one tile and all {o.shape[0]}: bitwise, "
+            f"fixed seeds kept")
     log("phase 3: all comparisons bitwise equal")
 
     # phase 4: each path through its kernels

@@ -12,7 +12,7 @@
 //   * pallas_cluster_intersect (:104, body _kernel :80): each tile tests
 //     all its rays against the first min(counts[tile], cap) entries of
 //     its (n_tiles, cap) worklist, in list order; ids outside [0, C) are
-//     skipped;
+//     skipped, and a repeated id is tested again;
 //   * pallas_cluster_intersect_grouped (:183, body _kernel_grouped :154):
 //     the worklist kernel with group > 1, which visits min(counts, cap)
 //     rounded up to a multiple of group, at most cap, slots. On the TPU
@@ -27,23 +27,29 @@
 // What bounds it on this card: the triangle tests, ~57 flops (Moller-
 // Trumbore) or ~56 (Woop: six 4-term sums, a division, u, v and the
 // tests) for each of L triangles of each cluster for each ray of the
-// tile (the union or worklist is per tile; the union kernels test only
-// its live rays), ~70 instructions each without fused multiply-adds. The table is read once per tile and
-// cluster (6 KB at leaf 128, 3 KB at leaf 64) and stays in L2.
+// tile (the union or worklist is per tile) that can change the result:
+// only its live rays. ~70 instructions each without fused multiply-adds.
+// The table is read once per tile and cluster (6 KB at leaf 128, 3 KB at
+// leaf 64) and stays in L2.
 //
 // What the design does about it: one block per tile. The cluster loop
 // is uniform across the block, so no warp diverges on which cluster to
 // test: the block stages the cluster's 48 L bytes in shared memory and
 // every thread reads each triangle as a broadcast.
-//   * The two union kernels are one template over the test (MtTest,
-//     WoopTest) and do only work that can change the result. A ray whose
-//     seed is not > 0 (a dead ray is seeded -BIG) keeps its seed and id
-//     -1 untested: every candidate t lies in (0, inf], so nothing could
-//     replace it. The live rays are packed to the low slots of shared
-//     memory by a block scan, so warps are whole-live or idle; each
-//     thread takes kRays rays, which share each triangle's shared loads;
-//     the next cluster is staged with cp.async (double-buffered) while
-//     this one is tested, one barrier a cluster. A tile with few live
+//   * All four kernels are one template, union_kernel<Test, Source>, over
+//     the test (MtTest, WoopTest) and over where a tile's cluster ids come
+//     from (UnionSource: rk::BitWalk over the union's set bits, ascending;
+//     ListSource: rk::ListWalk over the worklist's slots, in list order,
+//     the group's rounding included). Each does only work that can change
+//     the result. A ray whose seed is not > 0 (a dead ray is seeded -BIG)
+//     keeps its seed and id -1 untested: every candidate t lies in (0,
+//     inf], so nothing could replace it. The live rays are packed to the
+//     low slots of shared memory by a block scan, so warps are whole-live
+//     or idle; each thread takes kRays rays, which share each triangle's
+//     shared loads; the next cluster is staged with cp.async
+//     (double-buffered) while this one is tested, one barrier a cluster.
+//     The worklist instance keeps the mask kernel's constants (MtTest:
+//     every other setting measured slower). A tile with few live
 //     rays is latency-bound: one warp would walk all L triangles of
 //     each cluster. So the Woop kernel spreads each live ray's triangles
 //     over as many threads as the tile has to spare (up to kMaxSplit,
@@ -53,8 +59,6 @@
 //     shared load (the table is lane-minor) where L % 4 == 0.
 //   * All three Moller-Trumbore kernels take the reciprocal's fast path
 //     (cluster_test.cuh).
-//   * The worklist kernel tests every ray of the tile with one thread a
-//     ray, staging each cluster between two barriers.
 // The TPU kernels' two-level word summary, de Bruijn bit scan and 8-tile
 // SMEM blocks, and the Woop kernel's MXU contraction of (4, 3L) by
 // (4, 2T) rays, are TPU devices with no counterpart: here the scan is
@@ -71,17 +75,6 @@ namespace {
 
 constexpr int kTile = 256;
 
-// Stages cluster c's 48 L bytes (the L rows of its (C, L, 12) table) in
-// shared memory with the whole block. Every thread of the block calls it
-// with the same c.
-__device__ __forceinline__ void stage_cluster(const float4* __restrict__ rows4,
-                                              int c, int leaf, float4* s_tri) {
-    __syncthreads();   // the previous cluster's rows are read by all
-    const float4* src = rows4 + (long long)c * leaf * 3;
-    for (int k = threadIdx.x; k < leaf * 3; k += kTile) s_tri[k] = src[k];
-    __syncthreads();
-}
-
 // One ray's fold of a cluster into its carry: the strict rule.
 __device__ __forceinline__ void merge(float tmin, int fmin, float& tb, int& fb) {
     if (tmin < tb) {
@@ -90,19 +83,7 @@ __device__ __forceinline__ void merge(float tmin, int fmin, float& tb, int& fb) 
     }
 }
 
-// Tests the thread's ray against each staged triangle of cluster c
-// (Moller-Trumbore) and merges the cluster into (tb, fb).
-__device__ __forceinline__ void test_cluster(const float4* s_tri, int leaf,
-                                             const rk::Ray& ray, float& tb,
-                                             int& fb) {
-    const rk::Ray r[1] = {ray};
-    float tmin[1];
-    int fmin[1];
-    rk::fold_cluster(s_tri, s_tri + leaf * 3, 3, r, tmin, fmin);
-    merge(tmin[0], fmin[0], tb, fb);
-}
-
-// The union kernels' tests. fold<N>(tri, leaf, c, part, split, rays, t,
+// The tests. fold<N>(tri, leaf, c, part, split, rays, t,
 // id) gives each of the N rays (smallest t, its id) over the staged
 // cluster c's triangles part, part + split, ... (groups of V lanes for
 // the Woop test): the id is the face id (MtTest) or packed = c * L +
@@ -224,25 +205,49 @@ struct WoopTest {
     }
 };
 
+// Where a tile's cluster ids come from. walk(tile, c_total) gives the
+// block-uniform walk whose next() returns them in the order the tile
+// tests them, -1 at the end.
+struct UnionSource {   // the set bits of the tile's cw union words
+    const int* unions;
+    int cw;
+    struct Word {
+        const int* p;
+        __device__ unsigned operator()(int w) const { return (unsigned)p[w]; }
+    };
+    __device__ rk::BitWalk<Word> walk(long long tile, int c_total) const {
+        return rk::BitWalk<Word>(Word{unions + tile * cw}, cw, c_total);
+    }
+};
+
+struct ListSource {   // the first slots of the tile's worklist of cap
+    const int* worklist;
+    const int* counts;
+    int cap, group;
+    // min(counts, cap) slots, rounded up to a multiple of group (at most
+    // cap) when group > 1
+    __device__ rk::ListWalk walk(long long tile, int c_total) const {
+        int n = min(counts[tile], cap);
+        if (group > 1) n = min((n + group - 1) / group * group, cap);
+        return rk::ListWalk(worklist + tile * cap, n, c_total);
+    }
+};
+
 // Tests the block's n_live packed rays (s_ray, ids s_id in the tile)
-// against every cluster of the tile's union with N rays a thread, and
+// against every cluster of `walk` with N rays a thread, and
 // writes each ray's (t, id). With kSplit, 2^log_split consecutive
 // threads (within a warp) share the thread's rays, each testing every
 // 2^log_split-th of a cluster's triangles, and their results are
 // reduced by shuffles before the merge. Every thread of the block calls
 // it.
-template <class Test, int N, bool kSplit>
+template <class Test, int N, bool kSplit, class Walk>
 __device__ __forceinline__ void test_union(
-    const int* __restrict__ unions, int cw, const float4* __restrict__ rows4,
-    int c_total, int leaf, int n_live, int log_split,
+    Walk walk, const float4* __restrict__ rows4, int leaf, int n_live, int log_split,
     const float (*s_ray)[kTile], const int* s_id, float4* s_tri, long long first,
     float* __restrict__ t_out, int* __restrict__ id_out) {
     constexpr int kThreads = Test::kThreads;
     const int l3 = leaf * 3;
     const int tid = threadIdx.x;
-    rk::BitWalk walk(
-        [=](int w) { return (unsigned)unions[(long long)blockIdx.x * cw + w]; }, cw,
-        c_total);
     int c = walk.next();
     if (c >= 0) rk::stage_async(rows4 + (long long)c * l3, s_tri, l3, kThreads);
     __syncthreads();   // the packed rays are written
@@ -309,15 +314,16 @@ __device__ __forceinline__ void test_union(
     }
 }
 
-// Each tile's rays against every cluster of its union (`Test` on the
-// cluster's table), Test::kThreads threads a tile.
-template <class Test>
+// Each tile's live rays against every cluster `src` names for it (`Test`
+// on the cluster's table), Test::kThreads threads a tile.
+template <class Test, class Source>
 __global__ void __launch_bounds__(Test::kThreads, Test::kMinBlocks)
-union_kernel(const int* __restrict__ unions, int cw, const float* __restrict__ rows,
-             int c_total, int leaf, const float* __restrict__ ro,
-             const float* __restrict__ rd, const float* __restrict__ seed,
-             float* __restrict__ t_out, int* __restrict__ id_out) {
+union_kernel(Source src, const float* __restrict__ rows, int c_total, int leaf,
+             const float* __restrict__ ro, const float* __restrict__ rd,
+             const float* __restrict__ seed, float* __restrict__ t_out,
+             int* __restrict__ id_out) {
     constexpr int kRays = Test::kRays, kThreads = Test::kThreads;
+    static_assert(kThreads * kRays >= kTile, "every live ray needs a slot");
     constexpr int kPack = (kTile + kThreads - 1) / kThreads;   // rays to pack
     extern __shared__ float4 s_tri[];   // two staged clusters, 2 * 3L
     __shared__ float s_ray[7][kTile];   // the live rays, packed: o, d, seed
@@ -367,8 +373,8 @@ union_kernel(const int* __restrict__ unions, int cw, const float* __restrict__ r
             ++log_split;
     }
     test_union<Test, kRays, (Test::kMaxSplit > 1)>(
-        unions, cw, rows4, c_total, leaf, n_live, log_split, s_ray, s_id, s_tri,
-        first, t_out, id_out);
+        src.walk(blockIdx.x, c_total), rows4, leaf, n_live, log_split, s_ray, s_id,
+        s_tri, first, t_out, id_out);
 }
 
 // 1 / det as the kernels get it (rk::inv_det_of's fast path, and its
@@ -398,58 +404,22 @@ __global__ void inv_det_sweep_kernel(float one, unsigned long long* mismatches,
     if (bad) atomicAdd(mismatches, bad);
 }
 
-__global__ void __launch_bounds__(kTile)
-cluster_intersect_kernel(const int* __restrict__ worklist,
-                         const int* __restrict__ counts, int cap, int group,
-                         const float* __restrict__ rows, int c_total, int leaf,
-                         const float* __restrict__ ro, const float* __restrict__ rd,
-                         const float* __restrict__ seed, float* __restrict__ t_out,
-                         int* __restrict__ face_out) {
-    extern __shared__ float4 s_tri[];   // leaf * 3
-    const long long tile = blockIdx.x;
-    const long long i = tile * kTile + threadIdx.x;
-    const rk::Ray ray = rk::load_ray(ro, rd, i);
-    const float4* rows4 = reinterpret_cast<const float4*>(rows);
-    float tb = seed[i];
-    int fb = -1;
-    int n = min(counts[tile], cap);
-    if (group > 1) n = min((n + group - 1) / group * group, cap);
-    for (int w = 0; w < n; ++w) {
-        const int c = worklist[tile * cap + w];
-        if (c < 0 || c >= c_total) continue;   // uniform across the block
-        stage_cluster(rows4, c, leaf, s_tri);
-        test_cluster(s_tri, leaf, ray, tb, fb);
-    }
-    t_out[i] = tb;
-    face_out[i] = fb;
-}
-
-// Dynamic shared memory of one staged cluster, opted in above 48 KB.
-template <typename K>
-int prepare_smem(K kernel, int leaf, size_t* smem) {
-    *smem = (size_t)leaf * 3 * sizeof(float4);
-    if (*smem <= 48 * 1024) return 0;
-    return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                     (int)*smem);
-}
-
-// Launches union_kernel<Test>: two staged clusters of dynamic shared
-// memory a block, one block a tile.
-template <class Test>
-int launch_union(const int* unions, int cw, const float* rows, int c_total,
-                 int leaf, const float* ro, const float* rd, const float* seed,
-                 float* t_out, int* id_out, long long n_tiles, void* stream) {
-    if (cw <= 0 || c_total <= 0 || leaf <= 0 || n_tiles < 0)
-        return (int)cudaErrorInvalidValue;
+// Launches union_kernel<Test, Source>: two staged clusters of dynamic
+// shared memory a block, one block a tile.
+template <class Test, class Source>
+int launch_union(Source src, const float* rows, int c_total, int leaf,
+                 const float* ro, const float* rd, const float* seed, float* t_out,
+                 int* id_out, long long n_tiles, void* stream) {
+    if (c_total <= 0 || leaf <= 0 || n_tiles < 0) return (int)cudaErrorInvalidValue;
     if (n_tiles == 0) return 0;
     const size_t smem = (size_t)leaf * 3 * 2 * sizeof(float4);
     if (const cudaError_t e = cudaFuncSetAttribute(
-            union_kernel<Test>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            union_kernel<Test, Source>, cudaFuncAttributeMaxDynamicSharedMemorySize,
             (int)smem))
         return (int)e;
-    union_kernel<Test><<<(unsigned)n_tiles, Test::kThreads, smem,
-                         (cudaStream_t)stream>>>(unions, cw, rows, c_total, leaf,
-                                                 ro, rd, seed, t_out, id_out);
+    union_kernel<Test, Source><<<(unsigned)n_tiles, Test::kThreads, smem,
+                                 (cudaStream_t)stream>>>(src, rows, c_total, leaf, ro,
+                                                         rd, seed, t_out, id_out);
     return (int)cudaGetLastError();
 }
 
@@ -460,8 +430,9 @@ extern "C" int rk_cluster_intersect_mask(const int* unions, int cw, const float*
                                          const float* rd, const float* seed,
                                          float* t_out, int* face_out,
                                          long long n_tiles, void* stream) {
-    return launch_union<MtTest>(unions, cw, rows, c_total, leaf, ro, rd, seed,
-                                t_out, face_out, n_tiles, stream);
+    if (cw <= 0) return (int)cudaErrorInvalidValue;
+    return launch_union<MtTest>(UnionSource{unions, cw}, rows, c_total, leaf, ro, rd,
+                                seed, t_out, face_out, n_tiles, stream);
 }
 
 // packed_out = cid * L + lane; four lanes a shared load where L % 4 == 0.
@@ -471,11 +442,13 @@ extern "C" int rk_cluster_intersect_mask_woop(const int* unions, int cw,
                                               const float* rd, const float* seed,
                                               float* t_out, int* packed_out,
                                               long long n_tiles, void* stream) {
+    if (cw <= 0) return (int)cudaErrorInvalidValue;
+    const UnionSource src{unions, cw};
     if (leaf % 4 == 0)
-        return launch_union<WoopTest<4>>(unions, cw, woop, c_total, leaf, ro, rd,
-                                         seed, t_out, packed_out, n_tiles, stream);
-    return launch_union<WoopTest<1>>(unions, cw, woop, c_total, leaf, ro, rd, seed,
-                                     t_out, packed_out, n_tiles, stream);
+        return launch_union<WoopTest<4>>(src, woop, c_total, leaf, ro, rd, seed, t_out,
+                                         packed_out, n_tiles, stream);
+    return launch_union<WoopTest<1>>(src, woop, c_total, leaf, ro, rd, seed, t_out,
+                                     packed_out, n_tiles, stream);
 }
 
 extern "C" int rk_cluster_intersect(const int* worklist, const int* counts, int cap,
@@ -483,15 +456,10 @@ extern "C" int rk_cluster_intersect(const int* worklist, const int* counts, int 
                                     int leaf, const float* ro, const float* rd,
                                     const float* seed, float* t_out, int* face_out,
                                     long long n_tiles, void* stream) {
-    if (cap <= 0 || group <= 0 || c_total <= 0 || leaf <= 0 || n_tiles < 0)
-        return (int)cudaErrorInvalidValue;
-    if (n_tiles == 0) return 0;
-    size_t smem;
-    if (const int e = prepare_smem(cluster_intersect_kernel, leaf, &smem)) return e;
-    cluster_intersect_kernel<<<(unsigned)n_tiles, kTile, smem, (cudaStream_t)stream>>>(
-        worklist, counts, cap, group, rows, c_total, leaf, ro, rd, seed, t_out,
-        face_out);
-    return (int)cudaGetLastError();
+    if (cap <= 0 || group <= 0) return (int)cudaErrorInvalidValue;
+    return launch_union<MtTest>(ListSource{worklist, counts, cap, group}, rows,
+                                c_total, leaf, ro, rd, seed, t_out, face_out, n_tiles,
+                                stream);
 }
 
 extern "C" int rk_inv_det_sweep(float one, unsigned long long* mismatches,

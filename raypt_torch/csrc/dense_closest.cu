@@ -18,86 +18,221 @@
 // for bit.
 //
 // What bounds it on this card: operations. Every ray is tested against
-// every triangle, ~49 f32 operations a pair and no multiply-add; the
-// bytes are a few per ray and 48 per triangle, read once per block from
-// L2.
+// every triangle that can hit, ~49 f32 operations a pair and no
+// multiply-add; the bytes are a few per ray and 48 per triangle, read
+// once per block from L2.
 //
-// What the design does about it: one thread per ray, 256-thread blocks.
-// The block stages kStage triangles at a time in shared memory, 12
-// floats as three float4 (24 KB), and every thread reads each triangle
-// as a broadcast, three 16-byte shared loads. The TPU kernel's six
-// (R, 3) x (3, T) MXU products and its two lane reductions per chunk have
-// no counterpart: a thread keeps its ray in registers and its best hit
-// as a running minimum.
+// What the design does about it:
+//   * A triangle whose ww row is all zero (either sign: the table's
+//     padding to a multiple of tri_chunk, and degenerate faces, which get
+//     zero maps) is never tested: d'_w is +-0 (or nan) for every ray, so
+//     no ray can hit it. A pre-pass (pack_live_kernel, one block) lists
+//     the other triangles in ascending index with a block scan, wherever
+//     the zero rows sit, as rows of three float4 (wu0, wu1, wu2, cu),
+//     (wv0, wv1, wv2, cv), (ww0, ww1, ww2, cw), with their indices. A ray
+//     keeps the position of its best triangle in that list; the ascending
+//     order makes the lowest position the lowest index, so the tie rule
+//     and the face ids stay those of the whole table.
+//   * The main kernel stages kStage listed triangles at a time in shared
+//     memory with cp.async from the contiguous rows, double-buffered: the
+//     next stage is copied while this one is tested, one barrier a stage.
+//   * Each thread takes kRays rays, which share each staged triangle's
+//     three 16-byte broadcast loads, and kSplit neighbouring threads share
+//     a group of rays, each testing every kSplit-th triangle; their (t,
+//     position) are reduced by shuffles under the same rule. A block
+//     holds kThreads / kSplit * kRays = 128 rays; the split measured 3%
+//     faster than none at the same rays and threads.
+//   * kCull = 1 builds a pre-test (may_hit) that forms o'_w and d'_w first
+//     and skips the rest of a test when no ray of the thread can hit the
+//     triangle below its best t. python -m raypt_torch.kernels.sweep
+//     measures it: it pays where a warp's rays are coherent (a bounce of
+//     primary rays) and loses more where they are not, so the package
+//     builds without it.
+// The constants are the sweep's choice on the bench scene's wavefronts.
+// The TPU kernel's six (R, 3) x (3, T) MXU products and its two lane
+// reductions per chunk have no counterpart: a thread keeps its rays in
+// registers and their best hits as running minima.
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "block_scan.cuh"
+#include "cluster_test.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kStage = 512;   // triangles staged in shared memory per step
+// The main kernel's design (python -m raypt_torch.kernels.sweep builds
+// variants of these constants)
+constexpr int kThreads = 128;   // threads a block
+constexpr int kRays = 4;        // rays a thread
+constexpr int kStage = 256;     // triangles a stage
+constexpr int kSplit = 4;       // threads sharing a group of rays
+constexpr int kCull = 0;        // 1: the pre-test may_hit before the rest
 
-__global__ void __launch_bounds__(kThreads)
-closest_dense_kernel(const float* __restrict__ wu, const float* __restrict__ wv,
-                     const float* __restrict__ ww, const float* __restrict__ cu,
-                     const float* __restrict__ cv, const float* __restrict__ cw,
-                     long long n_tris, const float* __restrict__ ro,
-                     const float* __restrict__ rd, const float* __restrict__ t0,
-                     float* __restrict__ t_out, int* __restrict__ face_out) {
-    // triangle j of a stage: (wu0, wu1, wu2, cu), (wv0, wv1, wv2, cv),
-    // (ww0, ww1, ww2, cw)
-    __shared__ float4 s_tri[kStage * 3];
-    const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
-    const float ox = ro[i * 3], oy = ro[i * 3 + 1], oz = ro[i * 3 + 2];
-    const float dx = rd[i * 3], dy = rd[i * 3 + 1], dz = rd[i * 3 + 2];
-    float tb = t0[i];
-    int fb = -1;
-    for (long long base = 0; base < n_tris; base += kStage) {
-        const int n = (int)min((long long)kStage, n_tris - base);
-        __syncthreads();   // every thread is done with the previous stage
-        for (int j = threadIdx.x; j < n; j += kThreads) {
-            const long long g = base + j;
-            s_tri[j * 3] = make_float4(wu[g], wu[n_tris + g], wu[2 * n_tris + g], cu[g]);
-            s_tri[j * 3 + 1] = make_float4(wv[g], wv[n_tris + g], wv[2 * n_tris + g], cv[g]);
-            s_tri[j * 3 + 2] = make_float4(ww[g], ww[n_tris + g], ww[2 * n_tris + g], cw[g]);
+constexpr int kPackThreads = 1024;
+
+// Lists the triangles whose ww row is not all zero in ascending index:
+// rows[3k .. 3k + 2] the k-th one's three float4, id[k] its index, *n_live
+// their count. One block.
+__global__ void __launch_bounds__(kPackThreads)
+pack_live_kernel(const float* __restrict__ wu, const float* __restrict__ wv,
+                 const float* __restrict__ ww, const float* __restrict__ cu,
+                 const float* __restrict__ cv, const float* __restrict__ cw,
+                 long long n_tris, float4* __restrict__ rows,
+                 int* __restrict__ id, int* __restrict__ n_live) {
+    __shared__ int s_scan[33];
+    int n = 0;
+    for (long long base = 0; base < n_tris; base += kPackThreads) {
+        const long long g = base + threadIdx.x;
+        float w0 = 0.0f, w1 = 0.0f, w2 = 0.0f;
+        if (g < n_tris) {
+            w0 = ww[g];
+            w1 = ww[n_tris + g];
+            w2 = ww[2 * n_tris + g];
         }
-        __syncthreads();
-        for (int j = 0; j < n; ++j) {
-            const float4 a = s_tri[j * 3], b = s_tri[j * 3 + 1], c = s_tri[j * 3 + 2];
-            const float ou = ((ox * a.x + oy * a.y) + oz * a.z) + a.w;
-            const float ov = ((ox * b.x + oy * b.y) + oz * b.z) + b.w;
-            const float ow = ((ox * c.x + oy * c.y) + oz * c.z) + c.w;
-            const float du = (dx * a.x + dy * a.y) + dz * a.z;
-            const float dv = (dx * b.x + dy * b.y) + dz * b.z;
-            const float dw = (dx * c.x + dy * c.y) + dz * c.z;
-            if (!(fabsf(dw) > 1e-12f)) continue;
-            const float t = -ow / dw;
-            const float u = ou + t * du;
-            const float v = ov + t * dv;
-            if (u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > 0.0f && t < tb) {
-                tb = t;
-                fb = (int)(base + j);
+        const bool keep = !(w0 == 0.0f && w1 == 0.0f && w2 == 0.0f);
+        int total;
+        const long long at = n + rk::block_exclusive_scan(keep, s_scan, &total);
+        if (keep) {
+            rows[at * 3] = make_float4(wu[g], wu[n_tris + g], wu[2 * n_tris + g], cu[g]);
+            rows[at * 3 + 1] = make_float4(wv[g], wv[n_tris + g], wv[2 * n_tris + g],
+                                           cv[g]);
+            rows[at * 3 + 2] = make_float4(w0, w1, w2, cw[g]);
+            id[at] = (int)g;
+        }
+        n += total;
+    }
+    if (threadIdx.x == 0) *n_live = n;
+}
+
+// Whether a triangle whose o'_w, d'_w are ow, dw for a ray can pass the
+// test below that ray's best t, tb. A hit needs |d'_w| > 1e-12 and t =
+// -ow / dw > 0, so ow nonzero and of the sign opposite dw's; and t < tb,
+// which the correctly rounded division gives only where the exact
+// quotient is below tb (tb is a float), that is where |ow| - tb |dw| < 0
+// exactly: the fused multiply-add rounds that difference once, which
+// keeps its sign (a positive result means a positive difference). A
+// triangle this rejects fails the test, so the result is the same.
+__device__ __forceinline__ bool may_hit(float ow, float dw, float tb) {
+    return fabsf(dw) > 1e-12f && ow != 0.0f &&
+           (__float_as_int(ow) ^ __float_as_int(dw)) < 0 &&
+           !(__fmaf_rn(-tb, fabsf(dw), fabsf(ow)) > 0.0f);
+}
+
+// kRays rays of the thread's group: ray h is first + g + h * groups.
+__global__ void __launch_bounds__(kThreads)
+closest_dense_kernel(const float4* __restrict__ rows, const int* __restrict__ id,
+                     const int* __restrict__ n_live_p, const float* __restrict__ ro,
+                     const float* __restrict__ rd, const float* __restrict__ t0,
+                     float* __restrict__ t_out, int* __restrict__ face_out,
+                     long long r) {
+    constexpr int kGroups = kThreads / kSplit;
+    static_assert(kThreads % kSplit == 0 && 32 % kSplit == 0, "split in a warp");
+    __shared__ float4 s_tri[2][kStage * 3];
+    const int n_live = *n_live_p;
+    const int tid = threadIdx.x;
+    const int part = tid % kSplit, g = tid / kSplit;
+    const long long first = (long long)blockIdx.x * kGroups * kRays;
+    bool in[kRays];
+    rk::Ray ray[kRays];
+    float tb[kRays];
+    int pb[kRays];   // position of the best triangle in the list, or -1
+#pragma unroll
+    for (int h = 0; h < kRays; ++h) {
+        const long long i = first + g + h * kGroups;
+        in[h] = i < r;
+        const long long q = in[h] ? i : first;
+        ray[h] = rk::load_ray(ro, rd, q);
+        tb[h] = t0[q];
+        pb[h] = -1;
+    }
+    if (n_live > 0)
+        rk::stage_async(rows, s_tri[0], min(kStage, n_live) * 3, kThreads);
+    for (int s = 0, base = 0; base < n_live; ++s, base += kStage) {
+        rk::stage_wait();
+        __syncthreads();   // stage s staged; stage s - 1's buffer free
+        if (base + kStage < n_live)
+            rk::stage_async(rows + (long long)(base + kStage) * 3, s_tri[(s + 1) & 1],
+                            min(kStage, n_live - base - kStage) * 3, kThreads);
+        const float4* tri = s_tri[s & 1];
+        const int n = min(kStage, n_live - base);
+        for (int j = part; j < n; j += kSplit) {
+            const float4 a = tri[j * 3], b = tri[j * 3 + 1], c = tri[j * 3 + 2];
+            float ow[kRays], dw[kRays];
+            bool maybe[kRays], any = false;
+#pragma unroll
+            for (int h = 0; h < kRays; ++h) {
+                const rk::Ray& q = ray[h];
+                ow[h] = ((q.ox * c.x + q.oy * c.y) + q.oz * c.z) + c.w;
+                dw[h] = (q.dx * c.x + q.dy * c.y) + q.dz * c.z;
+                maybe[h] = !kCull || may_hit(ow[h], dw[h], tb[h]);
+                any |= maybe[h];
+            }
+            if (!any) continue;
+#pragma unroll
+            for (int h = 0; h < kRays; ++h) {
+                const rk::Ray& q = ray[h];
+                const float ou = ((q.ox * a.x + q.oy * a.y) + q.oz * a.z) + a.w;
+                const float ov = ((q.ox * b.x + q.oy * b.y) + q.oz * b.z) + b.w;
+                const float du = (q.dx * a.x + q.dy * a.y) + q.dz * a.z;
+                const float dv = (q.dx * b.x + q.dy * b.y) + q.dz * b.z;
+                const float t = -ow[h] / dw[h];
+                const float u = ou + t * du;
+                const float v = ov + t * dv;
+                if (maybe[h] && fabsf(dw[h]) > 1e-12f && u >= 0.0f && v >= 0.0f &&
+                    u + v <= 1.0f && t > 0.0f && t < tb[h]) {
+                    tb[h] = t;
+                    pb[h] = base + j;
+                }
             }
         }
     }
-    t_out[i] = tb;
-    face_out[i] = fb;
+    if constexpr (kSplit > 1) {
+        // the smallest t, then the lowest position: a miss keeps t0, and
+        // a hit is strictly below it, so equal t pairs two hits or two misses
+        for (int off = kSplit >> 1; off > 0; off >>= 1) {
+#pragma unroll
+            for (int h = 0; h < kRays; ++h) {
+                const float t2 = __shfl_xor_sync(0xffffffffu, tb[h], off);
+                const int p2 = __shfl_xor_sync(0xffffffffu, pb[h], off);
+                if (t2 < tb[h] || (t2 == tb[h] && p2 < pb[h])) {
+                    tb[h] = t2;
+                    pb[h] = p2;
+                }
+            }
+        }
+    }
+    if (part != 0) return;
+#pragma unroll
+    for (int h = 0; h < kRays; ++h) {
+        if (!in[h]) continue;
+        const long long i = first + g + h * kGroups;
+        t_out[i] = tb[h];
+        face_out[i] = pb[h] >= 0 ? id[pb[h]] : -1;
+    }
 }
 
 }  // namespace
 
 // wu, wv, ww: (3, n_tris); cu, cv, cw: (1, n_tris); ro, rd: (r, 3); t0,
-// t_out, face_out: (r,); r a multiple of 256.
+// t_out, face_out: (r,); r a multiple of 256. Scratch: rows (n_tris, 12)
+// f32, id (n_tris,) and n_live (1,) int32, 16-byte aligned.
 extern "C" int rk_closest_dense(const float* wu, const float* wv, const float* ww,
                                 const float* cu, const float* cv, const float* cw,
                                 long long n_tris, const float* ro, const float* rd,
                                 const float* t0, float* t_out, int* face_out,
-                                long long r, void* stream) {
-    if (r % kThreads || r < 0 || n_tris < 0 || n_tris >= (1LL << 31))
+                                long long r, float* rows, int* id, int* n_live,
+                                void* stream) {
+    if (r % 256 || r < 0 || n_tris < 0 || n_tris >= (1LL << 31) ||
+        (uintptr_t)rows % 16)
         return (int)cudaErrorInvalidValue;
     if (r == 0) return 0;
-    closest_dense_kernel<<<(unsigned)(r / kThreads), kThreads, 0,
-                           (cudaStream_t)stream>>>(
-        wu, wv, ww, cu, cv, cw, n_tris, ro, rd, t0, t_out, face_out);
+    const cudaStream_t s = (cudaStream_t)stream;
+    float4* rows4 = reinterpret_cast<float4*>(rows);
+    pack_live_kernel<<<1, kPackThreads, 0, s>>>(wu, wv, ww, cu, cv, cw, n_tris, rows4,
+                                                id, n_live);
+    if (const cudaError_t e = cudaGetLastError()) return (int)e;
+    constexpr long long kBlockRays = (long long)kThreads / kSplit * kRays;
+    closest_dense_kernel<<<(unsigned)((r + kBlockRays - 1) / kBlockRays), kThreads,
+                           0, s>>>(rows4, id, n_live, ro, rd, t0, t_out, face_out, r);
     return (int)cudaGetLastError();
 }

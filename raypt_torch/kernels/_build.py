@@ -76,8 +76,10 @@ def kernel_lib() -> ctypes.CDLL:
         # -> t, face; n_tiles, stream
         "rk_cluster_intersect": [p, p, i32, i32, p, i32, i32, p, p, p, p, p,
                                  i64, p],
-        # wu, wv, ww, cu, cv, cw, n_tris, ro, rd, t0 -> t, face; r, stream
-        "rk_closest_dense": [p, p, p, p, p, p, i64, p, p, p, p, p, i64, p],
+        # wu, wv, ww, cu, cv, cw, n_tris, ro, rd, t0 -> t, face; r,
+        # scratch rows, id, n_live, stream
+        "rk_closest_dense": [p, p, p, p, p, p, i64, p, p, p, p, p, i64, p, p,
+                             p, p],
         # the scripts/ probes (raypt_torch/probes/)
         # table, n, w, idx -> out; rows, clip, stream
         "rk_gather_rows": [p, i64, i32, p, p, i64, i32, p],

@@ -14,7 +14,8 @@ one ascending scan with a strict `<` gives the same result.
 elementwise ops in its order, ou = ((o0 wu0 + o1 wu1) + o2 wu2) + cu,
 and so on, so that the CUDA kernel, built with -fmad=false, matches it
 bit for bit. On CUDA tensors `closest_dense` launches
-`csrc/dense_closest.cu`; on CPU tensors it runs the plain version.
+`csrc/dense_closest.cu` (which never tests a triangle whose ww row is all
+zero: no ray can hit one); on CPU tensors it runs the plain version.
 """
 from __future__ import annotations
 
@@ -111,9 +112,14 @@ def closest_dense(wu, wv, ww, cu, cv, cw, ro, rd, t0,
                                    tri_chunk)
     t_out = torch.empty_like(t0)
     f_out = torch.empty((r,), dtype=torch.int32, device=ro.device)
+    # the kernel's list of the triangles that can hit: their rows, their
+    # indices and their count
+    rows = torch.empty((t_all, 12), dtype=torch.float32, device=ro.device)
+    ids = torch.empty((t_all + 1,), dtype=torch.int32, device=ro.device)
     launch("rk_closest_dense", wu.data_ptr(), wv.data_ptr(), ww.data_ptr(),
            cu.data_ptr(), cv.data_ptr(), cw.data_ptr(), t_all, ro.data_ptr(),
-           rd.data_ptr(), t0.data_ptr(), t_out.data_ptr(), f_out.data_ptr(), r)
+           rd.data_ptr(), t0.data_ptr(), t_out.data_ptr(), f_out.data_ptr(), r,
+           rows.data_ptr(), ids.data_ptr(), ids[t_all:].data_ptr())
     closest_dense.launches += 1
     return t_out, f_out
 

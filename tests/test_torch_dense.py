@@ -48,10 +48,10 @@ def _t(x):
     return torch.from_numpy(np.ascontiguousarray(x))
 
 
-def _soup(rng, ntri=100, nsph=3, dup=()):
+def _soup(rng, ntri=100, nsph=3, dup=(), degenerate=False):
     """Random triangles and spheres (tests/test_pallas.py's scene); each
     (src, dst, n) in dup makes triangles dst..dst+n-1 copies of
-    src..src+n-1."""
+    src..src+n-1; with degenerate, triangle 20 has two equal corners."""
     b = SceneBuilder()
     m0 = b.add_material(MaterialDef(albedo=(0.5, 0.5, 0.5)))
     tris = []
@@ -61,6 +61,8 @@ def _soup(rng, ntri=100, nsph=3, dup=()):
                      base + rng.uniform(-1, 1, 3)))
     for src, dst, n in dup:
         tris[dst:dst + n] = tris[src:src + n]
+    if degenerate:
+        tris[20] = (tris[20][0], tris[20][0], tris[20][1])
     for tri in tris:
         b.add_triangle(*tri, m0)
     for _ in range(nsph):
@@ -168,7 +170,23 @@ def _faces_agree(got_f, ref_f, ref_t, pair_t):
     return clear
 
 
-@pytest.mark.parametrize("which", ["soup", "ties"])
+def _zero_maps(jw):
+    """The JAX table with zero maps, some of them -0.0, written over every
+    9th triangle, among the real ones; returns (the table, the indices
+    whose maps are zero: those and the degenerate faces, which
+    build_woop gives zero maps)."""
+    m, c = np.array(jw.m), np.array(jw.c)
+    zero = np.arange(4, m.shape[0] - 1, 9)
+    m[zero], c[zero] = 0.0, 0.0
+    neg = zero[::2]
+    m[neg], c[neg] = -0.0, -0.0
+    degenerate = np.nonzero(~np.abs(np.array(jw.m)).any(axis=(1, 2)))[0]
+    assert degenerate.size, "the soup needs a degenerate face"
+    return (type(jw)(m=jnp.asarray(m), c=jnp.asarray(c), valid=jw.valid),
+            np.union1d(zero, degenerate))
+
+
+@pytest.mark.parametrize("which", ["soup", "ties", "zero_maps"])
 def test_closest_dense_matches_jax(which):
     """closest_dense_plain (the CUDA kernel's plain version, which the
     `dense` and `pallas` backends run) and the JAX closest_dense (XLA
@@ -181,19 +199,30 @@ def test_closest_dense_matches_jax(which):
     (two 2,048 chunks) where triangles 2,048-2,099 copy 0-51 (a tie
     across chunks) and 1,000-1,051 copy 52-103 (a tie within a chunk),
     half the rays aimed at them: the lowest id wins, so no ray's face is
-    a copy, in every version."""
+    a copy, in every version. "zero_maps": a face with two equal corners
+    (a zero map) and zero maps (+0.0 and -0.0) over every 9th slot of the
+    table, among the 300 real triangles as well as in the mesh's padding
+    (the CUDA kernel never tests a triangle with a zero ww row); and rays
+    whose t0 is -BIG, nan or 1e-6 (below every hit), which keep it with
+    face -1 in every version (measured: faces equal on every ray, t
+    within 1.4e-6 absolute, 2.9e-5 relative, of the Pallas kernel's)."""
     rng = np.random.default_rng(3)
     if which == "ties":
         scene = _soup(rng, ntri=2100, nsph=0,
                       dup=((0, 2048, 52), (52, 1000, 52)))
         ro, rd = _rays(rng, 512, scene, aim=104)
     else:
-        scene = _soup(rng, ntri=300)
+        scene = _soup(rng, ntri=300, degenerate=which == "zero_maps")
         ro, rd = _rays(rng, 512, scene, aim=300)
     t0 = np.where(rng.random(512) < 0.5, BIG, rng.random(512) * 8.0
                   ).astype(np.float32)
     m = scene.mesh
     jw = jax_build_woop(m.positions, m.faces, m.face_valid)
+    fixed = np.zeros(512, bool)
+    if which == "zero_maps":
+        jw, zero = _zero_maps(jw)
+        fixed[np.arange(0, 480, 5)] = True
+        t0[fixed] = np.resize(np.array([-BIG, np.nan, 1e-6], np.float32), 96)
     _, tw = _port(scene, jw)
     chunk = tdp.pick_tri_chunk(tw.num_tris)
     jmats = jax_prepare(jw, chunk)
@@ -213,7 +242,12 @@ def test_closest_dense_matches_jax(which):
         np.testing.assert_allclose(gt, rt, rtol=T_RTOL, atol=T_ATOL,
                                    err_msg=name)
         clear = _faces_agree(gf, rf, rt, pair_t)
-        if which == "soup":
+        if which == "zero_maps":
+            assert np.array_equal(gt[fixed].view(np.int32),
+                                  t0[fixed].view(np.int32)), name
+            assert (gf[fixed] == -1).all() and not np.isin(gf, zero).any()
+            assert clear[~fixed].mean() > 0.95, name
+        elif which == "soup":
             assert clear.mean() > 0.95, name
         else:   # the copies tie exactly, so they are not clear
             copies = ((gf >= 1000) & (gf < 1052)) | (gf >= 2048)

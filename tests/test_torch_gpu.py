@@ -31,9 +31,10 @@ from raypt_torch.rng import sampler as rng
 from raypt_torch.scenes.builtin import stanford_bunny
 from raypt_torch.scenes.config4 import config4_scene
 
-from chip_smoke import (MERGE_LEAVES, WOOP_ODD_LEAF, check_planted,
-                        copy_most_hit, merge_case, walk_layouts, woop_faces,
-                        woop_merge)
+from chip_smoke import (MERGE_LEAVES, WL_GROUPS, WOOP_ODD_LEAF, check_planted,
+                        copy_most_hit, edge_seeds, merge_case, walk_layouts,
+                        woop_faces, woop_merge, worklist_merge,
+                        zero_maps_table)
 
 pytestmark = pytest.mark.gpu
 
@@ -338,9 +339,39 @@ def test_render_bitwise_vs_plain_finder(gpu_scene, path):
     assert _bits_equal(img_k, img_p) and torch.equal(tr_k, tr_p)
 
 
+@pytest.mark.parametrize("slots,rays", [(256, 256), (256, None),
+                                        (8192, 256), (8192, None)])
+def test_closest_dense_edges_bitwise(gpu_scene, slots, rays):
+    """closest_dense against its plain version on the pallas path's
+    bounce-0 rays (one tile, or all of them: rays None) with every 5th
+    seed -BIG, nan or 1e-6, on the first `slots` slots of the scene's
+    table (8,192: all of them, 3,070 of them padding) with zero maps, +0.0
+    and -0.0, over every 9th slot among the real triangles
+    (`chip_smoke.zero_maps_table`): the kernel skips them wherever they
+    sit, and no fixed seed changes."""
+    scene, accels = gpu_scene
+    cfg, finder, _ = _path(scene, accels, "pallas")
+    ro, rd, _ = _waves(scene, cfg, None, 5, finder)[0]
+    o, d, t, _, _, _ = wavefront_inputs(scene, ro, rd, None, tdp.RAY_TILE)
+    t, fixed = edge_seeds(t)
+    r = rays or o.shape[0]
+    mats, zero = zero_maps_table(finder.args[0], slots)
+    chunk = tdp.pick_tri_chunk(slots)
+    args = (*mats, o[:r], d[:r], t[:r])
+    kt, kf = tdp.closest_dense(*args, tri_chunk=chunk)
+    pt, pf = tdp.closest_dense_plain(*args, tri_chunk=chunk)
+    assert _bits_equal(kt, pt) and torch.equal(kf, pf)
+    assert _bits_equal(kt[fixed[:r]], t[:r][fixed[:r]])
+    assert bool((kf[fixed[:r]] == -1).all())
+    assert not bool(zero[kf[kf >= 0].long()].any())
+    if slots == 8192 and rays is None:
+        assert int((kf >= 0).sum()) > o.shape[0] // 2
+
+
 @pytest.mark.parametrize("leaf,kernel", [
     (leaf, kernel) for leaf in MERGE_LEAVES
-    for kernel in ("expand", "mask", "woop")] + [(WOOP_ODD_LEAF, "woop")])
+    for kernel in ("expand", "mask", "woop", "worklist")] + [
+        (WOOP_ODD_LEAF, "woop")])
 def test_merge_cases_bitwise(leaf, kernel):
     """cluster_expand, cluster_intersect_mask and, on the clusters' Woop
     table, cluster_intersect_mask_woop against their plain versions on
@@ -352,7 +383,12 @@ def test_merge_cases_bitwise(leaf, kernel):
     >= C set in every mask and union word past the clusters and
     triangles whose det reaches 2^126 and inf (the exact reciprocal's
     path). The Woop kernel also at a leaf no 4 divides, where it loads
-    one lane at a time."""
+    one lane at a time. The worklist kernel, and the grouped one at G =
+    2 and 3, on the clusters as worklists (`chip_smoke.worklist_merge`:
+    descending and ascending ids, counts at, above and below the lists'
+    lengths, the all-dead, mixed and one-live tiles; the second time
+    also ids outside [0, C) and counts above cap), where the earlier
+    slot wins a tie across clusters."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     for stray in (False, True):
@@ -367,6 +403,16 @@ def test_merge_cases_bitwise(leaf, kernel):
             args = (case["union"], woop_cm, *rays)
             kt, kf = tdn.cluster_intersect_mask_woop(*args)
             pt, pf = tdn.cluster_intersect_mask_woop_plain(*args)
+        elif kernel == "worklist":
+            wl, cnt, planted = worklist_merge(case, stray=stray, seed=leaf)
+            args = (wl, cnt, case["tri_rows"], *rays)
+            kt, kf = tdn.cluster_intersect(*args)
+            pt, pf = tdn.cluster_intersect_plain(*args)
+            for g in WL_GROUPS:
+                gt, gf = tdn.cluster_intersect_grouped(*args, group=g)
+                qt, qf = tdn.cluster_intersect_grouped_plain(*args, group=g)
+                assert _bits_equal(gt, qt) and torch.equal(gf, qf)
+                check_planted(planted, gf, f"{kernel} G={g}")
         else:
             args = (case["union"], case["tri_rows"], *rays)
             kt, kf = tdn.cluster_intersect_mask(*args)
@@ -375,7 +421,8 @@ def test_merge_cases_bitwise(leaf, kernel):
         if kernel == "woop":
             check_planted(planted, woop_faces(kf, fid), kernel)
         else:
-            check_planted(case, kf, kernel)
+            check_planted(planted if kernel == "worklist" else case, kf,
+                          kernel)
 
 
 def test_inv_det_sweep():

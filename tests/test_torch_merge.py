@@ -9,8 +9,12 @@ both, on every live ray, and leave every ray whose seed is not > 0 at
 table, which each package builds with its own `build_woop_cm` (float64
 on the host in both, so the tables are bitwise equal); its rules keep
 the lower cluster across clusters and take the lower lane within one
-(`chip_smoke.woop_merge`). test_torch_gpu.py holds the CUDA kernels
-against the plain versions on the same inputs."""
+(`chip_smoke.woop_merge`). The worklist kernel takes the same clusters
+as worklists (`chip_smoke.worklist_merge`: each tile's wanted clusters
+in descending or ascending id, counts at, above and below the list's
+length), where the earlier slot wins a tie across clusters.
+test_torch_gpu.py holds the CUDA kernels against the plain versions on
+the same inputs."""
 from types import SimpleNamespace
 
 import jax.numpy as jnp
@@ -20,14 +24,15 @@ import torch
 
 from raypt.accel.clusters import build_woop_cm as jax_build_woop_cm
 from raypt.kernels.cluster_expand import pallas_cluster_expand
-from raypt.kernels.cluster_pallas import (pallas_cluster_intersect_mask,
+from raypt.kernels.cluster_pallas import (pallas_cluster_intersect,
+                                          pallas_cluster_intersect_mask,
                                           pallas_cluster_intersect_mask_woop)
 
 from raypt_torch.kernels import cluster_expand as tex
 from raypt_torch.kernels import cluster_pallas as tdn
 
 from chip_smoke import (WOOP_ODD_LEAF, check_planted, merge_case, woop_faces,
-                        woop_merge)
+                        woop_merge, worklist_merge)
 
 torch.set_num_threads(2)
 
@@ -49,6 +54,12 @@ def _jax_run(kernel, case):
         out = pallas_cluster_intersect_mask_woop(
             j["union"][:, :cw], woop_cm, j["ro"], j["rd"], j["seed"],
             interpret=True)
+    elif kernel == "worklist":
+        wl, counts, _ = worklist_merge(case, seed=1)
+        out = pallas_cluster_intersect(jnp.asarray(wl.numpy()),
+                                       jnp.asarray(counts.numpy()), rows,
+                                       j["ro"], j["rd"], j["seed"],
+                                       interpret=True)
     else:
         out = pallas_cluster_intersect_mask(j["union"], rows, j["ro"], j["rd"],
                                             j["seed"], interpret=True)
@@ -88,12 +99,16 @@ def _port_run(kernel, case):
     if kernel == "woop":
         return tdn.cluster_intersect_mask_woop(case["union"],
                                                woop_merge(case)[0], *rays)
+    if kernel == "worklist":
+        wl, counts, _ = worklist_merge(case, seed=1)
+        return tdn.cluster_intersect(wl, counts, case["tri_rows"], *rays)
     return tdn.cluster_intersect_mask(case["union"], case["tri_rows"], *rays)
 
 
 @pytest.mark.parametrize("leaf,kernel", [
     (leaf, kernel) for leaf in (16, 64)
-    for kernel in ("expand", "mask", "woop")] + [(WOOP_ODD_LEAF, "woop")])
+    for kernel in ("expand", "mask", "woop", "worklist")] + [
+        (WOOP_ODD_LEAF, "woop")])
 def test_merge_rules_match_jax(leaf, kernel):
     """Faces equal on every live ray and t within rtol 1e-3: XLA on the
     CPU contracts multiply-adds and torch does not, and the random ray
@@ -107,9 +122,13 @@ def test_merge_rules_match_jax(leaf, kernel):
     faces equal; t within 3.5e-3 relative at leaf 16, on one ray with
     d'w = 2.1e-4 against terms of 0.4, 0.15 of its bound; within 7.1e-4
     on every other ray, 5.7e-4 at leaf 64, 1.2e-3 at leaf 18, which no
-    4 divides, so the card's kernel loads a lane at a time). The planted
-    ties resolved by the rules in both; rays whose seed is not > 0
-    (-BIG, 0, -0, nan) keep it, bitwise, with face -1."""
+    4 divides, so the card's kernel loads a lane at a time). The worklist
+    kernel (`pallas_cluster_intersect`) on the clusters as worklists,
+    with ids in [0, C) and counts at most cap (the JAX kernel reads both
+    unguarded): faces equal, t within rtol 1e-3 (measured: faces equal,
+    t within 3.8e-4 relative at leaf 16, 1.2e-4 at 64). The
+    planted ties resolved by the rules in both; rays whose seed is not >
+    0 (-BIG, 0, -0, nan) keep it, bitwise, with face -1."""
     case = merge_case(leaf, "cpu", seed=leaf, stray=kernel == "woop")
     ref_t, ref_f = _jax_run(kernel, case)
     got_t, got_f = _port_run(kernel, case)
@@ -117,6 +136,8 @@ def test_merge_rules_match_jax(leaf, kernel):
         _, fid, planted = woop_merge(case)
         got_p = got_f
         ref_f, got_f = woop_faces(ref_f, fid), woop_faces(got_f, fid)
+    elif kernel == "worklist":
+        planted = worklist_merge(case, seed=1)[2]
     else:
         planted = case
     for face in (ref_f, got_f):

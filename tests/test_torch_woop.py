@@ -288,12 +288,13 @@ def test_woop_wrapper_checks(soup):
                                       _t(rd), t0, group=0)
 
 
-@pytest.mark.parametrize("kernel", ["mask", "woop"])
+@pytest.mark.parametrize("kernel", ["mask", "woop", "worklist"])
 def test_union_wrappers_check_shared_memory(kernel):
-    """The union kernels stage two clusters and the tile's packed rays in
-    shared memory: a leaf whose two clusters do not fit there is refused
-    by the wrapper (on CPU tensors too, before the plain version runs),
-    one that fits by a margin is taken."""
+    """The union kernels (the worklist kernel among them: the union
+    template's worklist instance) stage two clusters and the tile's
+    packed rays in shared memory: a leaf whose two clusters do not fit
+    there is refused by the wrapper (on CPU tensors too, before the plain
+    version runs), one that fits by a margin is taken."""
     ro = torch.zeros((tdn.TILE, 3))
     t0 = torch.full((tdn.TILE,), -BIG)
     union = torch.zeros((1, 1), dtype=torch.int32)
@@ -302,6 +303,12 @@ def test_union_wrappers_check_shared_memory(kernel):
         if kernel == "mask":
             table = torch.zeros((1, leaf, 12))
             fn = tdn.cluster_intersect_mask
+        elif kernel == "worklist":
+            table = torch.zeros((1, leaf, 12))
+            counts = torch.ones((1,), dtype=torch.int32)
+
+            def fn(union, table, ro, rd, t0, counts=counts):
+                return tdn.cluster_intersect(union, counts, table, ro, rd, t0)
         else:
             table = torch.zeros((1, 4, 3 * leaf))
             fn = tdn.cluster_intersect_mask_woop
@@ -333,6 +340,33 @@ def test_sweep_sets_constants():
             assert consts[name] == int(value.split(";")[0])
     with pytest.raises(ValueError):
         sweep._set(src, "struct WoopTest {", {"kNoSuchConstant": 1})
+
+
+@pytest.mark.parametrize("kernel", ["worklist", "dense"])
+def test_sweep_sets_constants_of(kernel):
+    """The sweep's variants of the worklist kernel (struct MtTest) and of
+    closest_dense (its design's constants): each sets exactly the lines
+    of its constants in its scope, and every variant differs from the
+    package's setting."""
+    import os
+    import re
+
+    from raypt_torch.kernels import sweep
+    from raypt_torch.kernels._build import CSRC_DIR
+    source, _, scope, variants = sweep.SWEPT[kernel]
+    with open(os.path.join(CSRC_DIR, source)) as f:
+        src = f.read()
+    block = src[src.index(scope):src.index("\n\n", src.index(scope))]
+    package = {k: int(v) for k, v in
+               re.findall(r"constexpr int (\w+) = (\d+);", block)}
+    assert variants
+    for consts in variants.values():
+        assert set(consts) == set(package) and consts != package
+        out = sweep._set(src, scope, consts)
+        changed = [b for a, b in zip(src.splitlines(), out.splitlines())
+                   if a != b]
+        assert len(out.splitlines()) == len(src.splitlines())
+        assert len(changed) == sum(consts[k] != package[k] for k in consts)
 
 
 def test_sweep_walk_designs():
