@@ -39,9 +39,17 @@ Phases:
      nvcc per source, all started together)
   3. each kernel against its plain torch version on the card, bitwise,
      on the wavefronts of all four bounces of its path, with CUDA-event
-     times (kernel mean of 10, plain of 2, summed over the bounces) and
-     the bound of each launch; then edge cases: all-dead and all-alive
-     compaction groups, a tile of dead rays, the leaf-16 accel (1,026
+     times (kernel mean of 10, plain of 2, summed over the bounces; the
+     expand path's compaction, walk and uncompaction and the union walk
+     also replayed from CUDA graphs, their device time without the
+     wrappers' host work) and the bound of each launch; then edge cases:
+     all-dead and all-alive compaction groups, compaction and
+     uncompaction at the groups of COMPACT_EDGE_GROUPS (one below the
+     kernel's chunk, one a multiple of neither 16 lanes nor the chunk)
+     with all lanes dead, all alive, only each group's
+     last lane alive, alternating lanes and the wavefront's own, and from
+     a mask that is not 16-byte aligned, a tile of dead rays and a tile
+     of one repeated ray for the union walk, the leaf-16 accel (1,026
      clusters: 40 mask words, 33 union words) on 65,536 rays, the
      cluster finder at cap 8, where tiles overflow into its fallback
      (whose worklist intersection is also timed, with its peak memory,
@@ -86,8 +94,8 @@ Phases:
      sampled (nvidia-smi) while each path's kernels are timed; phase 2
      reads the instructions a triangle test takes in each intersection
      kernel's inner loop (the union template's three instances, the
-     expansion, closest_dense), and a walk step in the mask-only walk's,
-     from cuobjdump -sass of the built library
+     expansion, closest_dense), and a walk step in the mask-only and
+     union walks', from cuobjdump -sass of the built library
   4. each path's render through render_sample: every kernel of the path
      launches once per bounce and no other kernel launches, the image is
      finite and bitwise equal to the render through the plain versions
@@ -125,7 +133,8 @@ Phases:
      sizes, with CUDA-event times (kernel mean of 10, plain of 2) for
      every mode and cycle count the script runs; the speculative walk
      also against topwalk_cm (timed beside it), the gathers beside
-     torch.index_select (their library_ms), and the expansion
+     torch.index_select (their library_ms; both also replayed from CUDA
+     graphs, the device time without the host work), and the expansion
      diagnostics' v1/v2/v3 maxima and rays whose cluster count is not
      their mask's popcount (which fails the phase)
 
@@ -189,10 +198,10 @@ F32_OPS_PER_S = 67e12
 # compares, 15 for the three link/id decodes) and of one ray-triangle
 # Moller-Trumbore test with its merge (cluster_test.cuh: 50 arithmetic,
 # 7 compares and selects). Only live rays need tests: a dead ray is
-# seeded -BIG, so no hit can replace its result. The mask-only walk
-# (mask_walk.cuh) decodes each row once a block that has a live ray, so
-# its steps take WALK_OPS - ROW_DECODE_OPS each and its rows
-# ROW_DECODE_OPS once a busy block.
+# seeded -BIG, so no hit can replace its result. The mask-only and
+# union walks (mask_walk.cuh) decode each row once a block that has a
+# live ray, so their steps take WALK_OPS - ROW_DECODE_OPS each and their
+# rows ROW_DECODE_OPS once a busy block.
 WALK_OPS = 45
 ROW_DECODE_OPS = 15
 WALK_BLOCK = 256   # rays a block of the walk kernels (onehot_walk.cu kThreads)
@@ -244,6 +253,12 @@ WOOP_ODD_LEAF = 18
 # (worklist_merge), and the groups the grouped kernel is held at there
 WL_PAD = 3
 WL_GROUPS = (2, 3)
+
+# the compaction's edge groups: one below the 256-lane chunk a block
+# ranks (compact.cu kChunk), one a multiple of neither 16 lanes (byte
+# loads of the mask) nor the chunk (a partial chunk a group), and one
+# that no 1,024-lane chunk divides
+COMPACT_EDGE_GROUPS = (100, 256, 1000, 1024, 1536, COMPACT_N)
 
 KERNELS = {   # name -> (paths that launch it, source, TPU kernel it replaces)
     "alive_compact": (("expand",), "raypt_torch/csrc/compact.cu",
@@ -375,6 +390,9 @@ class Stats:
         self.library_ms = {k: None for k in KERNELS}
         # topwalk_cm and its transpose, per frame of each path
         self.topwalk_ms = {}
+        # device time from CUDA graph replay (no host work between
+        # calls), summed over the timed wavefronts: name -> ms
+        self.graph_ms = {}
         self.bound_parts = {k: {"bytes": 0.0, "operations": 0.0}
                             for k in KERNELS}
         # the path whose wavefronts are being timed, and each kernel's
@@ -407,6 +425,13 @@ class Stats:
             part[k] += x
         log(f"  {label:9s} {name:22s} kernel {k_ms:9.4f} ms   plain "
             f"{p_ms:9.3f} ms   bound {max(by_bytes, by_ops):.4g} ms")
+
+    def time_graph(self, name, label, kernel, args):
+        """Device time of one launch replayed from a CUDA graph."""
+        ms = graph_us_per_call(lambda: kernel(*args)) / 1e3
+        self.graph_ms[name] = self.graph_ms.get(name, 0.0) + ms
+        log(f"  {label:9s} {name:22s} graph   {ms:9.4f} ms (device, no host "
+            f"work between calls)")
 
     def time_library(self, name, label, fn, reps=2):
         """CUDA-event time of the torch yardstick of one launch."""
@@ -483,8 +508,62 @@ def compare_expand(stats, label, scene, accel, ro, rd, active, timed):
         stats.time("alive_uncompact", label, cp.alive_uncompact,
                    cp.alive_uncompact_plain, uargs,
                    nbytes(kt, kf, a, kut, kuf), 0)
+        for name, kernel, kargs in (
+                ("alive_compact", cp.alive_compact, args),
+                ("topwalk_cm_u", wk.topwalk_cm_u, wargs),
+                ("alive_uncompact", cp.alive_uncompact, uargs)):
+            stats.time_graph(name, label, kernel, kargs)
         log(f"  {label:9s} walk visits {visits}, wanted clusters per live "
             f"ray {popcount(km) / max(int(a.sum()), 1):.2f} (R = {r})")
+
+
+def compact_layouts(r, group, active):
+    """name -> (r,) bool alive mask: all dead, all alive, alive only in
+    each group's last lane, alternating lanes, and the wavefront's own."""
+    import torch
+    lane = torch.arange(r, device=active.device)
+    return {"all dead": torch.zeros_like(active[:r]),
+            "all alive": torch.ones_like(active[:r]),
+            "last lane": lane % group == group - 1,
+            "alternating": lane % 2 == 1,
+            "wavefront": active[:r].clone()}
+
+
+def compare_compact_edges(stats, scene, ro, rd, active):
+    """alive_compact and alive_uncompact, kernel against plain version on
+    every lane (the permutation is full: dead lanes carry their own data),
+    on the first R - R % group lanes of a wavefront for each group of
+    COMPACT_EDGE_GROUPS and each layout of compact_layouts; and on
+    tensors that start one lane into their storage (a mask that is not
+    16-byte aligned, so the byte loads)."""
+    import torch
+    from raypt_torch.accel.traverse import onehot_inputs
+    from raypt_torch.kernels import compact as cp
+
+    o, d, t, a, _, _ = onehot_inputs(scene, ro, rd, active, COMPACT_N)
+    cases = []
+    for group in COMPACT_EDGE_GROUPS:
+        r = o.shape[0] // group * group
+        for what, alive in compact_layouts(r, group, a).items():
+            cases.append((f"group {group} {what}", (o[:r], d[:r], t[:r],
+                                                     alive, group)))
+    r = (o.shape[0] - 1) // 1024 * 1024
+    cases.append(("group 1024 offset", (o[1:r + 1], d[1:r + 1], t[1:r + 1],
+                                        a.clone()[1:r + 1], 1024)))
+    for what, args in cases:
+        kc = cp.alive_compact(*args)
+        for name, x, y in zip(("ro", "rd", "t0", "alive"), kc,
+                              cp.alive_compact_plain(*args)):
+            stats.check("alive_compact", f"{what} {name}", x, y)
+        face = torch.arange(args[0].shape[0], dtype=torch.int32,
+                            device=o.device)
+        uargs = (kc[2], face, args[3], args[4])
+        for name, x, y in zip(("t", "face"), cp.alive_uncompact(*uargs),
+                              cp.alive_uncompact_plain(*uargs)):
+            stats.check("alive_uncompact", f"{what} {name}", x, y)
+    log(f"  compaction edges: groups {COMPACT_EDGE_GROUPS} x "
+        f"{tuple(compact_layouts(1, 1, a))}, and group 1024 one lane into "
+        f"the storage: compact and uncompact bitwise on every lane")
 
 
 def compare_dense_union(stats, label, scene, accel, ro, rd, active, timed):
@@ -512,9 +591,19 @@ def compare_dense_union(stats, label, scene, accel, ro, rd, active, timed):
     if timed:
         leaf = rows.shape[1]
         visits = walk_visits(*wargs)
+        # what the function needs (counted as for the mask-only walk in
+        # compare_unfused): the table once, a live ray's origin, direction
+        # and t, every ray's flag, the unions; a visit's step, and each
+        # row's decode once a tile with a live ray
+        live = int(a.sum())
+        busy = int(a.view(-1, WALK_BLOCK).any(dim=1).sum())
+        moved = (nbytes(accel.table, a, ku)
+                 + live * (o.shape[1] + d.shape[1] + 1) * o.element_size())
+        ops = ((WALK_OPS - ROW_DECODE_OPS) * visits
+               + ROW_DECODE_OPS * accel.table.shape[0] * busy)
         stats.time("topwalk_union", label, wk.topwalk_union,
-                   wk.topwalk_union_plain, wargs,
-                   nbytes(accel.table, o, d, t, a, ku), WALK_OPS * visits)
+                   wk.topwalk_union_plain, wargs, moved, ops)
+        stats.time_graph("topwalk_union", label, wk.topwalk_union, wargs)
         tests = live_tests(a, popcounts(ku).sum(dim=1), dn.TILE)
         stats.time("cluster_intersect_mask", label, dn.cluster_intersect_mask,
                    dn.cluster_intersect_mask_plain, iargs,
@@ -1382,6 +1471,7 @@ SASS_LOOPS = {
                                   "MUFU.RCP", 1),
     "closest_dense_kernel": (r"\d+closest_dense_kernelE", "MUFU.RCP", 1),
     "topwalk_mask_kernel": (r"\d+topwalk_mask_kernelE", "LDS.128", 2),
+    "topwalk_union_kernel": (r"\d+topwalk_union_kernelE", "LDS.128", 2),
 }
 
 
@@ -1784,12 +1874,19 @@ def probes_phase(stats):
                        gather.gather_rows_plain, a, moved, 0)
             stats.time_library(name, body[:9],
                                lambda: torch.index_select(table, 0, idx), 10)
-    k_us = graph_us_per_call(lambda: gather.gather_rows(table, idx))
-    l_us = graph_us_per_call(lambda: torch.index_select(table, 0, idx))
-    log(f"  gather of {idx.numel()} rows replayed from a CUDA graph (no host "
-        f"work between calls): kernel {k_us:.3f} us a call "
-        f"({idx.numel() / k_us:.1f} M rows/s), index_select {l_us:.3f} us; "
-        f"the CUDA-event times above include each call's host work")
+    for name, bodies in (("pallas_gather_test", (("index", False),)),
+                         ("pallas_gather_test2", pallas_gather_test2.VARIANTS)):
+        k_us = [graph_us_per_call(
+            lambda c=clip: gather.gather_rows(table, idx, c))
+            for _, clip in bodies]
+        l_us = graph_us_per_call(lambda: torch.index_select(table, 0, idx))
+        each = ", ".join(f"{u:.4f}" for u in k_us)
+        log(f"  {name}: gather of {idx.numel()} rows replayed from a CUDA "
+            f"graph (no host work between calls): kernel {sum(k_us):.4f} us "
+            f"over its {len(bodies)} bodies ({each}), index_select "
+            f"{l_us * len(bodies):.4f} us for as many calls ({l_us:.4f} a "
+            f"call); the CUDA-event times above include each call's host "
+            f"work")
     log(f"phase 7: all probe kernels bitwise equal to their plain versions "
         f"({time.perf_counter() - t_start:.1f} s)")
 
@@ -2041,6 +2138,7 @@ def main():
 
     # edge cases on the bounce-1 wavefronts
     ro, rd, active = waves["expand"][1]
+    compare_compact_edges(stats, scene, ro, rd, active)
     edge = active.clone()
     edge[:COMPACT_N] = False
     edge[COMPACT_N:2 * COMPACT_N] = True
@@ -2076,6 +2174,20 @@ def main():
                   timed=False)
         if path == "dense_union" and bool(out[0].any()):
             raise AssertionError("a tile of dead rays has a nonzero union")
+    # the union walk with every ray of the first tile the same live ray:
+    # all 256 want the same leaves at the same steps (the flushes of one
+    # word contend), at leaf 128 and at leaf 16 (33 union words)
+    ro, rd, active = waves["dense_union"][1]
+    k = int(torch.nonzero(active)[0])
+    same_o, same_d, same_a = ro.clone(), rd.clone(), active.clone()
+    same_o[:dn.TILE], same_d[:dn.TILE], same_a[:dn.TILE] = ro[k], rd[k], True
+    for acc in (accels["dense_union"], accel16):
+        out = compare_dense_union(stats, "same ray", scene, acc, same_o,
+                                  same_d, same_a, timed=False)
+        if not bool(out[0].any()):
+            raise AssertionError("the same-ray tile wants no cluster")
+    log(f"  union walk: a dead tile and a tile of one repeated ray (ray {k}) "
+        f"at leaves {DENSE_LEAF} and {MULTIWORD_LEAF}, bitwise")
     # the cluster finder at cap 8: tiles overflow into the fallback
     ro, rd, active = waves["cluster"][1]
     clusters = accels["cluster"]
@@ -2435,6 +2547,9 @@ def main():
     for path, ms in stats.topwalk_ms.items():
         log(f"topwalk_cm and its transpose (pallas_topwalk's counterpart), "
             f"{path}: {ms:.4f} ms per frame")
+    for name, ms in stats.graph_ms.items():
+        log(f"{name}: {ms:.4f} ms per frame replayed from CUDA graphs "
+            f"(device time; {stats.ms[name]:.4f} through the wrapper)")
     for name, (paths, _, _) in KERNELS.items():
         if len(paths) > 1:
             for path in paths:

@@ -1,6 +1,7 @@
-// Block-wide exclusive scan shared by the probe kernels (expand_diag.cu,
-// regroup.cu): a warp shuffle scan, then a scan of the warp sums in
-// shared memory. For blocks of whole warps, at most 32 of them.
+// Block-wide exclusive scan shared by the kernels that pack or rank a
+// block's lanes (the walks, the intersections, the compaction and the
+// probes): a warp shuffle scan, then a scan of the warp sums in shared
+// memory. For blocks of whole warps, at most 32 of them.
 #pragma once
 #include <cuda_runtime.h>
 

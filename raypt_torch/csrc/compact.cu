@@ -10,24 +10,177 @@
 //
 // What bounds it on this card: memory traffic. A compaction moves 29
 // bytes per lane (ro, rd, t0, alive) in and out; an uncompaction 8.
-// At R = 2^20 that is ~60 MB, ~20 us at 3.35 TB/s. The rank pass is a
-// few integer ops per lane.
+// At R = 2^20 that is ~60 MB, ~18 us at 3.35 TB/s. The rank is a few
+// integer ops per lane; what it needs from outside the lane's own chunk
+// is two numbers, the alive lanes of its group before the chunk and in
+// the whole group.
 //
-// What the design does about it: one block of 1024 threads per group
-// (32,768 lanes on the bench path, so 32 blocks per 2^20-ray
-// wavefront). The group is walked in 1024-lane chunks: __ballot_sync
-// and __popc rank lanes inside a warp, a shared-memory scan of the 32
-// warp counts ranks the warps, and a running carry ranks the chunks.
-// Reads are coalesced; writes scatter only inside the group. The TPU
-// kernel's one-hot selection matmuls and split3_bf16 transport have no
-// counterpart: a permutation here is plain loads and stores.
+// What the compaction's design does about it: the work is spread over
+// the whole card, one block per kChunk-lane chunk of a group (4,096
+// blocks for a 2^20-ray wavefront at chunks of 256, whatever the group;
+// a group that is not a multiple of the chunk ends in a partial chunk;
+// one block a group would give the bench path's groups of 32,768 lanes
+// 32 blocks for 132 SMs). A block needs its chunk's carry (the alive
+// lanes of the group's chunks before it) and the group's count na:
+//   * two passes (kTwoPass = 1): a count kernel, one warp a chunk, sums
+//     each chunk's alive bytes (16-byte loads and __dp4a where the group
+//     is a multiple of 16 lanes and the mask 16-byte aligned, byte loads
+//     else) into a scratch int the wrapper allocates; the scatter kernel
+//     sums its group's chunk counts, split at its own chunk;
+//   * recount (kTwoPass = 0): no count pass; each block sums its whole
+//     group's alive bytes itself (mostly from L2), split at its chunk.
+// Then a block scan (block_scan.cuh) ranks the chunk's lanes, and each
+// thread moves its lane: reads are coalesced, writes scatter only
+// inside the group. `python -m raypt_torch.kernels.sweep --kernels
+// compact` builds and times both designs at chunks of 256 and 1,024:
+// two passes at 256 were the fastest on the card (recounting at 256
+// next: its blocks read their group's mask from L2 many times over).
+// The TPU kernel's one-hot selection matmuls and split3_bf16 transport
+// have no counterpart: a permutation here is plain loads and stores.
+//
+// The uncompaction still runs the first design (one 1,024-thread block
+// a group, its chunks one after another: for_each_destination); it moves
+// to the chunked design in a later change.
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "block_scan.cuh"
+
 namespace {
 
-constexpr int kThreads = 1024;
 constexpr unsigned kFull = 0xffffffffu;
+
+// The compaction's design (the sweep builds the other settings)
+constexpr int kChunk = 256;    // lanes a block ranks, one a thread
+constexpr int kTwoPass = 1;    // 1: count pass, then scatter; 0: recount
+
+static_assert(kChunk % 32 == 0 && kChunk <= 1024, "whole warps, one block");
+static_assert(kChunk % 16 == 0, "a chunk boundary is a 16-byte boundary");
+constexpr int kCountThreads = 256;   // the count kernel: one warp a chunk
+
+// Alive bytes of alive[begin, end) taken by this thread: every `stride`
+// th 16-byte word from `first` when vec (begin and end 16-byte aligned),
+// else every stride-th byte; `split`: also those below it into *below.
+__device__ __forceinline__ int alive_bytes(const uint8_t* __restrict__ alive,
+                                           long long begin, long long end,
+                                           long long split, int first,
+                                           int stride, bool vec, int* below) {
+    int all = 0, lo = 0;
+    if (vec) {
+        const uint4* a4 = reinterpret_cast<const uint4*>(alive + begin);
+        const long long n = (end - begin) >> 4;
+        for (long long k = first; k < n; k += stride) {
+            const uint4 v = a4[k];
+            int s = __dp4a(__vsetne4(v.x, 0u), 0x01010101u, 0u);
+            s = __dp4a(__vsetne4(v.y, 0u), 0x01010101u, (unsigned)s);
+            s = __dp4a(__vsetne4(v.z, 0u), 0x01010101u, (unsigned)s);
+            s = __dp4a(__vsetne4(v.w, 0u), 0x01010101u, (unsigned)s);
+            all += s;
+            if (begin + 16 * k < split) lo += s;
+        }
+    } else {
+        for (long long j = begin + first; j < end; j += stride) {
+            const int s = alive[j] != 0;
+            all += s;
+            if (j < split) lo += s;
+        }
+    }
+    *below = lo;
+    return all;
+}
+
+__device__ __forceinline__ int warp_sum(int v) {
+    for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
+    return v;
+}
+
+// Block sums of a and b, valid in every thread after the call (s holds
+// 64 ints).
+__device__ __forceinline__ void block_sum2(int* a, int* b, int* s) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int wa = warp_sum(*a), wb = warp_sum(*b);
+    if (lane == 0) {
+        s[warp] = wa;
+        s[32 + warp] = wb;
+    }
+    __syncthreads();
+    const int nw = blockDim.x >> 5;
+    int ta = 0, tb = 0;
+    for (int k = 0; k < nw; ++k) {
+        ta += s[k];
+        tb += s[32 + k];
+    }
+    *a = ta;
+    *b = tb;
+}
+
+// The count pass: counts[q] = alive lanes of chunk q (chunk c of group
+// g is q = g * cpg + c), one warp a chunk.
+__global__ void __launch_bounds__(kCountThreads)
+chunk_count_kernel(const uint8_t* __restrict__ alive, int* __restrict__ counts,
+                   int group, int cpg, long long n_chunks, bool vec) {
+    const long long q = ((long long)blockIdx.x * kCountThreads + threadIdx.x) >> 5;
+    if (q >= n_chunks) return;   // uniform across the warp
+    const long long g = q / cpg;
+    const int c = (int)(q - g * cpg);
+    const long long begin = g * group + (long long)c * kChunk;
+    const long long end = g * group + min((long long)group,
+                                          (long long)(c + 1) * kChunk);
+    int unused;
+    const int n = warp_sum(alive_bytes(alive, begin, end, begin,
+                                       threadIdx.x & 31, 32, vec, &unused));
+    if ((threadIdx.x & 31) == 0) counts[q] = n;
+}
+
+// One block a chunk: the carry and na, from the count pass's counts
+// (kTwoPass) or from the group's alive bytes; then the chunk's ranks and
+// its lanes moved.
+__global__ void __launch_bounds__(kChunk)
+alive_compact_kernel(const float* __restrict__ ro, const float* __restrict__ rd,
+                     const float* __restrict__ t0,
+                     const uint8_t* __restrict__ alive,
+                     const int* __restrict__ counts,
+                     float* __restrict__ ro_out, float* __restrict__ rd_out,
+                     float* __restrict__ t0_out, uint8_t* __restrict__ alive_out,
+                     int group, int cpg, bool vec) {
+    __shared__ int s_sum[64];
+    __shared__ int s_warp[33];
+    const long long g = (long long)blockIdx.x / cpg;
+    const int c = (int)(blockIdx.x - g * cpg);
+    const long long gbase = g * group;
+    int carry, na;
+    if constexpr (kTwoPass) {
+        carry = 0;
+        na = 0;
+        for (int k = threadIdx.x; k < cpg; k += kChunk) {
+            const int v = counts[g * cpg + k];
+            na += v;
+            if (k < c) carry += v;
+        }
+    } else {
+        na = alive_bytes(alive, gbase, gbase + group,
+                         gbase + (long long)c * kChunk, threadIdx.x, kChunk,
+                         vec, &carry);
+    }
+    block_sum2(&carry, &na, s_sum);
+    const int j = c * kChunk + threadIdx.x;   // the lane within its group
+    const bool a = j < group && alive[gbase + j] != 0;
+    int n;
+    const int pa = carry + rk::block_exclusive_scan(a, s_warp, &n);
+    if (j >= group) return;
+    const long long src = gbase + j;
+    const long long dst = gbase + (a ? pa : na + (j - pa));
+    for (int k = 0; k < 3; ++k) {
+        ro_out[dst * 3 + k] = ro[src * 3 + k];
+        rd_out[dst * 3 + k] = rd[src * 3 + k];
+    }
+    t0_out[dst] = t0[src];
+    alive_out[dst] = alive[src];
+}
+
+// The uncompaction's design (kept until it moves to the chunked one):
+// one 1,024-thread block a group.
+constexpr int kThreads = 1024;
 
 // Alive count of the group, valid in every thread after the call.
 __device__ int group_alive_count(const uint8_t* alive, long long base,
@@ -89,23 +242,6 @@ __device__ void for_each_destination(const uint8_t* alive, int group, F f) {
 }
 
 __global__ void __launch_bounds__(kThreads)
-alive_compact_kernel(const float* __restrict__ ro, const float* __restrict__ rd,
-                     const float* __restrict__ t0,
-                     const uint8_t* __restrict__ alive,
-                     float* __restrict__ ro_out, float* __restrict__ rd_out,
-                     float* __restrict__ t0_out, uint8_t* __restrict__ alive_out,
-                     int group) {
-    for_each_destination(alive, group, [&](long long src, long long dst) {
-        for (int k = 0; k < 3; ++k) {
-            ro_out[dst * 3 + k] = ro[src * 3 + k];
-            rd_out[dst * 3 + k] = rd[src * 3 + k];
-        }
-        t0_out[dst] = t0[src];
-        alive_out[dst] = alive[src];
-    });
-}
-
-__global__ void __launch_bounds__(kThreads)
 alive_uncompact_kernel(const float* __restrict__ t, const int* __restrict__ face,
                        const uint8_t* __restrict__ alive,
                        float* __restrict__ t_out, int* __restrict__ face_out,
@@ -118,15 +254,29 @@ alive_uncompact_kernel(const float* __restrict__ t, const int* __restrict__ face
 
 }  // namespace
 
+// counts: scratch of r / group * ceil(group / kChunk) ints (read and
+// written by the two-pass design only).
 extern "C" int rk_alive_compact(const float* ro, const float* rd, const float* t0,
                                 const uint8_t* alive, float* ro_out, float* rd_out,
-                                float* t0_out, uint8_t* alive_out, long long r,
-                                int group, void* stream) {
+                                float* t0_out, uint8_t* alive_out, int* counts,
+                                long long r, int group, void* stream) {
     if (group <= 0 || r % group) return (int)cudaErrorInvalidValue;
-    const long long n_groups = r / group;
-    if (n_groups == 0) return 0;
-    alive_compact_kernel<<<(unsigned)n_groups, kThreads, 0, (cudaStream_t)stream>>>(
-        ro, rd, t0, alive, ro_out, rd_out, t0_out, alive_out, group);
+    const int cpg = (group + kChunk - 1) / kChunk;
+    const long long n_chunks = r / group * cpg;
+    if (n_chunks == 0) return 0;
+    if (n_chunks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    const bool vec = group % 16 == 0 && ((uintptr_t)alive & 15) == 0;
+    cudaStream_t s = (cudaStream_t)stream;
+    if constexpr (kTwoPass) {
+        constexpr int kPerBlock = kCountThreads / 32;
+        chunk_count_kernel<<<(unsigned)((n_chunks + kPerBlock - 1) / kPerBlock),
+                             kCountThreads, 0, s>>>(alive, counts, group, cpg,
+                                                    n_chunks, vec);
+        if (const cudaError_t e = cudaGetLastError()) return (int)e;
+    }
+    alive_compact_kernel<<<(unsigned)n_chunks, kChunk, 0, s>>>(
+        ro, rd, t0, alive, counts, ro_out, rd_out, t0_out, alive_out, group, cpg,
+        vec);
     return (int)cudaGetLastError();
 }
 

@@ -1,8 +1,10 @@
-// The pieces of the mask-only walk (rk_topwalk_mask), shared by its
-// kernel (onehot_walk.cu: topwalk_mask_kernel) and the design variants
-// that `python -m raypt_torch.kernels.sweep` times against it
+// The pieces of the mask-only walk (rk_topwalk_mask) and the union walk
+// (rk_topwalk_union), shared by their kernels (onehot_walk.cu:
+// topwalk_mask_kernel, topwalk_union_kernel) and the design variants
+// that `python -m raypt_torch.kernels.sweep` times against the first
 // (walk_designs.cu): the table decoded once a block, one step of a walk
-// on the decoded rows, and a ray's mask column built a word at a time.
+// on the decoded rows, a ray's mask column built a word at a time, and
+// a ray's share of its tile's union built the same way.
 #pragma once
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -120,6 +122,44 @@ struct MaskColumn {
     __device__ __forceinline__ void finish(long long r, int cwp) {
         if (bits) store(r, cur_w, bits);
         for (int z = last + 1; z < cwp; ++z) col[z * r] = 0;
+    }
+};
+
+// A ray's share of its tile's union, built a word at a time in
+// registers like a MaskColumn: the word being built (cur_w, bits) is
+// ORed into the block's shared union words when the walk moves to
+// another word, and once more when it ends, so a ray whose leaves come
+// in id order flushes each of its words once (a word that comes back is
+// ORed again: any leaf order gives the same union). With kWarp, the
+// lanes of a warp that flush the same word together merge their bits
+// first (__match_any_sync, then __reduce_or_sync) and one of them
+// does the shared atomicOr.
+template <bool kWarp>
+struct UnionWord {
+    int cur_w;
+    unsigned bits;
+
+    __device__ __forceinline__ void flush(unsigned* s_union) {
+        if constexpr (kWarp) {
+            const unsigned peers = __match_any_sync(__activemask(), cur_w);
+            const unsigned v = __reduce_or_sync(peers, bits);
+            if ((int)(threadIdx.x & 31) == __ffs(peers) - 1)
+                atomicOr(&s_union[cur_w], v);
+        } else {
+            atomicOr(&s_union[cur_w], bits);
+        }
+    }
+    __device__ __forceinline__ void add(unsigned* s_union, int cid) {
+        if ((cid >> 5) != cur_w) {
+            if (bits) flush(s_union);
+            cur_w = cid >> 5;
+            bits = 0u;
+        }
+        bits |= 1u << (cid & 31);
+    }
+    // the walk has ended
+    __device__ __forceinline__ void finish(unsigned* s_union) {
+        if (bits) flush(s_union);
     }
 };
 

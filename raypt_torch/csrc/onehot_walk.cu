@@ -38,9 +38,10 @@
 // bunny at leaf 384; dynamic shared memory, with the 48 KB opt-in above
 // that, up to the 227 KB a block may use, about 7,000 rows), so a node
 // fetch is two 16-byte shared loads (the bf16 row decodes in registers,
-// except in the mask-only form, below). One thread walks one ray, and
-// the rays of a warp are neighbours: they walk much the same nodes, so
-// a row load is mostly a broadcast (packing keeps them in pixel order).
+// except in the mask-only and union forms, below). One thread walks one
+// ray, and the rays of a warp are neighbours: they walk much the same
+// nodes, so a row load is mostly a broadcast (packing keeps them in
+// pixel order).
 // (Interleaving two or three walks in a thread, packed or not, and
 // refilling a thread from the packed rays when a walk ends are
 // walk_designs.cu's variants of the mask-only form; each measured slower
@@ -48,10 +49,7 @@
 //   * Mask form (rk_topwalk): bits go straight into the ray's own column
 //     of the mask (zeroed first); the tile union is a warp
 //     __reduce_or_sync, a shared atomicOr per block, and one global
-//     atomicOr per block and word. Union form (rk_topwalk_union): a block
-//     is one 256-ray union tile, a wanted bit is a shared atomicOr into
-//     the tile's words, and the block stores every word once at the end,
-//     so the union is written whole and needs no zeroing.
+//     atomicOr per block and word.
 //   * Mask-only form (rk_topwalk_mask, topwalk_mask_kernel): a block
 //     whose rays are all dead (most blocks of a late bounce) writes their
 //     zero columns and stops before it loads the table; a block scan
@@ -65,6 +63,23 @@
 //     ends), and a word that comes back after it was stored (leaves out
 //     of id order) is ORed into memory, so any leaf order gives the same
 //     mask; no word is read back otherwise.
+//   * Union form (rk_topwalk_union, topwalk_union_kernel): a block is one
+//     256-ray union tile, built on the mask-only form's pieces. A tile
+//     whose rays are all dead stores its zero words and stops before the
+//     table; the live rays are packed in pixel order; the table is
+//     decoded once a block. A ray builds the word it wants in a register
+//     (rk::UnionWord) and ORs it into the tile's shared words only when
+//     its walk moves to another word and when it ends: leaves come
+//     mostly in id order, so a ray flushes each word it wants about
+//     once. An atomicOr for every wanted leaf would serialise a warp's
+//     neighbouring rays, which want the same leaves at much the same
+//     steps, on one address. kUnionWarpFlush = 1
+//     merges the flushes of a warp's lanes that flush one word together
+//     into one atomicOr; the sweep times both, and merging measured
+//     slower on the card (a ray flushes each word about once, so little
+//     is merged for the match and reduce it costs). The block stores
+//     every word once at the end, so the union is written whole and
+//     needs no zeroing.
 // The TPU kernel's radix one-hot MXU fetch and its in-register OR-fold
 // over lanes have no counterpart.
 #include <cstdint>
@@ -81,10 +96,13 @@ static_assert(kRayTile % kThreads == 0, "a block lies in one walk tile");
 constexpr unsigned kFull = 0xffffffffu;
 
 // What a launch of topwalk_kernel writes: the mask and the walk-tile
-// union_pp; only the block's union, to unions[blockIdx.x * cwp + w]
-// (mask is not touched); or only the mask by the speculative walk
-// (unions and the shared union words are not touched).
-enum Mode { kMaskAndUnionPP, kTileUnion, kMaskSpec };
+// union_pp; or only the mask by the speculative walk (unions and the
+// shared union words are not touched).
+enum Mode { kMaskAndUnionPP, kMaskSpec };
+
+// The union walk's design (the sweep builds the other setting): 1 merges
+// a warp's flushes of one word into one atomicOr
+constexpr int kUnionWarpFlush = 0;
 
 // Row `node` of the shared table as two 16-byte words; a node outside
 // the table reads as a zero row (the speculative loads only).
@@ -115,8 +133,7 @@ topwalk_kernel(const uint16_t* __restrict__ table, int nt,
     __syncthreads();
 
     const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
-    if constexpr (kMode != kTileUnion)
-        for (int w = 0; w < cwp; ++w) mask[w * r + i] = 0;
+    for (int w = 0; w < cwp; ++w) mask[w * r + i] = 0;
 
     if (active[i]) {
         const float ox = ro[i * 3], oy = ro[i * 3 + 1], oz = ro[i * 3 + 2];
@@ -166,13 +183,8 @@ topwalk_kernel(const uint16_t* __restrict__ table, int nt,
                              nonempty && f[13] > 0.5f;
             const bool is_leaf = f[12] > 0.5f;
             const int cid = rk::decode_link(f[10], f[11]);
-            if (hit && is_leaf && cid >= 0 && (cid >> 5) < cwp) {
-                const int bit = (int)(1u << (cid & 31));
-                if constexpr (kMode == kTileUnion)
-                    atomicOr(&s_union[cid >> 5], bit);
-                else
-                    mask[(long long)(cid >> 5) * r + i] |= bit;
-            }
+            if (hit && is_leaf && cid >= 0 && (cid >> 5) < cwp)
+                mask[(long long)(cid >> 5) * r + i] |= (int)(1u << (cid & 31));
             const bool take_left = hit && !is_leaf;
             if constexpr (kMode == kMaskSpec) {
                 ra = take_left ? la : sa;
@@ -182,12 +194,6 @@ topwalk_kernel(const uint16_t* __restrict__ table, int nt,
         }
     }
 
-    if constexpr (kMode == kTileUnion) {
-        __syncthreads();
-        for (int w = threadIdx.x; w < cwp; w += kThreads)
-            unions[(long long)blockIdx.x * cwp + w] = s_union[w];
-        return;
-    }
     if constexpr (kMaskOut) return;
     const int lane = threadIdx.x & 31;
     for (int w = 0; w < cwp; ++w) {
@@ -200,8 +206,8 @@ topwalk_kernel(const uint16_t* __restrict__ table, int nt,
         if (s_union[w]) atomicOr(&unions[tile * cwp + w], s_union[w]);
 }
 
-// Dynamic shared memory of a launch: the table and, in the union modes,
-// cwp union words, opted in above 48 KB. Returns a CUDA error code.
+// Dynamic shared memory of a launch: the table and, in the mask-and-union
+// mode, cwp union words, opted in above 48 KB. Returns a CUDA error code.
 template <Mode kMode>
 int prepare_smem(int nt, int cwp, size_t* smem) {
     *smem = (size_t)nt * 32 + (kMode == kMaskSpec ? 0 : (size_t)cwp * 4);
@@ -246,6 +252,60 @@ topwalk_mask_kernel(const uint16_t* __restrict__ table, int nt,
     col.finish(r, cwp);
 }
 
+// The union walk (rk_topwalk_union): one 256-ray union tile a block, its
+// live rays packed in pixel order onto its first threads, one a thread;
+// the step is mask_walk.cuh's, each ray's words reach the tile's shared
+// union through rk::UnionWord.
+__global__ void __launch_bounds__(kThreads)
+topwalk_union_kernel(const uint16_t* __restrict__ table, int nt,
+                     const float* __restrict__ ro, const float* __restrict__ rd,
+                     const float* __restrict__ t0,
+                     const uint8_t* __restrict__ active,
+                     int* __restrict__ unions, int cwp, int max_steps) {
+    extern __shared__ float4 s_row[];   // nt * 2: the decoded table, then
+    unsigned* s_union = reinterpret_cast<unsigned*>(s_row + nt * 2);  // cwp
+    __shared__ int s_warp[33];
+    __shared__ int s_list[kThreads];    // the live rays, in pixel order
+    const long long base = (long long)blockIdx.x * kThreads;
+    int* out = unions + (long long)blockIdx.x * cwp;
+    const bool live = active[base + threadIdx.x];
+    int n;
+    const int at = rk::block_exclusive_scan(live, s_warp, &n);
+    if (n == 0) {   // uniform across the block: an empty union
+        for (int w = threadIdx.x; w < cwp; w += kThreads) out[w] = 0;
+        return;
+    }
+    if (live) s_list[at] = threadIdx.x;
+    for (int w = threadIdx.x; w < cwp; w += kThreads) s_union[w] = 0u;
+    rk::decode_table(table, nt, cwp, s_row);
+    __syncthreads();
+    if ((int)threadIdx.x < n) {
+        const rk::WalkRay ray =
+            rk::load_walk_ray(ro, rd, t0, base + s_list[threadIdx.x]);
+        rk::UnionWord<kUnionWarpFlush != 0> word{-1, 0u};
+        int node = 0;
+        for (int step = 0; step < max_steps && node >= 0; ++step) {
+            int cid;
+            node = rk::walk_step(s_row, node, ray, &cid);
+            if (cid >= 0) word.add(s_union, cid);
+        }
+        word.finish(s_union);
+    }
+    __syncthreads();
+    for (int w = threadIdx.x; w < cwp; w += kThreads) out[w] = (int)s_union[w];
+}
+
+// The static shared memory of the packed walks (list and scan words,
+// under kThreads + 64 ints) counts against the 48 KB default too: opt in
+// to `smem` bytes of dynamic shared memory near that. Returns a CUDA
+// error code.
+template <typename Kernel>
+int prepare_packed_smem(Kernel kernel, size_t smem) {
+    if (smem + sizeof(int) * (kThreads + 64) <= 48 * 1024) return 0;
+    return (int)cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
 }  // namespace
 
 extern "C" int rk_topwalk(const uint16_t* table, int nt, const float* ro,
@@ -268,14 +328,14 @@ extern "C" int rk_topwalk_union(const uint16_t* table, int nt, const float* ro,
                                 const float* rd, const float* t0,
                                 const uint8_t* active, int* unions, long long r,
                                 int cwp, int max_steps, void* stream) {
-    if (r % kThreads || nt <= 0 || cwp <= 0)
+    if (r % kThreads || nt <= 0 || nt >= 1 << 15 || cwp <= 0)   // links: 15 bits
         return (int)cudaErrorInvalidValue;
     if (r == 0) return 0;
-    size_t smem;
-    if (const int e = prepare_smem<kTileUnion>(nt, cwp, &smem)) return e;
-    topwalk_kernel<kTileUnion><<<(unsigned)(r / kThreads), kThreads, smem,
+    const size_t smem = (size_t)nt * 32 + (size_t)cwp * 4;
+    if (const int e = prepare_packed_smem(topwalk_union_kernel, smem)) return e;
+    topwalk_union_kernel<<<(unsigned)(r / kThreads), kThreads, smem,
                            (cudaStream_t)stream>>>(
-        table, nt, ro, rd, t0, active, nullptr, unions, r, cwp, max_steps);
+        table, nt, ro, rd, t0, active, unions, cwp, max_steps);
     return (int)cudaGetLastError();
 }
 
@@ -287,14 +347,8 @@ extern "C" int rk_topwalk_mask(const uint16_t* table, int nt, const float* ro,
     if (r % kThreads || nt <= 0 || nt >= 1 << 15 || cw <= 0)   // links: 15 bits
         return (int)cudaErrorInvalidValue;
     if (r == 0) return 0;
-    // the static list and scan words (under kThreads + 64 ints) count
-    // against the 48 KB default too
     const size_t smem = (size_t)nt * 32;
-    if (smem + sizeof(int) * (kThreads + 64) > 48 * 1024)
-        if (const cudaError_t e = cudaFuncSetAttribute(
-                topwalk_mask_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                (int)smem))
-            return (int)e;
+    if (const int e = prepare_packed_smem(topwalk_mask_kernel, smem)) return e;
     topwalk_mask_kernel<<<(unsigned)(r / kThreads), kThreads, smem,
                           (cudaStream_t)stream>>>(
         table, nt, ro, rd, t0, active, mask, r, cw, max_steps);

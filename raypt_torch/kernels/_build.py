@@ -47,8 +47,9 @@ def kernel_lib() -> ctypes.CDLL:
     p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     # the stream is always the last argument (see `launch`)
     sigs = {
-        # ro, rd, t0, alive -> ro', rd', t0', alive'; r, group, stream
-        "rk_alive_compact": [p, p, p, p, p, p, p, p, i64, i32, p],
+        # ro, rd, t0, alive -> ro', rd', t0', alive'; scratch counts, r,
+        # group, stream
+        "rk_alive_compact": [p, p, p, p, p, p, p, p, p, i64, i32, p],
         # t, face, alive -> t', face'; r, group, stream
         "rk_alive_uncompact": [p, p, p, p, p, i64, i32, p],
         # table, nt, ro, rd, t0, active -> mask, union_pp;

@@ -18,6 +18,9 @@ import torch
 
 from ._build import launch, on_cuda
 
+CHUNK = 256   # lanes a block of the compaction kernel ranks (compact.cu
+              # kChunk): its count pass keeps one int a chunk
+
 
 def _destinations(alive: torch.Tensor, group: int) -> torch.Tensor:
     """(R,) int64 destination lane of every source lane."""
@@ -61,8 +64,11 @@ def alive_compact(ro, rd, t0, alive, group: int):
             "alive": (alive, (r,), torch.bool)}):
         return alive_compact_plain(ro, rd, t0, alive, group)
     outs = [torch.empty_like(x) for x in (ro, rd, t0, alive)]
+    counts = torch.empty((r // group * -(-group // CHUNK),), dtype=torch.int32,
+                         device=ro.device)
     launch("rk_alive_compact", ro.data_ptr(), rd.data_ptr(), t0.data_ptr(),
-           alive.data_ptr(), *(o.data_ptr() for o in outs), r, group)
+           alive.data_ptr(), *(o.data_ptr() for o in outs), counts.data_ptr(),
+           r, group)
     alive_compact.launches += 1
     return tuple(outs)
 

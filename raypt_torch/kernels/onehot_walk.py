@@ -100,7 +100,9 @@ def topwalk_union(table, ro, rd, t0, active, num_words: int):
         raise ValueError(f"R={r} must be a multiple of {UNION_TILE}")
     if not on_cuda(_walk_specs(table, ro, rd, t0, active)):
         return topwalk_union_plain(table, ro, rd, t0, active, num_words)
-    _check_table(table, num_words)
+    # beside the table and the union words, the block's packed rays and
+    # its scan's 33 words
+    _check_table(table, num_words + UNION_TILE + 33)
     # every word of every tile is stored by the kernel, zero or not
     union = torch.empty((r // UNION_TILE, num_words), dtype=torch.int32,
                         device=ro.device)

@@ -22,19 +22,34 @@ constants set (`_set`), each as a library of its own:
     `csrc/walk_designs.cu` (walks a thread interleaved, live rays
     packed, threads refilled from the packed rays; that file says how),
     built as one library;
-  * mask: the Moller-Trumbore union kernel, the package's alone.
+  * mask: the Moller-Trumbore union kernel, the package's alone;
+  * union: the union walk (`csrc/onehot_walk.cu`, the union walk's
+    design block: `kUnionWarpFlush`, a warp's flushes of one word merged
+    into one atomicOr or not);
+  * compact: the alive compaction (`csrc/compact.cu`, the compaction's
+    design block: lanes a block `kChunk`, `kTwoPass` 1 for a count pass
+    and a scatter, 0 for each block recounting its group: two passes at
+    128, 512 and 1,024 lanes, recounts at 256 and 1,024);
+  * cm_u and uncompact: the mask-and-union walk (`rk_topwalk`) and the
+    uncompaction, the package's alone.
 With `--against`, the kernels of another checkout (DIR/raypt_torch/csrc)
-join as variant "against". Each variant is held bitwise against the
-package's kernel, then all are timed in turns (CUDA events, mean of 10
-launches after a warm-up, `--rounds` rounds) on the wavefronts of
-1024^2 renders recorded on the card: the eight bounces of the config-4
-render (`scripts/baseline_config4.py`: leaf 128; woop and walk), and the
-four of the bench scene's renders through the dense-union finder (leaf
-128: walk and mask), the cluster finder (clusters of 64: worklist) and
-the pallas finder (dense), while nvidia-smi samples the SM clock. Prints
-the card's name and power limit, then one JSON line a variant: ms per
-frame of each round (summed over the wavefronts), the last round's ms per
-wavefront and the SM clock. Runs only on the card.
+join as variant "against" (a `compact.cu` without `chunk_count_kernel`
+is called with the older signature: no scratch). Each variant is held
+bitwise against the package's kernel, then all are timed in turns (CUDA
+events, mean of 10 launches after a warm-up, `--rounds` rounds; union,
+compact, cm_u and uncompact also replayed from a CUDA graph of 10
+calls, which leaves out the host work between calls) on the wavefronts
+of 1024^2 renders recorded on the card: the eight bounces of the
+config-4 render (`scripts/baseline_config4.py`: leaf 128; woop and
+walk), and the four of the bench scene's renders through the
+dense-union finder (leaf 128: walk, union and mask), the cluster finder
+(clusters of 64: worklist), the pallas finder (dense) and the expand
+finder (`bench.py`'s: leaf 384, groups of 32,768; compact, cm_u,
+uncompact), while nvidia-smi samples the SM clock. Prints the card's
+name and power limit, then one JSON line a variant: ms per frame of
+each round (summed over the wavefronts), the last round's ms per
+wavefront, the same from graph replay where taken, and the SM clock.
+Runs only on the card.
 """
 from __future__ import annotations
 
@@ -55,6 +70,9 @@ from ._build import CSRC_DIR, KERNEL_HEADERS, NVCC_FLAGS, _nvcc, kernel_lib
 
 WIDTH = 1024
 LEAF = 128
+EXPAND_LEAF = 384     # bench.py's finder
+EXPAND_N = 8192
+COMPACT_N = 32768
 # variant name -> the constants it sets
 WOOP_VARIANTS = {
     "t512_rays2_split32": dict(kThreads=512, kRays=2, kMaxSplit=32,
@@ -113,6 +131,16 @@ DENSE_VARIANTS = {
     "t256_rays2_split1": _dense(256, 2, 1),
     "t128_rays4_split4_cull": _dense(128, 4, 4, cull=1),
     "t256_rays2_split1_cull": _dense(256, 2, 1, cull=1)}
+# the union walk's (csrc/onehot_walk.cu; the package flushes a word a
+# thread)
+UNION_VARIANTS = {"warp_flush": dict(kUnionWarpFlush=1)}
+# the compaction's (csrc/compact.cu; the package: two passes, chunks of
+# 256 lanes)
+COMPACT_VARIANTS = {
+    f"{design}_{chunk}": dict(kChunk=chunk, kTwoPass=int(design == "twopass"))
+    for design, chunks in (("twopass", (128, 512, 1024)),
+                           ("recount", (256, 1024))) for chunk in chunks}
+COMPACT_SCRATCH_CHUNK = 128   # the smallest kChunk of the variants
 # kernel -> (source, C entry point, scope of its constants, variants)
 SWEPT = {
     "woop": ("cluster_intersect.cu", "rk_cluster_intersect_mask_woop",
@@ -122,7 +150,16 @@ SWEPT = {
     "dense": ("dense_closest.cu", "rk_closest_dense",
               "// The main kernel's design", DENSE_VARIANTS),
     "walk": ("onehot_walk.cu", "rk_topwalk_mask", None, {}),
-    "mask": ("cluster_intersect.cu", "rk_cluster_intersect_mask", None, {})}
+    "mask": ("cluster_intersect.cu", "rk_cluster_intersect_mask", None, {}),
+    "union": ("onehot_walk.cu", "rk_topwalk_union", "// The union walk's design",
+              UNION_VARIANTS),
+    "compact": ("compact.cu", "rk_alive_compact", "// The compaction's design",
+                COMPACT_VARIANTS),
+    "cm_u": ("onehot_walk.cu", "rk_topwalk", None, {}),
+    "uncompact": ("compact.cu", "rk_alive_uncompact", None, {})}
+# timed also from CUDA graph replay: kernels of tens of microseconds,
+# where a direct call's host work may outlast the kernel
+GRAPHED = ("union", "compact", "cm_u", "uncompact")
 # the walk's designs: entry rk_walk_<name> of csrc/walk_designs.cu
 WALK_DESIGNS = ("unpacked", "interleaved2", "interleaved3",
                 "packed_interleaved2", "refilled1", "refilled2")
@@ -133,7 +170,13 @@ SIGS = {"woop": [P, I32, P, I32, I32, P, P, P, P, P, I64, P],
         "dense": [P, P, P, P, P, P, I64, P, P, P, P, P, I64, P, P, P, P],
         # closest_dense before its list of the triangles that can hit
         "dense_unlisted": [P, P, P, P, P, P, I64, P, P, P, P, P, I64, P],
-        "walk": [P, I32, P, P, P, P, P, I64, I32, I32, P]}
+        "walk": [P, I32, P, P, P, P, P, I64, I32, I32, P],
+        "union": [P, I32, P, P, P, P, P, I64, I32, I32, P],
+        "compact": [P, P, P, P, P, P, P, P, P, I64, I32, P],
+        # alive_compact before its count pass's scratch
+        "compact_unscratched": [P, P, P, P, P, P, P, P, I64, I32, P],
+        "cm_u": [P, I32, P, P, P, P, P, P, I64, I32, I32, P],
+        "uncompact": [P, P, P, P, P, I64, I32, P]}
 
 
 def _set(src: str, scope: str, consts: dict) -> str:
@@ -201,6 +244,8 @@ def build_variants(kernels, against: str | None) -> dict:
             sig = kernel
             if kernel == "dense" and "pack_live_kernel" not in text:
                 sig = "dense_unlisted"
+            if kernel == "compact" and "chunk_count_kernel" not in text:
+                sig = "compact_unscratched"
             jobs[(kernel, "against")] = (_nvcc_job(
                 f"{kernel}_against", source, text, other), entry, sig)
     thunks = list({id(b): b for b, _, _ in jobs.values()}.values())
@@ -219,19 +264,22 @@ def _loaded(sig: str, path: str, fn: str):
 def wavefronts() -> dict:
     """kernel -> its launches' arguments on the card: config4's eight
     bounces (woop, walk), the bench scene's four through the dense-union
-    finder (walk, mask), the cluster finder (worklist) and the pallas
-    finder (dense)."""
+    finder (walk, union, mask), the cluster finder (worklist), the pallas
+    finder (dense) and the expand finder (compact, cm_u, uncompact: each
+    stage fed the package kernels' outputs of the stage before it)."""
     from ..accel.clusters import (CLUSTER_LEAF, build_clusters,
                                   tile_union_counts, tile_worklists)
     from ..accel.ctree import build_onehot
     from ..accel.host_bvh import build_sah
-    from ..accel.traverse import DENSE_CHUNK, wavefront_inputs
+    from ..accel.traverse import DENSE_CHUNK, onehot_inputs, wavefront_inputs
     from ..core.math3d import BIG
     from ..core.types import RenderConfig
     from ..render.integrator import make_finder, render_sample
     from ..rng.sampler import frame_key, key, sample_key
     from ..scenes.builtin import stanford_bunny
     from ..scenes.config4 import config4_scene
+    from . import cluster_expand as ex
+    from . import compact as cp
     from . import onehot_walk as wk
     from .cluster_pallas import TILE
     from .dense_pallas import RAY_TILE
@@ -247,14 +295,17 @@ def wavefronts() -> dict:
             (stanford_bunny, bench.replace(backend="onehot",
                                            onehot_leaf=LEAF), 0),
             (stanford_bunny, bench.replace(backend="cluster"), 0),
-            (stanford_bunny, bench.replace(backend="pallas"), 0)):
+            (stanford_bunny, bench.replace(backend="pallas"), 0),
+            (stanford_bunny, bench.replace(
+                backend="onehot", onehot_leaf=EXPAND_LEAF,
+                onehot_expand=EXPAND_N, onehot_compact=COMPACT_N), 0)):
         b = build()
         b.camera.viewport_width = b.camera.viewport_height = WIDTH
         scene = b.freeze("cuda")
         m = scene.mesh
         if cfg.backend == "onehot":
             acc = build_onehot(build_sah(m), m.positions, m.faces,
-                               m.face_valid, leaf=LEAF,
+                               m.face_valid, leaf=cfg.onehot_leaf,
                                with_woop=build is config4_scene).to("cuda")
         elif cfg.backend == "cluster":
             acc = build_clusters(build_sah(m), m.positions, m.faces,
@@ -270,6 +321,19 @@ def wavefronts() -> dict:
                 o, d, t, _, _, _ = wavefront_inputs(s, ro, rd, None, RAY_TILE)
                 out["dense"].append((*mats, o, d, t))
                 return finder(s, ro, rd, active)
+            if cfg.onehot_compact:
+                g = cfg.onehot_compact
+                o, d, t, a, _, _ = onehot_inputs(s, ro, rd, active, g)
+                out["compact"].append((o, d, t, a, g))
+                kc = cp.alive_compact(o, d, t, a, g)
+                cwp = -(-acc.num_clusters // 256) * 8
+                out["cm_u"].append((acc.table, *kc, cwp))
+                km, ku = wk.topwalk_cm_u(acc.table, *kc, cwp)
+                seed = torch.where(kc[3], kc[2], torch.full_like(kc[2], -BIG))
+                kt, kf = ex.cluster_expand(km, ku, acc.clusters.tri_rows,
+                                           kc[0], kc[1], seed)
+                out["uncompact"].append((kt, kf, a, g))
+                return finder(s, ro, rd, active)
             o, d, t, a, _, _ = wavefront_inputs(s, ro, rd, active,
                                                 DENSE_CHUNK)
             seed = torch.where(a, t, torch.full_like(t, -BIG))
@@ -280,6 +344,8 @@ def wavefronts() -> dict:
             wargs = (acc.table, o, d, t, a, -(-acc.num_clusters // 32))
             union = tile_union_counts(wk.topwalk(*wargs), TILE)[0]
             out["walk"].append(wargs)
+            if not c4:
+                out["union"].append(wargs)
             if c4:
                 out["woop"].append((union, acc.woop_cm, o, d, seed))
             else:
@@ -358,10 +424,58 @@ def _call_walk(fn, table, o, d, t, a, nw):
     return (mask,)
 
 
+def _call_walk_union(fn, table, o, d, t, a, nw):
+    from ..accel.ctree import walk_max_steps
+    union = torch.empty((o.shape[0] // 256, nw), dtype=torch.int32,
+                        device=o.device)
+    _check(fn(table.data_ptr(), table.shape[0], o.data_ptr(), d.data_ptr(),
+              t.data_ptr(), a.data_ptr(), union.data_ptr(), o.shape[0], nw,
+              walk_max_steps(table.shape[0]), _stream()), "union walk")
+    return (union,)
+
+
+def _call_walk_cm_u(fn, table, o, d, t, a, cwp):
+    from ..accel.ctree import walk_max_steps
+    from .onehot_walk import RAY_TILE
+    r = o.shape[0]
+    mask = torch.empty((cwp, r), dtype=torch.int32, device=o.device)
+    union_pp = torch.zeros((r // RAY_TILE, cwp), dtype=torch.int32,
+                           device=o.device)
+    _check(fn(table.data_ptr(), table.shape[0], o.data_ptr(), d.data_ptr(),
+              t.data_ptr(), a.data_ptr(), mask.data_ptr(), union_pp.data_ptr(),
+              r, cwp, walk_max_steps(table.shape[0]), _stream()), "cm_u walk")
+    return mask, union_pp
+
+
+def _call_compact(fn, o, d, t, a, group, scratch=True):
+    """The permutation is full (dead lanes carry their own data), so every
+    output is compared whole."""
+    r = o.shape[0]
+    outs = [torch.empty_like(x) for x in (o, d, t, a)]
+    ptrs = [x.data_ptr() for x in (o, d, t, a, *outs)]
+    if scratch:
+        counts = torch.empty((r // group * -(-group // COMPACT_SCRATCH_CHUNK),),
+                             dtype=torch.int32, device=o.device)
+        ptrs.append(counts.data_ptr())
+    _check(fn(*ptrs, r, group, _stream()), "compact")
+    return tuple(outs)
+
+
+def _call_uncompact(fn, t, face, a, group):
+    t_out, f_out = torch.empty_like(t), torch.empty_like(face)
+    _check(fn(t.data_ptr(), face.data_ptr(), a.data_ptr(), t_out.data_ptr(),
+              f_out.data_ptr(), t.shape[0], group, _stream()), "uncompact")
+    return t_out, f_out
+
+
 CALLS = {"woop": _call_union, "mask": _call_union,
          "worklist": _call_worklist, "dense": _call_dense,
          "dense_unlisted": lambda fn, *w: _call_dense(fn, *w, listed=False),
-         "walk": _call_walk}
+         "walk": _call_walk, "union": _call_walk_union,
+         "cm_u": _call_walk_cm_u, "compact": _call_compact,
+         "compact_unscratched": lambda fn, *w: _call_compact(fn, *w,
+                                                              scratch=False),
+         "uncompact": _call_uncompact}
 
 
 class SmClock:
@@ -397,6 +511,21 @@ def _ms(fn, reps=10) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _graph_ms(fn, calls=10) -> float:
+    """ms a call of fn replayed from a CUDA graph of `calls` calls (mean
+    of 10 replays after a warm-up): no host work between the kernels."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return _ms(graph.replay) / calls
 
 
 def main(argv=None) -> None:
@@ -439,18 +568,27 @@ def main(argv=None) -> None:
                                              f"the package's kernel")
         fns.update(variants)
     times = {key_: [] for key_ in fns}
+    graphed = {key_: [] for key_ in fns if key_[0] in GRAPHED}
     with SmClock() as clock:
         for _ in range(args.rounds):
             for key_, (fn, sig, ws) in fns.items():
                 times[key_].append(
                     [_ms(lambda w=w: CALLS[sig](fn, *w)) for w in ws])
+                if key_ in graphed:
+                    graphed[key_].append(
+                        [_graph_ms(lambda w=w: CALLS[sig](fn, *w))
+                         for w in ws])
     lines = []
     for (kernel, name), rounds in times.items():
-        lines.append(json.dumps({
-            "kernel": kernel, "variant": name, "card": card,
-            "sm_clock_mhz": clock.summary(),
-            "ms_per_frame": [round(sum(r), 4) for r in rounds],
-            "ms_per_wavefront": [round(x, 4) for x in rounds[-1]]}))
+        line = {"kernel": kernel, "variant": name, "card": card,
+                "sm_clock_mhz": clock.summary(),
+                "ms_per_frame": [round(sum(r), 6) for r in rounds],
+                "ms_per_wavefront": [round(x, 6) for x in rounds[-1]]}
+        if (kernel, name) in graphed:
+            g = graphed[(kernel, name)]
+            line["graph_ms_per_frame"] = [round(sum(r), 6) for r in g]
+            line["graph_ms_per_wavefront"] = [round(x, 6) for x in g[-1]]
+        lines.append(json.dumps(line))
     print("\n".join(lines), flush=True)
     if args.out:
         with open(args.out, "w") as f:

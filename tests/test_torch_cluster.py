@@ -87,21 +87,36 @@ def _seed(t0, active):
     return np.where(active, t0, -BIG).astype(np.float32)
 
 
-@pytest.mark.parametrize("leaf", [16, 64])
-def test_topwalk_union_bitwise(bunny, leaf):
+@pytest.mark.parametrize("leaf,layout", [
+    pytest.param(16, "random", id="16"), pytest.param(64, "random", id="64"),
+    (16, "dead_tile"), (64, "dead_tile"), (16, "same_ray"), (64, "same_ray")])
+def test_topwalk_union_bitwise(bunny, leaf, layout):
     """The walk's per-tile unions, with ~40% dead rays, against
     pallas_topwalk_union: bitwise (the slab test has no multiply-add to
-    fuse). leaf 16: 1,026 clusters, 33 words; leaf 64: 258, 9."""
+    fuse). leaf 16: 1,026 clusters, 33 words; leaf 64: 258, 9. Also with
+    the second tile's rays all dead (dead_tile: its union is empty), or
+    all 256 of them one live ray (same_ray: the tile's union is that
+    ray's mask)."""
     rng = np.random.default_rng(20 + leaf)
     (_, jtable), acc = _onehot(bunny, leaf)
     ro, rd, t0, active = _wavefront(rng, bunny[0])
+    tile = slice(256, 512)
+    if layout == "dead_tile":
+        active[tile] = False
     nw = -(-acc.num_clusters // 32)
+    if layout == "same_ray":   # the first ray past the tile that wants any
+        wants = twk.topwalk_cm_plain(acc.table, _t(ro), _t(rd), _t(t0),
+                                     _t(active), nw).any(dim=0).numpy()
+        k = 512 + int(np.argmax(wants[512:]))
+        ro[tile], rd[tile], t0[tile], active[tile] = ro[k], rd[k], t0[k], True
     ref = np.asarray(pallas_topwalk_union(
         jtable, jnp.asarray(ro), jnp.asarray(rd), jnp.asarray(t0),
         jnp.asarray(active), nw, interpret=True))
     got = twk.topwalk_union(acc.table, _t(ro), _t(rd), _t(t0), _t(active), nw)
     assert got.shape == (R // 256, nw) and (ref != 0).sum() > R // 256
     assert np.array_equal(got.numpy(), ref)
+    if layout != "random":
+        assert bool(ref[1].any()) == (layout == "same_ray")
 
 
 @pytest.mark.parametrize("cap", [512, 24])

@@ -24,6 +24,7 @@ from raypt_torch.core.math3d import BIG
 from raypt_torch.core.types import RenderConfig
 from raypt_torch.kernels import cluster_expand as tex
 from raypt_torch.kernels import cluster_pallas as tdn
+from raypt_torch.kernels import compact as tcp
 from raypt_torch.kernels import dense_pallas as tdp
 from raypt_torch.kernels import onehot_walk as twk
 from raypt_torch.render.integrator import make_finder, render_sample
@@ -32,9 +33,9 @@ from raypt_torch.scenes.builtin import stanford_bunny
 from raypt_torch.scenes.config4 import config4_scene
 
 from chip_smoke import (MERGE_LEAVES, WL_GROUPS, WOOP_ODD_LEAF, check_planted,
-                        copy_most_hit, edge_seeds, merge_case, walk_layouts,
-                        woop_faces, woop_merge, worklist_merge,
-                        zero_maps_table)
+                        compact_layouts, copy_most_hit, edge_seeds,
+                        merge_case, walk_layouts, woop_faces, woop_merge,
+                        worklist_merge, zero_maps_table)
 
 pytestmark = pytest.mark.gpu
 
@@ -337,6 +338,66 @@ def test_render_bitwise_vs_plain_finder(gpu_scene, path):
                                     return_alive=True)
     assert bool(torch.isfinite(img_k).all())
     assert _bits_equal(img_k, img_p) and torch.equal(tr_k, tr_p)
+
+
+@pytest.mark.parametrize("copies", [1, 16])
+@pytest.mark.parametrize("layout", ["dead_tile", "same_ray"])
+@pytest.mark.parametrize("leaf", [128, 16])
+def test_union_walk_edges_bitwise(gpu_scene, leaf, layout, copies):
+    """The union walk against its plain version on the dense-union
+    render's bounce-1 wavefront (65,536 rays, or 16 copies of it: 2^20)
+    at leaf 128 and at leaf 16 (33 union words), with its first tile's
+    rays all dead among live tiles (dead_tile: an empty union, stored
+    without a walk), or all 256 the same live ray (same_ray: every
+    thread wants the same leaves at the same steps, so every flush of a
+    word contends for it)."""
+    scene, accels = gpu_scene
+    ro, rd, active = _waves(scene, DENSE, accels[128], 3)[1]
+    ro, rd, active = (x.repeat(copies, *([1] * (x.dim() - 1)))
+                      for x in (ro, rd, active))
+    if layout == "dead_tile":
+        active[:256] = False
+    else:
+        k = int(torch.nonzero(active)[0])
+        ro[:256], rd[:256], active[:256] = ro[k], rd[k], True
+    accel = accels[leaf]
+    o, d, t, a, _, _ = wavefront_inputs(scene, ro, rd, active, DENSE_CHUNK)
+    args = (accel.table, o, d, t, a, -(-accel.num_clusters // 32))
+    ku = twk.topwalk_union(*args)
+    assert torch.equal(ku, twk.topwalk_union_plain(*args))
+    assert bool(ku[1:].any()) and bool(ku[0].any()) == (layout == "same_ray")
+
+
+@pytest.mark.parametrize("size", ["small", "wavefront"])
+@pytest.mark.parametrize("group", [100, 256, 1000, 1024, 1536, 32768])
+def test_compact_edges_bitwise(group, size):
+    """alive_compact and alive_uncompact against their plain versions on
+    every lane (the permutation is full: dead lanes carry their own
+    data), on three groups (small) or on as many whole groups as fit in
+    2^20 lanes, with all lanes dead, all alive, only each group's last
+    lane alive, alternating lanes and a random 60% alive
+    (`chip_smoke.compact_layouts`). Group 100 is below the 256 lanes a
+    block ranks, 1,000 a multiple of neither 16 lanes (the mask is read
+    a byte at a time) nor the chunk (each group ends in a partial
+    chunk), and 1,536 of no 1,024-lane chunk."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    r = 3 * group if size == "small" else (1 << 20) // group * group
+    gen = torch.Generator(device="cuda").manual_seed(group)
+    ro = torch.randn((r, 3), device="cuda", generator=gen) * 1e3
+    rd = torch.randn((r, 3), device="cuda", generator=gen)
+    t0 = torch.rand((r,), device="cuda", generator=gen) * 1e8
+    face = torch.arange(r, dtype=torch.int32, device="cuda")
+    active = torch.rand((r,), device="cuda", generator=gen) < 0.6
+    for alive in compact_layouts(r, group, active).values():
+        args = (ro, rd, t0, alive, group)
+        for x, y in zip(tcp.alive_compact(*args),
+                        tcp.alive_compact_plain(*args)):
+            assert _bits_equal(x, y)
+        uargs = (t0, face, alive, group)
+        for x, y in zip(tcp.alive_uncompact(*uargs),
+                        tcp.alive_uncompact_plain(*uargs)):
+            assert _bits_equal(x, y)
 
 
 @pytest.mark.parametrize("slots,rays", [(256, 256), (256, None),

@@ -41,13 +41,29 @@ def _alive(rng, r, group):
     return alive
 
 
-def test_compact_bitwise_on_live_lanes():
+def _layout(rng, r, group, layout):
+    """Alive mask of a compaction case: random (with one all-dead and one
+    all-alive group), all dead, all alive, or alive only in the last lane
+    of each group."""
+    if layout == "random":
+        return _alive(rng, r, group)
+    if layout == "last_lane":
+        return np.arange(r) % group == group - 1
+    return np.full(r, layout == "all_alive")
+
+
+@pytest.mark.parametrize("layout", ["random", "all_dead", "all_alive",
+                                    "last_lane"])
+@pytest.mark.parametrize("g", [256, 1024, 4096])
+def test_compact_bitwise_on_live_lanes(g, layout):
+    """alive_compact's plain version against pallas_alive_compact on live
+    lanes (the Pallas kernel leaves dead lanes' payload unspecified)."""
     rng = np.random.default_rng(11)
-    r, g = 4096, 1024
+    r = 8192
     ro = (rng.normal(size=(r, 3)) * 1e3).astype(np.float32)
     rd = rng.normal(size=(r, 3)).astype(np.float32)
     t0 = (rng.random(r) * 1e8).astype(np.float32)
-    alive = _alive(rng, r, g)
+    alive = _layout(rng, r, g, layout)
     ref = pallas_alive_compact(jnp.asarray(ro), jnp.asarray(rd),
                                jnp.asarray(t0), jnp.asarray(alive), group=g,
                                interpret=True)

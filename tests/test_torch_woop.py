@@ -342,12 +342,12 @@ def test_sweep_sets_constants():
         sweep._set(src, "struct WoopTest {", {"kNoSuchConstant": 1})
 
 
-@pytest.mark.parametrize("kernel", ["worklist", "dense"])
+@pytest.mark.parametrize("kernel", ["worklist", "dense", "union", "compact"])
 def test_sweep_sets_constants_of(kernel):
-    """The sweep's variants of the worklist kernel (struct MtTest) and of
-    closest_dense (its design's constants): each sets exactly the lines
-    of its constants in its scope, and every variant differs from the
-    package's setting."""
+    """The sweep's variants of the worklist kernel (struct MtTest), of
+    closest_dense, the union walk and the compaction (their designs'
+    constants): each sets exactly the lines of its constants in its
+    scope, and every variant differs from the package's setting."""
     import os
     import re
 
