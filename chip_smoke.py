@@ -88,14 +88,18 @@ Phases:
      and ascending id, counts at, above and below their lengths, with the
      stray bits also ids outside [0, C) and counts above cap), the
      mask-only walk on a dead, a one-live and a last-warp-only block
-     (walk_layouts) at leaves 128 and 16, and the kernels' 1 / det (the
+     (walk_layouts) at leaves 128 and 16, topwalk_cm_u on the same
+     blocks at leaves 384 and 16 and on a compacted wavefront whose
+     walk tile mixes live, part-live and dead 256-ray blocks
+     (mixed_tile), and the kernels' 1 / det (the
      correctly rounded reciprocal) against the
      division over all 2^32 bit patterns (inv_det_sweep). The SM clock is
      sampled (nvidia-smi) while each path's kernels are timed; phase 2
      reads the instructions a triangle test takes in each intersection
      kernel's inner loop (the union template's three instances, the
-     expansion, closest_dense), and a walk step in the mask-only and
-     union walks', from cuobjdump -sass of the built library
+     expansion, closest_dense), and a walk step in the mask-only,
+     union and mask-and-union walks', from cuobjdump -sass of the built
+     library
   4. each path's render through render_sample: every kernel of the path
      launches once per bounce and no other kernel launches, the image is
      finite and bitwise equal to the render through the plain versions
@@ -465,9 +469,14 @@ def compare_expand(stats, label, scene, accel, ro, rd, active, timed):
 
     o, d, t, a, _, _ = onehot_inputs(scene, ro, rd, active, COMPACT_N)
     args = (o, d, t, a, COMPACT_N)
-    kc = cp.alive_compact(*args)
+    # the finder's flow: the compaction leaves its chunk counts for the
+    # uncompaction
+    counts = cp.new_counts(a, COMPACT_N)
+    kc = cp.alive_compact(*args, counts)
     pc = cp.alive_compact_plain(*args)
     stats.check("alive_compact", f"{label} alive", kc[3], pc[3])
+    stats.check("alive_compact", f"{label} counts", counts,
+                cp.chunk_counts(a, COMPACT_N))
     for name, x, y in zip(("ro", "rd", "t0"), kc[:3], pc[:3]):
         stats.check("alive_compact", f"{label} live {name}", x, y, where=pc[3])
 
@@ -486,11 +495,12 @@ def compare_expand(stats, label, scene, accel, ro, rd, active, timed):
     stats.check("cluster_expand", f"{label} t", kt, pt)
     stats.check("cluster_expand", f"{label} face", kf, pf)
 
-    uargs = (kt, kf, a, COMPACT_N)
+    # the permutation is full: dead lanes are compared too
+    uargs = (kt, kf, a, COMPACT_N, counts)
     kut, kuf = cp.alive_uncompact(*uargs)
     put, puf = cp.alive_uncompact_plain(*uargs)
-    stats.check("alive_uncompact", f"{label} live t", kut, put, where=a)
-    stats.check("alive_uncompact", f"{label} live face", kuf, puf, where=a)
+    stats.check("alive_uncompact", f"{label} t", kut, put)
+    stats.check("alive_uncompact", f"{label} face", kuf, puf)
 
     if timed:
         r = o.shape[0]
@@ -498,9 +508,19 @@ def compare_expand(stats, label, scene, accel, ro, rd, active, timed):
         visits = walk_visits(accel.table, *kc, cwp)
         stats.time("alive_compact", label, cp.alive_compact,
                    cp.alive_compact_plain, args, 2 * nbytes(o, d, t, a), 0)
+        # what the walk needs (counted as for the mask-only walk in
+        # compare_unfused): the table once, a live ray's origin, direction
+        # and t, every ray's flag, the whole mask written once, union_pp;
+        # a visit's step, and each row's decode once a block with a live
+        # ray
+        live = int(kc[3].sum())
+        busy = int(kc[3].view(-1, WALK_BLOCK).any(dim=1).sum())
         stats.time("topwalk_cm_u", label, wk.topwalk_cm_u,
                    wk.topwalk_cm_u_plain, wargs,
-                   nbytes(accel.table, *kc[:4], km, ku), WALK_OPS * visits)
+                   nbytes(accel.table, kc[3], km, ku)
+                   + live * (o.shape[1] + d.shape[1] + 1) * o.element_size(),
+                   (WALK_OPS - ROW_DECODE_OPS) * visits
+                   + ROW_DECODE_OPS * accel.table.shape[0] * busy)
         stats.time("cluster_expand", label, ex.cluster_expand,
                    ex.cluster_expand_plain, eargs,
                    nbytes(km, ku, rows, kc[0], kc[1], seed, kt, kf),
@@ -514,7 +534,43 @@ def compare_expand(stats, label, scene, accel, ro, rd, active, timed):
                 ("alive_uncompact", cp.alive_uncompact, uargs)):
             stats.time_graph(name, label, kernel, kargs)
         log(f"  {label:9s} walk visits {visits}, wanted clusters per live "
-            f"ray {popcount(km) / max(int(a.sum()), 1):.2f} (R = {r})")
+            f"ray {popcount(km) / max(live, 1):.2f} (R = {r}), {busy} of "
+            f"{r // WALK_BLOCK} walk blocks with a live ray")
+    return kc[3], ku
+
+
+def compare_cm_u(stats, label, scene, accel, ro, rd, active):
+    """topwalk_cm_u alone on one wavefront, uncompacted (so a layout of
+    `active` reaches the walk as it is), mask and union_pp bitwise."""
+    from raypt_torch.accel.traverse import onehot_inputs
+    from raypt_torch.kernels import onehot_walk as wk
+
+    o, d, t, a, _, _ = onehot_inputs(scene, ro, rd, active, COMPACT_N)
+    wargs = (accel.table, o, d, t, a, -(-accel.num_clusters // 256) * 8)
+    km, ku = wk.topwalk_cm_u(*wargs)
+    pm, pu = wk.topwalk_cm_u_plain(*wargs)
+    stats.check("topwalk_cm_u", f"{label} mask", km, pm)
+    stats.check("topwalk_cm_u", f"{label} union_pp", ku, pu)
+    if not bool(km.any()):
+        raise AssertionError(f"topwalk_cm_u {label}: no ray wants a cluster")
+
+
+def mixed_tile(active, group):
+    """active with its first group cut to keep = 300 + a multiple of
+    2,048 live rays (its first ones), so that after the compaction the
+    walk tile at lane keep - 300 holds one whole live 256-ray block, one
+    with 44 live rays and six dead blocks: that tile's union_pp row
+    gathers the atomics of live blocks among dead ones. Returns (active,
+    the tile's index)."""
+    import torch
+    a = active.clone()
+    live = torch.nonzero(a[:group]).flatten()
+    keep = max(live.numel() - live.numel() % 2048 - 2048, 0) + 300
+    if live.numel() < keep:
+        raise AssertionError(f"mixed_tile: {live.numel()} live rays in the "
+                             f"first group, {keep} needed")
+    a[live[keep:]] = False
+    return a, (keep - 300) // 2048
 
 
 def compact_layouts(r, group, active):
@@ -558,12 +614,20 @@ def compare_compact_edges(stats, scene, ro, rd, active):
         face = torch.arange(args[0].shape[0], dtype=torch.int32,
                             device=o.device)
         uargs = (kc[2], face, args[3], args[4])
-        for name, x, y in zip(("t", "face"), cp.alive_uncompact(*uargs),
-                              cp.alive_uncompact_plain(*uargs)):
-            stats.check("alive_uncompact", f"{what} {name}", x, y)
+        want = cp.alive_uncompact_plain(*uargs)
+        # with its own count pass, and with the compaction's counts
+        counts = cp.new_counts(args[3], args[4])
+        cp.alive_compact(*args, counts)
+        for how, got in (("own count", cp.alive_uncompact(*uargs)),
+                         ("given counts", cp.alive_uncompact(*uargs,
+                                                             counts))):
+            for name, x, y in zip(("t", "face"), got, want):
+                stats.check("alive_uncompact", f"{what} {name} ({how})", x,
+                            y)
     log(f"  compaction edges: groups {COMPACT_EDGE_GROUPS} x "
         f"{tuple(compact_layouts(1, 1, a))}, and group 1024 one lane into "
-        f"the storage: compact and uncompact bitwise on every lane")
+        f"the storage: compact and uncompact (counting itself, and with "
+        f"the compaction's counts) bitwise on every lane")
 
 
 def compare_dense_union(stats, label, scene, accel, ro, rd, active, timed):
@@ -1472,6 +1536,7 @@ SASS_LOOPS = {
     "closest_dense_kernel": (r"\d+closest_dense_kernelE", "MUFU.RCP", 1),
     "topwalk_mask_kernel": (r"\d+topwalk_mask_kernelE", "LDS.128", 2),
     "topwalk_union_kernel": (r"\d+topwalk_union_kernelE", "LDS.128", 2),
+    "topwalk_cm_u_kernel": (r"\d+topwalk_cm_u_kernelE", "LDS.128", 2),
 }
 
 
@@ -2144,6 +2209,18 @@ def main():
     edge[COMPACT_N:2 * COMPACT_N] = True
     compare_expand(stats, "edge grps", scene, accels["expand"], ro, rd, edge,
                    timed=False)
+    mixed, tile = mixed_tile(active, COMPACT_N)
+    alive_c, union_pp = compare_expand(stats, "mixed", scene, accels["expand"],
+                                       ro, rd, mixed, timed=False)
+    blocks = alive_c[tile * 2048:(tile + 1) * 2048].view(-1, WALK_BLOCK)
+    per_block = blocks.sum(dim=1).tolist()
+    if per_block != [WALK_BLOCK, 44] + [0] * 6 or not bool(
+            union_pp[tile].any()):
+        raise AssertionError(f"mixed_tile: walk tile {tile} after the "
+                             f"compaction holds {per_block} live rays a "
+                             f"block, union row {union_pp[tile].tolist()}")
+    log(f"  topwalk_cm_u: walk tile {tile} after the compaction with a live, "
+        f"a 44-live and six dead blocks, bitwise")
     cwp16 = -(-accel16.num_clusters // 256) * 8
     nw16 = -(-accel16.num_clusters // 32)
     log(f"  multi-word: leaf {MULTIWORD_LEAF}, C = {accel16.num_clusters}, "
@@ -2164,6 +2241,14 @@ def main():
         compare_unfused(stats, "layouts", scene, acc, ro, rd,
                         walk_layouts(active), timed=False)
         log(f"  walk layouts ({what}): a dead, a one-live and a "
+            f"last-warp-only block, bitwise")
+    # and topwalk_cm_u on the same blocks of the expand path's wavefront
+    for acc, what in ((accels["expand"], f"leaf {LEAF}"),
+                      (accel16, f"leaf {MULTIWORD_LEAF}")):
+        ro, rd, active = waves["expand"][1]
+        compare_cm_u(stats, "layouts", scene, acc, ro, rd,
+                     walk_layouts(active))
+        log(f"  topwalk_cm_u layouts ({what}): a dead, a one-live and a "
             f"last-warp-only block, bitwise")
     for path, cmp in (("dense_union", compare_dense_union),
                       ("cluster", compare_cluster)):

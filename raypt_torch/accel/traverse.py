@@ -109,7 +109,9 @@ def find_closest_bruteforce(scene: Scene, ro, rd, active=None) -> HitIds:
 class FinderOps(NamedTuple):
     """The kernel stages of the finders. KERNELS dispatches on the
     tensors' device (CUDA kernel or plain version); PLAIN always runs the
-    plain torch versions, to hold the kernels against on the card."""
+    plain torch versions, to hold the kernels against on the card.
+    compact leaves its chunk counts in a scratch
+    (`kernels.compact.new_counts`) that uncompact of the same mask reads."""
     compact: Callable          # onehot, per-ray-exact branch
     walk: Callable
     expand: Callable
@@ -218,9 +220,11 @@ def find_closest_onehot(scene: Scene, ro, rd, active=None, *,
         scene, ro, rd, active, compact_n)
     n = ro.reshape(-1, 3).shape[0]
     orig_a = flat_a
+    counts = None   # the compaction's chunk counts, for the uncompaction
     if compact_n:
+        counts = _compact.new_counts(flat_a, compact_n)
         flat_o, flat_d, flat_t, flat_a = ops.compact(
-            flat_o, flat_d, flat_t, flat_a, compact_n)
+            flat_o, flat_d, flat_t, flat_a, compact_n, counts)
     cwp = -(-accel.num_clusters // 256) * 8     # words, padded to 8
     mask_cm, union_pp = ops.walk(accel.table, flat_o, flat_d, flat_t, flat_a,
                                  cwp)
@@ -228,7 +232,7 @@ def find_closest_onehot(scene: Scene, ro, rd, active=None, *,
     t_best, face = ops.expand(mask_cm, union_pp, accel.clusters.tri_rows,
                               flat_o, flat_d, seed)
     if compact_n:
-        t_best, face = ops.uncompact(t_best, face, orig_a, compact_n)
+        t_best, face = ops.uncompact(t_best, face, orig_a, compact_n, counts)
     return _hit_ids(t_best, face, orig_a, n, ts, si)
 
 

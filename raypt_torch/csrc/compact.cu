@@ -9,38 +9,43 @@
 // with dest recomputed from the same original alive mask.
 //
 // What bounds it on this card: memory traffic. A compaction moves 29
-// bytes per lane (ro, rd, t0, alive) in and out; an uncompaction 8.
-// At R = 2^20 that is ~60 MB, ~18 us at 3.35 TB/s. The rank is a few
-// integer ops per lane; what it needs from outside the lane's own chunk
-// is two numbers, the alive lanes of its group before the chunk and in
-// the whole group.
+// bytes per lane (ro, rd, t0, alive) in and out; an uncompaction 17
+// (the mask, t and face in, t and face out). At R = 2^20 that is ~60
+// and ~18 MB, ~18 and ~5 us at 3.35 TB/s. The rank is a few integer ops
+// per lane; what it needs from outside the lane's own chunk is two
+// numbers, the alive lanes of its group before the chunk and in the
+// whole group.
 //
-// What the compaction's design does about it: the work is spread over
-// the whole card, one block per kChunk-lane chunk of a group (4,096
+// What the design does about it, in both directions: the work is spread
+// over the whole card, one block per kChunk-lane chunk of a group (4,096
 // blocks for a 2^20-ray wavefront at chunks of 256, whatever the group;
 // a group that is not a multiple of the chunk ends in a partial chunk;
 // one block a group would give the bench path's groups of 32,768 lanes
-// 32 blocks for 132 SMs). A block needs its chunk's carry (the alive
-// lanes of the group's chunks before it) and the group's count na:
+// 32 blocks for 132 SMs, each ranking its group's 32 chunks one after
+// another, as the uncompaction's first design did). A
+// block needs its chunk's carry (the alive lanes of the group's chunks
+// before it) and the group's count na:
 //   * two passes (kTwoPass = 1): a count kernel, one warp a chunk, sums
 //     each chunk's alive bytes (16-byte loads and __dp4a where the group
 //     is a multiple of 16 lanes and the mask 16-byte aligned, byte loads
-//     else) into a scratch int the wrapper allocates; the scatter kernel
+//     else) into a scratch int the wrapper allocates; the main kernel
 //     sums its group's chunk counts, split at its own chunk;
 //   * recount (kTwoPass = 0): no count pass; each block sums its whole
 //     group's alive bytes itself (mostly from L2), split at its chunk.
-// Then a block scan (block_scan.cuh) ranks the chunk's lanes, and each
-// thread moves its lane: reads are coalesced, writes scatter only
-// inside the group. `python -m raypt_torch.kernels.sweep --kernels
-// compact` builds and times both designs at chunks of 256 and 1,024:
-// two passes at 256 were the fastest on the card (recounting at 256
-// next: its blocks read their group's mask from L2 many times over).
+// Then a block scan (block_scan.cuh) ranks the chunk's lanes
+// (chunk_lane), and each thread moves its lane: the compaction's reads
+// and the uncompaction's writes are coalesced, and the other side
+// scatters only inside the group. `python -m raypt_torch.kernels.sweep
+// --kernels compact uncompact` builds and times the designs: for the
+// compaction two passes at 256 were the fastest on the card (recounting
+// at 256 next: its blocks read their group's mask from L2 many times
+// over). The uncompaction has no count pass of its own where its
+// caller passes the counts the compaction of the same mask and group
+// left in its scratch (`counted`, the expand finder's flow): 17% faster
+// on the card than counting again, and recounting in each block 69%
+// slower.
 // The TPU kernel's one-hot selection matmuls and split3_bf16 transport
 // have no counterpart: a permutation here is plain loads and stores.
-//
-// The uncompaction still runs the first design (one 1,024-thread block
-// a group, its chunks one after another: for_each_destination); it moves
-// to the chunked design in a later change.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -50,9 +55,10 @@ namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
 
-// The compaction's design (the sweep builds the other settings)
+// The compaction's design, and the uncompaction's (the sweep builds the
+// other settings)
 constexpr int kChunk = 256;    // lanes a block ranks, one a thread
-constexpr int kTwoPass = 1;    // 1: count pass, then scatter; 0: recount
+constexpr int kTwoPass = 1;    // 1: count pass, then move; 0: recount
 
 static_assert(kChunk % 32 == 0 && kChunk <= 1024, "whole warps, one block");
 static_assert(kChunk % 16 == 0, "a chunk boundary is a 16-byte boundary");
@@ -132,17 +138,16 @@ chunk_count_kernel(const uint8_t* __restrict__ alive, int* __restrict__ counts,
     if ((threadIdx.x & 31) == 0) counts[q] = n;
 }
 
-// One block a chunk: the carry and na, from the count pass's counts
-// (kTwoPass) or from the group's alive bytes; then the chunk's ranks and
-// its lanes moved.
-__global__ void __launch_bounds__(kChunk)
-alive_compact_kernel(const float* __restrict__ ro, const float* __restrict__ rd,
-                     const float* __restrict__ t0,
-                     const uint8_t* __restrict__ alive,
-                     const int* __restrict__ counts,
-                     float* __restrict__ ro_out, float* __restrict__ rd_out,
-                     float* __restrict__ t0_out, uint8_t* __restrict__ alive_out,
-                     int group, int cpg, bool vec) {
+// The lane of this thread in the block's chunk of its group (block
+// blockIdx.x is chunk c of group g): its carry and na, from the count
+// pass's counts (kTwoPass) or from the group's alive bytes, then the
+// chunk's ranks. Sets the lane's source and destination lanes; false for
+// a thread past the end of its group. Every thread of the block calls
+// it.
+__device__ __forceinline__ bool chunk_lane(const uint8_t* __restrict__ alive,
+                                           const int* __restrict__ counts,
+                                           int group, int cpg, bool vec,
+                                           long long* src, long long* dst) {
     __shared__ int s_sum[64];
     __shared__ int s_warp[33];
     const long long g = (long long)blockIdx.x / cpg;
@@ -167,9 +172,22 @@ alive_compact_kernel(const float* __restrict__ ro, const float* __restrict__ rd,
     const bool a = j < group && alive[gbase + j] != 0;
     int n;
     const int pa = carry + rk::block_exclusive_scan(a, s_warp, &n);
-    if (j >= group) return;
-    const long long src = gbase + j;
-    const long long dst = gbase + (a ? pa : na + (j - pa));
+    *src = gbase + j;
+    *dst = gbase + (a ? pa : na + (j - pa));
+    return j < group;
+}
+
+// One block a chunk: each lane moved to its destination.
+__global__ void __launch_bounds__(kChunk)
+alive_compact_kernel(const float* __restrict__ ro, const float* __restrict__ rd,
+                     const float* __restrict__ t0,
+                     const uint8_t* __restrict__ alive,
+                     const int* __restrict__ counts,
+                     float* __restrict__ ro_out, float* __restrict__ rd_out,
+                     float* __restrict__ t0_out, uint8_t* __restrict__ alive_out,
+                     int group, int cpg, bool vec) {
+    long long src, dst;
+    if (!chunk_lane(alive, counts, group, cpg, vec, &src, &dst)) return;
     for (int k = 0; k < 3; ++k) {
         ro_out[dst * 3 + k] = ro[src * 3 + k];
         rd_out[dst * 3 + k] = rd[src * 3 + k];
@@ -178,116 +196,77 @@ alive_compact_kernel(const float* __restrict__ ro, const float* __restrict__ rd,
     alive_out[dst] = alive[src];
 }
 
-// The uncompaction's design (kept until it moves to the chunked one):
-// one 1,024-thread block a group.
-constexpr int kThreads = 1024;
-
-// Alive count of the group, valid in every thread after the call.
-__device__ int group_alive_count(const uint8_t* alive, long long base,
-                                 int group, int* s_warp) {
-    int cnt = 0;
-    for (int j = threadIdx.x; j < group; j += kThreads)
-        cnt += alive[base + j] != 0;
-    for (int off = 16; off > 0; off >>= 1)
-        cnt += __shfl_down_sync(kFull, cnt, off);
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    if (lane == 0) s_warp[warp] = cnt;
-    __syncthreads();
-    if (warp == 0) {
-        int v = s_warp[lane];
-        for (int off = 16; off > 0; off >>= 1)
-            v += __shfl_down_sync(kFull, v, off);
-        if (lane == 0) s_warp[32] = v;
-    }
-    __syncthreads();
-    const int na = s_warp[32];
-    __syncthreads();   // s_warp is reused by the caller
-    return na;
-}
-
-// Calls f(src_lane, dest_lane) for every lane of the block's group.
-template <typename F>
-__device__ void for_each_destination(const uint8_t* alive, int group, F f) {
-    __shared__ int s_warp[33];
-    const long long base = (long long)blockIdx.x * group;
-    const int na = group_alive_count(alive, base, group, s_warp);
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    int carry = 0;   // alive lanes in the chunks before this one
-    for (int c0 = 0; c0 < group; c0 += kThreads) {
-        const int j = c0 + threadIdx.x;
-        const bool a = j < group && alive[base + j] != 0;
-        const unsigned b = __ballot_sync(kFull, a);
-        const int in_warp = __popc(b & ((1u << lane) - 1u));
-        if (lane == 0) s_warp[warp] = __popc(b);
-        __syncthreads();
-        if (warp == 0) {   // exclusive scan of the 32 warp counts
-            const int v = s_warp[lane];
-            int incl = v;
-            for (int off = 1; off < 32; off <<= 1) {
-                const int u = __shfl_up_sync(kFull, incl, off);
-                if (lane >= off) incl += u;
-            }
-            s_warp[lane] = incl - v;
-            if (lane == 31) s_warp[32] = incl;
-        }
-        __syncthreads();
-        if (j < group) {
-            const int pa = carry + s_warp[warp] + in_warp;
-            const int dest = a ? pa : na + (j - pa);
-            f(base + j, base + dest);
-        }
-        carry += s_warp[32];
-        __syncthreads();
-    }
-}
-
-__global__ void __launch_bounds__(kThreads)
+// One block a chunk: each lane fetched back from its destination.
+__global__ void __launch_bounds__(kChunk)
 alive_uncompact_kernel(const float* __restrict__ t, const int* __restrict__ face,
                        const uint8_t* __restrict__ alive,
+                       const int* __restrict__ counts,
                        float* __restrict__ t_out, int* __restrict__ face_out,
-                       int group) {
-    for_each_destination(alive, group, [&](long long src, long long dst) {
-        t_out[src] = t[dst];
-        face_out[src] = face[dst];
-    });
+                       int group, int cpg, bool vec) {
+    long long src, dst;
+    if (!chunk_lane(alive, counts, group, cpg, vec, &src, &dst)) return;
+    t_out[src] = t[dst];
+    face_out[src] = face[dst];
+}
+
+// The chunks of a launch (r / group groups of cpg chunks), checked; and
+// the count pass where the design has one. Returns a CUDA error code.
+int launch_counts(const uint8_t* alive, int* counts, long long r, int group,
+                  bool count, cudaStream_t s, int* cpg, long long* n_chunks,
+                  bool* vec) {
+    if (group <= 0 || r % group) return (int)cudaErrorInvalidValue;
+    *cpg = (group + kChunk - 1) / kChunk;
+    *n_chunks = r / group * *cpg;
+    if (*n_chunks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    *vec = group % 16 == 0 && ((uintptr_t)alive & 15) == 0;
+    if (!count || *n_chunks == 0) return 0;
+    constexpr int kPerBlock = kCountThreads / 32;
+    chunk_count_kernel<<<(unsigned)((*n_chunks + kPerBlock - 1) / kPerBlock),
+                         kCountThreads, 0, s>>>(alive, counts, group, *cpg,
+                                                *n_chunks, *vec);
+    return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// counts: scratch of r / group * ceil(group / kChunk) ints (read and
-// written by the two-pass design only).
+// counts: scratch of r / group * ceil(group / kChunk) ints (written by
+// the count pass and read by the main kernel in the two-pass design).
 extern "C" int rk_alive_compact(const float* ro, const float* rd, const float* t0,
                                 const uint8_t* alive, float* ro_out, float* rd_out,
                                 float* t0_out, uint8_t* alive_out, int* counts,
                                 long long r, int group, void* stream) {
-    if (group <= 0 || r % group) return (int)cudaErrorInvalidValue;
-    const int cpg = (group + kChunk - 1) / kChunk;
-    const long long n_chunks = r / group * cpg;
-    if (n_chunks == 0) return 0;
-    if (n_chunks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-    const bool vec = group % 16 == 0 && ((uintptr_t)alive & 15) == 0;
     cudaStream_t s = (cudaStream_t)stream;
-    if constexpr (kTwoPass) {
-        constexpr int kPerBlock = kCountThreads / 32;
-        chunk_count_kernel<<<(unsigned)((n_chunks + kPerBlock - 1) / kPerBlock),
-                             kCountThreads, 0, s>>>(alive, counts, group, cpg,
-                                                    n_chunks, vec);
-        if (const cudaError_t e = cudaGetLastError()) return (int)e;
-    }
+    int cpg;
+    long long n_chunks;
+    bool vec;
+    if (const int e = launch_counts(alive, counts, r, group, kTwoPass, s, &cpg,
+                                    &n_chunks, &vec))
+        return e;
+    if (n_chunks == 0) return 0;
     alive_compact_kernel<<<(unsigned)n_chunks, kChunk, 0, s>>>(
         ro, rd, t0, alive, counts, ro_out, rd_out, t0_out, alive_out, group, cpg,
         vec);
     return (int)cudaGetLastError();
 }
 
+// counts: as rk_alive_compact's; counted: they already hold the counts
+// that rk_alive_compact left for this mask and group, so the count pass
+// is skipped.
 extern "C" int rk_alive_uncompact(const float* t, const int* face,
                                   const uint8_t* alive, float* t_out, int* face_out,
-                                  long long r, int group, void* stream) {
-    if (group <= 0 || r % group) return (int)cudaErrorInvalidValue;
-    const long long n_groups = r / group;
-    if (n_groups == 0) return 0;
-    alive_uncompact_kernel<<<(unsigned)n_groups, kThreads, 0, (cudaStream_t)stream>>>(
-        t, face, alive, t_out, face_out, group);
+                                  int* counts, int counted, long long r,
+                                  int group, void* stream) {
+    cudaStream_t s = (cudaStream_t)stream;
+    int cpg;
+    long long n_chunks;
+    bool vec;
+    if (const int e = launch_counts(alive, counts, r, group,
+                                    kTwoPass && !counted, s, &cpg, &n_chunks,
+                                    &vec))
+        return e;
+    if (n_chunks == 0) return 0;
+    alive_uncompact_kernel<<<(unsigned)n_chunks, kChunk, 0, s>>>(
+        t, face, alive, counts, t_out, face_out, group, cpg, vec);
     return (int)cudaGetLastError();
 }
 

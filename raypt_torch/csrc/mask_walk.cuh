@@ -1,10 +1,13 @@
-// The pieces of the mask-only walk (rk_topwalk_mask) and the union walk
-// (rk_topwalk_union), shared by their kernels (onehot_walk.cu:
-// topwalk_mask_kernel, topwalk_union_kernel) and the design variants
+// The pieces of the mask-only walk (rk_topwalk_mask), the union walk
+// (rk_topwalk_union) and the mask-and-union walk (rk_topwalk), shared by
+// their kernels (onehot_walk.cu: topwalk_mask_kernel,
+// topwalk_union_kernel, topwalk_cm_u_kernel) and the design variants
 // that `python -m raypt_torch.kernels.sweep` times against the first
 // (walk_designs.cu): the table decoded once a block, one step of a walk
-// on the decoded rows, a ray's mask column built a word at a time, and
-// a ray's share of its tile's union built the same way.
+// on the decoded rows, a ray's mask column built a word at a time (its
+// stores also ORed into the block's union words where the kernel keeps
+// a union beside the mask), and a ray's share of its tile's union built
+// the same way without a mask.
 #pragma once
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -96,12 +99,17 @@ __device__ __forceinline__ int walk_step(const float4* s_row, int node,
 // is in memory). A word is stored once, with the words skipped before it
 // as zeros; a word that comes back after it was stored (leaves out of id
 // order) is ORed into memory, so any leaf order gives the same mask.
+// With s_union set (the mask-and-union walk), each nonzero word is also
+// ORed into the block's shared union words when it is stored: one
+// register word feeds both outputs, and the mask is never read back.
 struct MaskColumn {
     int* col;          // word 0 of the ray's column; word w at col[w * r]
     int cur_w, last;
     unsigned bits;
+    unsigned* s_union = nullptr;   // the block's union words, or none
 
     __device__ __forceinline__ void store(long long r, int w, unsigned b) {
+        if (s_union) atomicOr(&s_union[w], b);
         if (w > last) {
             for (int z = last + 1; z < w; ++z) col[z * r] = 0;
             col[w * r] = (int)b;

@@ -29,48 +29,55 @@
 // ray (tens of steps), issued until the longest walk of the warp ends,
 // since the rays of a warp leave the walk after different step counts,
 // and the shared loads of the rows, which are broadcasts only where a
-// warp's rays walk the same nodes. Memory
-// traffic is small: 29 bytes of ray in, cwp * 4 bytes of mask out (none
-// in the union form).
+// warp's rays walk the same nodes. Memory traffic is small: 29 bytes of
+// a live ray in, cwp * 4 bytes of mask out a ray (none in the union
+// form). Against the bytes the function must move, the mask-and-union
+// form is bound by its mask stores (8 words a ray on the bench scene:
+// 32 MB at R = 2^20), the others by their operations.
 //
 // What the design does about it: the whole table in shared memory (89
 // rows on the icosphere stand-in, 773 rows = 24.7 KB on the 69k-triangle
-// bunny at leaf 384; dynamic shared memory, with the 48 KB opt-in above
-// that, up to the 227 KB a block may use, about 7,000 rows), so a node
-// fetch is two 16-byte shared loads (the bf16 row decodes in registers,
-// except in the mask-only and union forms, below). One thread walks one
-// ray, and the rays of a warp are neighbours: they walk much the same
-// nodes, so a row load is mostly a broadcast (packing keeps them in
-// pixel order).
+// bunny at leaf 384; dynamic shared memory, with the 48 KB opt-in near
+// that, up to the 227 KB a block may use, about 7,000 rows). One thread
+// walks one ray, and the rays of a warp are neighbours: they walk much
+// the same nodes, so a row load is mostly a broadcast.
 // (Interleaving two or three walks in a thread, packed or not, and
 // refilling a thread from the packed rays when a walk ends are
 // walk_designs.cu's variants of the mask-only form; each measured slower
 // on the card, `python -m raypt_torch.kernels.sweep`.)
-//   * Mask form (rk_topwalk): bits go straight into the ray's own column
-//     of the mask (zeroed first); the tile union is a warp
-//     __reduce_or_sync, a shared atomicOr per block, and one global
-//     atomicOr per block and word.
-//   * Mask-only form (rk_topwalk_mask, topwalk_mask_kernel): a block
-//     whose rays are all dead (most blocks of a late bounce) writes their
-//     zero columns and stops before it loads the table; a block scan
-//     packs the live rays in pixel order onto the first threads, so its
-//     warps hold only walking rays; the block decodes the table once into
-//     f32 bounds, links and flags (32 bytes a row, as the bf16 rows),
-//     which takes the unpacking and link decoding out of every step (the
-//     same values, so the same walk); a ray's mask word is built in a
-//     register and stored once, when the walk moves to another word (the
-//     words skipped are stored as zeros then, the rest when the walk
-//     ends), and a word that comes back after it was stored (leaves out
-//     of id order) is ORed into memory, so any leaf order gives the same
-//     mask; no word is read back otherwise.
+// The three forms of the package's finders share one design, from
+// mask_walk.cuh: a block whose rays are all dead (most blocks of a late
+// bounce, and after the compaction the tail of every group) writes what
+// a dead ray owes, if anything, and stops before it loads the table;
+// the block scan's total is the same in every thread, so the early
+// return splits no barrier. A block scan packs the live rays in pixel
+// order onto the first threads, so its warps hold only walking rays.
+// The block decodes the table once into f32 bounds, links and flags (32
+// bytes a row, as the bf16 rows), which takes the unpacking and link
+// decoding out of every step (the same values, so the same walk). Then:
+//   * Mask-only form (rk_topwalk_mask, topwalk_mask_kernel): a dead
+//     ray's column is stored as zeros; a live ray's mask word is built in
+//     a register (rk::MaskColumn) and stored once, when the walk moves to
+//     another word (the words skipped are stored as zeros then, the rest
+//     when the walk ends), and a word that comes back after it was
+//     stored (leaves out of id order) is ORed into memory, so any leaf
+//     order gives the same mask; no word is read back otherwise.
+//   * Mask-and-union form (rk_topwalk, topwalk_cm_u_kernel): the
+//     mask-only form with the union beside it. Each word a ray stores is
+//     also ORed into the block's shared union words as it is stored, so
+//     the mask is neither zeroed first nor read back for the union (the
+//     first design did both: 64 MB a launch at R = 2^20, beside a global
+//     read-modify-write for every wanted leaf and the bf16 row unpacked
+//     every step). After the block's last barrier each nonzero shared
+//     word is ORed into its 2048-ray walk tile's row with one global
+//     atomicOr; the wrapper zeroes union_pp, and a dead block adds
+//     nothing.
 //   * Union form (rk_topwalk_union, topwalk_union_kernel): a block is one
-//     256-ray union tile, built on the mask-only form's pieces. A tile
-//     whose rays are all dead stores its zero words and stops before the
-//     table; the live rays are packed in pixel order; the table is
-//     decoded once a block. A ray builds the word it wants in a register
-//     (rk::UnionWord) and ORs it into the tile's shared words only when
-//     its walk moves to another word and when it ends: leaves come
-//     mostly in id order, so a ray flushes each word it wants about
+//     256-ray union tile. A tile whose rays are all dead stores its zero
+//     words and stops before the table. A ray builds the word it wants in
+//     a register (rk::UnionWord) and ORs it into the tile's shared words
+//     only when its walk moves to another word and when it ends: leaves
+//     come mostly in id order, so a ray flushes each word it wants about
 //     once. An atomicOr for every wanted leaf would serialise a warp's
 //     neighbouring rays, which want the same leaves at much the same
 //     steps, on one address. kUnionWarpFlush = 1
@@ -80,6 +87,9 @@
 //     is merged for the match and reduce it costs). The block stores
 //     every word once at the end, so the union is written whole and
 //     needs no zeroing.
+//   * The speculative probe (topwalk_spec_kernel) keeps the probe's own
+//     design: one thread a ray in place, the table in shared memory as
+//     bf16 rows unpacked every step, the mask zeroed and ORed into.
 // The TPU kernel's radix one-hot MXU fetch and its in-register OR-fold
 // over lanes have no counterpart.
 #include <cstdint>
@@ -93,19 +103,13 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kRayTile = 2048;   // rays per union_pp row (the JAX walk program)
 static_assert(kRayTile % kThreads == 0, "a block lies in one walk tile");
-constexpr unsigned kFull = 0xffffffffu;
-
-// What a launch of topwalk_kernel writes: the mask and the walk-tile
-// union_pp; or only the mask by the speculative walk (unions and the
-// shared union words are not touched).
-enum Mode { kMaskAndUnionPP, kMaskSpec };
 
 // The union walk's design (the sweep builds the other setting): 1 merges
 // a warp's flushes of one word into one atomicOr
 constexpr int kUnionWarpFlush = 0;
 
-// Row `node` of the shared table as two 16-byte words; a node outside
-// the table reads as a zero row (the speculative loads only).
+// Row `node` of the shared bf16 table as two 16-byte words; a node
+// outside the table reads as a zero row (the speculative loads).
 __device__ __forceinline__ void load_row(const uint4* s_tab, int nt, int node,
                                          uint4* a, uint4* b) {
     if ((unsigned)node < (unsigned)nt) {
@@ -116,105 +120,59 @@ __device__ __forceinline__ void load_row(const uint4* s_tab, int nt, int node,
     }
 }
 
-template <Mode kMode>
+// The speculative walk (rk_topwalk_mask_spec): one thread a ray in
+// place, the bf16 rows in shared memory and unpacked every step, the
+// ray's column zeroed first and ORed into for every wanted leaf.
 __global__ void __launch_bounds__(kThreads)
-topwalk_kernel(const uint16_t* __restrict__ table, int nt,
-               const float* __restrict__ ro, const float* __restrict__ rd,
-               const float* __restrict__ t0, const uint8_t* __restrict__ active,
-               int* __restrict__ mask, int* __restrict__ unions, long long r,
-               int cwp, int max_steps) {
-    extern __shared__ uint4 s_mem[];                        // nt * 2 rows
-    int* s_union = reinterpret_cast<int*>(s_mem + nt * 2);  // cwp words
+topwalk_spec_kernel(const uint16_t* __restrict__ table, int nt,
+                    const float* __restrict__ ro, const float* __restrict__ rd,
+                    const float* __restrict__ t0, const uint8_t* __restrict__ active,
+                    int* __restrict__ mask, long long r, int cw, int max_steps) {
+    extern __shared__ uint4 s_tab[];                        // nt * 2
     const uint4* tab4 = reinterpret_cast<const uint4*>(table);
-    for (int k = threadIdx.x; k < nt * 2; k += kThreads) s_mem[k] = tab4[k];
-    constexpr bool kMaskOut = kMode == kMaskSpec;
-    if constexpr (!kMaskOut)
-        for (int w = threadIdx.x; w < cwp; w += kThreads) s_union[w] = 0;
+    for (int k = threadIdx.x; k < nt * 2; k += kThreads) s_tab[k] = tab4[k];
     __syncthreads();
 
     const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
-    for (int w = 0; w < cwp; ++w) mask[w * r + i] = 0;
-
-    if (active[i]) {
-        const float ox = ro[i * 3], oy = ro[i * 3 + 1], oz = ro[i * 3 + 2];
-        float inv[3];
-        for (int k = 0; k < 3; ++k) {
-            const float d = rd[i * 3 + k];
-            const float safe = fabsf(d) > 1e-12f ? d : (d >= 0.0f ? 1e-12f : -1e-12f);
-            inv[k] = 1.0f / safe;
+    for (int w = 0; w < cw; ++w) mask[w * r + i] = 0;
+    if (!active[i]) return;
+    const rk::WalkRay ray = rk::load_walk_ray(ro, rd, t0, i);
+    int node = 0;
+    uint4 ra, rb;   // the carried row
+    load_row(s_tab, nt, 0, &ra, &rb);
+    for (int step = 0; step < max_steps && node >= 0; ++step) {
+        // one row = 16 bf16 = two 16-byte words; element 2m is the low
+        // half of 32-bit word m
+        const unsigned wd[8] = {ra.x, ra.y, ra.z, ra.w, rb.x, rb.y, rb.z, rb.w};
+        float f[16];
+        for (int m = 0; m < 8; ++m) {
+            f[2 * m] = __uint_as_float(wd[m] << 16);
+            f[2 * m + 1] = __uint_as_float(wd[m] & 0xffff0000u);
         }
-        const float tb = t0[i];
-        int node = 0;
-        uint4 ra, rb;   // the speculative walk's carried row
-        if constexpr (kMode == kMaskSpec) load_row(s_mem, nt, 0, &ra, &rb);
-        for (int step = 0; step < max_steps && node >= 0; ++step) {
-            // one row = 16 bf16 = two 16-byte shared loads; element 2k is
-            // the low half of 32-bit word k
-            uint4 a, b;
-            if constexpr (kMode == kMaskSpec) {
-                a = ra;
-                b = rb;
-            } else {
-                a = s_mem[node * 2];
-                b = s_mem[node * 2 + 1];
-            }
-            const unsigned wd[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
-            float f[16];
-            for (int k = 0; k < 8; ++k) {
-                f[2 * k] = __uint_as_float(wd[k] << 16);
-                f[2 * k + 1] = __uint_as_float(wd[k] & 0xffff0000u);
-            }
-            const int left = rk::decode_link(f[6], f[7]);
-            const int skip = rk::decode_link(f[8], f[9]);
-            uint4 la, lb, sa, sb;   // speculative: both successors' rows,
-            if constexpr (kMode == kMaskSpec) {   // loaded before the test
-                load_row(s_mem, nt, left, &la, &lb);
-                load_row(s_mem, nt, skip, &sa, &sb);
-            }
-            const float tn1x = (f[0] - ox) * inv[0], tn2x = (f[3] - ox) * inv[0];
-            const float tn1y = (f[1] - oy) * inv[1], tn2y = (f[4] - oy) * inv[1];
-            const float tn1z = (f[2] - oz) * inv[2], tn2z = (f[5] - oz) * inv[2];
-            const float tnear = fmaxf(fmaxf(fminf(tn1x, tn2x), fminf(tn1y, tn2y)),
-                                      fminf(tn1z, tn2z));
-            const float tfar = fminf(fminf(fmaxf(tn1x, tn2x), fmaxf(tn1y, tn2y)),
-                                     fmaxf(tn1z, tn2z));
-            const bool nonempty = f[0] <= f[3] && f[1] <= f[4] && f[2] <= f[5];
-            const bool hit = tfar >= tnear && tnear < tb && tfar > 0.0f &&
-                             nonempty && f[13] > 0.5f;
-            const bool is_leaf = f[12] > 0.5f;
-            const int cid = rk::decode_link(f[10], f[11]);
-            if (hit && is_leaf && cid >= 0 && (cid >> 5) < cwp)
-                mask[(long long)(cid >> 5) * r + i] |= (int)(1u << (cid & 31));
-            const bool take_left = hit && !is_leaf;
-            if constexpr (kMode == kMaskSpec) {
-                ra = take_left ? la : sa;
-                rb = take_left ? lb : sb;
-            }
-            node = take_left ? left : skip;
-        }
+        const int left = rk::decode_link(f[6], f[7]);
+        const int skip = rk::decode_link(f[8], f[9]);
+        uint4 la, lb, sa, sb;   // both successors' rows, before the test
+        load_row(s_tab, nt, left, &la, &lb);
+        load_row(s_tab, nt, skip, &sa, &sb);
+        const float tn1x = (f[0] - ray.ox) * ray.ix, tn2x = (f[3] - ray.ox) * ray.ix;
+        const float tn1y = (f[1] - ray.oy) * ray.iy, tn2y = (f[4] - ray.oy) * ray.iy;
+        const float tn1z = (f[2] - ray.oz) * ray.iz, tn2z = (f[5] - ray.oz) * ray.iz;
+        const float tnear = fmaxf(fmaxf(fminf(tn1x, tn2x), fminf(tn1y, tn2y)),
+                                  fminf(tn1z, tn2z));
+        const float tfar = fminf(fminf(fmaxf(tn1x, tn2x), fmaxf(tn1y, tn2y)),
+                                 fmaxf(tn1z, tn2z));
+        const bool nonempty = f[0] <= f[3] && f[1] <= f[4] && f[2] <= f[5];
+        const bool hit = tfar >= tnear && tnear < ray.tb && tfar > 0.0f &&
+                         nonempty && f[13] > 0.5f;
+        const bool is_leaf = f[12] > 0.5f;
+        const int cid = rk::decode_link(f[10], f[11]);
+        if (hit && is_leaf && cid >= 0 && (cid >> 5) < cw)
+            mask[(long long)(cid >> 5) * r + i] |= (int)(1u << (cid & 31));
+        const bool take_left = hit && !is_leaf;
+        ra = take_left ? la : sa;
+        rb = take_left ? lb : sb;
+        node = take_left ? left : skip;
     }
-
-    if constexpr (kMaskOut) return;
-    const int lane = threadIdx.x & 31;
-    for (int w = 0; w < cwp; ++w) {
-        const unsigned v = __reduce_or_sync(kFull, (unsigned)mask[w * r + i]);
-        if (lane == 0 && v) atomicOr(&s_union[w], (int)v);
-    }
-    __syncthreads();
-    const long long tile = ((long long)blockIdx.x * kThreads) / kRayTile;
-    for (int w = threadIdx.x; w < cwp; w += kThreads)
-        if (s_union[w]) atomicOr(&unions[tile * cwp + w], s_union[w]);
-}
-
-// Dynamic shared memory of a launch: the table and, in the mask-and-union
-// mode, cwp union words, opted in above 48 KB. Returns a CUDA error code.
-template <Mode kMode>
-int prepare_smem(int nt, int cwp, size_t* smem) {
-    *smem = (size_t)nt * 32 + (kMode == kMaskSpec ? 0 : (size_t)cwp * 4);
-    if (*smem <= 48 * 1024) return 0;
-    return (int)cudaFuncSetAttribute(topwalk_kernel<kMode>,
-                                     cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                     (int)*smem);
 }
 
 // The mask-only walk (rk_topwalk_mask): kThreads rays a block, its live
@@ -295,6 +253,52 @@ topwalk_union_kernel(const uint16_t* __restrict__ table, int nt,
     for (int w = threadIdx.x; w < cwp; w += kThreads) out[w] = (int)s_union[w];
 }
 
+// The mask-and-union walk (rk_topwalk): the mask-only walk's block with
+// its union beside it. Each stored word of a ray's column is also ORed
+// into the block's shared union words (rk::MaskColumn with s_union);
+// after the last barrier the block ORs its nonzero words into its walk
+// tile's row of union_pp, which the caller zeroed. A block without a
+// live ray stores its zero columns and adds nothing.
+__global__ void __launch_bounds__(kThreads)
+topwalk_cm_u_kernel(const uint16_t* __restrict__ table, int nt,
+                    const float* __restrict__ ro, const float* __restrict__ rd,
+                    const float* __restrict__ t0,
+                    const uint8_t* __restrict__ active, int* __restrict__ mask,
+                    int* __restrict__ union_pp, long long r, int cwp,
+                    int max_steps) {
+    extern __shared__ float4 s_row[];   // nt * 2: the decoded table, then
+    unsigned* s_union = reinterpret_cast<unsigned*>(s_row + nt * 2);  // cwp
+    __shared__ int s_warp[33];
+    __shared__ int s_list[kThreads];    // the live rays, in pixel order
+    const long long base = (long long)blockIdx.x * kThreads;
+    const bool live = active[base + threadIdx.x];
+    if (!live)
+        for (int w = 0; w < cwp; ++w) mask[w * r + base + threadIdx.x] = 0;
+    int n;
+    const int at = rk::block_exclusive_scan(live, s_warp, &n);
+    if (n == 0) return;   // uniform across the block
+    if (live) s_list[at] = threadIdx.x;
+    for (int w = threadIdx.x; w < cwp; w += kThreads) s_union[w] = 0u;
+    rk::decode_table(table, nt, cwp, s_row);
+    __syncthreads();
+    if ((int)threadIdx.x < n) {
+        const long long i = base + s_list[threadIdx.x];
+        const rk::WalkRay ray = rk::load_walk_ray(ro, rd, t0, i);
+        rk::MaskColumn col{mask + i, -1, -1, 0u, s_union};
+        int node = 0;
+        for (int step = 0; step < max_steps && node >= 0; ++step) {
+            int cid;
+            node = rk::walk_step(s_row, node, ray, &cid);
+            if (cid >= 0) col.add(r, cid);
+        }
+        col.finish(r, cwp);
+    }
+    __syncthreads();
+    int* out = union_pp + base / kRayTile * cwp;
+    for (int w = threadIdx.x; w < cwp; w += kThreads)
+        if (s_union[w]) atomicOr(&out[w], (int)s_union[w]);
+}
+
 // The static shared memory of the packed walks (list and scan words,
 // under kThreads + 64 ints) counts against the 48 KB default too: opt in
 // to `smem` bytes of dynamic shared memory near that. Returns a CUDA
@@ -308,17 +312,19 @@ int prepare_packed_smem(Kernel kernel, size_t smem) {
 
 }  // namespace
 
+// mask: (cwp, r) int32, every word written; union_pp: (r / 2048, cwp)
+// int32, zeroed by the caller.
 extern "C" int rk_topwalk(const uint16_t* table, int nt, const float* ro,
                           const float* rd, const float* t0, const uint8_t* active,
                           int* mask, int* union_pp, long long r, int cwp,
                           int max_steps, void* stream) {
-    if (r % kRayTile || nt <= 0 || cwp <= 0)
+    if (r % kRayTile || nt <= 0 || nt >= 1 << 15 || cwp <= 0)   // links: 15 bits
         return (int)cudaErrorInvalidValue;
     if (r == 0) return 0;
-    size_t smem;
-    if (const int e = prepare_smem<kMaskAndUnionPP>(nt, cwp, &smem)) return e;
-    topwalk_kernel<kMaskAndUnionPP><<<(unsigned)(r / kThreads), kThreads, smem,
-                            (cudaStream_t)stream>>>(
+    const size_t smem = (size_t)nt * 32 + (size_t)cwp * 4;
+    if (const int e = prepare_packed_smem(topwalk_cm_u_kernel, smem)) return e;
+    topwalk_cm_u_kernel<<<(unsigned)(r / kThreads), kThreads, smem,
+                          (cudaStream_t)stream>>>(
         table, nt, ro, rd, t0, active, mask, union_pp, r, cwp, max_steps);
     return (int)cudaGetLastError();
 }
@@ -355,7 +361,7 @@ extern "C" int rk_topwalk_mask(const uint16_t* table, int nt, const float* ro,
     return (int)cudaGetLastError();
 }
 
-// The mask of rk_topwalk_mask by the speculative walk (kMaskSpec).
+// The mask of rk_topwalk_mask by the speculative walk.
 extern "C" int rk_topwalk_mask_spec(const uint16_t* table, int nt, const float* ro,
                                     const float* rd, const float* t0,
                                     const uint8_t* active, int* mask, long long r,
@@ -363,10 +369,14 @@ extern "C" int rk_topwalk_mask_spec(const uint16_t* table, int nt, const float* 
     if (r % kThreads || nt <= 0 || cw <= 0)
         return (int)cudaErrorInvalidValue;
     if (r == 0) return 0;
-    size_t smem;
-    if (const int e = prepare_smem<kMaskSpec>(nt, cw, &smem)) return e;
-    topwalk_kernel<kMaskSpec><<<(unsigned)(r / kThreads), kThreads, smem,
-                                (cudaStream_t)stream>>>(
-        table, nt, ro, rd, t0, active, mask, nullptr, r, cw, max_steps);
+    const size_t smem = (size_t)nt * 32;
+    if (smem > 48 * 1024)
+        if (const cudaError_t e = cudaFuncSetAttribute(
+                topwalk_spec_kernel,
+                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem))
+            return (int)e;
+    topwalk_spec_kernel<<<(unsigned)(r / kThreads), kThreads, smem,
+                          (cudaStream_t)stream>>>(
+        table, nt, ro, rd, t0, active, mask, r, cw, max_steps);
     return (int)cudaGetLastError();
 }

@@ -50,8 +50,8 @@ def kernel_lib() -> ctypes.CDLL:
         # ro, rd, t0, alive -> ro', rd', t0', alive'; scratch counts, r,
         # group, stream
         "rk_alive_compact": [p, p, p, p, p, p, p, p, p, i64, i32, p],
-        # t, face, alive -> t', face'; r, group, stream
-        "rk_alive_uncompact": [p, p, p, p, p, i64, i32, p],
+        # t, face, alive -> t', face'; counts, counted, r, group, stream
+        "rk_alive_uncompact": [p, p, p, p, p, p, i32, i64, i32, p],
         # table, nt, ro, rd, t0, active -> mask, union_pp;
         # r, cwp, max_steps, stream
         "rk_topwalk": [p, i32, p, p, p, p, p, p, i64, i32, i32, p],

@@ -70,9 +70,12 @@ def topwalk_cm_u(table, ro, rd, t0, active, num_words: int):
         raise ValueError(f"R={r} must be a multiple of {RAY_TILE}")
     if not on_cuda(_walk_specs(table, ro, rd, t0, active)):
         return topwalk_cm_u_plain(table, ro, rd, t0, active, num_words)
-    _check_table(table, num_words)
+    # beside the table and the union words, the block's packed rays and
+    # its scan's 33 words
+    _check_table(table, num_words + UNION_TILE + 33)
+    # every word of every ray is stored by the kernel, zero or not
     mask = torch.empty((num_words, r), dtype=torch.int32, device=ro.device)
-    # zeroed: every block ORs its rays' union into its tile's row
+    # zeroed: every block with a live ray ORs its union into its tile's row
     union_pp = torch.zeros((r // RAY_TILE, num_words), dtype=torch.int32,
                            device=ro.device)
     launch("rk_topwalk", table.data_ptr(), nt, ro.data_ptr(), rd.data_ptr(),

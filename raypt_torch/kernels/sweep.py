@@ -30,11 +30,16 @@ constants set (`_set`), each as a library of its own:
     design block: lanes a block `kChunk`, `kTwoPass` 1 for a count pass
     and a scatter, 0 for each block recounting its group: two passes at
     128, 512 and 1,024 lanes, recounts at 256 and 1,024);
-  * cm_u and uncompact: the mask-and-union walk (`rk_topwalk`) and the
-    uncompaction, the package's alone.
+  * cm_u: the mask-and-union walk (`rk_topwalk`), the package's alone;
+  * uncompact: the uncompaction (`csrc/compact.cu`, the same design
+    block: `kTwoPass` 0 recounts in each block), called as the expand
+    finder calls it, with the counts the compaction of the same mask
+    left; and "count_pass", the package's kernel without them, so that
+    it counts each chunk again first.
 With `--against`, the kernels of another checkout (DIR/raypt_torch/csrc)
-join as variant "against" (a `compact.cu` without `chunk_count_kernel`
-is called with the older signature: no scratch). Each variant is held
+join as variant "against" (a `compact.cu` without `chunk_count_kernel`,
+or whose uncompaction is `for_each_destination`'s, is called with the
+older signature: no scratch). Each variant is held
 bitwise against the package's kernel, then all are timed in turns (CUDA
 events, mean of 10 launches after a warm-up, `--rounds` rounds; union,
 compact, cm_u and uncompact also replayed from a CUDA graph of 10
@@ -141,6 +146,9 @@ COMPACT_VARIANTS = {
     for design, chunks in (("twopass", (128, 512, 1024)),
                            ("recount", (256, 1024))) for chunk in chunks}
 COMPACT_SCRATCH_CHUNK = 128   # the smallest kChunk of the variants
+# the uncompaction's (the same block; the package: two passes, its own
+# count pass)
+UNCOMPACT_VARIANTS = {"recount_256": dict(kChunk=256, kTwoPass=0)}
 # kernel -> (source, C entry point, scope of its constants, variants)
 SWEPT = {
     "woop": ("cluster_intersect.cu", "rk_cluster_intersect_mask_woop",
@@ -156,7 +164,8 @@ SWEPT = {
     "compact": ("compact.cu", "rk_alive_compact", "// The compaction's design",
                 COMPACT_VARIANTS),
     "cm_u": ("onehot_walk.cu", "rk_topwalk", None, {}),
-    "uncompact": ("compact.cu", "rk_alive_uncompact", None, {})}
+    "uncompact": ("compact.cu", "rk_alive_uncompact",
+                  "// The compaction's design", UNCOMPACT_VARIANTS)}
 # timed also from CUDA graph replay: kernels of tens of microseconds,
 # where a direct call's host work may outlast the kernel
 GRAPHED = ("union", "compact", "cm_u", "uncompact")
@@ -176,7 +185,9 @@ SIGS = {"woop": [P, I32, P, I32, I32, P, P, P, P, P, I64, P],
         # alive_compact before its count pass's scratch
         "compact_unscratched": [P, P, P, P, P, P, P, P, I64, I32, P],
         "cm_u": [P, I32, P, P, P, P, P, P, I64, I32, I32, P],
-        "uncompact": [P, P, P, P, P, I64, I32, P]}
+        "uncompact": [P, P, P, P, P, P, I32, I64, I32, P],
+        # alive_uncompact before its count pass's scratch
+        "uncompact_unscratched": [P, P, P, P, P, I64, I32, P]}
 
 
 def _set(src: str, scope: str, consts: dict) -> str:
@@ -246,6 +257,8 @@ def build_variants(kernels, against: str | None) -> dict:
                 sig = "dense_unlisted"
             if kernel == "compact" and "chunk_count_kernel" not in text:
                 sig = "compact_unscratched"
+            if kernel == "uncompact" and "for_each_destination" in text:
+                sig = "uncompact_unscratched"
             jobs[(kernel, "against")] = (_nvcc_job(
                 f"{kernel}_against", source, text, other), entry, sig)
     thunks = list({id(b): b for b, _, _ in jobs.values()}.values())
@@ -325,14 +338,15 @@ def wavefronts() -> dict:
                 g = cfg.onehot_compact
                 o, d, t, a, _, _ = onehot_inputs(s, ro, rd, active, g)
                 out["compact"].append((o, d, t, a, g))
-                kc = cp.alive_compact(o, d, t, a, g)
+                counts = cp.new_counts(a, g)
+                kc = cp.alive_compact(o, d, t, a, g, counts)
                 cwp = -(-acc.num_clusters // 256) * 8
                 out["cm_u"].append((acc.table, *kc, cwp))
                 km, ku = wk.topwalk_cm_u(acc.table, *kc, cwp)
                 seed = torch.where(kc[3], kc[2], torch.full_like(kc[2], -BIG))
                 kt, kf = ex.cluster_expand(km, ku, acc.clusters.tri_rows,
                                            kc[0], kc[1], seed)
-                out["uncompact"].append((kt, kf, a, g))
+                out["uncompact"].append((kt, kf, a, g, counts))
                 return finder(s, ro, rd, active)
             o, d, t, a, _, _ = wavefront_inputs(s, ro, rd, active,
                                                 DENSE_CHUNK)
@@ -461,10 +475,19 @@ def _call_compact(fn, o, d, t, a, group, scratch=True):
     return tuple(outs)
 
 
-def _call_uncompact(fn, t, face, a, group):
+def _call_uncompact(fn, t, face, a, group, counts=None, scratch=True):
+    """counts: what the compaction of `a` left (the count pass is then
+    skipped), else a scratch the kernel fills first; an older kernel
+    (scratch=False) takes none."""
     t_out, f_out = torch.empty_like(t), torch.empty_like(face)
-    _check(fn(t.data_ptr(), face.data_ptr(), a.data_ptr(), t_out.data_ptr(),
-              f_out.data_ptr(), t.shape[0], group, _stream()), "uncompact")
+    ptrs = [x.data_ptr() for x in (t, face, a, t_out, f_out)]
+    if scratch:
+        counted = counts is not None
+        if not counted:
+            n = t.shape[0] // group * -(-group // COMPACT_SCRATCH_CHUNK)
+            counts = torch.empty((n,), dtype=torch.int32, device=t.device)
+        ptrs += [counts.data_ptr(), int(counted)]
+    _check(fn(*ptrs, t.shape[0], group, _stream()), "uncompact")
     return t_out, f_out
 
 
@@ -475,7 +498,9 @@ CALLS = {"woop": _call_union, "mask": _call_union,
          "cm_u": _call_walk_cm_u, "compact": _call_compact,
          "compact_unscratched": lambda fn, *w: _call_compact(fn, *w,
                                                               scratch=False),
-         "uncompact": _call_uncompact}
+         "uncompact": _call_uncompact,
+         "uncompact_unscratched": lambda fn, *w: _call_uncompact(
+             fn, *w, scratch=False)}
 
 
 class SmClock:
@@ -555,6 +580,9 @@ def main(argv=None) -> None:
         if kernel == "dense":
             variants[(kernel, "all_tested")] = (
                 ref, kernel, [all_tested(w) for w in waves[kernel]])
+        if kernel == "uncompact":   # without the compaction's counts
+            variants[(kernel, "count_pass")] = (
+                ref, kernel, [w[:4] for w in waves[kernel]])
         for (k, name), (path, fn, sig) in built.items():
             if k == kernel:
                 variants[(k, name)] = (_loaded(sig, path, fn), sig,

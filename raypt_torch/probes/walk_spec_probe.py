@@ -1,6 +1,6 @@
 """`scripts/tpu_walk_spec_probe.py` on the card: the top-tree walk with
 both successor rows fetched before the slab test (`topwalk_spec`, the
-speculative mode of `csrc/onehot_walk.cu`) against the production
+`topwalk_spec_kernel` of `csrc/onehot_walk.cu`) against the production
 mask-only walk (`kernels.onehot_walk.topwalk_cm`) on the bench wavefront
 (the bunny's primary rays at WS_SIZE^2, block order, leaf WS_LEAF):
 times of both, and their masks must be equal, and equal to the plain

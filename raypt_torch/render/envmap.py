@@ -3,7 +3,7 @@
 equirect panorama (H, W, 3), u = atan2(x, -z) / 2 pi + 0.5 wrapped and
 v = acos(y) / pi clamped. Bilinear filtering as the CUDA texture unit
 does it. The mip chain and the cube/equirect converters are not ported
-(ROADMAP queue 1 item 8).
+(ROADMAP: the "`render_aovs` and env LOD" item).
 """
 from __future__ import annotations
 

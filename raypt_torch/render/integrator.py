@@ -95,7 +95,8 @@ def make_finder(scene: Scene, cfg: RenderConfig, accel=None) -> Finder:
         kind = Clusters
     elif backend in ("bvh", "bvh2", "bvh4"):
         raise NotImplementedError(
-            f"backend {backend!r} is not ported (ROADMAP queue 1 item 10)")
+            f"backend {backend!r} is not ported (ROADMAP: the \"LBVH build "
+            f"and the packed `bvh` backend\" item)")
     else:
         raise ValueError(f"unknown backend {backend!r}")
     if not isinstance(accel, kind):

@@ -34,8 +34,8 @@ from raypt_torch.scenes.config4 import config4_scene
 
 from chip_smoke import (MERGE_LEAVES, WL_GROUPS, WOOP_ODD_LEAF, check_planted,
                         compact_layouts, copy_most_hit, edge_seeds,
-                        merge_case, walk_layouts, woop_faces, woop_merge,
-                        worklist_merge, zero_maps_table)
+                        merge_case, mixed_tile, walk_layouts, woop_faces,
+                        woop_merge, worklist_merge, zero_maps_table)
 
 pytestmark = pytest.mark.gpu
 
@@ -137,15 +137,18 @@ def _bits_equal(a, b):
     return torch.equal(a, b)
 
 
-def _expand_stages(scene, accels, leaf, bounce):
+def _expand_stages(scene, accels, leaf, bounce, group=GROUP):
     """The expand path's four stages, each fed the kernel's outputs of
-    the stage before it."""
+    the stage before it, compacting in groups of `group` lanes; the
+    uncompaction is compared on every lane (its permutation is full)."""
     ro, rd, active = _waves(scene, CFG, accels[384], 1)[bounce]
     accel = accels[leaf]
-    o, d, t, a, _, _ = onehot_inputs(scene, ro, rd, active, GROUP)
-    kc = KERNELS.compact(o, d, t, a, GROUP)
-    pc = PLAIN.compact(o, d, t, a, GROUP)
+    o, d, t, a, _, _ = onehot_inputs(scene, ro, rd, active, group)
+    counts = tcp.new_counts(a, group)   # the finder's flow
+    kc = KERNELS.compact(o, d, t, a, group, counts)
+    pc = PLAIN.compact(o, d, t, a, group)
     assert torch.equal(kc[3], pc[3])
+    assert torch.equal(counts, tcp.chunk_counts(a, group))
     for x, y in zip(kc[:3], pc[:3]):
         assert _bits_equal(x[pc[3]], y[pc[3]])
     cwp = -(-accel.num_clusters // 256) * 8
@@ -158,9 +161,34 @@ def _expand_stages(scene, accels, leaf, bounce):
     pt, pf = PLAIN.expand(*args)
     assert _bits_equal(kt, pt) and torch.equal(kf, pf)
     assert int((kf >= 0).sum()) > 0
-    kut, kuf = KERNELS.uncompact(kt, kf, a, GROUP)
-    put, puf = PLAIN.uncompact(kt, kf, a, GROUP)
-    assert _bits_equal(kut[a], put[a]) and torch.equal(kuf[a], puf[a])
+    kut, kuf = KERNELS.uncompact(kt, kf, a, group, counts)
+    put, puf = PLAIN.uncompact(kt, kf, a, group)
+    assert _bits_equal(kut, put) and torch.equal(kuf, puf)
+
+
+def _cm_u_stage(scene, accels, leaf, bounce, layout):
+    """topwalk_cm_u on the expand path's wavefront: uncompacted, on a
+    dead, a one-live and a last-warp-only block (`chip_smoke.walk_layouts`,
+    layout "edges"); or after the compaction, on a walk tile with a live,
+    a 44-live and six dead 256-ray blocks (`chip_smoke.mixed_tile`,
+    layout "mixed"), whose union_pp row must not be empty."""
+    ro, rd, active = _waves(scene, CFG, accels[384], 1)[bounce]
+    accel = accels[leaf]
+    if layout == "edges":
+        o, d, t, a, _, _ = onehot_inputs(scene, ro, rd, walk_layouts(active),
+                                         GROUP)
+    else:
+        active, tile = mixed_tile(active, GROUP)
+        o, d, t, a, _, _ = onehot_inputs(scene, ro, rd, active, GROUP)
+        o, d, t, a = KERNELS.compact(o, d, t, a, GROUP)
+        blocks = a[tile * 2048:(tile + 1) * 2048].view(-1, 256)
+        assert blocks.sum(dim=1).tolist() == [256, 44] + [0] * 6
+    args = (accel.table, o, d, t, a, -(-accel.num_clusters // 256) * 8)
+    km, ku = KERNELS.walk(*args)
+    pm, pu = PLAIN.walk(*args)
+    assert torch.equal(km, pm) and torch.equal(ku, pu) and bool(km.any())
+    if layout == "mixed":
+        assert bool(ku[tile].any())
 
 
 def _walk_mask_stage(scene, accels, leaf, bounce, edges=False):
@@ -250,6 +278,7 @@ def _grouped_stage(scene, accels, bounce):
     ("expand", 384, 0), ("expand", 384, 1), ("expand", 16, 1),
     ("walk_mask", 128, 1), ("walk_mask", 16, 1),
     ("walk_edges", 128, 1), ("walk_edges", 16, 1),
+    ("cm_u_edges", 384, 1), ("cm_u_edges", 16, 1), ("cm_u_mixed", 384, 1),
     ("closest_dense", None, 0), ("closest_dense", None, 2),
     ("closest_dense_copies", None, 0), ("woop", None, 0), ("woop", None, 1),
     ("grouped", None, 1)])
@@ -258,7 +287,9 @@ def test_stages_bitwise(gpu_scene, stage, leaf, bounce):
     wavefront of its render path: the expand path's four (leaf 384, and
     leaf 16 with 40 mask words), the non-fused path's mask-only walk
     (leaf 128: 5 words; leaf 16: 33, not a multiple of 8; also on a
-    dead, a one-live and a last-warp-only block), the pallas
+    dead, a one-live and a last-warp-only block), topwalk_cm_u on the
+    same blocks and on a compacted walk tile of live, part-live and dead
+    blocks, the pallas
     path's closest_dense, also where copied triangles tie with their
     sources and the lowest id must win, the config-4 path's Woop
     intersection and the grouped worklist intersection on the cluster
@@ -266,6 +297,8 @@ def test_stages_bitwise(gpu_scene, stage, leaf, bounce):
     scene, accels = gpu_scene
     if stage == "expand":
         _expand_stages(scene, accels, leaf, bounce)
+    elif stage.startswith("cm_u"):
+        _cm_u_stage(scene, accels, leaf, bounce, stage[5:])
     elif stage.startswith("walk"):
         _walk_mask_stage(scene, accels, leaf, bounce, stage == "walk_edges")
     elif stage == "woop":
@@ -274,6 +307,15 @@ def test_stages_bitwise(gpu_scene, stage, leaf, bounce):
         _grouped_stage(scene, accels, bounce)
     else:
         _closest_dense_stage(scene, accels, stage.endswith("copies"), bounce)
+
+
+@pytest.mark.parametrize("group", [100, 1536, 32768])
+def test_expand_groups_bitwise(gpu_scene, group):
+    """The expand path's four stages on its bounce-1 wavefront with the
+    compaction and uncompaction in groups of 100 (below the 256 lanes a
+    block ranks), 1,536 (six chunks) and 32,768 (bench.py's)."""
+    scene, accels = gpu_scene
+    _expand_stages(scene, accels, 384, 1, group)
 
 
 @pytest.mark.parametrize("leaf,bounce", [(128, 0), (128, 1), (16, 1)])
@@ -379,7 +421,8 @@ def test_compact_edges_bitwise(group, size):
     (`chip_smoke.compact_layouts`). Group 100 is below the 256 lanes a
     block ranks, 1,000 a multiple of neither 16 lanes (the mask is read
     a byte at a time) nor the chunk (each group ends in a partial
-    chunk), and 1,536 of no 1,024-lane chunk."""
+    chunk), and 1,536 of no 1,024-lane chunk. The uncompaction runs with
+    its own count pass and with the counts the compaction left."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     r = 3 * group if size == "small" else (1 << 20) // group * group
@@ -395,9 +438,13 @@ def test_compact_edges_bitwise(group, size):
                         tcp.alive_compact_plain(*args)):
             assert _bits_equal(x, y)
         uargs = (t0, face, alive, group)
-        for x, y in zip(tcp.alive_uncompact(*uargs),
-                        tcp.alive_uncompact_plain(*uargs)):
-            assert _bits_equal(x, y)
+        want = tcp.alive_uncompact_plain(*uargs)
+        counts = tcp.new_counts(alive, group)
+        tcp.alive_compact(*args, counts)
+        for got in (tcp.alive_uncompact(*uargs),
+                    tcp.alive_uncompact(*uargs, counts)):
+            for x, y in zip(got, want):
+                assert _bits_equal(x, y)
 
 
 @pytest.mark.parametrize("slots,rays", [(256, 256), (256, None),

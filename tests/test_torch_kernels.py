@@ -24,6 +24,7 @@ from raypt_torch.kernels import cluster_expand as tex
 from raypt_torch.kernels import compact as tcp
 from raypt_torch.kernels import onehot_walk as twk
 
+from chip_smoke import walk_layouts
 from test_torch_scene import jax_accel_to_port, jax_leaves
 
 torch.set_num_threads(2)
@@ -93,6 +94,49 @@ def test_uncompact_bitwise_on_live_lanes():
     assert np.array_equal(back_t.numpy()[alive], t[alive])
 
 
+@pytest.mark.parametrize("layout", ["random", "last_lane", "all_alive"])
+def test_uncompact_partial_chunk_bitwise_on_live_lanes(layout):
+    """alive_uncompact's plain version against pallas_alive_uncompact at
+    group 1,000: a multiple of neither the 256 lanes a CUDA block ranks
+    (each group ends in a partial chunk) nor 16 (the mask is read a byte
+    at a time); live lanes only, as above."""
+    rng = np.random.default_rng(13)
+    r, g = 3000, 1000
+    alive = _layout(rng, r, g, layout)
+    t = (rng.random(r) * 100).astype(np.float32)
+    face = rng.integers(-1, (1 << 24) - 1, size=r).astype(np.int32)
+    ref_t, ref_f = pallas_alive_uncompact(jnp.asarray(t), jnp.asarray(face),
+                                          jnp.asarray(alive), group=g,
+                                          interpret=True)
+    got_t, got_f = tcp.alive_uncompact(_t(t), _t(face), _t(alive), group=g)
+    assert alive.any()
+    assert np.array_equal(got_t.numpy()[alive], np.asarray(ref_t)[alive])
+    assert np.array_equal(got_f.numpy()[alive], np.asarray(ref_f)[alive])
+
+
+@pytest.mark.parametrize("g", [256, 1000])
+def test_compact_counts(g):
+    """The counts the compaction leaves for the uncompaction: each
+    256-lane chunk's alive lanes, group-major, a group's last chunk
+    partial where 256 does not divide it (the plain compaction fills them
+    as the kernel does); a scratch of the wrong size is refused."""
+    rng = np.random.default_rng(14)
+    r = 4 * g
+    alive = _alive(rng, r, g)
+    ro = rng.normal(size=(r, 3)).astype(np.float32)
+    t = rng.random(r).astype(np.float32)
+    counts = tcp.new_counts(_t(alive), g)
+    tcp.alive_compact(_t(ro), _t(ro), _t(t), _t(alive), g, counts)
+    cpg = -(-g // 256)
+    want = [int(alive[k * g + c * 256:k * g + min(g, (c + 1) * 256)].sum())
+            for k in range(4) for c in range(cpg)]
+    assert counts.tolist() == want
+    assert torch.equal(counts, tcp.chunk_counts(_t(alive), g))
+    with pytest.raises(ValueError):
+        tcp.alive_uncompact(_t(t), torch.zeros(r, dtype=torch.int32),
+                            _t(alive), g, counts[1:])
+
+
 @pytest.fixture(scope="module")
 def bunny():
     """JAX bench scene and its SAH tree (the icosphere stand-in)."""
@@ -140,6 +184,46 @@ def test_walk_bitwise(bunny, leaf):
     assert int(np.count_nonzero(np.asarray(ref_m))) > r // 4
     assert np.array_equal(got_m.numpy(), np.asarray(ref_m))
     assert np.array_equal(got_u.numpy(), np.asarray(ref_u))
+
+
+def _compacted(r, live):
+    """An alive mask as the compaction leaves it: in each 2,048-ray walk
+    tile (one group each here) the first live[k] lanes alive, the rest
+    dead."""
+    lane = np.arange(r) % 2048
+    return lane < np.repeat(np.asarray(live), 2048)
+
+
+@pytest.mark.parametrize("layout", ["compacted", "walk_layouts"])
+@pytest.mark.parametrize("leaf", [384, 16])
+def test_walk_layouts_bitwise(bunny, leaf, layout):
+    """topwalk_cm_u's plain version against pallas_topwalk_cm_u, mask and
+    union_pp bitwise, on the layouts its CUDA kernel treats apart:
+    compacted (tile 0: one whole live 256-ray block, one with 44 live
+    rays and six dead blocks; tile 1 all dead: no union bit) and
+    `chip_smoke.walk_layouts` (a dead, a one-live and a last-warp-only
+    block)."""
+    rng = np.random.default_rng(200 + leaf)
+    (_, jtable), acc = _accels(bunny, leaf)
+    r = 4096
+    ro, rd, t0, active = _wavefront(rng, bunny[0], r)
+    if layout == "compacted":
+        active = _compacted(r, [300, 0])
+    else:
+        active = walk_layouts(_t(active)).numpy()
+    cwp = -(-acc.num_clusters // 256) * 8
+    ref_m, ref_u = pallas_topwalk_cm_u(jtable, jnp.asarray(ro),
+                                       jnp.asarray(rd), jnp.asarray(t0),
+                                       jnp.asarray(active), cwp,
+                                       interpret=True)
+    got_m, got_u = twk.topwalk_cm_u(acc.table, _t(ro), _t(rd), _t(t0),
+                                    _t(active), cwp)
+    ref_m, ref_u = np.asarray(ref_m), np.asarray(ref_u)
+    assert np.array_equal(got_m.numpy(), ref_m)
+    assert np.array_equal(got_u.numpy(), ref_u)
+    assert not ref_m[:, ~active].any() and ref_m[:, active].any()
+    if layout == "compacted":
+        assert ref_u[0].any() and not ref_u[1].any()
 
 
 @pytest.mark.parametrize("leaf", [384, 64])

@@ -342,12 +342,14 @@ def test_sweep_sets_constants():
         sweep._set(src, "struct WoopTest {", {"kNoSuchConstant": 1})
 
 
-@pytest.mark.parametrize("kernel", ["worklist", "dense", "union", "compact"])
+@pytest.mark.parametrize("kernel", ["worklist", "dense", "union", "compact",
+                                    "uncompact"])
 def test_sweep_sets_constants_of(kernel):
     """The sweep's variants of the worklist kernel (struct MtTest), of
-    closest_dense, the union walk and the compaction (their designs'
-    constants): each sets exactly the lines of its constants in its
-    scope, and every variant differs from the package's setting."""
+    closest_dense, the union walk, the compaction and the uncompaction
+    (their designs' constants): each sets exactly the lines of its
+    constants in its scope, and every variant differs from the package's
+    setting."""
     import os
     import re
 
