@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive raypt_torch's render paths once on one NVIDIA GPU and
 check them, phase by phase; any failure raises and the exit code is not
-0. Six paths render the bench scene (stanford_bunny at 1024^2, 1 spp, 4
+0. Seven paths render the bench scene (stanford_bunny at 1024^2, 1 spp, 4
 bounces, roulette) through:
 
   expand       backend "onehot", leaf 384, expand 8192, compact 32768
@@ -20,6 +20,9 @@ bounces, roulette) through:
   auto         RenderConfig's default backend, which resolves to "dense"
                for this mesh; the port serves "dense" with the pallas
                path's finder: closest_dense
+  bvh          backend "bvh" over the packed table of the LBVH built on
+               the card (lbvh.build, pack): packed_walk, the skip-link
+               walk (an XLA loop in the JAX package, not a Pallas kernel)
 
 and a seventh renders the config-4 scene (scripts/baseline_config4.py:
 config4_scene at 1024^2, 8 bounces, roulette, refraction, key 7):
@@ -36,7 +39,11 @@ against cluster_intersect.
 Phases:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions
   2. build the native SAH builder and the CUDA kernels from source (one
-     nvcc per source, all started together)
+     nvcc per source, all started together); then the LBVH build on the
+     card against the build on the CPU, bitwise (left, skip, leaf_face,
+     boxes), and so refit after a seeded jitter and pack (check_lbvh, on
+     the bench mesh here and on phase 8's meshes), with the card's build
+     seconds and the tree's depth (at most 64)
   3. each kernel against its plain torch version on the card, bitwise,
      on the wavefronts of all four bounces of its path, with CUDA-event
      times (kernel mean of 10, plain of 2, summed over the bounces; the
@@ -91,7 +98,12 @@ Phases:
      (walk_layouts) at leaves 128 and 16, topwalk_cm_u on the same
      blocks at leaves 384 and 16 and on a compacted wavefront whose
      walk tile mixes live, part-live and dead 256-ray blocks
-     (mixed_tile), and the kernels' 1 / det (the
+     (mixed_tile), packed_walk on walk_edges' cases (dead rays, rays
+     that hit nothing, seeds nearer than every triangle, direction
+     components of +-0, NaN rays, rays in a triangle's plane, 32
+     triangles copied into padded slots, and a toy table whose internal
+     boxes are all (-BIG, BIG), so every ray walks every row, padded
+     degenerate leaves included), and the kernels' 1 / det (the
      correctly rounded reciprocal) against the
      division over all 2^32 bit patterns (inv_det_sweep). The SM clock is
      sampled (nvidia-smi) while each path's kernels are timed; phase 2
@@ -121,7 +133,9 @@ Phases:
      default-cap results
   6. the bench loss (mean image) forward and backward w.r.t. mesh
      positions and material albedo on every path but auto (the pallas
-     path's finder) and unfused (forward only there): finite grads, nonzero albedo grad, median
+     path's finder) and unfused (forward only there), on the bvh path
+     with the grads through the kernel and plain finders bitwise equal:
+     finite grads, nonzero albedo grad, median
      seconds of 3 runs after a warm-up, and one fwd+bwd step traced with
      torch.profiler. The bench camera sits inside the stand-in bunny,
      where no path reaches the sky, so the gradient w.r.t. positions is
@@ -141,6 +155,18 @@ Phases:
      graphs, the device time without the host work), and the expansion
      diagnostics' v1/v2/v3 maxima and rays whose cluster count is not
      their mask's popcount (which fails the phase)
+  8. the bvh backend beyond the bench path, each render with the launch
+     counts set to 0 before it and read after it, and bitwise against
+     the same render through the plain finder: cli_default, the CLI's
+     default render through the API (cornell_box_with_bunny at 512^2,
+     5 spp, 6 bounces, "auto" with the card's LBVH passed in, which
+     resolves to "bvh": 30 packed_walk launches a frame); bvh_large, the
+     bench scene with _icosphere(6) (81,922 faces in 90,112 slots) in
+     place of the 5,120-triangle stand-in, "auto" with no accel (so
+     "bvh" by face count; make_finder builds the LBVH on the card), at
+     1024^2, 1 spp, 4 bounces; and make_finder with "onehot" (leaf 128,
+     expand 0) and "cluster" given no accel, which build the LBVH on the
+     card, bounce 0 through their kernels
 
 The last line is {"ok": true, "device": {...}}; the line before it is
 the per-kernel JSON summary: "ms", "plain_ms" and "bound_ms" are summed
@@ -167,6 +193,7 @@ import statistics
 import subprocess
 import sys
 import time
+from functools import partial
 
 WIDTH = HEIGHT = 1024
 BOUNCES = 4
@@ -258,6 +285,32 @@ WOOP_ODD_LEAF = 18
 WL_PAD = 3
 WL_GROUPS = (2, 3)
 
+# the bvh paths (the packed skip-link walk, csrc/packed_walk.cu): the
+# CLI's default render (raypt/app/cli.py: --size 512 --spp 5 --bounces 6),
+# the stand-in of the real bunny's size (_icosphere(6): 81,920 triangles)
+CLI_WIDTH = 512
+CLI_SPP = 5
+CLI_BOUNCES = 6
+LARGE_SUBDIV = 6
+# the packed walk's rows (64 bytes a node visit) and f32 operations: an
+# internal row's slab test (12 sub/mul, 10 min/max, 6 compares, the leaf
+# flag and the link select), a leaf row's Moller-Trumbore test and merge
+# (18 for the two cross products, 15 for the four dots' sums and the
+# three scalings, the abs, 3 subs, 2 selects and the division for
+# inv_det, 7 compares and the u + v add, the leaf flag and 2 selects),
+# and each live ray's clamped reciprocal (3 abs, 6 compares, 3 divisions)
+ROW_BYTES = 64
+PACKED_INTERNAL_OPS = 30
+PACKED_LEAF_OPS = 58
+PACKED_RAY_OPS = 12
+# the walk's edge cases (walk_edge_wave): rays a block, triangles copied,
+# and unit directions with components of exactly +0 and -0
+EDGE_BLOCK = 4096
+EDGE_COPIES = 32
+SIGNED_ZERO_DIRS = ((0.0, -0.0, 1.0), (-0.0, 0.0, -1.0), (1.0, 0.0, -0.0),
+                    (-1.0, -0.0, 0.0), (0.0, 1.0, 0.0), (-0.0, -1.0, -0.0),
+                    (0.6, -0.0, 0.8), (-0.0, 0.8, -0.6))
+
 # the compaction's edge groups: one below the 256-lane chunk a block
 # ranks (compact.cu kChunk), one a multiple of neither 16 lanes (byte
 # loads of the mask) nor the chunk (a partial chunk a group), and one
@@ -292,6 +345,9 @@ KERNELS = {   # name -> (paths that launch it, source, TPU kernel it replaces)
                                     "raypt/kernels/cluster_pallas.py:486"),
     "cluster_intersect_grouped": ((), "raypt_torch/csrc/cluster_intersect.cu",
                                   "raypt/kernels/cluster_pallas.py:183"),
+    # an XLA while_loop in the JAX package, not a Pallas kernel
+    "packed_walk": (("bvh",), "raypt_torch/csrc/packed_walk.cu",
+                    "raypt/accel/packed.py:85"),
     # the scripts/ probes (raypt_torch/probes/), on no path: phase 7
     "walk_spec": ((), "raypt_torch/csrc/onehot_walk.cu",
                   "scripts/tpu_walk_spec_probe.py:146"),
@@ -316,7 +372,8 @@ KERNELS = {   # name -> (paths that launch it, source, TPU kernel it replaces)
     "pallas_gather_test2": ((), "raypt_torch/csrc/gather.cu",
                             "scripts/pallas_gather_test2.py:14"),
 }
-KERNEL_PATHS = ("expand", "dense_union", "cluster", "pallas", "unfused")
+KERNEL_PATHS = ("expand", "dense_union", "cluster", "pallas", "unfused",
+                "bvh")
 # paths that run another path's finder, and so its kernels
 SAME_FINDER = {"auto": "pallas"}
 
@@ -1084,7 +1141,6 @@ def compare_pallas(stats, label, scene, mats, chunk, ro, rd, timed,
     or dead, as the finder passes them), kernel against plain version;
     when timed, also matmul_closest on the same rays (woop). Returns the
     kernel's (t, face)."""
-    from functools import partial
     from raypt_torch.accel.traverse import wavefront_inputs
     from raypt_torch.kernels import dense_pallas as dp
 
@@ -1405,8 +1461,6 @@ def compare_grouped(stats, label, scene, clusters, ro, rd, active, timed,
     clamped, so the rounded-up slots past cap must be skipped) against
     both, and with counts cut below the list (valid ids past counts,
     tested within the last group) against the plain version only."""
-    from functools import partial
-
     import torch
     from raypt_torch.accel.clusters import WORKLIST_CAP, tile_worklists
     from raypt_torch.accel.traverse import DENSE_CHUNK, wavefront_inputs
@@ -1956,6 +2010,439 @@ def probes_phase(stats):
         f"({time.perf_counter() - t_start:.1f} s)")
 
 
+def tree_depth(bvh) -> int:
+    """Levels of an LBVH: the longest root-to-leaf path, counted in
+    nodes below the root."""
+    import numpy as np
+    ni = bvh.num_leaves - 1
+    right = np.where(bvh.left >= 0, bvh.skip[np.clip(bvh.left, 0, None)], -1)
+    frontier, depth = np.array([0]), 0
+    while frontier.size:
+        kids = np.concatenate([bvh.left[frontier], right[frontier]])
+        frontier = kids[(kids >= 0) & (kids < ni)]
+        depth += 1
+    return depth
+
+
+def check_lbvh(label, mesh, seed):
+    """The LBVH build on the card against the build on the CPU, bitwise
+    (left, skip, leaf_face, and the boxes' bits), then refit after a
+    seeded vertex jitter and pack's rows viewed as int32, both also
+    bitwise; logs the card's build seconds (after a warm-up) and the
+    depth, which must be at most 64 (the build's 64 refit and skip-link
+    rounds). Returns the card's LBVH."""
+    import numpy as np
+    import torch
+    from raypt_torch.accel import lbvh
+    from raypt_torch.accel.packed import pack
+    cpu = mesh.to("cpu")
+    args = (mesh.positions, mesh.faces, mesh.face_valid)
+    lbvh.build(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = lbvh.build(*args)     # returns on the host: includes the copy
+    secs = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = lbvh.build(cpu.positions, cpu.faces, cpu.face_valid)
+    cpu_secs = time.perf_counter() - t0
+
+    def same(a, b, what, fields=("left", "skip", "leaf_face", "bmin",
+                                 "bmax")):
+        for k in fields:
+            if not np.array_equal(getattr(a, k).view(np.int32),
+                                  getattr(b, k).view(np.int32)):
+                raise AssertionError(f"LBVH {label}: {what} {k} differs "
+                                     f"between the card and the CPU")
+
+    same(card, host, "build")
+    gen = torch.Generator().manual_seed(seed)
+    moved = cpu.positions + 0.5 * torch.randn(cpu.positions.shape,
+                                              generator=gen)
+    r_card = lbvh.refit(card, moved.to(mesh.positions.device), mesh.faces,
+                        mesh.face_valid)
+    r_host = lbvh.refit(host, moved, cpu.faces, cpu.face_valid)
+    same(r_card, r_host, "refit")
+    if np.array_equal(r_card.bmin, card.bmin):
+        raise AssertionError(f"LBVH {label}: refit left the boxes as they "
+                             f"were")
+    p_card = pack(card, *args).rows.view(torch.int32).cpu()
+    p_host = pack(host, cpu.positions, cpu.faces, cpu.face_valid).rows
+    if not torch.equal(p_card, p_host.view(torch.int32)):
+        raise AssertionError(f"LBVH {label}: pack differs between the card "
+                             f"and the CPU")
+    depth = tree_depth(card)
+    log(f"LBVH {label}: {int(mesh.face_valid.sum())} faces in "
+        f"{mesh.num_faces} slots, {card.num_nodes} nodes; build on the card "
+        f"{secs:.4f} s (CPU {cpu_secs:.3f} s), depth {depth}; build, refit "
+        f"after a jitter and pack bitwise equal to the CPU's")
+    if depth > 64:
+        raise AssertionError(f"LBVH {label}: depth {depth} > 64, beyond the "
+                             f"build's refit and skip-link rounds")
+    return card
+
+
+def compare_bvh(stats, label, scene, pbvh, ro, rd, active, timed):
+    """The packed walk on one wavefront (t0 from the sphere pass, as
+    find_closest_packed seeds it), kernel against plain version; timed,
+    also from a CUDA graph, with its bound: the table read once, the
+    rays' o, d, t0 and flags in and t, face out, or the f32 operations
+    of its node visits (counted by the plain walk), the larger. The log
+    also gives the rows the walks read, 64 bytes a visit: the table is
+    at most 11.5 MB and stays in the 50 MB L2, so that traffic is no
+    floor on device-memory time."""
+    from raypt_torch.accel.packed import traverse_wavefront
+    from raypt_torch.accel.traverse import wavefront_inputs
+    from raypt_torch.kernels import packed_walk as pw
+
+    o, d, t, a, _, _ = wavefront_inputs(scene, ro, rd, active, 1)
+    args = (pbvh, o, d, t, a)
+    kt, kf = pw.packed_walk(*args)
+    pt, pf = traverse_wavefront(*args)
+    stats.check("packed_walk", f"{label} t", kt, pt)
+    stats.check("packed_walk", f"{label} face", kf, pf)
+    if timed:
+        visits = []
+        traverse_wavefront(*args, visits=visits)
+        rows = sum(v for v, _ in visits)
+        leaves = sum(n for _, n in visits)
+        live = int(a.sum())
+        moved = nbytes(pbvh.rows, o, d, t, a, kt, kf)
+        ops = (PACKED_INTERNAL_OPS * (rows - leaves) + PACKED_LEAF_OPS * leaves
+               + PACKED_RAY_OPS * live)
+        stats.time("packed_walk", label, pw.packed_walk, traverse_wavefront,
+                   args, moved, ops)
+        stats.time_graph("packed_walk", label, pw.packed_walk, args)
+        log(f"  {label:9s} node visits {rows} ({leaves} leaf rows), "
+            f"{rows / max(live, 1):.1f} a live ray, longest walk "
+            f"{len(visits)} steps, hits {int((kf >= 0).sum())}; rows read "
+            f"{ROW_BYTES * rows / 1e9:.3f} GB "
+            f"({1e3 * ROW_BYTES * rows / HBM_BYTES_PER_S:.4f} ms at the HBM "
+            f"rate)")
+    return kt, kf
+
+
+def counted(counters, expect, fn):
+    """fn() with every kernel's launch count set to 0 before it and read
+    after it: raise unless the kernels of `expect` (name -> launches)
+    launched that often and no other launched. Returns (fn's result,
+    seconds)."""
+    import torch
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    for k, c in counters.items():
+        if c.launches != expect.get(k, 0):
+            raise AssertionError(f"{k} launched {c.launches} times, expected "
+                                 f"{expect.get(k, 0)}")
+    return out, secs
+
+
+def equal_renders(what, a, b):
+    """Raise unless two (image, traced) pairs are bitwise equal."""
+    import torch
+    eq, err = bitwise_equal(a[0], b[0])
+    if not eq or not torch.equal(a[1], b[1]):
+        raise AssertionError(f"{what}: the kernel and plain-finder renders "
+                             f"differ (max abs err {err})")
+    if not bool(torch.isfinite(a[0]).all()):
+        raise AssertionError(f"{what}: the image is not finite")
+
+
+def grads_bitwise(label, scene, cfg, skey, finders):
+    """The bench loss's gradients w.r.t. positions and albedo through
+    each finder of `finders` (the kernels', then the plain versions'):
+    bitwise equal."""
+    import torch
+    from raypt_torch.render.integrator import render_sample
+    out = []
+    for finder in finders:
+        v = scene.mesh.positions.clone().requires_grad_(True)
+        a = scene.materials.albedo.clone().requires_grad_(True)
+        s = scene.replace(mesh=scene.mesh.replace(positions=v),
+                          materials=scene.materials.replace(albedo=a))
+        render_sample(s, cfg, skey, finder).mean().backward()
+        out.append((v.grad, a.grad))
+    for name, k, p in zip(("positions", "albedo"), *out):
+        eq, err = bitwise_equal(k, p)
+        if not eq:
+            raise AssertionError(f"{label}: grad w.r.t. {name} differs "
+                                 f"between the kernel and plain finders "
+                                 f"(max abs err {err})")
+    log(f"phase 6 {label}: grads w.r.t. positions and albedo bitwise equal "
+        f"through the kernel and plain finders")
+
+
+def walk_edge_wave(scene, pbvh, ro, rd, active):
+    """A wavefront of edge cases for the packed walk, built from a
+    bounce's (ro, rd, active): the first EDGE_BLOCK rays dead; the next
+    EDGE_BLOCK live, from far outside the scene pointing away (they hit
+    nothing); every 7th ray of the next 4 blocks seeded with t0 = 1e-6,
+    nearer than every triangle; then direction components of exactly +0
+    and -0 (8 rays from the mesh's centre), two NaN rays (origin, then
+    direction) and EDGE_BLOCK rays in the plane of a triangle their ray
+    hit in the plain walk, travelling along its edge e1 (det = 0 up to
+    rounding). Returns (o, d, t0, active, groups), groups naming the
+    ranges of each case."""
+    import torch
+    from raypt_torch.accel.packed import traverse_wavefront
+    from raypt_torch.accel.traverse import wavefront_inputs
+    o, d, t, a, _, _ = wavefront_inputs(scene, ro, rd, active, 1)
+    o, d, t, a = o.clone(), d.clone(), t.clone(), a.clone()
+    n = EDGE_BLOCK
+    groups = {"dead": slice(0, n), "miss": slice(n, 2 * n),
+              "near seed": slice(2 * n, 6 * n, 7), "signed zero": slice(
+                  6 * n, 6 * n + 8), "nan": slice(6 * n + 8, 6 * n + 10),
+              "parallel": slice(7 * n, 8 * n)}
+    a[groups["dead"]] = False
+    a[n:] = True
+    o[groups["miss"]] = 1e4
+    d[groups["miss"]] = 3.0 ** -0.5
+    t[groups["near seed"]] = 1e-6
+    m = scene.mesh
+    centre = m.positions[m.faces[m.face_valid].long().flatten()].mean(dim=0)
+    zs = groups["signed zero"]
+    o[zs] = centre
+    d[zs] = torch.tensor(SIGNED_ZERO_DIRS, device=o.device)
+    nan = float("nan")
+    o[6 * n + 8, 0] = nan
+    d[6 * n + 9, 1] = nan
+    # the parallel rays: a hit face's leaf row from the plain walk
+    pl = groups["parallel"]
+    _, face = traverse_wavefront(pbvh, o[pl], d[pl], t[pl], a[pl])
+    ni = (pbvh.num_nodes + 1) // 2 - 1
+    leaf_of = torch.empty(ni + 1, dtype=torch.int64, device=o.device)
+    leaf_of[pbvh.rows[ni:, 12].contiguous().view(torch.int32).long()] = \
+        torch.arange(ni + 1, device=o.device)
+    hit = face >= 0
+    row = pbvh.rows[ni + leaf_of[face.clamp(min=0).long()]]
+    e1 = row[:, 3:6]
+    along = e1 / e1.norm(dim=1, keepdim=True).clamp(min=1e-30)
+    start = row[:, 0:3] + 0.3 * row[:, 3:6] + 0.3 * row[:, 6:9] - along
+    o[pl] = torch.where(hit[:, None], start, o[pl])
+    d[pl] = torch.where(hit[:, None], along, d[pl])
+    return o, d, t, a, groups, int(hit.sum())
+
+
+def walk_edges(stats, scene, pbvh, wave0, wave1):
+    """Phase 3's edge cases of the packed walk, each bitwise against the
+    plain version: walk_edge_wave's dead, missing, near-seeded,
+    signed-zero, NaN and parallel rays (with the results each must
+    have); duplicated triangles (copies of the 32 most-hit faces in
+    padded slots: the tree changes, a copy ties its original and the
+    first in walk order wins by the strict t < t_best); and a toy table
+    whose internal boxes are all (-BIG, BIG), so every ray walks every
+    row, the padded, degenerate leaves (e1 = e2 = 0) included."""
+    import torch
+    from raypt_torch.accel import lbvh
+    from raypt_torch.accel.packed import PackedLBVH, pack, traverse_wavefront
+    from raypt_torch.accel.traverse import wavefront_inputs
+    from raypt_torch.core.math3d import BIG
+    from raypt_torch.kernels import packed_walk as pw
+
+    o, d, t, a, groups, n_par = walk_edge_wave(scene, pbvh, *wave1)
+    kt, kf = pw.packed_walk(pbvh, o, d, t, a)
+    pt, pf = traverse_wavefront(pbvh, o, d, t, a)
+    stats.check("packed_walk", "edges t", kt, pt)
+    stats.check("packed_walk", "edges face", kf, pf)
+    for name in ("dead", "miss", "near seed", "nan"):
+        g = groups[name]
+        if not (bitwise_equal(kt[g], t[g])[0] and bool((kf[g] == -1).all())):
+            raise AssertionError(f"packed_walk: the {name} rays changed "
+                                 f"their seed or took a face")
+    log(f"  walk edges: dead, missing, near-seeded (t0 1e-6), signed-zero, "
+        f"NaN and {n_par} in-plane rays bitwise; the first four kept t0 and "
+        f"face -1; signed-zero rays hit "
+        f"{int((kf[groups['signed zero']] >= 0).sum())} of 8, in-plane rays "
+        f"{int((kf[groups['parallel']] >= 0).sum())}")
+
+    # duplicated triangles
+    m = scene.mesh
+    o0, d0, t0, a0, _, _ = wavefront_inputs(scene, *wave0, 1)
+    base_t, base_f = pw.packed_walk(pbvh, o0, d0, t0, a0)
+    hits = torch.bincount(base_f[base_f >= 0].long(), minlength=m.num_faces)
+    src = torch.argsort(hits, descending=True, stable=True)[:EDGE_COPIES]
+    first = int(m.face_valid.sum())
+    faces, valid = m.faces.clone(), m.face_valid.clone()
+    faces[first:first + EDGE_COPIES] = faces[src]
+    valid[first:first + EDGE_COPIES] = True
+    dup = pack(lbvh.build(m.positions, faces, valid), m.positions, faces,
+               valid)
+    kt, kf = pw.packed_walk(dup, o0, d0, t0, a0)
+    pt, pf = traverse_wavefront(dup, o0, d0, t0, a0)
+    stats.check("packed_walk", "copies t", kt, pt)
+    stats.check("packed_walk", "copies face", kf, pf)
+    copy = (kf >= first) & (kf < first + EDGE_COPIES)
+    mapped = torch.where(copy, src[(kf - first).clamp(0, EDGE_COPIES - 1)]
+                         .to(kf.dtype), kf)
+    log(f"  walk copies: {EDGE_COPIES} most-hit faces copied; bitwise; "
+        f"{int(torch.isin(base_f, src.to(base_f.dtype)).sum())} rays hit a "
+        f"copied face, {int(copy.sum())} took the copy; against the table "
+        f"without copies, {int((mapped != base_f).sum())} faces (mapped to "
+        f"their source) and {int((kt != base_t).sum())} t differ")
+
+    # every row walked: a toy soup of 96 faces in 128 slots
+    gen = torch.Generator().manual_seed(5)
+    pos = (torch.rand((96 * 3, 3), generator=gen) * 2 - 1).to(o.device)
+    faces = (torch.arange(128 * 3) % (96 * 3)).reshape(128, 3).to(o.device)
+    valid = torch.arange(128, device=o.device) < 96
+    toy = pack(lbvh.build(pos, faces, valid), pos, faces, valid).rows.clone()
+    toy[:127, 0:3] = -BIG
+    toy[:127, 3:6] = BIG
+    toy = PackedLBVH(rows=toy)
+    r = 4096
+    ro = (torch.rand((r, 3), generator=gen) * 4 - 2).to(o.device)
+    rd = torch.randn((r, 3), generator=gen).to(o.device)
+    rd = rd / rd.norm(dim=1, keepdim=True)
+    rd[:8] = torch.tensor(SIGNED_ZERO_DIRS)
+    ro[8, 1] = float("nan")
+    args = (toy, ro, rd, torch.full((r,), BIG, device=o.device),
+            torch.ones(r, dtype=torch.bool, device=o.device))
+    kt, kf = pw.packed_walk(*args)
+    visits = []
+    pt, pf = traverse_wavefront(*args, visits=visits)
+    stats.check("packed_walk", "toy t", kt, pt)
+    stats.check("packed_walk", "toy face", kf, pf)
+    if len(visits) != toy.num_nodes:
+        raise AssertionError(f"toy table: the longest walk took "
+                             f"{len(visits)} steps, not {toy.num_nodes}")
+    log(f"  walk toy: 96 faces in 128 slots, every internal box (-BIG, BIG): "
+        f"the walks read every row (the 32 padded leaves too), "
+        f"{sum(v for v, _ in visits)} visits; bitwise, "
+        f"{int((kf >= 0).sum())} hits of {r}")
+
+
+def cli_default_path(counters, dev):
+    """The CLI's default render through the API (raypt/app/cli.py:90-119):
+    cornell_box_with_bunny at CLI_WIDTH^2, CLI_SPP spp, CLI_BOUNCES
+    bounces, backend "auto" with the card's LBVH passed in, which
+    resolves to "bvh"; render_frame through the kernel against the plain
+    finder, bitwise. Returns the frame's launches of the walk."""
+    from raypt_torch.accel import lbvh
+    from raypt_torch.accel.traverse import PLAIN
+    from raypt_torch.core.types import RenderConfig
+    from raypt_torch.render.integrator import (make_finder, render_frame,
+                                               resolve_backend)
+    from raypt_torch.render.tonemap import to_display
+    from raypt_torch.rng.sampler import key
+    from raypt_torch.scenes.builtin import cornell_box_with_bunny
+
+    b = cornell_box_with_bunny()
+    b.camera.viewport_width = b.camera.viewport_height = CLI_WIDTH
+    scene = b.freeze(dev)
+    m = scene.mesh
+    bvh = check_lbvh("cli_default", m, seed=13)
+    cfg = RenderConfig(width=CLI_WIDTH, height=CLI_WIDTH,
+                       samples_per_pixel=CLI_SPP, num_bounces=CLI_BOUNCES,
+                       backend="auto")
+    if resolve_backend(scene, cfg, bvh) != "bvh":
+        raise AssertionError("cli_default: auto with an LBVH is not bvh")
+    finder = make_finder(scene, cfg, bvh)
+    want = CLI_SPP * CLI_BOUNCES
+
+    def frame(f=finder):
+        return render_frame(scene, cfg, key(0), finder=f)
+
+    frame()    # warm-up
+    img, secs = counted(counters, {"packed_walk": want}, frame)
+    plain = frame(partial(finder, ops=PLAIN))
+    equal_renders("cli_default", (img, img.new_zeros(0)),
+                  (plain, plain.new_zeros(0)))
+    log(f"path cli_default: {CLI_WIDTH}^2, {CLI_SPP} spp, {CLI_BOUNCES} "
+        f"bounces, auto -> bvh; render_frame {secs:.4f} s, "
+        f"packed_walk launched {want} times; mean display value "
+        f"{float(to_display(img).mean()):.6f}; bitwise equal to the plain "
+        f"finder's frame")
+    return want
+
+
+def large_path(counters, dev, skey):
+    """The bench scene at the data size users mean by "the bunny": the
+    69,451-triangle OBJ is absent, so stanford_bunny with _icosphere(
+    LARGE_SUBDIV) (81,920 triangles) in place of the 5,120-triangle
+    stand-in, 81,922 faces in 90,112 slots, at 1024^2, 1 spp, 4 bounces;
+    backend "auto" with no accel resolves to "bvh" by face count alone,
+    and make_finder builds the LBVH on the card. The render through the
+    kernel is bitwise the plain finder's. Returns the launches."""
+    import torch
+    from raypt_torch.accel.traverse import PLAIN
+    from raypt_torch.core.types import RenderConfig
+    from raypt_torch.render.integrator import (make_finder, render_sample,
+                                               resolve_backend)
+    from raypt_torch.scenes.builtin import _icosphere, stanford_bunny
+
+    t0 = time.perf_counter()
+    b = stanford_bunny(mesh=_icosphere(LARGE_SUBDIV))
+    b.camera.viewport_width = b.camera.viewport_height = WIDTH
+    scene = b.freeze(dev)
+    m = scene.mesh
+    made = time.perf_counter() - t0
+    if (int(m.face_valid.sum()), m.num_faces) != (81922, 90112):
+        raise AssertionError(f"bvh_large: {int(m.face_valid.sum())} faces in "
+                             f"{m.num_faces} slots")
+    check_lbvh("bvh_large", m, seed=14)
+    cfg = RenderConfig(width=WIDTH, height=HEIGHT, samples_per_pixel=1,
+                       num_bounces=BOUNCES, russian_roulette=True)
+    if resolve_backend(scene, cfg) != "bvh":
+        raise AssertionError(f"bvh_large: auto resolves to "
+                             f"{resolve_backend(scene, cfg)!r}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    finder = make_finder(scene, cfg)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+
+    def render(f=finder):
+        return render_sample(scene, cfg, skey, f, return_alive=True)
+
+    render()   # warm-up
+    out, secs = counted(counters, {"packed_walk": BOUNCES}, render)
+    equal_renders("bvh_large", out, render(partial(finder, ops=PLAIN)))
+    log(f"path bvh_large: scene built in {made:.2f} s; make_finder (LBVH "
+        f"build on the card and pack) {build_s:.4f} s; render {secs:.4f} s, "
+        f"traced {out[1].tolist()}, image mean {float(out[0].mean()):.6f}; "
+        f"bitwise equal to the plain finder's render")
+    return BOUNCES
+
+
+def implicit_builds(counters, scene, base, skey):
+    """make_finder with backend "onehot" (leaf DENSE_LEAF, expand 0) and
+    "cluster" given no accel builds the LBVH on the card itself; bounce
+    0 of the bench scene through the kernels (the dense-union branch's
+    topwalk_union and cluster_intersect_mask; the cluster finder's
+    cluster_intersect) against the PLAIN ops, bitwise."""
+    from raypt_torch.accel.traverse import (PLAIN, find_closest_cluster,
+                                            find_closest_onehot)
+    from raypt_torch.render.integrator import make_finder, render_sample
+    for backend, kw, want in (
+            ("onehot", dict(onehot_leaf=DENSE_LEAF, onehot_expand=0),
+             {"topwalk_union": 1, "cluster_intersect_mask": 1}),
+            ("cluster", {}, {"cluster_intersect": 1})):
+        cfg = base.replace(backend=backend, num_bounces=1, **kw)
+        t0 = time.perf_counter()
+        finder = make_finder(scene, cfg)
+        build_s = time.perf_counter() - t0
+        if backend == "onehot":
+            plain = partial(find_closest_onehot, ops=PLAIN, **finder.keywords)
+        else:
+            clusters = finder.args[0]
+            plain = (lambda s, ro, rd, active=None, c=clusters:
+                     find_closest_cluster(s, c, ro, rd, active, ops=PLAIN))
+
+        def render(f=finder, cfg=cfg):
+            return render_sample(scene, cfg, skey, f, return_alive=True)
+
+        out, secs = counted(counters, want, render)
+        equal_renders(f"implicit {backend}", out, render(plain))
+        log(f"implicit build, {backend}: make_finder with no accel (LBVH "
+            f"on the card, clusters on the host) {build_s:.3f} s; bounce 0 "
+            f"{secs:.4f} s through {sorted(want)}, bitwise equal to the PLAIN "
+            f"ops")
+
+
 def main():
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
@@ -1992,8 +2479,6 @@ def main():
     except (OSError, subprocess.CalledProcessError) as e:
         log(f"  SASS not read: {e}")
 
-    from functools import partial
-
     from raypt_torch.accel import clusters as cl
     from raypt_torch.accel.clusters import (CLUSTER_LEAF, build_clusters,
                                             intersect_worklist,
@@ -2012,6 +2497,8 @@ def main():
     from raypt_torch.kernels import compact as cp
     from raypt_torch.kernels import dense_pallas as dp
     from raypt_torch.kernels import onehot_walk as wk
+    from raypt_torch.kernels import packed_walk as pw
+    from raypt_torch.accel.packed import pack
     from raypt_torch.render.integrator import (make_finder, render_frame,
                                                render_sample, resolve_backend)
     from raypt_torch.rng.sampler import frame_key, key, sample_key
@@ -2080,6 +2567,10 @@ def main():
         num_bounces=C4_BOUNCES, russian_roulette=True, enable_refraction=True,
         backend="onehot", onehot_leaf=C4_LEAF)
     accels["config4"] = accel4
+    # the bvh path: the packed table of the LBVH built on the card
+    bvh_card = check_lbvh("bench", m, seed=12)
+    cfgs["bvh"] = base.replace(backend="bvh")
+    accels["bvh"] = pack(bvh_card, m.positions, m.faces, m.face_valid)
     scenes = {path: scene for path in cfgs}
     scenes["config4"] = scene4
     skeys = {path: skey for path in cfgs}
@@ -2094,7 +2585,7 @@ def main():
         finder = make_finder(scenes[path], cfgs[path], accels.get(path))
         if ops is KOPS:
             return finder
-        if path in ("pallas", "auto"):
+        if path in ("pallas", "auto", "bvh"):
             return partial(finder, ops=ops)
         if path == "cluster":
             return lambda s, ro, rd, active=None: find_closest_cluster(
@@ -2123,7 +2614,7 @@ def main():
     stats = Stats()
     compare = {"expand": compare_expand, "dense_union": compare_dense_union,
                "cluster": compare_cluster, "unfused": compare_unfused,
-               "config4": compare_woop,
+               "config4": compare_woop, "bvh": compare_bvh,
                "pallas": lambda st, label, sc, _, ro, rd, active, timed:
                compare_pallas(st, label, sc, pallas_mats, pallas_chunk, ro,
                               rd, timed, woop)}
@@ -2388,6 +2879,8 @@ def main():
             f"{int(zero.sum()) - before} of them written over real "
             f"triangles; rays of one tile and all {o.shape[0]}: bitwise, "
             f"fixed seeds kept")
+    log("phase 3 bvh edges: packed_walk on edge-case wavefronts")
+    walk_edges(stats, scene, accels["bvh"], *waves["bvh"][:2])
     log("phase 3: all comparisons bitwise equal")
 
     # phase 4: each path through its kernels
@@ -2402,6 +2895,7 @@ def main():
                 "topwalk_cm": wk.topwalk_cm,
                 "cluster_intersect_mask_woop": dn.cluster_intersect_mask_woop,
                 "cluster_intersect_grouped": dn.cluster_intersect_grouped,
+                "packed_walk": pw.packed_walk,
                 **probe_counters()}
     launches = {k: 0 for k in KERNELS}
     images = {}
@@ -2564,9 +3058,12 @@ def main():
     # phase 6: the bench loss forward and backward; forward only on the
     # non-fused path, whose worklist intersection is plain torch (the auto
     # path runs the pallas path's finder)
-    for path in ("expand", "dense_union", "cluster", "pallas", "config4"):
+    for path in ("expand", "dense_union", "cluster", "pallas", "config4",
+                 "bvh"):
         bench_loss(path, scenes[path], cfgs[path], skeys[path],
                    accels.get(path))
+    grads_bitwise("bvh", scene, cfgs["bvh"], skey,
+                  (finder_of("bvh"), finder_of("bvh", PLAIN)))
 
     # the config-4 frame: C4_SPP samples through render_frame, as
     # scripts/baseline_config4.py renders it
@@ -2628,6 +3125,15 @@ def main():
 
     # phase 7: the scripts/ probes
     probes_phase(stats)
+
+    # phase 8: the bvh backend beyond the bench path
+    t0 = time.perf_counter()
+    cli_launches = cli_default_path(counters, dev)
+    large_launches = large_path(counters, dev, skey)
+    implicit_builds(counters, scene, base, skey)
+    log(f"phase 8: {time.perf_counter() - t0:.1f} s; packed_walk launches a "
+        f"frame: bvh {launches['packed_walk']}, cli_default {cli_launches} "
+        f"({CLI_BOUNCES} a sample), bvh_large {large_launches}")
 
     for path, ms in stats.topwalk_ms.items():
         log(f"topwalk_cm and its transpose (pallas_topwalk's counterpart), "

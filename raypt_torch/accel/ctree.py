@@ -24,6 +24,7 @@ from ..core.types import TensorTree
 from .clusters import (Clusters, build_clusters, build_woop_cm,
                        cluster_capacity, cluster_cut)
 from .lbvh import LBVH
+from .packed import PackedLBVH
 
 ROW = 16
 
@@ -223,6 +224,21 @@ def onehot_accel_from_numpy(tri_rows, bmin, bmax, valid, table_u16,
         np.array(fid_flat, np.int32))
     return OnehotAccel(clusters=clusters, table=_table_tensor(table_u16),
                        woop_cm=woop, fid_flat=fids)
+
+
+def lbvh_from_numpy(left, skip, bmin, bmax, leaf_face) -> LBVH:
+    """The port's LBVH from arrays of the JAX package's `lbvh.build` (or
+    `host_bvh.build_sah`) output."""
+    return LBVH(left=np.array(left, np.int32), skip=np.array(skip, np.int32),
+                bmin=np.array(bmin, np.float32), bmax=np.array(bmax, np.float32),
+                leaf_face=np.array(leaf_face, np.int32))
+
+
+def packed_from_numpy(rows, device="cpu") -> PackedLBVH:
+    """The port's PackedLBVH from the JAX package's `pack` output rows
+    (2N-1, 16) f32, bit patterns kept."""
+    return PackedLBVH(rows=torch.from_numpy(np.array(rows, np.float32)).to(
+        device))
 
 
 def table_bits(table: torch.Tensor) -> np.ndarray:

@@ -1,5 +1,7 @@
 """Closest-hit finders (`raypt/accel/traverse.py`): the brute-force toy
-oracle; the onehot finder, in its per-ray-exact branch (alive
+oracle; the packed skip-link finder of the `bvh` backends
+(`find_closest_packed`) and the unpacked reference walk
+(`find_closest_bvh`); the onehot finder, in its per-ray-exact branch (alive
 compaction, top-tree walk, cluster expansion, uncompaction), its
 dense-union branch (walk to per-tile unions, dense tile x cluster
 intersection), its Woop branch (walk to per-ray masks, tile unions,
@@ -22,17 +24,20 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from ..core.math3d import BIG, STEP_PAIRS, intersect_sphere, \
-    intersect_triangle
+from ..core.math3d import BIG, STEP_PAIRS, intersect_aabb, \
+    intersect_sphere, intersect_triangle
 from ..core.types import Scene
 from ..kernels import cluster_expand as _expand
 from ..kernels import cluster_pallas as _dense
 from ..kernels import compact as _compact
 from ..kernels import dense_pallas as _woop_kernel
 from ..kernels import onehot_walk as _walk
+from ..kernels import packed_walk as _packed
 from .clusters import (WORKLIST_CAP, Clusters, intersect_worklist,
                        tile_union_counts, tile_worklists, worklist_slice)
 from .ctree import OnehotAccel, walk_topwalk
+from .lbvh import LBVH
+from .packed import PackedLBVH, safe_reciprocal, traverse_wavefront
 
 
 @dataclasses.dataclass
@@ -122,6 +127,7 @@ class FinderOps(NamedTuple):
     walk_mask: Callable        # onehot, non-fused and Woop branches
     closest_dense: Callable    # dense and pallas (kernels/intersect.py)
     intersect_woop: Callable   # onehot, Woop branch
+    packed_walk: Callable      # bvh and bvh2
 
 
 KERNELS = FinderOps(_compact.alive_compact, _walk.topwalk_cm_u,
@@ -129,14 +135,14 @@ KERNELS = FinderOps(_compact.alive_compact, _walk.topwalk_cm_u,
                     _walk.topwalk_union, _dense.cluster_intersect_mask,
                     _dense.cluster_intersect, _walk.topwalk,
                     _woop_kernel.closest_dense,
-                    _dense.cluster_intersect_mask_woop)
+                    _dense.cluster_intersect_mask_woop, _packed.packed_walk)
 PLAIN = FinderOps(_compact.alive_compact_plain, _walk.topwalk_cm_u_plain,
                   _expand.cluster_expand_plain, _compact.alive_uncompact_plain,
                   _walk.topwalk_union_plain,
                   _dense.cluster_intersect_mask_plain,
                   _dense.cluster_intersect_plain, walk_topwalk,
                   _woop_kernel.closest_dense_plain,
-                  _dense.cluster_intersect_mask_woop_plain)
+                  _dense.cluster_intersect_mask_woop_plain, traverse_wavefront)
 
 # rays per padding chunk of the dense-union branch and the cluster
 # finder: 8 tiles (`max(8 * TILE, RAY_TILE)` in the JAX package)
@@ -341,3 +347,143 @@ def find_closest_cluster(scene: Scene, clusters: Clusters, ro, rd,
         t_best = t_best.index_copy(0, rays, t_fb)
         face = face.index_copy(0, rays, f_fb)
     return _hit_ids(t_best, face, flat_a, ro.reshape(-1, 3).shape[0], ts, si)
+
+
+# what is left of the LBVH item, named by the routes that raise
+LBVH_ITEM = ('ROADMAP queue 1, the "LBVH build and the packed `bvh` '
+             'backend" item')
+
+
+def sort_wavefront(flat_d: torch.Tensor, flat_a: torch.Tensor):
+    """Stable permutation putting live rays first, in their order, and
+    dead rays last: (order, inv). flat_d is not part of the key; the
+    JAX package keeps it in the signature."""
+    del flat_d
+    order = torch.argsort((~flat_a).to(torch.int32), stable=True)
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(order.shape[0], dtype=order.dtype,
+                              device=order.device)
+    return order, inv
+
+
+@torch.no_grad()
+def find_closest_packed(scene: Scene, pbvh: PackedLBVH, ro, rd, active=None,
+                        tile: int = 0, unroll: int = 8,
+                        sort_rays: bool = False, mode: str = "tiled",
+                        ops: FinderOps = KERNELS) -> HitIds:
+    """The packed finder (`traverse.py:195-277`, mode "tiled"): spheres
+    first, then one skip-link walk seeded with the sphere t, so a
+    triangle wins only when strictly closer. Dead rays (`active`) keep
+    the sphere's t and take no triangle.
+
+    sort_rays puts live rays first (`sort_wavefront`) and tile pads the
+    wavefront with dead rays (origin 0, direction +z, t BIG) to a
+    multiple of tile, as the JAX package does; both, and unroll, only
+    schedule its XLA loop: rays are independent, so the result is the
+    same under every setting. The whole wavefront goes to
+    ops.packed_walk in one call (one kernel launch on the card). Modes
+    "compact" / "unrolled" and the cherry, quad and lookahead tables are
+    not ported and raise."""
+    if mode in ("compact", "unrolled"):
+        raise NotImplementedError(
+            f"traversal_mode {mode!r} (traverse_wavefront_compact) is not "
+            f"ported ({LBVH_ITEM})")
+    if not isinstance(pbvh, PackedLBVH):
+        raise NotImplementedError(
+            f"{type(pbvh).__name__}: only the one-triangle PackedLBVH is "
+            f"ported; the cherry, quad and lookahead tables are not "
+            f"({LBVH_ITEM})")
+    ts, si = _closest_sphere(scene, ro, rd)
+    flat_o = ro.reshape(-1, 3)
+    flat_d = rd.reshape(-1, 3)
+    flat_t = ts.reshape(-1)
+    flat_a = (torch.ones_like(flat_t, dtype=torch.bool) if active is None
+              else active.reshape(-1))
+    n = flat_o.shape[0]
+    inv = None
+    if sort_rays and n > 1:
+        order, inv = sort_wavefront(flat_d, flat_a)
+        flat_o, flat_d, flat_t, flat_a = (x[order] for x in
+                                          (flat_o, flat_d, flat_t, flat_a))
+    if tile and n > tile:
+        pad = (-n) % tile
+        if pad:
+            dev = flat_o.device
+            flat_o = torch.cat([flat_o, torch.zeros((pad, 3), device=dev)])
+            flat_d = torch.cat([flat_d, torch.tensor(
+                [0.0, 0.0, 1.0], device=dev).expand(pad, 3)])
+            flat_t = torch.cat([flat_t, torch.full((pad,), BIG, device=dev)])
+            flat_a = torch.cat([flat_a, torch.zeros((pad,), dtype=torch.bool,
+                                                    device=dev)])
+    t_best, face = ops.packed_walk(pbvh, flat_o.contiguous(),
+                                   flat_d.contiguous(), flat_t.contiguous(),
+                                   flat_a.contiguous(), unroll=unroll)
+    t_best, face = t_best[:n], face[:n]
+    if inv is not None:
+        t_best, face = t_best[inv], face[inv]
+    t_best, face = t_best.reshape(ts.shape), face.reshape(ts.shape)
+    tri_wins = face >= 0
+    minus1 = torch.full_like(si, -1)
+    return HitIds(t=t_best, tri=torch.where(tri_wins, face, minus1),
+                  sphere=torch.where(~tri_wins & (ts < BIG), si, minus1))
+
+
+def _traverse_one(bvh: LBVH, p0, p1, p2, face_valid, o, d, t0):
+    """The unpacked skip-link walk (`traverse.py:158-192`) of a batch of
+    rays o, d (R, 3) from t0 (R,) (the JAX package vmaps it over single
+    rays): every node, leaves too, is box-tested first, a leaf's
+    triangle (p0/p1/p2/face_valid in leaf order) is taken when strictly
+    nearer. Returns (t_best, best leaf, -1 = none)."""
+    dev = o.device
+    n_leaf = bvh.num_leaves
+    leaf_base = n_leaf - 1
+    left, skip = (torch.from_numpy(a.astype("int64")).to(dev)
+                  for a in (bvh.left, bvh.skip))
+    bmin, bmax = (torch.from_numpy(a).to(dev) for a in (bvh.bmin, bvh.bmax))
+    inv_d = safe_reciprocal(d)
+    node = torch.zeros(o.shape[0], dtype=torch.int64, device=dev)
+    t_best = t0.clone()
+    best_leaf = torch.full_like(node, -1)
+    live = torch.arange(o.shape[0], device=dev)
+    while live.numel():
+        nd = node[live]
+        ol, dl, tb = o[live], d[live], t_best[live]
+        hit_box = intersect_aabb(ol, inv_d[live], bmin[nd], bmax[nd], tb)
+        is_leaf = nd >= leaf_base
+        leaf = torch.clamp(nd - leaf_base, 0, n_leaf - 1)
+        h, t, _, _ = intersect_triangle(ol, dl, p0[leaf], p1[leaf], p2[leaf])
+        take = is_leaf & hit_box & h & face_valid[leaf] & (t < tb)
+        t_best[live] = torch.where(take, t, tb)
+        best_leaf[live] = torch.where(take, leaf, best_leaf[live])
+        nxt = torch.where(hit_box & ~is_leaf, left[nd], skip[nd])
+        node[live] = nxt
+        live = live[nxt >= 0]
+    return t_best, best_leaf
+
+
+@torch.no_grad()
+def find_closest_bvh(scene: Scene, bvh: LBVH, ro, rd,
+                     tile: int = 4096) -> HitIds:
+    """The unpacked reference walk (`traverse.py:805-849`) over an LBVH,
+    in plain torch: the oracle the packed finder is tested against. No
+    `make_finder` route reaches it, in either package, so it has no
+    kernel. tile only schedules the JAX package's loops and changes no
+    result."""
+    del tile
+    m = scene.mesh
+    dev = ro.device
+    lf = torch.from_numpy(bvh.leaf_face.astype("int64")).to(dev)
+    f = m.faces.long()[lf]
+    p0, p1, p2 = (m.positions[f[:, k]] for k in range(3))
+    ts, si = _closest_sphere(scene, ro, rd)
+    t_best, best_leaf = _traverse_one(bvh, p0, p1, p2, m.face_valid[lf],
+                                      ro.reshape(-1, 3), rd.reshape(-1, 3),
+                                      ts.reshape(-1))
+    t_best = t_best.reshape(ts.shape)
+    best_leaf = best_leaf.reshape(ts.shape)
+    tri_wins = best_leaf >= 0
+    minus1 = torch.full_like(si, -1)
+    tri = torch.where(tri_wins, lf[torch.clamp(best_leaf, min=0)].to(
+        torch.int32), minus1)
+    return HitIds(t=t_best, tri=tri,
+                  sphere=torch.where(~tri_wins & (ts < BIG), si, minus1))

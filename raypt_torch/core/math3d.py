@@ -33,6 +33,10 @@ def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                         ax * by - ay * bx], dim=-1)
 
 
+def length(v: torch.Tensor) -> torch.Tensor:
+    return torch.sqrt(torch.clamp(dot(v, v), min=0.0))
+
+
 def normalize(v: torch.Tensor) -> torch.Tensor:
     """v * rsqrt(|v|^2), guarding the zero vector."""
     return v * torch.rsqrt(torch.clamp(dot_keep(v, v), min=EPS * EPS))
@@ -102,6 +106,33 @@ def intersect_triangle(ro, rd, v0, v1, v2):
     t = dot(e2, qvec) * inv_det
     hit = ok_det & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > 0.0)
     return hit, torch.where(hit, t, torch.full_like(t, BIG)), u, v
+
+
+def intersect_aabb(ro, inv_rd, bmin, bmax, tmax):
+    """Slab test: True where the ray meets the box nearer than tmax.
+    inv_rd is the hoisted reciprocal direction. Inverted (empty) boxes,
+    min > max, are rejected: the LBVH gives subtrees of padded faces
+    such boxes, which a plain slab test would treat as unbounded. The
+    min / max propagate NaN, as jnp's do."""
+    t1 = (bmin - ro) * inv_rd
+    t2 = (bmax - ro) * inv_rd
+    lo = torch.minimum(t1, t2)
+    hi = torch.maximum(t1, t2)
+    tnear = torch.maximum(torch.maximum(lo[..., 0], lo[..., 1]), lo[..., 2])
+    tfar = torch.minimum(torch.minimum(hi[..., 0], hi[..., 1]), hi[..., 2])
+    nonempty = ((bmin[..., 0] <= bmax[..., 0]) & (bmin[..., 1] <= bmax[..., 1])
+                & (bmin[..., 2] <= bmax[..., 2]))
+    return (tfar >= tnear) & (tnear < tmax) & (tfar > 0.0) & nonempty
+
+
+def aabb_empty(device=None):
+    """(min, max) of the empty box: BIG and -BIG."""
+    return (torch.full((3,), BIG, dtype=torch.float32, device=device),
+            torch.full((3,), -BIG, dtype=torch.float32, device=device))
+
+
+def aabb_union(amin, amax, bmin, bmax):
+    return torch.minimum(amin, bmin), torch.maximum(amax, bmax)
 
 
 def euler_to_mat(ax: float, ay: float, az: float = 0.0) -> np.ndarray:

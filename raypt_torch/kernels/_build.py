@@ -23,7 +23,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xcompiler", "-fPIC"]
 KERNEL_SOURCES = ("compact.cu", "onehot_walk.cu", "cluster_expand.cu",
                   "cluster_intersect.cu", "dense_closest.cu", "gather.cu",
-                  "expand_diag.cu", "regroup.cu")
+                  "expand_diag.cu", "regroup.cu", "packed_walk.cu")
 KERNEL_HEADERS = ("cluster_test.cuh", "block_scan.cuh", "mask_walk.cuh")
 SMEM_LIMIT = 232448   # shared memory a block may use on Hopper (227 KB)
 
@@ -81,6 +81,8 @@ def kernel_lib() -> ctypes.CDLL:
         # scratch rows, id, n_live, stream
         "rk_closest_dense": [p, p, p, p, p, p, i64, p, p, p, p, p, i64, p, p,
                              p, p],
+        # rows, n_rows, ro, rd, t0, active -> t, face; r, max_steps, stream
+        "rk_packed_walk": [p, i64, p, p, p, p, p, p, i64, i64, p],
         # the scripts/ probes (raypt_torch/probes/)
         # table, n, w, idx -> out; rows, clip, stream
         "rk_gather_rows": [p, i64, i32, p, p, i64, i32, p],

@@ -7,10 +7,12 @@ through the shading glue only.
 
 The port renders `backend="onehot"` (its branches: `onehot_expand > 0`
 per-ray-exact, `onehot_expand == 0` dense-union, and with a Woop table in
-the accel the Woop branch), `"cluster"`, `"bruteforce"`, `"dense"`,
-`"pallas"` and `"auto"` (`resolve_backend`), with albedo textures and,
-under `cfg.enable_refraction`, the dielectric lobe; the `bvh` backends
-raise (ROADMAP queue 1).
+the accel the Woop branch), `"cluster"`, `"bvh"` / `"bvh2"` (the packed
+skip-link walk over an LBVH), `"bruteforce"`, `"dense"`, `"pallas"` and
+`"auto"` (`resolve_backend`), with albedo textures and, under
+`cfg.enable_refraction`, the dielectric lobe; `"bvh4"` and the packed
+layouts with more than one triangle a leaf or child lookahead raise
+(ROADMAP queue 1).
 """
 from __future__ import annotations
 
@@ -22,9 +24,13 @@ import torch
 from ..accel.clusters import CLUSTER_LEAF, Clusters, build_clusters
 from ..accel.ctree import OnehotAccel, build_onehot
 from ..accel.dense import WoopTris
+from ..accel import lbvh
 from ..accel.lbvh import LBVH
-from ..accel.traverse import (HitIds, find_closest_bruteforce,
-                              find_closest_cluster, find_closest_onehot)
+from ..accel.packed import PackedLBVH, pack
+from ..accel.traverse import (KERNELS, LBVH_ITEM, HitIds,
+                              find_closest_bruteforce,
+                              find_closest_cluster, find_closest_onehot,
+                              find_closest_packed)
 from ..core.math3d import (dot, lerp, normalize, reflect, refract,
                            schlick_fresnel)
 from ..core.types import RenderConfig, Scene
@@ -41,7 +47,8 @@ Finder = Callable[..., HitIds]
 
 def resolve_backend(scene: Scene, cfg: RenderConfig, accel=None) -> str:
     """cfg.backend, with "auto" resolved as the JAX package does: a
-    WoopTris -> "dense", an LBVH -> "bvh"; with neither, by the mesh's
+    WoopTris -> "dense", an LBVH or PackedLBVH -> "bvh"; with neither, by
+    the mesh's
     padded face capacity: "dense" from 64 to 8,192 faces, "bruteforce"
     below 64, "bvh" above 8,192."""
     backend = cfg.backend
@@ -49,7 +56,7 @@ def resolve_backend(scene: Scene, cfg: RenderConfig, accel=None) -> str:
         faces = scene.mesh.num_faces
         if isinstance(accel, WoopTris):
             backend = "dense"
-        elif isinstance(accel, LBVH):
+        elif isinstance(accel, (LBVH, PackedLBVH)):
             backend = "bvh"
         elif faces <= 8192:
             backend = "dense" if faces >= 64 else "bruteforce"
@@ -68,47 +75,83 @@ def make_finder(scene: Scene, cfg: RenderConfig, accel=None) -> Finder:
         package computes "dense" with XLA products and "pallas" with its
         kernel; both return the same closest hit, so one finder serves
         both;
-      * "onehot": an OnehotAccel, or an LBVH from `host_bvh.build_sah`
-        clustered here at cfg.onehot_leaf (without a Woop table, as in
-        the JAX package); an accel built with `with_woop=True` takes the
-        Woop branch, whatever cfg.onehot_expand; otherwise
-        cfg.onehot_expand picks the branch (> 0 per-ray-exact, 0
-        dense-union);
-      * "cluster": Clusters, or an LBVH clustered here at CLUSTER_LEAF.
-    "onehot" and "cluster" without an accel raise: the device LBVH build
-    is not ported. So do the `bvh` backends."""
+      * "onehot": an OnehotAccel, or an LBVH (`host_bvh.build_sah` or
+        `lbvh.build`; with no accel, `lbvh.build` here) clustered here at
+        cfg.onehot_leaf (without a Woop table, as in the JAX package); an
+        accel built with `with_woop=True` takes the Woop branch, whatever
+        cfg.onehot_expand; otherwise cfg.onehot_expand picks the branch
+        (> 0 per-ray-exact, 0 dense-union);
+      * "cluster": Clusters, or an LBVH (built here when none is given)
+        clustered at CLUSTER_LEAF;
+      * "bvh" and "bvh2": a PackedLBVH, or an LBVH (built here with
+        `lbvh.build` when none is given) packed here, walked by the
+        packed finder with cfg.traversal_tile / traversal_unroll /
+        ray_sort / traversal_mode. "bvh4" (the wide tree),
+        cfg.leaf_tris >= 2 and cfg.node_lookahead raise: those layouts
+        are not ported."""
     m = scene.mesh
     backend = resolve_backend(scene, cfg, accel)
     if backend == "bruteforce":
         return find_closest_bruteforce
     if backend in ("dense", "pallas"):
         return make_pallas_finder(scene, cfg, accel)
+    if backend in ("bvh", "bvh2", "bvh4"):
+        return _make_packed_finder(scene, cfg, accel, backend)
+    if backend not in ("onehot", "cluster"):
+        raise ValueError(f"unknown backend {backend!r}")
+    if accel is None:
+        accel = lbvh.build(m.positions, m.faces, m.face_valid)
     if backend == "onehot":
         if isinstance(accel, LBVH):
             accel = build_onehot(accel, m.positions, m.faces, m.face_valid,
                                  leaf=cfg.onehot_leaf)
         kind = OnehotAccel
-    elif backend == "cluster":
+    else:
         if isinstance(accel, LBVH):
             accel = build_clusters(accel, m.positions, m.faces, m.face_valid,
                                    leaf=CLUSTER_LEAF)
         kind = Clusters
-    elif backend in ("bvh", "bvh2", "bvh4"):
-        raise NotImplementedError(
-            f"backend {backend!r} is not ported (ROADMAP: the \"LBVH build "
-            f"and the packed `bvh` backend\" item)")
-    else:
-        raise ValueError(f"unknown backend {backend!r}")
     if not isinstance(accel, kind):
-        raise NotImplementedError(
-            f"pass an LBVH from accel.host_bvh.build_sah or a "
-            f"{kind.__name__}: the device LBVH build is not ported "
-            f"(ROADMAP queue 1)")
+        raise TypeError(f"backend {backend!r} takes an LBVH or a "
+                        f"{kind.__name__}, not {type(accel).__name__}")
     accel = accel.to(m.positions.device)
     if kind is Clusters:
         return partial(_cluster_finder, accel)
     return partial(find_closest_onehot, accel=accel,
                    expand_n=cfg.onehot_expand, compact_n=cfg.onehot_compact)
+
+
+def _make_packed_finder(scene: Scene, cfg: RenderConfig, accel,
+                        backend: str):
+    """make_finder's "bvh" / "bvh2" route (`raypt/render/integrator.py:
+    100-140`): the one-triangle packed table, from the accel or from an
+    LBVH built here."""
+    if backend == "bvh4":
+        raise NotImplementedError(
+            f"backend 'bvh4' (accel/wide.py) is not ported ({LBVH_ITEM})")
+    if not isinstance(accel, PackedLBVH):
+        if cfg.leaf_tris >= 2 or cfg.node_lookahead:
+            raise NotImplementedError(
+                f"leaf_tris={cfg.leaf_tris}, node_lookahead="
+                f"{cfg.node_lookahead}: the cherry, quad and lookahead "
+                f"packers are not ported ({LBVH_ITEM})")
+        m = scene.mesh
+        if accel is None:
+            accel = lbvh.build(m.positions, m.faces, m.face_valid)
+        if not isinstance(accel, LBVH):
+            raise TypeError(f"backend {backend!r} takes an LBVH or a "
+                            f"PackedLBVH, not {type(accel).__name__}")
+        accel = pack(accel, m.positions, m.faces, m.face_valid)
+    return partial(_packed_finder, accel.to(scene.mesh.positions.device),
+                   cfg.traversal_tile, cfg.traversal_unroll, cfg.ray_sort,
+                   cfg.traversal_mode)
+
+
+def _packed_finder(pbvh: PackedLBVH, tile, unroll, sort_rays, mode,
+                   scene: Scene, ro, rd, active=None, ops=KERNELS):
+    return find_closest_packed(scene, pbvh, ro, rd, active=active, tile=tile,
+                               unroll=unroll, sort_rays=sort_rays, mode=mode,
+                               ops=ops)
 
 
 def _cluster_finder(clusters: Clusters, scene: Scene, ro, rd, active=None):

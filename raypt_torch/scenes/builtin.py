@@ -1,5 +1,6 @@
 """Built-in scenes of the render path (`raypt/scenes/builtin.py`):
-the bench's Stanford bunny, the minimal triangle-on-ground scene and the
+the bench's Stanford bunny, the Cornell box, the box with the bunny
+(the CLI's default scene), the minimal triangle-on-ground scene and the
 small textured scene (`textured_demo`).
 
 Assets are looked up in RAYPT_DATA_DIR, `<repo>/data`, then the
@@ -129,6 +130,47 @@ def triangle_ground() -> SceneBuilder:
     return b
 
 
+def cornell_box(env: EnvMap | None = None) -> SceneBuilder:
+    """Six quads (back, floor, ceiling, green left, red right, area
+    light), three coloured specular spheres and a row of five green
+    specular spheres of rising roughness; camera yaw 180. env defaults
+    to `load_reference_envmap()`."""
+    b = SceneBuilder(env=env if env is not None else load_reference_envmap())
+    grey = dict(albedo=(0.7, 0.7, 0.7))
+    b.add_quad((-12.6, -12.6, 25), (12.6, -12.6, 25), (12.6, 12.6, 25),
+               (-12.6, 12.6, 25), b.add_material(MaterialDef(**grey)))   # back
+    b.add_quad((-12.6, -12.45, 25), (12.6, -12.45, 25), (12.6, -12.45, 15),
+               (-12.6, -12.45, 15), b.add_material(MaterialDef(**grey)))  # floor
+    b.add_quad((-12.6, 12.5, 25), (12.6, 12.5, 25), (12.6, 12.5, 15),
+               (-12.6, 12.5, 15), b.add_material(MaterialDef(**grey)))    # ceiling
+    b.add_quad((-12.5, -12.6, 25), (-12.5, -12.6, 15), (-12.5, 12.6, 15),
+               (-12.5, 12.6, 25),
+               b.add_material(MaterialDef(albedo=(0.1, 0.7, 0.1))))       # left
+    b.add_quad((12.5, -12.6, 25), (12.5, -12.6, 15), (12.5, 12.6, 15),
+               (12.5, 12.6, 25),
+               b.add_material(MaterialDef(albedo=(0.7, 0.1, 0.1))))       # right
+    b.add_quad((-5, 12.4, 22.5), (5, 12.4, 22.5), (5, 12.4, 17.5),
+               (-5, 12.4, 17.5),
+               b.add_material(MaterialDef(albedo=(0, 0, 0),
+                                          emissive=(20.0, 18.0, 14.0))))  # light
+
+    b.add_sphere((-9, -9.5, 20), 3, b.add_material(MaterialDef(
+        albedo=(0.9, 0.9, 0.5), specular=(0.9, 0.9, 0.9),
+        specular_percent=0.5, roughness=0.2)))
+    b.add_sphere((0, -9.5, 20), 3, b.add_material(MaterialDef(
+        albedo=(0.9, 0.5, 0.9), specular=(0.9, 0.9, 0.9),
+        specular_percent=0.3, roughness=0.2)))
+    b.add_sphere((9, -9.5, 20), 3, b.add_material(MaterialDef(
+        albedo=(0, 0, 1), specular=(1, 0, 0),
+        specular_percent=0.5, roughness=0.4)))
+    for i, rough in enumerate((0.0, 0.25, 0.5, 0.75, 0.97)):
+        b.add_sphere((-10.0 + 5.0 * i, 0, 23), 1.75, b.add_material(
+            MaterialDef(albedo=(1, 1, 1), specular=(0.3, 1.0, 0.3),
+                        specular_percent=1.0, roughness=rough)))
+    b.camera.angle_y = 180.0
+    return b
+
+
 def _bunny_transform() -> np.ndarray:
     """translate(30, -18, 20) * rotY(-pi) * scale(150): the reference's
     scene transform composed with its importer's root rotation."""
@@ -140,13 +182,15 @@ def _bunny_transform() -> np.ndarray:
     return m
 
 
-def stanford_bunny(builder: SceneBuilder | None = None) -> SceneBuilder:
+def stanford_bunny(builder: SceneBuilder | None = None,
+                   mesh: dict | None = None) -> SceneBuilder:
     """Bunny mesh (specular green, rough 0.8), 100x ground quad at
     y=-12.45, emissive teal sphere light; standalone, the camera frames
-    the bunny (the bench scene)."""
+    the bunny (the bench scene). mesh (a dict like `_icosphere`'s) takes
+    the place of `bunny_mesh()`, for a stand-in of another size."""
     b = builder if builder is not None else SceneBuilder(
         env=load_reference_envmap())
-    mesh = bunny_mesh()
+    mesh = bunny_mesh() if mesh is None else mesh
     mat = b.add_material(MaterialDef(
         albedo=(1, 1, 1), specular=(0.3, 1.0, 0.3),
         specular_percent=0.5, roughness=0.8))
@@ -166,6 +210,11 @@ def stanford_bunny(builder: SceneBuilder | None = None) -> SceneBuilder:
         b.camera.position = (32.5, -2.0, 0.0)
         b.camera.angle_y = 180.0
     return b
+
+
+def cornell_box_with_bunny() -> SceneBuilder:
+    """The CLI's default scene: the Cornell box with the bunny."""
+    return stanford_bunny(cornell_box())
 
 
 def textured_demo(checker_res: int = 64) -> SceneBuilder:

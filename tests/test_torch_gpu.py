@@ -32,10 +32,11 @@ from raypt_torch.rng import sampler as rng
 from raypt_torch.scenes.builtin import stanford_bunny
 from raypt_torch.scenes.config4 import config4_scene
 
-from chip_smoke import (MERGE_LEAVES, WL_GROUPS, WOOP_ODD_LEAF, check_planted,
-                        compact_layouts, copy_most_hit, edge_seeds,
-                        merge_case, mixed_tile, walk_layouts, woop_faces,
-                        woop_merge, worklist_merge, zero_maps_table)
+from chip_smoke import (MERGE_LEAVES, WL_GROUPS, WOOP_ODD_LEAF, Stats,
+                        check_lbvh, check_planted, compact_layouts,
+                        copy_most_hit, edge_seeds, merge_case, mixed_tile,
+                        walk_edges, walk_layouts, woop_faces, woop_merge,
+                        worklist_merge, zero_maps_table)
 
 pytestmark = pytest.mark.gpu
 
@@ -106,8 +107,9 @@ def _path(scene, accels, path):
         return (C4, make_finder(accels["config4"][0], C4, acc),
                 partial(find_closest_onehot, accel=acc, ops=PLAIN,
                         expand_n=0, compact_n=0))
-    if path in ("pallas", "auto"):
-        cfg = CFG.replace(backend=path)     # "auto" resolves to "dense"
+    if path in ("pallas", "auto", "bvh"):
+        # "auto" resolves to "dense"; "bvh" builds the LBVH on the card
+        cfg = CFG.replace(backend=path)
         finder = make_finder(scene, cfg)
         return cfg, finder, partial(finder, ops=PLAIN)
     cfg, accel = {"expand": (CFG, accels[384]),
@@ -367,7 +369,8 @@ def test_cluster_stages_bitwise(gpu_scene, bounce):
 
 
 @pytest.mark.parametrize("path", ["expand", "dense_union", "cluster",
-                                  "pallas", "auto", "unfused", "config4"])
+                                  "pallas", "auto", "unfused", "config4",
+                                  "bvh"])
 def test_render_bitwise_vs_plain_finder(gpu_scene, path):
     scene, accels = gpu_scene
     cfg, finder, plain = _path(scene, accels, path)
@@ -610,3 +613,64 @@ def test_probe_kernels_bitwise(probe):
     for a, b in zip(got, want):
         assert _bits_equal(a, b)
     assert any(bool(a.any()) for a in got) or probe == "sel"
+
+
+@pytest.fixture(scope="module")
+def bvh_waves(gpu_scene):
+    """The packed table of the bench scene's LBVH built on the card, and
+    the wavefronts of a 256^2 render through it."""
+    from raypt_torch.accel import lbvh
+    from raypt_torch.accel.packed import pack
+    scene, _ = gpu_scene
+    m = scene.mesh
+    pb = pack(lbvh.build(m.positions, m.faces, m.face_valid), m.positions,
+              m.faces, m.face_valid)
+    return pb, _waves(scene, CFG.replace(backend="bvh"), pb, 4)
+
+
+def test_lbvh_build_card_vs_cpu(gpu_scene):
+    """lbvh.build, refit after a jitter and pack on the card against the
+    CPU, bitwise (chip_smoke.check_lbvh raises otherwise), depth <= 64."""
+    scene, _ = gpu_scene
+    bvh = check_lbvh("gpu test", scene.mesh, seed=3)
+    assert bvh.num_leaves == scene.mesh.num_faces
+
+
+@pytest.mark.parametrize("bounce", [0, 1, 2])
+def test_packed_walk_bitwise(gpu_scene, bvh_waves, bounce):
+    from raypt_torch.accel.packed import traverse_wavefront
+    from raypt_torch.kernels import packed_walk as tpw
+    scene, _ = gpu_scene
+    pb, waves = bvh_waves
+    o, d, t, a, _, _ = wavefront_inputs(scene, *waves[bounce], 1)
+    kt, kf = tpw.packed_walk(pb, o, d, t, a)
+    pt, pf = traverse_wavefront(pb, o, d, t, a)
+    assert _bits_equal(kt, pt) and torch.equal(kf, pf)
+    assert int((kf >= 0).sum()) > 0
+
+
+def test_packed_walk_edges(gpu_scene, bvh_waves):
+    """chip_smoke.walk_edges: dead, missing, near-seeded, signed-zero,
+    NaN and in-plane rays, duplicated triangles and a table whose every
+    row is walked, each bitwise against the plain walk."""
+    scene, _ = gpu_scene
+    pb, waves = bvh_waves
+    walk_edges(Stats(), scene, pb, waves[0], waves[1])
+
+
+def test_packed_walk_checks(bvh_waves):
+    """The wrapper refuses a table that is not (N, 16) and rays of the
+    wrong shape or type."""
+    from raypt_torch.accel.packed import PackedLBVH
+    from raypt_torch.kernels import packed_walk as tpw
+    pb, _ = bvh_waves
+    o = torch.zeros((256, 3), device="cuda")
+    t = torch.full((256,), BIG, device="cuda")
+    a = torch.ones(256, dtype=torch.bool, device="cuda")
+    with pytest.raises(ValueError):
+        tpw.packed_walk(PackedLBVH(rows=pb.rows[:, :15].contiguous()), o, o,
+                        t, a)
+    with pytest.raises(ValueError):
+        tpw.packed_walk(pb, o[:, :2].contiguous(), o, t, a)
+    with pytest.raises(ValueError):
+        tpw.packed_walk(pb, o, o, t, a.int())

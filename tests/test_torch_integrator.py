@@ -209,19 +209,21 @@ def test_display_and_png(slice_run, tmp_path):
 
 
 def test_unported_settings_raise(slice_run):
-    """Backends "bvh", "bvh2" and "bvh4" and a missing onehot or cluster
-    accel raise, and an unknown backend is an error; the onehot
-    dense-union branch (onehot_expand=0), the cluster backend
-    (tests/test_torch_slice2.py renders them), "pallas" and "dense"
-    (tests/test_torch_dense.py) and the refraction lobe
+    """Backend "bvh4" raises NotImplementedError; "bvh" and "bvh2" take an
+    LBVH or a PackedLBVH (tests/test_torch_packed.py renders them) and
+    refuse the onehot accel with a TypeError; an unknown backend is an
+    error; the onehot dense-union branch (onehot_expand=0), the cluster
+    backend (tests/test_torch_slice2.py renders them), "pallas" and
+    "dense" (tests/test_torch_dense.py) and the refraction lobe
     (tests/test_torch_config4.py) are ported: a render with
-    enable_refraction is finite."""
+    enable_refraction is finite. Without an accel, onehot and cluster
+    build the LBVH themselves."""
     scene, acc, cfg = slice_run["scene"], slice_run["accel"], slice_run["cfg"]
-    for backend in ("bvh", "bvh2", "bvh4"):
-        bad = cfg.replace(backend=backend)
-        with pytest.raises(NotImplementedError):
-            finder = tint.make_finder(scene, bad, acc)
-            tint.render_sample(scene, bad, slice_run["skey"], finder)
+    with pytest.raises(NotImplementedError):
+        tint.make_finder(scene, cfg.replace(backend="bvh4"), acc)
+    for backend in ("bvh", "bvh2"):
+        with pytest.raises(TypeError):
+            tint.make_finder(scene, cfg.replace(backend=backend), acc)
     with pytest.raises(ValueError):
         tint.make_finder(scene, cfg.replace(backend="nope"), acc)
     for ported in ("pallas", "dense"):
@@ -233,8 +235,7 @@ def test_unported_settings_raise(slice_run):
                                  tint.make_finder(scene, cfg, acc))
     assert bool(torch.isfinite(img).all())
     for ok in (cfg, cfg.replace(onehot_expand=0), cfg.replace(backend="cluster")):
-        with pytest.raises(NotImplementedError):
-            tint.make_finder(scene, ok, None)
+        assert callable(tint.make_finder(scene, ok, None))
     assert callable(tint.make_finder(scene, cfg.replace(onehot_expand=0), acc))
 
 

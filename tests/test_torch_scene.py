@@ -30,7 +30,8 @@ from raypt_torch.scenes import builtin as torch_scenes
 
 torch.set_num_threads(2)
 
-SCENES = ("stanford_bunny", "triangle_ground")
+SCENES = ("stanford_bunny", "triangle_ground", "cornell_box",
+          "cornell_box_with_bunny")
 GROUPS = ("materials", "spheres", "mesh", "camera")
 
 
@@ -47,8 +48,9 @@ def jax_leaves(scene) -> dict:
 
 
 def jax_lbvh_to_port(bvh) -> LBVH:
-    return LBVH(*(np.asarray(getattr(bvh, k)) for k in
-                  ("left", "skip", "bmin", "bmax", "leaf_face")))
+    return tctree.lbvh_from_numpy(*(getattr(bvh, k) for k in
+                                    ("left", "skip", "bmin", "bmax",
+                                     "leaf_face")))
 
 
 def jax_accel_to_port(accel):
@@ -194,3 +196,22 @@ def test_onehot_accel_bitwise(leaf):
         assert np.array_equal(
             tctree.table_bits(acc.table),
             np.asarray(jax.lax.bitcast_convert_type(ref[1], jnp.uint16)))
+
+
+def test_bunny_mesh_override():
+    """stanford_bunny(mesh=...) puts the given mesh where bunny_mesh()
+    goes, with the same material, transform, ground and light: the
+    icosphere it stands in for gives the default scene bitwise, and a
+    finer one only more faces."""
+    default = torch_scenes.stanford_bunny().freeze("cpu")
+    same = torch_scenes.stanford_bunny(
+        mesh=torch_scenes.bunny_mesh()).freeze("cpu")
+    for grp in GROUPS:
+        for f in dataclasses.fields(getattr(default, grp)):
+            a = getattr(getattr(default, grp), f.name)
+            b = getattr(getattr(same, grp), f.name)
+            assert torch.equal(a, b), f"{grp}.{f.name}"
+    fine = torch_scenes.stanford_bunny(
+        mesh=torch_scenes._icosphere(5)).freeze("cpu")
+    assert int(fine.mesh.face_valid.sum()) == 20480 + 2
+    assert torch.equal(fine.materials.albedo, default.materials.albedo)
