@@ -23,6 +23,10 @@ bounces, roulette) through:
   bvh          backend "bvh" over the packed table of the LBVH built on
                the card (lbvh.build, pack): packed_walk, the skip-link
                walk (an XLA loop in the JAX package, not a Pallas kernel)
+               over the split table it derives from the rows, with the
+               SIMD efficiency and mixed warp steps of the first kernel's
+               (pr12) schedule
+               and of its own logged a timed bounce
 
 and a seventh renders the config-4 scene (scripts/baseline_config4.py:
 config4_scene at 1024^2, 8 bounces, roulette, refraction, key 7):
@@ -100,8 +104,9 @@ Phases:
      walk tile mixes live, part-live and dead 256-ray blocks
      (mixed_tile), packed_walk on walk_edges' cases (dead rays, rays
      that hit nothing, seeds nearer than every triangle, direction
-     components of +-0, NaN rays, rays in a triangle's plane, 32
-     triangles copied into padded slots, and a toy table whose internal
+     components of +-0, NaN rays, rays in a triangle's plane, step
+     caps of 0, 3, 17 and 32 steps, 32 triangles copied into padded
+     slots, and a toy table whose internal
      boxes are all (-BIG, BIG), so every ray walks every row, padded
      degenerate leaves included), and the kernels' 1 / det (the
      correctly rounded reciprocal) against the
@@ -110,8 +115,8 @@ Phases:
      reads the instructions a triangle test takes in each intersection
      kernel's inner loop (the union template's three instances, the
      expansion, closest_dense), and a walk step in the mask-only,
-     union and mask-and-union walks', from cuobjdump -sass of the built
-     library
+     union, mask-and-union and packed walks', from cuobjdump -sass of the
+     built library, and the packed walk's registers and resident warps
   4. each path's render through render_sample: every kernel of the path
      launches once per bounce and no other kernel launches, the image is
      finite and bitwise equal to the render through the plain versions
@@ -185,10 +190,9 @@ call computes either). A probe's "ms", "plain_ms", "bound_ms" and
 significant digits.
 Run: python3 chip_smoke.py
 """
+import ctypes
 import json
 import os
-import re
-import shutil
 import statistics
 import subprocess
 import sys
@@ -300,6 +304,8 @@ LARGE_SUBDIV = 6
 # inv_det, 7 compares and the u + v add, the leaf flag and 2 selects),
 # and each live ray's clamped reciprocal (3 abs, 6 compares, 3 divisions)
 ROW_BYTES = 64
+SPLIT_INNER_BYTES = 32     # the kernel's split table (csrc/packed_walk.cuh)
+SPLIT_LEAF_BYTES = 48
 PACKED_INTERNAL_OPS = 30
 PACKED_LEAF_OPS = 58
 PACKED_RAY_OPS = 12
@@ -307,6 +313,8 @@ PACKED_RAY_OPS = 12
 # and unit directions with components of exactly +0 and -0
 EDGE_BLOCK = 4096
 EDGE_COPIES = 32
+# walk_edges' step caps of the packed walk: (max_iters, unroll)
+WALK_CAPS = ((0, 1), (3, 1), (17, 1), (4, 8))
 SIGNED_ZERO_DIRS = ((0.0, -0.0, 1.0), (-0.0, 0.0, -1.0), (1.0, 0.0, -0.0),
                     (-1.0, -0.0, 0.0), (0.0, 1.0, 0.0), (-0.0, -1.0, -0.0),
                     (0.6, -0.0, 0.8), (-0.0, 0.8, -0.6))
@@ -1578,7 +1586,9 @@ def graph_us_per_call(fn, calls=20):
 # the inner loops read from the SASS: label -> (pattern of the kernel's
 # mangled name, the instruction that marks one unit of work, the marks
 # a unit). A triangle test takes one reciprocal (MUFU.RCP: __frcp_rn or
-# an IEEE division); a walk step two 16-byte shared loads of its row.
+# an IEEE division); a walk step two 16-byte shared loads of its row; the
+# packed walk's loop (its uncapped instance) is one step of either kind
+# of row, the shortest loop with a 16-byte global load.
 SASS_LOOPS = {
     "cluster_expand_kernel": (r"\d+cluster_expand_kernelE", "MUFU.RCP", 1),
     "union_kernel<MtTest, UnionSource>": (
@@ -1591,58 +1601,17 @@ SASS_LOOPS = {
     "topwalk_mask_kernel": (r"\d+topwalk_mask_kernelE", "LDS.128", 2),
     "topwalk_union_kernel": (r"\d+topwalk_union_kernelE", "LDS.128", 2),
     "topwalk_cm_u_kernel": (r"\d+topwalk_cm_u_kernelE", "LDS.128", 2),
+    "split_walk_kernel (packed_walk)": (r"split_walk_kernelILb0E", "LDG.E.128",
+                                        0),
 }
 
 
 def sass_per_test(lib_path):
     """Instructions per unit of work (a triangle test, a walk step) in the
-    inner loop of each of SASS_LOOPS, read from `cuobjdump -sass` of the
-    built library: the shortest loop (a backward branch to an earlier
-    instruction) that holds the unit's mark, its instruction count over
-    its units (two a pass where a thread tests two rays or walks two
-    rays, more where the compiler unrolled the loop). Returns label ->
-    (instructions, units)."""
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    sass = subprocess.run([tool, "-sass", lib_path], capture_output=True,
-                          text=True, check=True).stdout
-    funcs, body = {}, None
-    for line in sass.splitlines():
-        m = re.match(r"\s*Function : (\S+)", line)
-        if m:
-            name = next((k for k, (pat, _, _) in SASS_LOOPS.items()
-                         if re.search(pat, m.group(1))), None)
-            body = funcs.setdefault(name, []) if name else None
-            continue
-        m = re.match(r"\s*(\.L_x_\d+):", line)
-        if body is not None and m:
-            body.append((m.group(1), None))
-            continue
-        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+([^;]+);", line)
-        if body is not None and m:
-            body.append((int(m.group(1), 16), m.group(2).strip()))
-    out = {}
-    for name, body in funcs.items():
-        _, mark, per_unit = SASS_LOOPS[name]
-        ins, at = [], {}   # at: label or address -> instruction index
-        for key, text in body:
-            at[key] = len(ins)
-            if text is not None:
-                ins.append(text)
-        best = None
-        for end, text in enumerate(ins):
-            m = re.search(r"\bBRA\b.*?(\.L_x_\d+|0x[0-9a-f]+)", text)
-            if not m:
-                continue
-            tgt = m.group(1)
-            start = at.get(int(tgt, 16) if tgt.startswith("0x") else tgt)
-            if start is None or start > end:
-                continue
-            units = sum(mark in x for x in ins[start:end + 1]) / per_unit
-            if units and (best is None or end + 1 - start < best[0]):
-                best = (end + 1 - start, units)
-        if best:
-            out[name] = best
-    return out
+    inner loop of each of SASS_LOOPS (`kernels.sass.loop_sizes`).
+    Returns label -> (instructions, units)."""
+    from raypt_torch.kernels.sass import loop_sizes
+    return loop_sizes(lib_path, SASS_LOOPS)
 
 
 class SmClock:
@@ -2087,10 +2056,17 @@ def compare_bvh(stats, label, scene, pbvh, ro, rd, active, timed):
     also from a CUDA graph, with its bound: the table read once, the
     rays' o, d, t0 and flags in and t, face out, or the f32 operations
     of its node visits (counted by the plain walk), the larger. The log
-    also gives the rows the walks read, 64 bytes a visit: the table is
-    at most 11.5 MB and stays in the 50 MB L2, so that traffic is no
-    floor on device-memory time."""
-    from raypt_torch.accel.packed import traverse_wavefront
+    also gives the rows the walks read, 64 bytes a visit of the table,
+    32 an internal and 48 a leaf visit of the kernel's split table: the
+    tables are at most 26 MB and stay in the 50 MB L2, so that traffic is
+    no floor on device-memory time; and the SIMD efficiency and the share
+    of warp steps mixing leaf and internal rows (accel.packed.
+    simd_efficiency, mixed_share) of the first kernel's schedule (one
+    thread a ray in launch order) and of the package kernel's (its
+    blocks' rays by octant, accel.packed.octant_order)."""
+    import torch
+    from raypt_torch.accel.packed import (mixed_share, octant_order,
+                                          simd_efficiency, traverse_wavefront)
     from raypt_torch.accel.traverse import wavefront_inputs
     from raypt_torch.kernels import packed_walk as pw
 
@@ -2101,10 +2077,23 @@ def compare_bvh(stats, label, scene, pbvh, ro, rd, active, timed):
     stats.check("packed_walk", f"{label} t", kt, pt)
     stats.check("packed_walk", f"{label} face", kf, pf)
     if timed:
-        visits = []
-        traverse_wavefront(*args, visits=visits)
-        rows = sum(v for v, _ in visits)
-        leaves = sum(n for _, n in visits)
+        steps = []
+        traverse_wavefront(*args, steps=steps)
+        rows = sum(x[0].numel() for x in steps)
+        leaves = sum(int(x[2].sum()) for x in steps)
+        longest = len(steps)
+        schedules = [(simd_efficiency(steps), mixed_share(steps))]
+        del steps
+        _, _, _, block, octant = packed_walk_info()
+        lane = (octant_order(d, a, block) if octant else
+                torch.arange(o.shape[0], device=o.device))
+        ok = lane < o.shape[0]
+        lane = lane.clamp(max=o.shape[0] - 1)
+        steps = []
+        traverse_wavefront(pbvh, o[lane], d[lane], t[lane], a[lane] & ok,
+                           steps=steps)
+        schedules.append((simd_efficiency(steps), mixed_share(steps)))
+        del steps
         live = int(a.sum())
         moved = nbytes(pbvh.rows, o, d, t, a, kt, kf)
         ops = (PACKED_INTERNAL_OPS * (rows - leaves) + PACKED_LEAF_OPS * leaves
@@ -2112,13 +2101,29 @@ def compare_bvh(stats, label, scene, pbvh, ro, rd, active, timed):
         stats.time("packed_walk", label, pw.packed_walk, traverse_wavefront,
                    args, moved, ops)
         stats.time_graph("packed_walk", label, pw.packed_walk, args)
+        split = SPLIT_INNER_BYTES * (rows - leaves) + SPLIT_LEAF_BYTES * leaves
         log(f"  {label:9s} node visits {rows} ({leaves} leaf rows), "
-            f"{rows / max(live, 1):.1f} a live ray, longest walk "
-            f"{len(visits)} steps, hits {int((kf >= 0).sum())}; rows read "
-            f"{ROW_BYTES * rows / 1e9:.3f} GB "
-            f"({1e3 * ROW_BYTES * rows / HBM_BYTES_PER_S:.4f} ms at the HBM "
-            f"rate)")
+            f"{rows / max(live, 1):.1f} a live ray, longest walk {longest} "
+            f"steps, hits "
+            f"{int((kf >= 0).sum())}; rows read {ROW_BYTES * rows / 1e9:.3f} "
+            f"GB from the table, {split / 1e9:.3f} GB from the split table "
+            f"({1e3 * split / HBM_BYTES_PER_S:.4f} ms at the HBM rate); SIMD "
+            f"efficiency / mixed warp steps: the first kernel's schedule "
+            f"{schedules[0][0]:.4f} / {schedules[0][1]:.4f}, the kernel's "
+            f"{schedules[1][0]:.4f} / {schedules[1][1]:.4f}")
     return kt, kf
+
+
+def packed_walk_info():
+    """The package's packed-walk kernel as its library reports it
+    (rk_packed_walk_info): registers, local (spill) bytes, resident
+    blocks an SM, threads a block, and 1 where a block hands its rays to
+    its threads by octant (0: in launch order)."""
+    from raypt_torch.kernels._build import kernel_lib
+    info = (ctypes.c_int * 5)()
+    if kernel_lib().rk_packed_walk_info(ctypes.cast(info, ctypes.c_void_p)):
+        raise AssertionError("rk_packed_walk_info failed")
+    return list(info)
 
 
 def counted(counters, expect, fn):
@@ -2231,9 +2236,10 @@ def walk_edges(stats, scene, pbvh, wave0, wave1):
     """Phase 3's edge cases of the packed walk, each bitwise against the
     plain version: walk_edge_wave's dead, missing, near-seeded,
     signed-zero, NaN and parallel rays (with the results each must
-    have); duplicated triangles (copies of the 32 most-hit faces in
-    padded slots: the tree changes, a copy ties its original and the
-    first in walk order wins by the strict t < t_best); and a toy table
+    have); the same wavefront under WALK_CAPS' step caps; duplicated
+    triangles (copies of the 32 most-hit faces in padded slots: the tree
+    changes, a copy ties its original and the first in walk order wins
+    by the strict t < t_best); and a toy table
     whose internal boxes are all (-BIG, BIG), so every ray walks every
     row, the padded, degenerate leaves (e1 = e2 = 0) included."""
     import torch
@@ -2258,6 +2264,17 @@ def walk_edges(stats, scene, pbvh, wave0, wave1):
         f"face -1; signed-zero rays hit "
         f"{int((kf[groups['signed zero']] >= 0).sum())} of 8, in-plane rays "
         f"{int((kf[groups['parallel']] >= 0).sum())}")
+
+    # step caps: each walk cut after max_iters * unroll steps
+    cap_hits = []
+    for max_iters, unroll in WALK_CAPS:
+        kt, kf = pw.packed_walk(pbvh, o, d, t, a, max_iters, unroll)
+        pt, pf = traverse_wavefront(pbvh, o, d, t, a, max_iters, unroll)
+        stats.check("packed_walk", f"cap {max_iters} x {unroll} t", kt, pt)
+        stats.check("packed_walk", f"cap {max_iters} x {unroll} face", kf, pf)
+        cap_hits.append(int((kf >= 0).sum()))
+    log(f"  walk caps: max_iters x unroll {WALK_CAPS} bitwise on the edge "
+        f"wavefront, hits {cap_hits}")
 
     # duplicated triangles
     m = scene.mesh
@@ -2478,6 +2495,10 @@ def main():
                 f"({n_ins} in its inner loop, {n_units:g} {unit}s)")
     except (OSError, subprocess.CalledProcessError) as e:
         log(f"  SASS not read: {e}")
+    regs, local, blocks, threads, octant = packed_walk_info()
+    log(f"  packed_walk: {regs} registers, {local} local (spill) bytes, "
+        f"{blocks} blocks of {threads} resident an SM ({blocks * threads // 32} "
+        f"warps), a block's rays {'by octant' if octant else 'in order'}")
 
     from raypt_torch.accel import clusters as cl
     from raypt_torch.accel.clusters import (CLUSTER_LEAF, build_clusters,

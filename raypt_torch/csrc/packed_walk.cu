@@ -15,122 +15,94 @@
 // Every operation is the plain torch version's (raypt_torch/accel/
 // packed.py: traverse_wavefront), in its order: the reciprocal
 // direction with components below 1e-12 clamped, the slab's
-// subtractions and products, min / max that propagate NaN (as
-// torch.minimum / jnp.minimum do; fminf / fmaxf would drop a NaN), the
-// cross products ay*bz - az*by, the three-term sums (x + y) + z and the
-// inverse determinant as a division. Built with -fmad=false and IEEE
-// division, it is bitwise equal to the plain version on the card.
+// subtractions and products, min / max that propagate NaN (min.NaN /
+// max.NaN, one instruction each), the cross products ay*bz - az*by, the
+// three-term sums (x + y) + z and 1 / det as the correctly rounded
+// reciprocal (cluster_test.cuh's fast path, exact where |det| >= 2^126).
+// Built with -fmad=false, it is bitwise equal to the plain version.
 //
-// What bounds it on this card: the dependent row loads of each step.
-// A walk is a chain: a step's row address is the previous step's link,
-// so a ray waits one L2 round trip a step. The table (11.5 MB at 90,112
-// slots) fits in the 50 MB L2. The arithmetic is ~45 f32 operations a
-// step.
+// What bounds it on this card, as measured (python -m
+// raypt_torch.kernels.sweep --kernels packed, NVIDIA H100 80GB HBM3,
+// 700 W, 1980 MHz): bytes into the SMs, not instructions or latency.
+// The first kernel (pr12) read every visit's whole 64-byte row (two L2 sectors)
+// and walked 2.89 ms a bvh frame; cutting its instructions a step from
+// 144 to 117 (one-instruction min / max, the fast reciprocal, no step
+// counter) saved 6%, all of it on the coherent bounce 0, while halving
+// the bytes of an internal step saved 39%, most on the secondary
+// bounces. More resident warps (64 an SM at 32 registers) were slower,
+// fewer too; while-while schedules and refilled warps, which raise the
+// SIMD efficiency of the walks, were slower; evict-last and no-allocate
+// L1 hints gained nothing or lost; rays sorted by origin and octant over
+// the whole wavefront walked 15% faster, but the sort cost more than
+// that.
 //
-// What the design does about it: one thread walks one ray to its end,
-// neighbouring rays (pixel-block order) in a warp, so the warp's lanes
-// read the same rows near the root and the loads coalesce there; the row
-// comes as four 16-byte loads through the read-only path; a leaf row's
-// triangle test and an internal row's slab test are each computed only
-// on their own kind of row. No layout of the TPU version is kept: its
-// unroll, tiles and shared trip count were loop-overhead workarounds.
-#include <cstdint>
+// What the design does about it (packed_walk.cuh): the walk reads a
+// table derived from the rows on every call, 32-byte internal rows (one
+// sector) and 48-byte leaf rows, whose links carry the kind of the row
+// they point at, so a step reads only its own kind's bytes; one thread
+// walks one ray, and a block of 128 hands its rays to its threads by
+// direction octant, live rays first, so a warp's rays start from
+// neighbouring pixels in one octant and the dead rays' warps end at
+// once. The build of the table is a launch of its own, counted in the
+// walk's time.
 #include <cuda_runtime.h>
+
+#include "packed_walk.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 128;   // a block's rays, handed out by octant
 
-// torch.minimum / torch.maximum: NaN when either operand is NaN.
-__device__ __forceinline__ float min_nan(float a, float b) {
-    return (a != a) ? a : ((b != b) ? b : (a < b ? a : b));
-}
-
-__device__ __forceinline__ float max_nan(float a, float b) {
-    return (a != a) ? a : ((b != b) ? b : (a > b ? a : b));
-}
-
-__device__ __forceinline__ float safe_inv(float d) {
-    const float safe = fabsf(d) > 1e-12f ? d : (d >= 0.0f ? 1e-12f : -1e-12f);
-    return 1.0f / safe;
-}
-
+// One thread a ray: the ray rk::sorted_ray hands the thread, walked
+// over the split table.
+template <bool kCapped>
 __global__ void __launch_bounds__(kThreads)
-packed_walk_kernel(const float4* __restrict__ rows, const float* __restrict__ ro,
-                   const float* __restrict__ rd, const float* __restrict__ t0,
-                   const bool* __restrict__ active, float* __restrict__ t_out,
-                   int* __restrict__ face_out, long long r, long long max_steps) {
-    const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
-    if (i >= r) return;
-    float t_best = t0[i];
-    int face = -1;
-    int node = active[i] ? 0 : -1;
-    if (node >= 0) {
-        const float ox = ro[3 * i], oy = ro[3 * i + 1], oz = ro[3 * i + 2];
-        const float dx = rd[3 * i], dy = rd[3 * i + 1], dz = rd[3 * i + 2];
-        const float ix = safe_inv(dx), iy = safe_inv(dy), iz = safe_inv(dz);
-        for (long long step = 0; node >= 0 && (max_steps < 0 || step < max_steps);
-             ++step) {
-            const float4* row = rows + 4 * (long long)node;
-            const float4 a = __ldg(row), b = __ldg(row + 1), c = __ldg(row + 2),
-                         e = __ldg(row + 3);
-            const int link = __float_as_int(e.x), skip = __float_as_int(e.y);
-            if (e.z > 0.5f) {
-                // leaf: p0 = (a.x, a.y, a.z), e1 = (a.w, b.x, b.y),
-                // e2 = (b.z, b.w, c.x)
-                const float e1x = a.w, e1y = b.x, e1z = b.y;
-                const float e2x = b.z, e2y = b.w, e2z = c.x;
-                const float px = dy * e2z - dz * e2y;
-                const float py = dz * e2x - dx * e2z;
-                const float pz = dx * e2y - dy * e2x;
-                const float det = e1x * px + e1y * py + e1z * pz;
-                const bool ok = fabsf(det) > 1e-8f;
-                const float inv_det = (ok ? 1.0f : 0.0f) / (ok ? det : 1.0f);
-                const float tx = ox - a.x, ty = oy - a.y, tz = oz - a.z;
-                const float u = (tx * px + ty * py + tz * pz) * inv_det;
-                const float qx = ty * e1z - tz * e1y;
-                const float qy = tz * e1x - tx * e1z;
-                const float qz = tx * e1y - ty * e1x;
-                const float v = (dx * qx + dy * qy + dz * qz) * inv_det;
-                const float t = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
-                if (ok && u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > 0.0f &&
-                    t < t_best) {
-                    t_best = t;
-                    face = link;
-                }
-                node = skip;
-            } else {
-                // internal: bmin = (a.x, a.y, a.z), bmax = (a.w, b.x, b.y)
-                const float n1x = (a.x - ox) * ix, n1y = (a.y - oy) * iy,
-                            n1z = (a.z - oz) * iz;
-                const float n2x = (a.w - ox) * ix, n2y = (b.x - oy) * iy,
-                            n2z = (b.y - oz) * iz;
-                const float tnear = max_nan(
-                    max_nan(min_nan(n1x, n2x), min_nan(n1y, n2y)), min_nan(n1z, n2z));
-                const float tfar = min_nan(
-                    min_nan(max_nan(n1x, n2x), max_nan(n1y, n2y)), max_nan(n1z, n2z));
-                const bool nonempty = a.x <= a.w && a.y <= b.x && a.z <= b.y;
-                const bool hit_box =
-                    tfar >= tnear && tnear < t_best && tfar > 0.0f && nonempty;
-                node = hit_box ? link : skip;
-            }
-        }
-    }
-    t_out[i] = t_best;
-    face_out[i] = face;
+split_walk_kernel(const float* __restrict__ rows, const float4* __restrict__ inner,
+                  const float4* __restrict__ leaves, const float* __restrict__ ro,
+                  const float* __restrict__ rd, const float* __restrict__ t0,
+                  const bool* __restrict__ active, float* __restrict__ t_out,
+                  int* __restrict__ face_out, long long r, long long max_steps) {
+    const long long slot = (long long)blockIdx.x * kThreads + threadIdx.x;
+    const long long i =
+        rk::sorted_ray<kThreads>(slot, rd, active, r, !(kCapped && max_steps == 0));
+    rk::walk_ray<rk::RowLoads, kCapped>(i, rows, inner, leaves, ro, rd, t0, active, t_out,
+                                        face_out, r, max_steps);
 }
 
 }  // namespace
 
+extern "C" long long rk_packed_walk_scratch(long long n_rows) {
+    return rk::split_scratch_f4(n_rows);
+}
+
+// The split table built into `scratch` (rk_packed_walk_scratch float4),
+// then the walk.
 extern "C" int rk_packed_walk(const float* rows, long long n_rows, const float* ro,
                               const float* rd, const float* t0, const bool* active,
                               float* t_out, int* face_out, long long r,
-                              long long max_steps, void* stream) {
-    if (r < 0 || n_rows < 1 || max_steps < -1) return (int)cudaErrorInvalidValue;
+                              long long max_steps, void* scratch, void* stream) {
+    if (r < 0 || n_rows < 1 || max_steps < -1 || scratch == nullptr)
+        return (int)cudaErrorInvalidValue;
     if (r == 0) return 0;
+    const cudaStream_t s = (cudaStream_t)stream;
+    if (const cudaError_t e = rk::build_split_table(rows, n_rows, scratch, s))
+        return (int)e;
+    const float4* inner = reinterpret_cast<const float4*>(scratch);
+    const float4* leaves = inner + rk::kInnerF4 * n_rows;
     const unsigned grid = (unsigned)((r + kThreads - 1) / kThreads);
-    packed_walk_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-        reinterpret_cast<const float4*>(rows), ro, rd, t0, active, t_out, face_out,
-        r, max_steps);
+    if (max_steps < 0)
+        split_walk_kernel<false><<<grid, kThreads, 0, s>>>(
+            rows, inner, leaves, ro, rd, t0, active, t_out, face_out, r, max_steps);
+    else
+        split_walk_kernel<true><<<grid, kThreads, 0, s>>>(
+            rows, inner, leaves, ro, rd, t0, active, t_out, face_out, r, max_steps);
     return (int)cudaGetLastError();
+}
+
+// The uncapped walk kernel's registers, local (spill) bytes, resident
+// blocks an SM and threads a block (info[0..3]), and whether a block
+// hands its rays out by octant (info[4]).
+extern "C" int rk_packed_walk_info(int* info) {
+    info[4] = 1;
+    return rk::walk_kernel_info(split_walk_kernel<false>, kThreads, info);
 }

@@ -24,7 +24,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 KERNEL_SOURCES = ("compact.cu", "onehot_walk.cu", "cluster_expand.cu",
                   "cluster_intersect.cu", "dense_closest.cu", "gather.cu",
                   "expand_diag.cu", "regroup.cu", "packed_walk.cu")
-KERNEL_HEADERS = ("cluster_test.cuh", "block_scan.cuh", "mask_walk.cuh")
+KERNEL_HEADERS = ("cluster_test.cuh", "block_scan.cuh", "mask_walk.cuh",
+                  "packed_walk.cuh")
 SMEM_LIMIT = 232448   # shared memory a block may use on Hopper (227 KB)
 
 
@@ -81,8 +82,9 @@ def kernel_lib() -> ctypes.CDLL:
         # scratch rows, id, n_live, stream
         "rk_closest_dense": [p, p, p, p, p, p, i64, p, p, p, p, p, i64, p, p,
                              p, p],
-        # rows, n_rows, ro, rd, t0, active -> t, face; r, max_steps, stream
-        "rk_packed_walk": [p, i64, p, p, p, p, p, p, i64, i64, p],
+        # rows, n_rows, ro, rd, t0, active -> t, face; r, max_steps,
+        # scratch, stream
+        "rk_packed_walk": [p, i64, p, p, p, p, p, p, i64, i64, p, p],
         # the scripts/ probes (raypt_torch/probes/)
         # table, n, w, idx -> out; rows, clip, stream
         "rk_gather_rows": [p, i64, i32, p, p, i64, i32, p],
@@ -106,6 +108,13 @@ def kernel_lib() -> ctypes.CDLL:
         getattr(lib, fn).restype = ctypes.c_int
     lib.rk_error_string.argtypes = [ctypes.c_int]
     lib.rk_error_string.restype = ctypes.c_char_p
+    # the packed walk's scratch (float4) for n_rows, and its kernel's
+    # registers, local bytes, resident blocks an SM, threads a block and
+    # whether a block hands its rays out by octant (5 ints)
+    lib.rk_packed_walk_scratch.argtypes = [i64]
+    lib.rk_packed_walk_scratch.restype = i64
+    lib.rk_packed_walk_info.argtypes = [p]
+    lib.rk_packed_walk_info.restype = ctypes.c_int
     return lib
 
 

@@ -35,7 +35,23 @@ constants set (`_set`), each as a library of its own:
     block: `kTwoPass` 0 recounts in each block), called as the expand
     finder calls it, with the counts the compaction of the same mask
     left; and "count_pass", the package's kernel without them, so that
-    it counts each chunk again first.
+    it counts each chunk again first;
+  * packed: the skip-link walk of the packed LBVH (`rk_packed_walk`),
+    the package's kernel beside the designs of
+    `csrc/packed_walk_designs.cu` (PACKED_DESIGNS: "pr12", the first
+    kernel, and the designs tried since; that file says how each
+    walks), built as one library, and PRESORTED: a design on the
+    wavefront's live rays sorted by direction octant and / or the Morton
+    code of their origin (`presort`; the sort timed apart, `sort_ms`),
+    its results put back in launch order. Its wavefronts: the four of the bench
+    scene's 1024^2 render through the bvh finder (the LBVH built on the
+    card) and the four of bvh_large (`chip_smoke.py`'s: the icosphere
+    of 81,920 triangles, `auto` -> bvh). Each line also gives the
+    design's registers, local (spill) bytes and resident warps an SM,
+    the instructions of its walk loop (`kernels.sass`), and per
+    wavefront the SIMD efficiency and mixed-step share of its schedule
+    (`accel.packed.simd_efficiency`, `mixed_share`, on the plain walk's
+    record or the while-while model's, `traverse_while_while`).
 With `--against`, the kernels of another checkout (DIR/raypt_torch/csrc)
 join as variant "against" (a `compact.cu` without `chunk_count_kernel`,
 or whose uncompaction is `for_each_destination`'s, is called with the
@@ -48,9 +64,11 @@ of 1024^2 renders recorded on the card: the eight bounces of the
 config-4 render (`scripts/baseline_config4.py`: leaf 128; woop and
 walk), and the four of the bench scene's renders through the
 dense-union finder (leaf 128: walk, union and mask), the cluster finder
-(clusters of 64: worklist), the pallas finder (dense) and the expand
+(clusters of 64: worklist), the pallas finder (dense), the expand
 finder (`bench.py`'s: leaf 384, groups of 32,768; compact, cm_u,
-uncompact), while nvidia-smi samples the SM clock. Prints the card's
+uncompact) and the bvh finder (packed, with bvh_large's), while
+nvidia-smi samples the SM clock. Only the renders of the kernels asked
+for are made. Prints the card's
 name and power limit, then one JSON line a variant: ms per frame of
 each round (summed over the wavefronts), the last round's ms per
 wavefront, the same from graph replay where taken, and the SM clock.
@@ -71,6 +89,8 @@ from concurrent.futures import ThreadPoolExecutor
 import torch
 
 from .._native_build import BUILD_DIR, build_library
+from ..accel.packed import (WARP, PackedLBVH, safe_reciprocal, split_start,
+                            split_steps, split_table)
 from ._build import CSRC_DIR, KERNEL_HEADERS, NVCC_FLAGS, _nvcc, kernel_lib
 
 WIDTH = 1024
@@ -78,6 +98,7 @@ LEAF = 128
 EXPAND_LEAF = 384     # bench.py's finder
 EXPAND_N = 8192
 COMPACT_N = 32768
+LARGE_SUBDIV = 6      # bvh_large's icosphere (81,920 triangles)
 # variant name -> the constants it sets
 WOOP_VARIANTS = {
     "t512_rays2_split32": dict(kThreads=512, kRays=2, kMaxSplit=32,
@@ -165,13 +186,48 @@ SWEPT = {
                 COMPACT_VARIANTS),
     "cm_u": ("onehot_walk.cu", "rk_topwalk", None, {}),
     "uncompact": ("compact.cu", "rk_alive_uncompact",
-                  "// The compaction's design", UNCOMPACT_VARIANTS)}
+                  "// The compaction's design", UNCOMPACT_VARIANTS),
+    "packed": ("packed_walk.cu", "rk_packed_walk", None, {})}
 # timed also from CUDA graph replay: kernels of tens of microseconds,
 # where a direct call's host work may outlast the kernel
-GRAPHED = ("union", "compact", "cm_u", "uncompact")
+GRAPHED = ("union", "compact", "cm_u", "uncompact", "packed")
 # the walk's designs: entry rk_walk_<name> of csrc/walk_designs.cu
 WALK_DESIGNS = ("unpacked", "interleaved2", "interleaved3",
                 "packed_interleaved2", "refilled1", "refilled2")
+
+
+def _packed_designs() -> dict:
+    """The packed walk's designs: name -> its designs::Design (threads a
+    block, while-while batch, refill threshold, launch bound's blocks an
+    SM, L1 priorities, carve-out, octant sort, persistent blocks an SM,
+    counting sort's bits an axis + 1, the warps' sort), read from the
+    RK_PWALK_DESIGN lines of csrc/packed_walk_designs.cu (entry points
+    rk_pwalk_<name>); None for pr12 and lean, the walks over the table's
+    own rows, which take no scratch."""
+    with open(os.path.join(CSRC_DIR, "packed_walk_designs.cu")) as f:
+        made = re.findall(r"^RK_PWALK_DESIGN\((\w+), ([-\d, ]+)\)$", f.read(),
+                          re.M)
+    return {"pr12": None, "lean": None,
+            **{n: tuple(int(x) for x in v.split(", ")) for n, v in made}}
+
+
+PACKED_DESIGNS = _packed_designs()
+
+
+def design_pattern(design) -> str:
+    """The pattern of the mangled name of a design's uncapped walk
+    kernel (designs::design_walk_kernel or designs::refill_walk_kernel of
+    csrc/packed_walk_designs.cu)."""
+    args = "".join(f"Li{'n' if v < 0 else ''}{abs(v)}E" for v in design)
+    kind = "refill" if design[2] else "design"
+    return rf"{kind}_walk_kernelINS_6DesignI{args}EELb0E"
+
+
+# presorted variants: name -> (the design, the sort keys of `presort`)
+PRESORTED = {"presorted_split": ("split", ("octant", "morton")),
+             "presorted_refill8_split": ("refill8_split", ("octant", "morton")),
+             "octsorted_split_t128": ("split_t128", ("octant",)),
+             "mortonsorted_split_t128": ("split_t128", ("morton",))}
 P, I64, I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 SIGS = {"woop": [P, I32, P, I32, I32, P, P, P, P, P, I64, P],
         "mask": [P, I32, P, I32, I32, P, P, P, P, P, I64, P],
@@ -186,6 +242,11 @@ SIGS = {"woop": [P, I32, P, I32, I32, P, P, P, P, P, I64, P],
         "compact_unscratched": [P, P, P, P, P, P, P, P, I64, I32, P],
         "cm_u": [P, I32, P, P, P, P, P, P, I64, I32, I32, P],
         "uncompact": [P, P, P, P, P, P, I32, I64, I32, P],
+        # rows, n_rows, ro, rd, t0, active -> t, face; r, max_steps,
+        # scratch, stream
+        "packed": [P, I64, P, P, P, P, P, P, I64, I64, P, P],
+        # the packed walk before its split table's scratch
+        "packed_unscratched": [P, I64, P, P, P, P, P, P, I64, I64, P],
         # alive_uncompact before its count pass's scratch
         "uncompact_unscratched": [P, P, P, P, P, I64, I32, P]}
 
@@ -247,6 +308,14 @@ def build_variants(kernels, against: str | None) -> dict:
                             _read(CSRC_DIR, "walk_designs.cu"), CSRC_DIR)
         for name in WALK_DESIGNS:
             jobs[("walk", name)] = (designs, f"rk_walk_{name}", "walk")
+    if "packed" in kernels:
+        designs = _nvcc_job("packed_walk_designs", "packed_walk_designs.cu",
+                            _read(CSRC_DIR, "packed_walk_designs.cu"),
+                            CSRC_DIR)
+        for name, design in PACKED_DESIGNS.items():
+            jobs[("packed", name)] = (designs, f"rk_pwalk_{name}",
+                                      "packed_unscratched" if design is None
+                                      else "packed")
     if against:
         other = os.path.join(against, "raypt_torch", "csrc")
         for kernel in kernels:
@@ -259,6 +328,8 @@ def build_variants(kernels, against: str | None) -> dict:
                 sig = "compact_unscratched"
             if kernel == "uncompact" and "for_each_destination" in text:
                 sig = "uncompact_unscratched"
+            if kernel == "packed":
+                sig = packed_sig(text)
             jobs[(kernel, "against")] = (_nvcc_job(
                 f"{kernel}_against", source, text, other), entry, sig)
     thunks = list({id(b): b for b, _, _ in jobs.values()}.values())
@@ -268,28 +339,50 @@ def build_variants(kernels, against: str | None) -> dict:
             for key_, (b, fn, sig) in jobs.items()}
 
 
+def packed_sig(text: str) -> str:
+    """The signature of a packed_walk.cu's rk_packed_walk: with the split
+    table's scratch (sized by its rk_packed_walk_scratch) or, before it,
+    without."""
+    return ("packed" if "rk_packed_walk_scratch" in text
+            else "packed_unscratched")
+
+
 def _loaded(sig: str, path: str, fn: str):
-    f = getattr(ctypes.CDLL(path), fn)
+    lib = ctypes.CDLL(path)
+    f = getattr(lib, fn)
     f.argtypes, f.restype = SIGS[sig], ctypes.c_int
+    if sig == "packed":   # f.scratch(n_rows, r): float4 of its scratch
+        size = getattr(lib, f"{fn}_scratch")
+        size.restype = I64
+        if fn == "rk_packed_walk":
+            size.argtypes = [I64]
+            f.scratch = lambda n_rows, r, size=size: size(n_rows)
+        else:
+            size.argtypes = [I64, I64]
+            f.scratch = size
     return f
 
 
-def wavefronts() -> dict:
+def wavefronts(kernels=tuple(SWEPT)) -> dict:
     """kernel -> its launches' arguments on the card: config4's eight
     bounces (woop, walk), the bench scene's four through the dense-union
     finder (walk, union, mask), the cluster finder (worklist), the pallas
-    finder (dense) and the expand finder (compact, cm_u, uncompact: each
-    stage fed the package kernels' outputs of the stage before it)."""
+    finder (dense), the expand finder (compact, cm_u, uncompact: each
+    stage fed the package kernels' outputs of the stage before it) and
+    the bvh finder, then bvh_large's four (packed). Only the renders
+    that feed `kernels` are made."""
     from ..accel.clusters import (CLUSTER_LEAF, build_clusters,
                                   tile_union_counts, tile_worklists)
+    from ..accel import lbvh
     from ..accel.ctree import build_onehot
     from ..accel.host_bvh import build_sah
+    from ..accel.packed import pack
     from ..accel.traverse import DENSE_CHUNK, onehot_inputs, wavefront_inputs
     from ..core.math3d import BIG
     from ..core.types import RenderConfig
     from ..render.integrator import make_finder, render_sample
     from ..rng.sampler import frame_key, key, sample_key
-    from ..scenes.builtin import stanford_bunny
+    from ..scenes.builtin import _icosphere, stanford_bunny
     from ..scenes.config4 import config4_scene
     from . import cluster_expand as ex
     from . import compact as cp
@@ -297,26 +390,40 @@ def wavefronts() -> dict:
     from .cluster_pallas import TILE
     from .dense_pallas import RAY_TILE
     out = {k: [] for k in SWEPT}
+    out["packed_path"] = []   # the path of each packed wavefront
     bench = RenderConfig(width=WIDTH, height=WIDTH, samples_per_pixel=1,
                          num_bounces=4, russian_roulette=True)
-    for build, cfg, k in (
+    def large_bunny():
+        return stanford_bunny(mesh=_icosphere(LARGE_SUBDIV))
+
+    for build, cfg, k, feeds in (
             (config4_scene, RenderConfig(
                 width=WIDTH, height=WIDTH, samples_per_pixel=1,
                 num_bounces=8, russian_roulette=True,
                 enable_refraction=True, backend="onehot", onehot_leaf=LEAF),
-             7),
+             7, ("woop", "walk")),
             (stanford_bunny, bench.replace(backend="onehot",
-                                           onehot_leaf=LEAF), 0),
-            (stanford_bunny, bench.replace(backend="cluster"), 0),
-            (stanford_bunny, bench.replace(backend="pallas"), 0),
+                                           onehot_leaf=LEAF), 0,
+             ("walk", "union", "mask")),
+            (stanford_bunny, bench.replace(backend="cluster"), 0,
+             ("worklist",)),
+            (stanford_bunny, bench.replace(backend="pallas"), 0, ("dense",)),
             (stanford_bunny, bench.replace(
                 backend="onehot", onehot_leaf=EXPAND_LEAF,
-                onehot_expand=EXPAND_N, onehot_compact=COMPACT_N), 0)):
+                onehot_expand=EXPAND_N, onehot_compact=COMPACT_N), 0,
+             ("compact", "cm_u", "uncompact")),
+            (stanford_bunny, bench.replace(backend="bvh"), 0, ("packed",)),
+            (large_bunny, bench.replace(backend="bvh"), 0, ("packed",))):
+        if not set(feeds) & set(kernels):
+            continue
         b = build()
         b.camera.viewport_width = b.camera.viewport_height = WIDTH
         scene = b.freeze("cuda")
         m = scene.mesh
-        if cfg.backend == "onehot":
+        if cfg.backend == "bvh":
+            acc = pack(lbvh.build(m.positions, m.faces, m.face_valid),
+                       m.positions, m.faces, m.face_valid)
+        elif cfg.backend == "onehot":
             acc = build_onehot(build_sah(m), m.positions, m.faces,
                                m.face_valid, leaf=cfg.onehot_leaf,
                                with_woop=build is config4_scene).to("cuda")
@@ -329,6 +436,12 @@ def wavefronts() -> dict:
 
         def rec(s, ro, rd, active=None, finder=finder, acc=acc, cfg=cfg,
                 c4=build is config4_scene):
+            if cfg.backend == "bvh":
+                o, d, t, a, _, _ = wavefront_inputs(s, ro, rd, active, 1)
+                out["packed"].append((acc.rows, o, d, t, a))
+                out["packed_path"].append(
+                    "bvh_large" if build is large_bunny else "bvh")
+                return finder(s, ro, rd, active)
             if cfg.backend == "pallas":
                 mats = finder.args[0]
                 o, d, t, _, _, _ = wavefront_inputs(s, ro, rd, None, RAY_TILE)
@@ -491,6 +604,50 @@ def _call_uncompact(fn, t, face, a, group, counts=None, scratch=True):
     return t_out, f_out
 
 
+def _call_packed(fn, rows, o, d, t, a, scratch=True):
+    t_out = torch.empty_like(t)
+    f_out = torch.empty(t.shape, dtype=torch.int32, device=t.device)
+    ptrs = [rows.data_ptr(), rows.shape[0], o.data_ptr(), d.data_ptr(),
+            t.data_ptr(), a.data_ptr(), t_out.data_ptr(), f_out.data_ptr(),
+            o.shape[0], -1]
+    if scratch:
+        s = torch.empty((fn.scratch(rows.shape[0], o.shape[0]), 4),
+                        dtype=torch.float32, device=t.device)
+        ptrs.append(s.data_ptr())
+    _check(fn(*ptrs, _stream()), "packed walk")
+    return t_out, f_out
+
+
+def presort(rows, o, d, t, a, keys=("octant", "morton")):
+    """The wavefront with its live rays first, stably sorted by `keys`:
+    "octant", the direction octant, and "morton", the Morton code of the
+    origin in the root box (`lbvh.morton3d`, 10 bits an axis), the first
+    key major; dead rays last: (rows, o, d, t, a, inv), inv the
+    permutation back to launch order."""
+    from ..accel.lbvh import morton3d
+    key = torch.zeros(o.shape[0], dtype=torch.int64, device=o.device)
+    for k in keys:
+        if k == "octant":
+            key = (key << 3) | ((d[:, 0] < 0).long()
+                                | ((d[:, 1] < 0).long() << 1)
+                                | ((d[:, 2] < 0).long() << 2))
+        else:
+            lo, hi = rows[0, 0:3], rows[0, 3:6]
+            key = (key << 30) | morton3d(
+                ((o - lo) / (hi - lo).clamp(min=1e-30)).clamp(0, 1))
+    key = torch.where(a, key, torch.full_like(key, 1 << 40))
+    order = torch.argsort(key, stable=True)
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(order.numel(), device=order.device)
+    return (rows, o[order].contiguous(), d[order].contiguous(),
+            t[order].contiguous(), a[order].contiguous(), inv)
+
+
+def _call_presorted(fn, rows, o, d, t, a, inv):
+    t_out, f_out = _call_packed(fn, rows, o, d, t, a)
+    return t_out[inv], f_out[inv]
+
+
 CALLS = {"woop": _call_union, "mask": _call_union,
          "worklist": _call_worklist, "dense": _call_dense,
          "dense_unlisted": lambda fn, *w: _call_dense(fn, *w, listed=False),
@@ -500,7 +657,11 @@ CALLS = {"woop": _call_union, "mask": _call_union,
                                                               scratch=False),
          "uncompact": _call_uncompact,
          "uncompact_unscratched": lambda fn, *w: _call_uncompact(
-             fn, *w, scratch=False)}
+             fn, *w, scratch=False),
+         "packed": _call_packed,
+         "packed_unscratched": lambda fn, *w: _call_packed(fn, *w,
+                                                            scratch=False),
+         "packed_presorted": _call_presorted}
 
 
 class SmClock:
@@ -553,6 +714,118 @@ def _graph_ms(fn, calls=10) -> float:
     return _ms(graph.replay) / calls
 
 
+@torch.no_grad()
+def traverse_while_while(pbvh: PackedLBVH, ro, rd, t0, active, batch: int,
+                         max_iters: int | None = None, unroll: int = 8,
+                         trace: list | None = None):
+    """The while-while designs' walk (csrc/packed_walk_designs.cu:
+    warp_step with kBatch = batch) as a 32-lane simulation, ray i on
+    lane i % 32 of warp i // 32. Each iteration, in each warp, the lanes
+    on internal rows take their slab steps while `batch` or more of them
+    are on one, or no lane sits at a leaf; else the lanes at a leaf take
+    their leaf tests, and the others wait. Each ray still takes its own
+    steps in its own order, so the result is traverse_wavefront's, bit
+    for bit (accel.packed.traverse_split's contract; `trace`:
+    accel.packed.split_steps' record)."""
+    table = split_table(pbvh.rows)
+    r = ro.shape[0]
+    c, left = split_start(pbvh, active, -(-r // WARP) * WARP, max_iters,
+                          unroll)
+    inv = safe_reciprocal(rd)
+    t_best = t0.clone()
+    face = torch.full((r,), -1, dtype=torch.int32, device=ro.device)
+    while bool((c != -1).any()):
+        on_inner, on_leaf = c >= 0, c < -1
+        n_inner = on_inner.view(-1, WARP).sum(1)
+        n_leaf = on_leaf.view(-1, WARP).sum(1)
+        slab = ((n_leaf == 0) | (n_inner >= batch)).repeat_interleave(WARP)
+        split_steps(table, c, torch.nonzero(on_inner & slab).flatten(),
+                    torch.nonzero(on_leaf & ~slab).flatten(), ro, rd, inv,
+                    t_best, face, left, trace)
+    return t_best, face
+
+
+def packed_measures(built, lib, waves, designs=None) -> dict:
+    """variant -> what the packed walk's designs are measured by, beside
+    their times: registers, local (spill) bytes, resident blocks and
+    warps an SM (the runtime's, through rk_pwalk_<name>_info), the
+    instructions of the walk loop (`kernels.sass`), and per wavefront
+    the SIMD efficiency and the mixed-step share of the design's
+    schedule: the plain walk's record for one thread a ray (batch 0), on
+    the rays in the order the threads take them
+    (`accel.packed.octant_order` for the octant-sorted blocks), the
+    while-while model (`traverse_while_while`) for a batch, none for
+    refilled warps. The presorted designs' are on the
+    presorted wavefronts."""
+    from ..accel.packed import (mixed_share, octant_order, simd_efficiency,
+                                traverse_wavefront)
+    from .sass import loop_sizes
+    out = {}
+    path = built[("packed", "pr12")][0]
+    # the walk loop of each kernel (the shortest loop with a row load):
+    # one unit a pass, whichever kind of row it steps
+    loops = {"pr12": (r"pr1218packed_walk_kernel", "LDG.E.128", 0),
+             "lean": (r"lean16lean_walk_kernelILb0E", "LDG.E.128", 0)}
+    for name, design in PACKED_DESIGNS.items():
+        if design is not None:
+            loops[name] = (design_pattern(design), "LDG.E.128", 0)
+    try:
+        for name, (n_ins, _) in loop_sizes(path, loops).items():
+            out.setdefault(name, {})["sass_loop"] = n_ins
+    except (OSError, subprocess.CalledProcessError) as e:
+        print(f"SASS not read: {e}", flush=True)
+    info = (ctypes.c_int * 4)()
+    lib_ = ctypes.CDLL(path)
+    for name in PACKED_DESIGNS:
+        f = getattr(lib_, f"rk_pwalk_{name}_info")
+        f.argtypes, f.restype = [P], ctypes.c_int
+        _check(f(ctypes.cast(info, P)), f"{name} info")
+        regs, local, blocks, threads = list(info)
+        out.setdefault(name, {}).update(
+            {"registers": regs, "local_bytes": local,
+             "blocks_per_sm": blocks, "warps_per_sm": blocks * threads // 32})
+    schedules = {}   # (sort keys, batch, block sort) -> the measures
+    runs = [(name, name, ()) for name in PACKED_DESIGNS]
+    runs += [(pre, name, keys) for pre, (name, keys) in PRESORTED.items()]
+    for label, name, keys in runs:
+        design = PACKED_DESIGNS[name] or (256, 0, 0, 1, 0, -1, 0, 0, 0, 0)
+        if design[2] or design[7] or design[8] or design[9] or (
+                designs and label not in designs):
+            continue
+        batch, block = design[1], design[0] if design[6] else 0
+        key_ = (keys, batch, block)
+        if key_ not in schedules:
+            simd, mixed = [], []
+            for w in waves["packed"]:
+                rows, o, d, t, a = presort(*w, keys)[:5] if keys else w
+                if block:
+                    lane = octant_order(d, a, block)
+                    o, d, t, a = (x[lane.clamp(max=o.shape[0] - 1)]
+                                  for x in (o, d, t, a))
+                    a = a & (lane < w[1].shape[0])
+                rec = []
+                if batch:
+                    traverse_while_while(PackedLBVH(rows=rows), o, d, t, a,
+                                         batch, trace=rec)
+                else:
+                    traverse_wavefront(PackedLBVH(rows=rows), o, d, t, a,
+                                       steps=rec)
+                simd.append(round(simd_efficiency(rec), 4))
+                mixed.append(round(mixed_share(rec), 4))
+                del rec
+            schedules[key_] = {"simd_efficiency": simd, "mixed_share": mixed}
+        out.setdefault(label, {}).update(schedules[key_])
+    for pre, (name, keys) in PRESORTED.items():
+        if designs and pre not in designs:
+            continue
+        out.setdefault(pre, {}).update(
+            {k: v for k, v in out[name].items()
+             if k not in ("simd_efficiency", "mixed_share")})
+        out[pre]["sort_ms"] = [round(_ms(lambda w=w: presort(*w, keys)), 6)
+                               for w in waves["packed"]]
+    return out
+
+
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--against", help="a checkout whose kernels join the sweep")
@@ -560,6 +833,9 @@ def main(argv=None) -> None:
     p.add_argument("--rounds", type=int, default=3)
     p.add_argument("--kernels", nargs="+", choices=tuple(SWEPT),
                    default=list(SWEPT))
+    p.add_argument("--designs", nargs="+", help="the packed walk's designs "
+                   "to time (of PACKED_DESIGNS and PRESORTED; default "
+                   "all)")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device: the sweep runs on the card")
@@ -569,14 +845,16 @@ def main(argv=None) -> None:
     print(card, flush=True)
     lib = kernel_lib()
     built = build_variants(args.kernels, args.against)
-    waves = wavefronts()
+    waves = wavefronts(args.kernels)
     # (kernel, variant) -> (function, its signature key, its wavefronts)
     fns = {}
     for kernel in args.kernels:
-        entry = SWEPT[kernel][1]
-        ref = _loaded(kernel, lib._name, entry)
-        want = [CALLS[kernel](ref, *w) for w in waves[kernel]]
-        variants = {(kernel, "package"): (ref, kernel, waves[kernel])}
+        source, entry = SWEPT[kernel][:2]
+        sig0 = (packed_sig(_read(CSRC_DIR, source)) if kernel == "packed"
+                else kernel)
+        ref = _loaded(sig0, lib._name, entry)
+        want = [CALLS[sig0](ref, *w) for w in waves[kernel]]
+        variants = {(kernel, "package"): (ref, sig0, waves[kernel])}
         if kernel == "dense":
             variants[(kernel, "all_tested")] = (
                 ref, kernel, [all_tested(w) for w in waves[kernel]])
@@ -587,6 +865,14 @@ def main(argv=None) -> None:
             if k == kernel:
                 variants[(k, name)] = (_loaded(sig, path, fn), sig,
                                        waves[kernel])
+        if kernel == "packed":
+            for pre, (name, keys) in PRESORTED.items():
+                variants[(kernel, pre)] = (
+                    variants[(kernel, name)][0], "packed_presorted",
+                    [presort(*w, keys) for w in waves[kernel]])
+            if args.designs:
+                variants = {k: v for k, v in variants.items()
+                            if k[1] in ("package", *args.designs)}
         for (k, name), (fn, sig, ws) in variants.items():
             for w, exp in zip(ws, want):
                 for x, y in zip(CALLS[sig](fn, *w), exp):
@@ -606,6 +892,8 @@ def main(argv=None) -> None:
                     graphed[key_].append(
                         [_graph_ms(lambda w=w: CALLS[sig](fn, *w))
                          for w in ws])
+    extra = (packed_measures(built, lib, waves, args.designs)
+             if "packed" in args.kernels else {})
     lines = []
     for (kernel, name), rounds in times.items():
         line = {"kernel": kernel, "variant": name, "card": card,
@@ -616,6 +904,15 @@ def main(argv=None) -> None:
             g = graphed[(kernel, name)]
             line["graph_ms_per_frame"] = [round(sum(r), 6) for r in g]
             line["graph_ms_per_wavefront"] = [round(x, 6) for x in g[-1]]
+        if kernel == "packed":
+            paths = waves["packed_path"]
+            for key_, per in (("ms_per_frame", rounds),
+                              ("graph_ms_per_frame", graphed.get(
+                                  (kernel, name), []))):
+                line[key_ + "_by_path"] = {
+                    p: [round(sum(x for x, q in zip(r, paths) if q == p), 6)
+                        for r in per] for p in dict.fromkeys(paths)}
+            line.update(extra.get(name, {}))
         lines.append(json.dumps(line))
     print("\n".join(lines), flush=True)
     if args.out:

@@ -649,6 +649,23 @@ def test_packed_walk_bitwise(gpu_scene, bvh_waves, bounce):
     assert int((kf >= 0).sum()) > 0
 
 
+@pytest.mark.parametrize("max_iters", [0, 3, 17])
+def test_packed_walk_max_iters(gpu_scene, bvh_waves, max_iters):
+    """A step cap of max_iters * unroll steps (unroll 1), which the kernel
+    counts down a ray at a time, cuts each walk after the same steps as
+    the plain walk's, on every bounce of the 256^2 bvh render, bitwise."""
+    from raypt_torch.accel.packed import traverse_wavefront
+    from raypt_torch.kernels import packed_walk as tpw
+    scene, _ = gpu_scene
+    pb, waves = bvh_waves
+    for wave in waves:
+        o, d, t, a, _, _ = wavefront_inputs(scene, *wave, 1)
+        kt, kf = tpw.packed_walk(pb, o, d, t, a, max_iters, 1)
+        pt, pf = traverse_wavefront(pb, o, d, t, a, max_iters, 1)
+        assert _bits_equal(kt, pt) and torch.equal(kf, pf)
+        assert max_iters > 0 or (_bits_equal(kt, t) and bool((kf == -1).all()))
+
+
 def test_packed_walk_edges(gpu_scene, bvh_waves):
     """chip_smoke.walk_edges: dead, missing, near-seeded, signed-zero,
     NaN and in-plane rays, duplicated triangles and a table whose every
@@ -674,3 +691,23 @@ def test_packed_walk_checks(bvh_waves):
         tpw.packed_walk(pb, o[:, :2].contiguous(), o, t, a)
     with pytest.raises(ValueError):
         tpw.packed_walk(pb, o, o, t, a.int())
+
+
+@pytest.mark.parametrize("design", ["pr12", "octsort_t128"])
+def test_packed_walk_designs_bitwise(gpu_scene, bvh_waves, design):
+    """The first kernel (pr12) and the package kernel's design, as the sweep
+    builds them from csrc/packed_walk_designs.cu, against the plain walk
+    on every bounce of the 256^2 bvh render, bitwise."""
+    from raypt_torch.accel.packed import traverse_wavefront
+    from raypt_torch.kernels import sweep
+    scene, _ = gpu_scene
+    pb, waves = bvh_waves
+    path, entry, sig = sweep.build_variants(["packed"], None)[("packed",
+                                                                design)]
+    fn = sweep._loaded(sig, path, entry)
+    for wave in waves:
+        o, d, t, a, _, _ = wavefront_inputs(scene, *wave, 1)
+        kt, kf = sweep.CALLS[sig](fn, pb.rows, o, d, t, a)
+        pt, pf = traverse_wavefront(pb, o, d, t, a)
+        assert _bits_equal(kt, pt) and torch.equal(kf, pf)
+        assert int((kf >= 0).sum()) > 0
