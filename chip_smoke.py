@@ -172,6 +172,21 @@ Phases:
      1024^2, 1 spp, 4 bounces; and make_finder with "onehot" (leaf 128,
      expand 0) and "cluster" given no accel, which build the LBVH on the
      card, bounce 0 through their kernels
+  9. fit: BASELINE config #5's fit step (scripts/baseline_config5.py's
+     final phase on one card: 80^2, 1 spp, 2 bounces, bvh, 16 orbit
+     views, lattice 10, the Laplacian prior at 3.0, the rgbd loss, Adam
+     at 0.03) through raypt_torch.diff.make_fit_step with a refit every
+     step, on _icosphere(6) (81,920 faces in 81,920 slots: no ground)
+     placed where the bunny stands: five steps through the packed walk's kernel, each
+     with its seconds and exactly 48 packed_walk launches (16 views x 3:
+     2 bounces and render_rgbd's depth pass); the loss falls; the first
+     two steps through the plain walk and a second five-step run are
+     bitwise equal to it (losses and every parameter); each step's
+     table is pack(refit(...)) of its positions, every triangle lies in
+     its leaf box and the boxes moved; then raypt_torch.diff.fit, the
+     loop's entry point, for two steps at its defaults (32 launches a
+     step, a second call bitwise equal); refit + pack timed alone and
+     one step traced with torch.profiler
 
 The last line is {"ok": true, "device": {...}}; the line before it is
 the per-kernel JSON summary: "ms", "plain_ms" and "bound_ms" are summed
@@ -192,6 +207,7 @@ Run: python3 chip_smoke.py
 """
 import ctypes
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -296,6 +312,28 @@ CLI_WIDTH = 512
 CLI_SPP = 5
 CLI_BOUNCES = 6
 LARGE_SUBDIV = 6
+# the fit path: BASELINE config #5 (scripts/baseline_config5.py) on one
+# card, its final phase: 80^2, 1 spp, 2 bounces, bvh, no roulette, 16
+# orbit views, lattice 10, the Laplacian prior at 3.0, Adam at 0.03, the
+# rgbd loss with depth weight 0.5. The mesh is the real-size stand-in
+# _icosphere(LARGE_SUBDIV), placed where the bunny stands: the unit
+# sphere's positions FIT_SCALE * p + FIT_SHIFT become, under
+# _bunny_transform, a sphere of radius 12 about the orbit's centre.
+FIT_WIDTH = 80
+FIT_BOUNCES = 2
+FIT_VIEWS = 16
+FIT_ORBIT = (32.5, -1.5, 20.0, 22.0)     # centre x, y, z and radius
+FIT_SCALE = 0.08
+FIT_SHIFT = (-0.0167, 0.11, 0.0)
+FIT_LATTICE = 10
+FIT_LAP_W = 3.0
+FIT_LR = 0.03
+FIT_DEPTH_W = 0.5
+FIT_TRAIN = ("albedo_logits", "lattice_scalar", "vertex_offsets")
+FIT_STEPS = 5
+FIT_PLAIN_STEPS = 2
+FIT_LOOP_STEPS = 2       # raypt_torch.diff.fit, the loop's entry point
+
 # the packed walk's rows (64 bytes a node visit) and f32 operations: an
 # internal row's slab test (12 sub/mul, 10 min/max, 6 compares, the leaf
 # flag and the link select), a leaf row's Moller-Trumbore test and merge
@@ -1640,7 +1678,7 @@ class SmClock:
 def profile_step(label, step):
     """Trace one call of `step` and log the device time: the top kernels
     by self time and the top backward ops by inclusive time, as shares
-    of the summed time of all kernels."""
+    of the summed time of all kernels. Returns that sum, in ms."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1664,6 +1702,7 @@ def profile_step(label, step):
             us = _dev_us(e, inclusive)
             log(f"  {us / 1e3:10.3f} ms {100 * us / total:5.1f}% "
                 f"x{e.count:<5d} {e.key[:90]}")
+    return total / 1e3
 
 
 def grad_check(build_scene, render, dev, view):
@@ -2460,6 +2499,290 @@ def implicit_builds(counters, scene, base, skey):
             f"ops")
 
 
+def rgbd_loss(img, tgt):
+    """scripts/baseline_config5.py's rgbd_loss: the RGB MSE plus
+    FIT_DEPTH_W times the depth MSE over the pixels where both the image
+    and the target hit (a hit / miss mismatch has no useful gradient)."""
+    import torch
+    rgb = torch.mean((img[..., :3] - tgt[..., :3]) ** 2)
+    both = (img[..., 3] > 0) & (tgt[..., 3] > 0)
+    sq = (img[..., 3] - tgt[..., 3]) ** 2
+    d = (torch.sum(torch.where(both, sq, torch.zeros_like(sq)))
+         / torch.clamp(both.sum(), min=1))
+    return rgb + FIT_DEPTH_W * d
+
+
+def config5_scene(dev, subdiv=LARGE_SUBDIV, width=FIT_WIDTH,
+                  views=FIT_VIEWS):
+    """BASELINE config #5's scene as scripts/baseline_config5.py:59-79
+    builds it (one material: albedo 1, specular (0.3, 1, 0.3),
+    specular_percent 0.5, roughness 0.8; the reference sky; no ground,
+    no light), with _icosphere(subdiv) placed where the bunny stands in
+    place of the absent OBJ; and the orbit's camera frames (FIT_ORBIT),
+    on `dev`. Returns (scene, views, real vertices)."""
+    import numpy as np
+    from raypt_torch.core.scene import MaterialDef, SceneBuilder
+    from raypt_torch.scenes.builtin import (_bunny_transform, _icosphere,
+                                            load_reference_envmap)
+    mesh = _icosphere(subdiv)
+    b = SceneBuilder(env=load_reference_envmap())
+    mat = b.add_material(MaterialDef(albedo=(1, 1, 1),
+                                     specular=(0.3, 1.0, 0.3),
+                                     specular_percent=0.5, roughness=0.8))
+    pos = FIT_SCALE * mesh["positions"] + np.float32(FIT_SHIFT)
+    b.add_mesh(pos, mesh["normals"], mesh["faces"], uvs=mesh["uvs"],
+               transform=_bunny_transform(), material=mat)
+    b.camera.viewport_width = b.camera.viewport_height = width
+    cx, cy, cz, r = FIT_ORBIT
+    frames = []
+    for k in range(views):
+        a = 2 * np.pi * k / views
+        b.camera.position = (cx + r * np.sin(a), cy, cz - r * np.cos(a))
+        b.camera.angle_y = 180.0 - np.degrees(a)
+        frames.append(b.camera.rays().to(dev))
+    return b.freeze(dev), frames, len(mesh["positions"])
+
+
+def config5_case(dev, subdiv=LARGE_SUBDIV, width=FIT_WIDTH,
+                 views=FIT_VIEWS):
+    """The fit's inputs, as scripts/baseline_config5.py:113-153 makes
+    them: RGB-D targets of the true scene (render_rgbd, key fold_in(
+    key(0), k) for view k, through its LBVH built on the card), and the
+    corrupted scene (offsets 0.8 sin(0.25 y + 0.3 x) n on the real
+    vertices, albedo clip(0.4 a + 0.2, 0.02, 0.98)) with its LBVH.
+    Returns (cfg, bad scene, its LBVH, stacked views, targets)."""
+    import torch
+    from raypt_torch.accel import lbvh
+    from raypt_torch.core.types import RenderConfig
+    from raypt_torch.diff import stack_views
+    from raypt_torch.diff.inverse import render_rgbd
+    from raypt_torch.render.integrator import make_finder
+    from raypt_torch.rng.sampler import fold_in, key
+    scene, frames, nv = config5_scene(dev, subdiv, width, views)
+    cfg = RenderConfig(width=width, height=width, samples_per_pixel=1,
+                       num_bounces=FIT_BOUNCES, backend="bvh",
+                       russian_roulette=False)
+    m = scene.mesh
+    finder = make_finder(scene, cfg, lbvh.build(m.positions, m.faces,
+                                                m.face_valid))
+    with torch.no_grad():
+        targets = torch.stack([
+            render_rgbd(scene.replace(camera=v), cfg, fold_in(key(0), k),
+                        finder) for k, v in enumerate(frames)])
+    n = m.normals / torch.clamp(torch.linalg.norm(m.normals, dim=-1,
+                                                  keepdim=True), min=1e-9)
+    off = 0.8 * torch.sin(0.25 * m.positions[:, 1:2]
+                          + 0.3 * m.positions[:, 0:1]) * n
+    off[nv:] = 0.0
+    bad = scene.replace(
+        mesh=m.replace(positions=m.positions + off),
+        materials=scene.materials.replace(albedo=torch.clamp(
+            scene.materials.albedo * 0.4 + 0.2, 0.02, 0.98)))
+    bm = bad.mesh
+    return (cfg, bad, lbvh.build(bm.positions, bm.faces, bm.face_valid),
+            stack_views(frames), targets)
+
+
+def fit_run(case, steps, ops=None, counters=None, tables=None):
+    """`steps` steps of the port's fit step (make_fit_step with the
+    config's settings, a refit every step) from SceneParams.init(bad,
+    lattice=FIT_LATTICE) and a fresh Adam. ops=PLAIN renders through the
+    plain walk (the finder's ops); with counters each step runs under
+    counted(), which requires FIT_VIEWS * (FIT_BOUNCES + 1) packed_walk
+    launches and no other; with a `tables` list each step's packed table
+    and realized positions are appended. Returns (losses, seconds a
+    step, the params after each step)."""
+    import torch
+    from raypt_torch.diff import SceneParams, make_fit_step
+    from raypt_torch.diff.inverse import render_rgbd
+    from raypt_torch.diff.priors import make_laplacian_reg
+    from raypt_torch.rng.sampler import key
+    cfg, bad, bvh, views, targets = case
+    m = bad.mesh
+    reg = make_laplacian_reg(m.faces.cpu().numpy(),
+                             m.face_valid.cpu().numpy(),
+                             m.positions.shape[0], weight=FIT_LAP_W)
+
+    def render(scene, cfg, k, finder):
+        if tables is not None and (not tables or tables[-1][0] is not finder):
+            tables.append((finder, finder.args[0].rows.clone(),
+                           scene.mesh.positions.detach().clone()))
+        return render_rgbd(scene, cfg, k,
+                           finder if ops is None else partial(finder, ops=ops))
+
+    params = SceneParams.init(bad, lattice=FIT_LATTICE)
+    opt = torch.optim.Adam(params.parameters(), lr=FIT_LR)
+    step = make_fit_step(bad, cfg, FIT_TRAIN, bvh=bvh, loss_fn=rgbd_loss,
+                         refit=True, render_fn=render, param_reg=reg)
+    want = {"packed_walk": FIT_VIEWS * (FIT_BOUNCES + 1)}
+    losses, secs, after = [], [], []
+    for _ in range(steps):
+        def one():
+            return step(params, opt, views, targets, key(0))
+        if counters is not None:
+            loss, s = counted(counters, want, one)
+        else:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = one()
+            torch.cuda.synchronize()
+            s = time.perf_counter() - t0
+        losses.append(loss)
+        secs.append(s)
+        after.append({k: v.detach().clone()
+                      for k, v in params.named_parameters()})
+    return losses, secs, after
+
+
+def same_fit(what, a, b, steps):
+    """Raise unless two fit_run results agree bit for bit over their
+    first `steps` steps: every loss and every parameter after each."""
+    for i in range(steps):
+        eq, err = bitwise_equal(a[0][i], b[0][i])
+        if not eq:
+            raise AssertionError(f"fit: {what}: step {i}'s loss differs "
+                                 f"(abs err {err})")
+        for k, v in a[2][i].items():
+            eq, err = bitwise_equal(v, b[2][i][k])
+            if not eq:
+                raise AssertionError(f"fit: {what}: {k} after step {i} "
+                                     f"differs (max abs err {err})")
+
+
+def check_refit_tables(case, tables):
+    """Each step's packed table is pack(refit(tree, positions)) of that
+    step's realized positions, bitwise; every valid triangle lies inside
+    its leaf's refitted box; the last step's internal boxes differ from
+    the first's. Returns the boxes that moved."""
+    import torch
+    from raypt_torch.accel import lbvh
+    from raypt_torch.accel.packed import pack
+    _, bad, bvh, _, _ = case
+    m = bad.mesh
+    tree = bvh.tensors(m.positions.device)
+    ni = bvh.num_leaves - 1
+    valid = m.face_valid[tree.leaf_face]
+    for i, (_, rows, pos) in enumerate(tables):
+        fitted = lbvh.refit(tree, pos, m.faces, m.face_valid)
+        ref = pack(fitted, pos, m.faces, m.face_valid).rows
+        if not torch.equal(rows.view(torch.int32), ref.view(torch.int32)):
+            raise AssertionError(f"fit: step {i}'s table is not the refit "
+                                 f"of its positions")
+        f = m.faces[tree.leaf_face].long()
+        for k in range(3):
+            p = pos[f[:, k]][valid]
+            if not (bool((p >= fitted.bmin[ni:][valid]).all())
+                    and bool((p <= fitted.bmax[ni:][valid]).all())):
+                raise AssertionError(f"fit: step {i}: a triangle lies "
+                                     f"outside its leaf box")
+    moved = int((tables[-1][1][:ni, 0:6] != tables[0][1][:ni, 0:6]).any(
+        dim=1).sum())
+    if not moved:
+        raise AssertionError("fit: the refit moved no box over the steps")
+    return moved
+
+
+def fit_loop(case, counters):
+    """raypt_torch.diff.fit, the loop's entry point, on the same inputs
+    at its defaults (SceneParams.init without a lattice, the l2 loss on
+    RGB through one sample a view, Adam at FIT_LR) with the LBVH:
+    FIT_LOOP_STEPS steps under counted() (FIT_VIEWS * FIT_BOUNCES
+    packed_walk launches a step), finite losses, and a second call
+    bitwise equal (losses and parameters). Returns its seconds."""
+    import torch
+    from raypt_torch.diff import fit, view_at
+    cfg, bad, bvh, views, targets = case
+    frames = [view_at(views, k) for k in range(targets.shape[0])]
+
+    def loop():
+        return fit(bad, cfg, frames, targets[..., :3], FIT_TRAIN[::2],
+                   steps=FIT_LOOP_STEPS, learning_rate=FIT_LR, bvh=bvh)
+
+    want = {"packed_walk": FIT_LOOP_STEPS * FIT_VIEWS * FIT_BOUNCES}
+    (params, losses), secs = counted(counters, want, loop)
+    params2, losses2 = loop()
+    if not all(map(math.isfinite, losses)) or losses != losses2:
+        raise AssertionError(f"fit(): losses {losses} then {losses2}")
+    for k, v in params.named_parameters():
+        eq, err = bitwise_equal(v.detach(), getattr(params2, k).detach())
+        if not eq:
+            raise AssertionError(f"fit(): {k} differs between two calls "
+                                 f"(max abs err {err})")
+    log(f"phase 9 fit(): {FIT_LOOP_STEPS} steps in {secs:.4f} s, losses "
+        f"{[round(x, 6) for x in losses]}, packed_walk "
+        f"{want['packed_walk']} launches; a second call bitwise equal")
+    return secs
+
+
+def fit_path(counters, dev):
+    """BASELINE config #5's fit step on the card through make_fit_step
+    (phase 9): FIT_STEPS steps through the packed walk's kernel, each
+    under counted() (FIT_VIEWS * (FIT_BOUNCES + 1) launches); the loss
+    must fall; the first FIT_PLAIN_STEPS again through the plain walk and
+    a second kernel run, both bitwise equal to the first; each step's
+    table is the refit of its positions and the boxes moved; then the
+    loop entry point `fit` (fit_loop), refit + pack timed alone and one
+    step profiled. Returns the launches a step."""
+    import torch
+    from raypt_torch.accel import lbvh
+    from raypt_torch.accel.packed import pack
+    from raypt_torch.accel.traverse import PLAIN
+    t0 = time.perf_counter()
+    case = config5_case(dev)
+    cfg, bad, bvh, views, targets = case
+    m = bad.mesh
+    made = time.perf_counter() - t0
+    hits = (targets[..., 3] > 0).float().mean(dim=(1, 2))
+    if not bool(torch.isfinite(targets).all()) or float(hits.min()) <= 0 \
+            or float(hits.max()) >= 1:
+        raise AssertionError(f"fit: the targets are not finite, or a view "
+                             f"sees no silhouette (hit shares "
+                             f"{hits.tolist()})")
+    tables = []
+    run = fit_run(case, FIT_STEPS, counters=counters, tables=tables)
+    losses = [float(x) for x in run[0]]
+    log(f"phase 9 fit: {int(m.face_valid.sum())} faces in {m.num_faces} "
+        f"slots, {targets.shape[0]} views of {cfg.width}^2, "
+        f"{cfg.num_bounces} bounces; "
+        f"scene, targets and LBVHs {made:.2f} s; hit share a view "
+        f"{float(hits.min()):.3f}-{float(hits.max()):.3f}")
+    for i, (loss, s) in enumerate(zip(losses, run[1])):
+        log(f"phase 9 fit: step {i}: loss {loss:.6f}, {s:.4f} s")
+    if not all(map(torch.isfinite, run[0])) or not losses[-1] < losses[0]:
+        raise AssertionError(f"fit: the loss did not fall: {losses}")
+    moved = check_refit_tables(case, tables)
+    plain = fit_run(case, FIT_PLAIN_STEPS, ops=PLAIN)
+    same_fit("the plain walk", run, plain, FIT_PLAIN_STEPS)
+    again = fit_run(case, FIT_STEPS)
+    same_fit("a second run", run, again, FIT_STEPS)
+    fit_loop(case, counters)
+    tree = bvh.tensors(dev)
+    pos = tables[-1][2]
+
+    def refit_pack():
+        return pack(lbvh.refit(tree, pos, m.faces, m.face_valid), pos,
+                    m.faces, m.face_valid)
+
+    rp_ms = cuda_ms(refit_pack, 10)
+    step_s = statistics.median(run[1][1:])
+    launches = FIT_VIEWS * (FIT_BOUNCES + 1)
+    busy_ms = profile_step("fit", lambda: fit_run(case, 1))
+    log(f"phase 9 fit: median step {step_s:.4f} s after the first "
+        f"(plain walk {statistics.median(plain[1]):.4f} s, second run "
+        f"{statistics.median(again[1][1:]):.4f} s); kernel time of a "
+        f"profiled step {busy_ms:.3f} ms, {100 * busy_ms / 1e3 / step_s:.1f}% "
+        f"of the median step (the device's busy share); refit + pack on "
+        f"the card "
+        f"{rp_ms:.4f} ms ({100 * rp_ms / 1e3 / step_s:.2f}% of a step); "
+        f"packed_walk {launches} launches a step; {moved} of "
+        f"{tree.num_leaves - 1} internal boxes moved from step 0 to step "
+        f"{FIT_STEPS - 1}; every "
+        f"step's table the refit of its positions; the plain walk's "
+        f"{FIT_PLAIN_STEPS} steps and a second run's {FIT_STEPS} bitwise "
+        f"equal (losses and parameters); {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main():
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
@@ -3155,6 +3478,12 @@ def main():
     log(f"phase 8: {time.perf_counter() - t0:.1f} s; packed_walk launches a "
         f"frame: bvh {launches['packed_walk']}, cli_default {cli_launches} "
         f"({CLI_BOUNCES} a sample), bvh_large {large_launches}")
+
+    # phase 9: BASELINE config #5's fit step
+    t0 = time.perf_counter()
+    fit_launches = fit_path(counters, dev)
+    log(f"phase 9: {time.perf_counter() - t0:.1f} s; packed_walk launches a "
+        f"fit step: {fit_launches}")
 
     for path, ms in stats.topwalk_ms.items():
         log(f"topwalk_cm and its transpose (pallas_topwalk's counterpart), "

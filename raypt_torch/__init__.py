@@ -11,7 +11,11 @@ torch version runs instead.
   raypt_torch.accel    host SAH tree, device LBVH build, packed table,
                        clusters, top tree, finders
   raypt_torch.kernels  the CUDA kernels' wrappers and plain versions
-  raypt_torch.render   integrator, shading, environment, tonemap
+  raypt_torch.render   integrator, shading, environment, tonemap,
+                       primary-hit AOVs
+  raypt_torch.diff     inverse rendering: scene parameters, mesh
+                       priors, the fit step (refit and pack on the
+                       card every step) and the fit loop
   raypt_torch.io       OBJ, glTF, Radiance .hdr, PNG, native SAH builder
   raypt_torch.scenes   the bench bunny, the Cornell box (with and without
                        the bunny), the triangle-on-ground scene, the

@@ -234,7 +234,7 @@ def lbvh_from_numpy(left, skip, bmin, bmax, leaf_face) -> LBVH:
                 leaf_face=np.array(leaf_face, np.int32))
 
 
-def packed_from_numpy(rows, device="cpu") -> PackedLBVH:
+def packed_from_numpy(rows, device="cuda") -> PackedLBVH:
     """The port's PackedLBVH from the JAX package's `pack` output rows
     (2N-1, 16) f32, bit patterns kept."""
     return PackedLBVH(rows=torch.from_numpy(np.array(rows, np.float32)).to(

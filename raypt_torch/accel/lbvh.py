@@ -9,7 +9,9 @@ The container holds numpy arrays, whoever built it: `build` and `refit`
 compute on the positions' device and return the arrays on the host,
 where the cluster builds (`ctree`, `clusters`) read them, as they read
 the native SAH tree (`host_bvh.build_sah`). `packed.pack` moves the
-walk's table to the positions' device.
+walk's table to the positions' device. `LBVH.tensors` uploads the arrays
+once; `refit` and `pack` of that `LBVHTensors` stay on its device, so a
+fit step that refits every step makes no host round trip.
 
 Parity: the build is integer work apart from the centroid
 (p0 + p1 + p2) / 3, the scene bounds, the [0, 1] mapping and the box
@@ -27,6 +29,7 @@ import numpy as np
 import torch
 
 from ..core.math3d import BIG
+from ..core.types import TensorTree
 
 _U32 = 0xFFFFFFFF
 # descending powers of two of the range and split searches
@@ -48,6 +51,38 @@ class LBVH:
     @property
     def num_nodes(self) -> int:
         return self.left.shape[0]
+
+    def tensors(self, device) -> "LBVHTensors":
+        """The arrays as tensors on `device` (links and faces int64)."""
+        def up(a, dtype):
+            return torch.from_numpy(np.array(a, dtype)).to(device)
+        return LBVHTensors(left=up(self.left, np.int64),
+                           skip=up(self.skip, np.int64),
+                           bmin=up(self.bmin, np.float32),
+                           bmax=up(self.bmax, np.float32),
+                           leaf_face=up(self.leaf_face, np.int64))
+
+
+@dataclasses.dataclass
+class LBVHTensors(TensorTree):
+    """An LBVH's arrays on one device (`LBVH.tensors`)."""
+    left: torch.Tensor       # (2N-1,) int64
+    skip: torch.Tensor       # (2N-1,) int64
+    bmin: torch.Tensor       # (2N-1, 3) f32
+    bmax: torch.Tensor       # (2N-1, 3) f32
+    leaf_face: torch.Tensor  # (N,) int64
+
+    @property
+    def num_leaves(self) -> int:
+        return self.leaf_face.shape[0]
+
+    @property
+    def num_nodes(self) -> int:
+        return self.left.shape[0]
+
+    def tensors(self, device) -> "LBVHTensors":
+        """Itself on `device`: refit and pack take either container."""
+        return self.to(device)
 
 
 def _expand_bits(v: torch.Tensor) -> torch.Tensor:
@@ -218,28 +253,32 @@ def build(positions: torch.Tensor, faces: torch.Tensor,
 
 
 @torch.no_grad()
-def refit(bvh: LBVH, positions: torch.Tensor, faces: torch.Tensor,
-          face_valid: torch.Tensor) -> LBVH:
+def refit(bvh, positions: torch.Tensor, faces: torch.Tensor,
+          face_valid: torch.Tensor):
     """The same topology with boxes recomputed for moved vertices, on
-    the positions' device. A node's right child is recovered as the skip
-    of its left child."""
+    the positions' device; returns the kind of container it was given:
+    an LBVH (numpy, the boxes copied back to the host) or an LBVHTensors
+    (on its device, no copy). Every internal box starts from the
+    given tree's, as in the JAX package. A node's right child is
+    recovered as the skip of its left child."""
     dev = positions.device
-    n = bvh.num_leaves
-    total = bvh.num_nodes
+    tree = bvh.tensors(dev)
+    n = tree.num_leaves
+    total = tree.num_nodes
     ni = n - 1
-    lf = torch.from_numpy(np.asarray(bvh.leaf_face, np.int64)).to(dev)
-    f = faces.to(dev, torch.int64)[lf]
+    f = faces.to(dev, torch.int64)[tree.leaf_face]
     positions = positions.detach()
     lmin, lmax = _leaf_boxes(positions[f[:, 0]], positions[f[:, 1]],
-                             positions[f[:, 2]], face_valid.to(dev)[lf])
-    bmin = torch.from_numpy(np.array(bvh.bmin, np.float32)).to(dev)
-    bmax = torch.from_numpy(np.array(bvh.bmax, np.float32)).to(dev)
+                             positions[f[:, 2]],
+                             face_valid.to(dev)[tree.leaf_face])
+    bmin = tree.bmin.clone()
+    bmax = tree.bmax.clone()
     bmin[ni:] = lmin
     bmax[ni:] = lmax
-    left = torch.from_numpy(np.asarray(bvh.left, np.int64)).to(dev)
-    skip = torch.from_numpy(np.asarray(bvh.skip, np.int64)).to(dev)
-    lc = torch.clamp(left[:ni], 0, total - 1)
-    rc = torch.clamp(skip[lc], 0, total - 1)
+    lc = torch.clamp(tree.left[:ni], 0, total - 1)
+    rc = torch.clamp(tree.skip[lc], 0, total - 1)
     bmin, bmax = _refit_rounds(bmin, bmax, lc, rc, ni)
+    if isinstance(bvh, LBVHTensors):
+        return dataclasses.replace(tree, bmin=bmin, bmax=bmax)
     return dataclasses.replace(bvh, bmin=bmin.cpu().numpy(),
                                bmax=bmax.cpu().numpy())

@@ -20,12 +20,10 @@ from __future__ import annotations
 
 import dataclasses
 
-import numpy as np
 import torch
 
 from ..core.math3d import EPS, cross, dot
 from ..core.types import TensorTree
-from .lbvh import LBVH
 
 ROW = 16
 
@@ -48,37 +46,33 @@ def ftoi(x: torch.Tensor) -> torch.Tensor:
 
 
 @torch.no_grad()
-def pack(bvh: LBVH, positions: torch.Tensor, faces: torch.Tensor,
+def pack(bvh, positions: torch.Tensor, faces: torch.Tensor,
          face_valid: torch.Tensor) -> PackedLBVH:
-    """The packed table of an LBVH at the current vertex positions, on
+    """The packed table of an LBVH, or of its `LBVHTensors` (read where
+    they lie, with no host copy), at the current vertex positions, on
     the positions' device. Re-run after `lbvh.refit`."""
     dev = positions.device
-    n = bvh.num_leaves
-    total = bvh.num_nodes
+    tree = bvh.tensors(dev)
+    n = tree.num_leaves
+    total = tree.num_nodes
     ni = n - 1
-
-    def host(a, dtype):
-        return torch.from_numpy(np.array(a, dtype)).to(dev)
-
-    left = host(bvh.left, np.int32)
-    skip = host(bvh.skip, np.int32)
-    lf = host(bvh.leaf_face, np.int32)
+    lf = tree.leaf_face
     rows = torch.zeros((total, ROW), dtype=torch.float32, device=dev)
-    rows[:ni, 0:3] = host(bvh.bmin[:ni], np.float32)
-    rows[:ni, 3:6] = host(bvh.bmax[:ni], np.float32)
-    rows[:ni, 12] = _itof(left[:ni])
-    rows[:ni, 13] = _itof(skip[:ni])
+    rows[:ni, 0:3] = tree.bmin[:ni]
+    rows[:ni, 3:6] = tree.bmax[:ni]
+    rows[:ni, 12] = _itof(tree.left[:ni])
+    rows[:ni, 13] = _itof(tree.skip[:ni])
 
-    f = faces.to(dev, torch.int64)[lf.long()]
+    f = faces.to(dev, torch.int64)[lf]
     positions = positions.detach()
     p0, p1, p2 = (positions[f[:, k]] for k in range(3))
-    ok = face_valid.to(dev)[lf.long()][:, None]
+    ok = face_valid.to(dev)[lf][:, None]
     zero = torch.zeros_like(p0)
     rows[ni:, 0:3] = p0
     rows[ni:, 3:6] = torch.where(ok, p1 - p0, zero)
     rows[ni:, 6:9] = torch.where(ok, p2 - p0, zero)
     rows[ni:, 12] = _itof(lf)
-    rows[ni:, 13] = _itof(skip[ni:])
+    rows[ni:, 13] = _itof(tree.skip[ni:])
     rows[ni:, 14] = 1.0
     return PackedLBVH(rows=rows)
 

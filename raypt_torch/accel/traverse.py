@@ -12,7 +12,8 @@ cluster finder (dense box cull into
 per-tile worklists, worklist intersection, overflow fallback).
 
 Finders return only discrete results and run without autograd; shading
-recomputes the chosen hit differentiably (`render.shading`). A triangle
+recomputes the chosen hit differentiably (`render.shading` in the
+integrator, `recompute_hit` for primary-hit AOVs and depth). A triangle
 wins over a sphere only when strictly closer: the cluster pass is seeded
 with the sphere distance.
 """
@@ -24,8 +25,8 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from ..core.math3d import BIG, STEP_PAIRS, intersect_aabb, \
-    intersect_sphere, intersect_triangle
+from ..core.math3d import (BIG, STEP_PAIRS, dot, intersect_aabb,
+                           intersect_sphere, intersect_triangle, normalize)
 from ..core.types import Scene
 from ..kernels import cluster_expand as _expand
 from ..kernels import cluster_pallas as _dense
@@ -62,6 +63,52 @@ class Hit:
     uv: torch.Tensor
     mat_id: torch.Tensor
     front_face: torch.Tensor
+
+
+def recompute_hit(scene: Scene, ro, rd, ids: HitIds) -> Hit:
+    """The chosen primitive's intersection, recomputed differentiably in
+    positions, normals, uvs and sphere centres and radii
+    (`traverse.py:855-903`). A triangle's shading normal is
+    (1-u-v) n0 + u n1 + v n2, normalized, then flipped to face the ray;
+    a sphere's is (p - centre) / radius, not flipped."""
+    m = scene.mesh
+    sp = scene.spheres
+    is_tri = ids.tri >= 0
+    is_sph = ids.sphere >= 0
+
+    fi = torch.clamp(ids.tri, min=0).long()
+    f = m.faces[fi].long()
+    v0, v1, v2 = (m.positions[f[..., k]] for k in range(3))
+    n0, n1, n2 = (m.normals[f[..., k]] for k in range(3))
+    t0, t1, t2 = (m.uvs[f[..., k]] for k in range(3))
+    _, tt, u, v = intersect_triangle(ro, rd, v0, v1, v2)
+    w = 1.0 - u - v
+    tri_n = normalize(w[..., None] * n0 + u[..., None] * n1
+                      + v[..., None] * n2)
+    backface = dot(rd, tri_n) >= 0.0
+    tri_n = torch.where(backface[..., None], -tri_n, tri_n)
+    tri_uv = w[..., None] * t0 + u[..., None] * t1 + v[..., None] * t2
+    tri_mat = m.face_material[fi]
+
+    si = torch.clamp(ids.sphere, min=0).long()
+    c = sp.center[si]
+    r = sp.radius[si]
+    _, st = intersect_sphere(ro, rd, c, r)
+    sph_mat = sp.material[si]
+
+    big = torch.full_like(tt, BIG)
+    t = torch.where(is_tri, tt, torch.where(is_sph, st, big))
+    pos = ro + rd * t[..., None]
+    sph_n = (pos - c) / torch.clamp(r, min=1e-12)[..., None]
+    normal = torch.where(is_tri[..., None], tri_n,
+                         torch.where(is_sph[..., None], sph_n,
+                                     torch.zeros_like(sph_n)))
+    uv = torch.where(is_tri[..., None], tri_uv, torch.zeros_like(tri_uv))
+    mat = torch.where(is_tri, tri_mat,
+                      torch.where(is_sph, sph_mat, torch.zeros_like(sph_mat)))
+    front = torch.where(is_tri, ~backface, is_sph & (dot(rd, sph_n) < 0.0))
+    return Hit(valid=is_tri | is_sph, t=t, position=pos, normal=normal, uv=uv,
+               mat_id=mat.to(torch.int32), front_face=front)
 
 
 def _closest_sphere(scene: Scene, ro, rd):
@@ -487,3 +534,4 @@ def find_closest_bvh(scene: Scene, bvh: LBVH, ro, rd,
         torch.int32), minus1)
     return HitIds(t=t_best, tri=tri,
                   sphere=torch.where(~tri_wins & (ts < BIG), si, minus1))
+

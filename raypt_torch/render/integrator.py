@@ -30,7 +30,7 @@ from ..accel.packed import PackedLBVH, pack
 from ..accel.traverse import (KERNELS, LBVH_ITEM, HitIds,
                               find_closest_bruteforce,
                               find_closest_cluster, find_closest_onehot,
-                              find_closest_packed)
+                              find_closest_packed, recompute_hit)
 from ..core.math3d import (dot, lerp, normalize, reflect, refract,
                            schlick_fresnel)
 from ..core.types import RenderConfig, Scene
@@ -336,3 +336,27 @@ def accumulate(prev: torch.Tensor, current: torch.Tensor, frame_index: int):
     """Progressive average lerp(prev, current, 1/(frame_index + 1))."""
     t = 1.0 / (frame_index + 1.0) if frame_index > 0 else 1.0
     return lerp(prev, current, t)
+
+
+def render_aovs(scene: Scene, cfg: RenderConfig,
+                finder: Optional[Finder] = None, accel=None) -> dict:
+    """Primary-hit AOVs at pixel centres (`integrator.py:431-451`):
+    "depth" (H, W), "normal" and "albedo" (H, W, 3), zero where the ray
+    misses, and the "hit" mask; differentiable through `recompute_hit`.
+    With no finder, make_finder's over `accel`."""
+    if finder is None:
+        finder = make_finder(scene, cfg, accel)
+    dev = scene.mesh.positions.device
+    jitter = torch.full((cfg.height, cfg.width, 2), 0.5, device=dev)
+    ro, rd = camera_rays_for_ids(scene, cfg, pixel_id_grid(cfg, dev), jitter)
+    rd = normalize(rd)
+    ids = finder(scene, ro, rd)
+    hit = recompute_hit(scene, ro, rd, ids)
+    albedo = scene.materials.albedo[hit.mat_id.long()]
+    v3 = hit.valid[..., None]
+    return {
+        "depth": torch.where(hit.valid, hit.t, torch.zeros_like(hit.t)),
+        "normal": torch.where(v3, hit.normal, torch.zeros_like(hit.normal)),
+        "albedo": torch.where(v3, albedo, torch.zeros_like(albedo)),
+        "hit": hit.valid,
+    }

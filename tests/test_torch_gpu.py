@@ -34,9 +34,10 @@ from raypt_torch.scenes.config4 import config4_scene
 
 from chip_smoke import (MERGE_LEAVES, WL_GROUPS, WOOP_ODD_LEAF, Stats,
                         check_lbvh, check_planted, compact_layouts,
-                        copy_most_hit, edge_seeds, merge_case, mixed_tile,
-                        walk_edges, walk_layouts, woop_faces, woop_merge,
-                        worklist_merge, zero_maps_table)
+                        config5_case, copy_most_hit, edge_seeds, fit_run,
+                        merge_case, mixed_tile, same_fit, walk_edges,
+                        walk_layouts, woop_faces, woop_merge, worklist_merge,
+                        zero_maps_table)
 
 pytestmark = pytest.mark.gpu
 
@@ -711,3 +712,16 @@ def test_packed_walk_designs_bitwise(gpu_scene, bvh_waves, design):
         pt, pf = traverse_wavefront(pb, o, d, t, a)
         assert _bits_equal(kt, pt) and torch.equal(kf, pf)
         assert int((kf >= 0).sum()) > 0
+
+
+def test_fit_step_kernel_vs_plain_bitwise():
+    """One step of BASELINE config #5's fit (chip_smoke.fit_run: a refit
+    every step, the Laplacian prior, lattice 10, render_rgbd) on a
+    smaller stand-in (_icosphere(4), 32^2, 2 views): through the packed
+    walk's kernel and through the plain walk, the loss and every
+    parameter after the step bitwise equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    case = config5_case("cuda", subdiv=4, width=32, views=2)
+    same_fit("the plain walk", fit_run(case, 1), fit_run(case, 1, ops=PLAIN),
+             1)

@@ -149,6 +149,47 @@ def test_refit_bitwise(case):
     assert not np.array_equal(got.bmin, np.asarray(jbvh.bmin))
 
 
+@pytest.mark.parametrize("case", ["F64", "F1000", "duplicates"])
+def test_refit_pack_on_device_bitwise(case, monkeypatch):
+    """A fit step's route: refit and pack of the tree's tensors
+    (LBVH.tensors) equal pack(refit(...)) of the numpy LBVH bit for bit,
+    with nothing copied to the host between the upload and the table (no
+    .cpu(), .numpy() or torch.from_numpy); the refit returns
+    LBVHTensors, leaves the uploaded boxes as they were, moves boxes
+    under the seeded jitter, and each valid triangle lies inside its
+    leaf box."""
+    pos, faces, valid = CASES[case]()
+    moved = pos + np.random.default_rng(9).normal(
+        0, 0.5, pos.shape).astype(np.float32)
+    bvh = tlbvh.build(*_torch(pos, faces, valid))
+    args = _torch(moved, faces, valid)
+    ref = tpacked.pack(tlbvh.refit(bvh, *args), *args)
+    tree = bvh.tensors("cpu")
+    uploaded = (tree.bmin.clone(), tree.bmax.clone())
+
+    def host_copy(*a, **kw):
+        raise AssertionError("a host copy between the refit and the pack")
+
+    for owner, name in ((torch.Tensor, "cpu"), (torch.Tensor, "numpy"),
+                        (torch, "from_numpy")):
+        monkeypatch.setattr(owner, name, host_copy)
+    refitted = tlbvh.refit(tree, *args)
+    got = tpacked.pack(refitted, *args)
+    monkeypatch.undo()
+    assert isinstance(refitted, tlbvh.LBVHTensors)
+    assert torch.equal(got.rows.view(torch.int32), ref.rows.view(torch.int32))
+    assert torch.equal(tree.bmin, uploaded[0])
+    assert torch.equal(tree.bmax, uploaded[1])
+    assert not torch.equal(refitted.bmin, tree.bmin)
+    ni = bvh.num_leaves - 1
+    lf = torch.from_numpy(bvh.leaf_face.astype(np.int64))
+    ok = torch.from_numpy(valid)[lf]
+    for k in range(3):
+        p = args[0][args[1][lf, k].long()][ok]
+        assert (p >= refitted.bmin[ni:][ok]).all()
+        assert (p <= refitted.bmax[ni:][ok]).all()
+
+
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_pack_bitwise(case):
     """pack: the (2N-1, 16) rows viewed as int32 equal JAX's (links and
@@ -162,8 +203,8 @@ def test_pack_bitwise(case):
     rows = np.asarray(ref.rows).view(np.int32)
     assert got.rows.shape == (2 * len(faces) - 1, 16)
     assert np.array_equal(got.rows.numpy().view(np.int32), rows)
-    assert np.array_equal(packed_from_numpy(ref.rows).rows.numpy().view(
-        np.int32), rows)
+    assert np.array_equal(packed_from_numpy(ref.rows, "cpu").rows.numpy()
+                          .view(np.int32), rows)
     _assert_same(lbvh_from_numpy(*(getattr(jbvh, k) for k in FIELDS)), jbvh)
 
 

@@ -57,7 +57,7 @@ def box():
     return dict(jscene=jscene, jbvh=jbvh, jpb=jpb,
                 scene=scene_from_numpy(jax_leaves(jscene), "cpu"),
                 bvh=lbvh_from_numpy(*(getattr(jbvh, k) for k in FIELDS)),
-                pb=packed_from_numpy(jpb.rows))
+                pb=packed_from_numpy(jpb.rows, "cpu"))
 
 
 @pytest.fixture(scope="module")
