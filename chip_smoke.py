@@ -187,6 +187,27 @@ Phases:
      loop's entry point, for two steps at its defaults (32 launches a
      step, a second call bitwise equal); refit + pack timed alone and
      one step traced with torch.profiler
+ 10. the CLI and bvh4: the bench scene's LBVH collapsed on the card into
+     the 4-wide tree (accel.wide.collapse); wide_walk, the ordered-stack
+     walk (csrc/wide_walk.cu, an XLA loop in the JAX package), against
+     its plain version, bitwise (t, face, overflow), on the bench
+     render's four bvh4 wavefronts (timed through the wrapper and from
+     CUDA graphs, with its bound from the visits the plain walk counts),
+     on bvh_large's primary wavefront and on wide_edges' (dead rays,
+     signed-zero and sub-clamp directions, origins in leaf boxes, NaN
+     rays, a NaN vertex in the leaves and in the boxes, stacks of 2 and
+     4, where rays overflow); find_closest_wide at a stack of 2 (its
+     retry: two launches) against the plain finder; the bench render
+     with backend "bvh4" (one launch a bounce) bitwise against the plain
+     walk's. Then raypt_torch.app.cli.main in-process on the card:
+     render at the CLI's defaults (cornell_bunny, 512^2, 5 spp, 6
+     bounces, auto with the LBVH: 30 packed_walk launches) bitwise
+     against render_frame with the same accel, --backend bvh4 (30
+     wide_walk launches) likewise, --backend onehot (the bench path's
+     four kernels, 30 launches each), --frames 1 --checkpoint twice
+     against --frames 2, --aovs --check (the default's image), inverse
+     on cornell_bunny at 32^2 for 3 steps (bvh: 8 packed_walk
+     launches), and bench, which exits non-zero naming its ROADMAP item
 
 The last line is {"ok": true, "device": {...}}; the line before it is
 the per-kernel JSON summary: "ms", "plain_ms" and "bound_ms" are summed
@@ -195,7 +216,7 @@ launches of each: four, eight on config4; topwalk_cm's over the unfused
 path's four and config4's eight, which the log also gives apart; the
 grouped kernel's on the cluster path's four), "launches" are counted in
 those paths' renders of phase 4 (0 for cluster_intersect_grouped, which
-no path runs); closest_dense's
+no path runs; wide_walk's in phase 10's bvh4 render); closest_dense's
 "library_ms" is matmul_closest, the same closest hit through
 torch.matmul, and cluster_intersect_mask_woop's is matmul_woop, through
 torch.bmm, on the same wavefronts (several calls each: no one torch
@@ -334,6 +355,24 @@ FIT_STEPS = 5
 FIT_PLAIN_STEPS = 2
 FIT_LOOP_STEPS = 2       # raypt_torch.diff.fit, the loop's entry point
 
+# the wide walk (phase 10, csrc/wide_walk.cu): the stacks that overflow
+# on the bench scene's wavefronts (find_closest_wide then walks the
+# flagged rays again at 4x), the rows of a visit the kernel reads (an
+# internal row's four boxes and ids, seven 16-byte loads; a leaf row's
+# four triangles, twelve), and the f32 operations of a visit: an internal
+# row's four slab tests (6 sub/mul pairs, 3 min and 3 max, 2 + 2 for the
+# near / far reductions, 6 compares, the clamp at 0 and the select: 30
+# each), the five exchanges of the sort (a compare and 4 selects each)
+# and the three push tests (3); a leaf row's four Moller-Trumbore tests
+# and merges (PACKED_LEAF_OPS less its leaf flag: 57 each); each live
+# ray's clamped reciprocal and its t0 + rd.x * 0 (14)
+WIDE_STACKS = (2, 4)
+WIDE_INTERNAL_BYTES = 112
+WIDE_LEAF_BYTES = 192
+WIDE_INTERNAL_OPS = 4 * 30 + 5 * 5 + 3
+WIDE_LEAF_OPS = 4 * 57
+WIDE_RAY_OPS = 14
+
 # the packed walk's rows (64 bytes a node visit) and f32 operations: an
 # internal row's slab test (12 sub/mul, 10 min/max, 6 compares, the leaf
 # flag and the link select), a leaf row's Moller-Trumbore test and merge
@@ -394,6 +433,9 @@ KERNELS = {   # name -> (paths that launch it, source, TPU kernel it replaces)
     # an XLA while_loop in the JAX package, not a Pallas kernel
     "packed_walk": (("bvh",), "raypt_torch/csrc/packed_walk.cu",
                     "raypt/accel/packed.py:85"),
+    # an XLA while_loop in the JAX package too: the bvh4 backend (phase 10)
+    "wide_walk": (("bvh4",), "raypt_torch/csrc/wide_walk.cu",
+                  "raypt/accel/wide.py:186"),
     # the scripts/ probes (raypt_torch/probes/), on no path: phase 7
     "walk_spec": ((), "raypt_torch/csrc/onehot_walk.cu",
                   "scripts/tpu_walk_spec_probe.py:146"),
@@ -2783,6 +2825,298 @@ def fit_path(counters, dev):
     return launches
 
 
+def wide_info():
+    """The wide walk's capacity-64 kernel as its library reports it
+    (rk_wide_walk_info): registers, local bytes (its stack), resident
+    blocks an SM, threads a block."""
+    from raypt_torch.kernels._build import kernel_lib
+    info = (ctypes.c_int * 4)()
+    if kernel_lib().rk_wide_walk_info(ctypes.cast(info, ctypes.c_void_p)):
+        raise AssertionError("rk_wide_walk_info failed")
+    return list(info)
+
+
+def compare_wide(stats, label, w, o, d, t, a, stack_d=None, timed=False):
+    """wide_walk against traverse_wide on one wavefront, bitwise (t,
+    face, overflow). Timed: also from a CUDA graph, with its bound, the
+    larger of the rows once and the rays in and out over the HBM rate and
+    the f32 operations of this wavefront's visits (counted by the plain
+    walk). Returns (face, overflow)."""
+    from raypt_torch.accel.wide import STACK_D, traverse_wide
+    from raypt_torch.kernels import wide_walk as ww
+    args = (w, o, d, t, a, stack_d or STACK_D)
+    kt, kf, ko = ww.wide_walk(*args)
+    pt, pf, po = traverse_wide(*args)
+    stats.check("wide_walk", f"{label} t", kt, pt)
+    stats.check("wide_walk", f"{label} face", kf, pf)
+    stats.check("wide_walk", f"{label} overflow", ko, po)
+    if timed:
+        visits = []
+        traverse_wide(*args, visits=visits)
+        inner = sum(v[0] for v in visits)
+        leaves = sum(v[1] for v in visits)
+        live = int(a.sum())
+        moved = nbytes(w.rows, o, d, t, a, kt, kf, ko)
+        ops = (WIDE_INTERNAL_OPS * inner + WIDE_LEAF_OPS * leaves
+               + WIDE_RAY_OPS * live)
+        stats.time("wide_walk", label, ww.wide_walk, traverse_wide, args,
+                   moved, ops)
+        stats.time_graph("wide_walk", label, ww.wide_walk, args)
+        rows = WIDE_INTERNAL_BYTES * inner + WIDE_LEAF_BYTES * leaves
+        log(f"  {label:9s} visits {inner} internal + {leaves} leaf "
+            f"({(inner + leaves) / max(live, 1):.1f} a live ray, "
+            f"{len(visits)} plain steps), hits {int((kf >= 0).sum())}; rows read "
+            f"{rows / 1e9:.3f} GB ({1e3 * rows / HBM_BYTES_PER_S:.4f} ms at "
+            f"the HBM rate), table {w.rows.numel() * 4 / 1e6:.1f} MB")
+    return kf, ko
+
+
+def wide_edges(stats, scene, bvh, w, wave):
+    """Phase 10's edge wavefronts of the wide walk, built from a bounce's
+    (ro, rd, active), each bitwise against the plain walk, in blocks of
+    EDGE_BLOCK rays (a quarter of a smaller wavefront): the first block
+    dead and the rest live; direction components of
+    exactly +-0 and of +-1e-13 (below the 1e-12 clamp) from the mesh's
+    centre; origins at face centroids (inside leaf boxes) in random
+    directions; two NaN rays (origin, then direction); the whole
+    wavefront at stacks of WIDE_STACKS, where rays overflow; and one NaN
+    vertex, in the triangles of the leaf rows (bvh, the LBVH of w,
+    collapsed at the poisoned positions) and also in the boxes (the LBVH
+    built from them: its boxes up to the root are NaN)."""
+    import torch
+    from raypt_torch.accel import lbvh
+    from raypt_torch.accel.traverse import wavefront_inputs
+    from raypt_torch.accel.wide import collapse
+    o, d, t, a, _, _ = wavefront_inputs(scene, *wave, 1)
+    o, d, t, a = o.clone(), d.clone(), t.clone(), a.clone()
+    n = min(EDGE_BLOCK, o.shape[0] // 4)
+    m = scene.mesh
+    valid = m.faces[m.face_valid].long()
+    centre = m.positions[valid.flatten()].mean(dim=0)
+    a[:n] = False
+    a[n:] = True
+    axis = torch.arange(n, device=o.device)
+    dirs = torch.zeros((n, 3), device=o.device)
+    dirs[axis, axis % 3] = torch.where(axis % 2 == 1, 1.0, -1.0)
+    dirs[::5, (1, 2)] = -0.0
+    dirs[::7, 2] = 1e-13
+    dirs[1::7, 0] = -1e-13
+    o[n:2 * n] = centre
+    d[n:2 * n] = dirs
+    gen = torch.Generator(device=o.device).manual_seed(16)
+    k = min(n, valid.shape[0])
+    cent = m.positions[valid[:k]].mean(dim=1)
+    rnd = torch.randn((k, 3), generator=gen, device=o.device)
+    o[2 * n:2 * n + k] = cent
+    d[2 * n:2 * n + k] = rnd / rnd.norm(dim=1, keepdim=True)
+    o[3 * n, 0] = float("nan")
+    d[3 * n + 1, 1] = float("nan")
+    compare_wide(stats, "edges", w, o, d, t, a)
+    hit = {}
+    for sd in WIDE_STACKS:
+        _, ovf = compare_wide(stats, f"stack {sd}", w, *wave_inputs_of(
+            scene, wave), stack_d=sd)
+        if not bool(ovf.any()):
+            raise AssertionError(f"wide_walk: no ray overflowed a stack of "
+                                 f"{sd}")
+        hit[sd] = int(ovf.sum())
+    pos = m.positions.clone()
+    pos[valid[0, 0]] = float("nan")
+    for label, tree in (("nan leaf", bvh), ("nan boxes", lbvh.build(
+            pos, m.faces, m.face_valid))):
+        compare_wide(stats, label, collapse(tree, pos, m.faces, m.face_valid),
+                     o, d, t, a)
+    log(f"phase 10 wide edges: dead, signed-zero and sub-clamp directions, "
+        f"origins in leaf boxes, NaN rays, a NaN vertex's tree, and stacks "
+        f"{WIDE_STACKS} ({hit} rays overflowed): bitwise equal")
+
+
+def wave_inputs_of(scene, wave):
+    """A recorded bounce (ro, rd, active) as the finder hands it to the
+    walk: (o, d, t0 from the sphere pass, active)."""
+    from raypt_torch.accel.traverse import wavefront_inputs
+    return wavefront_inputs(scene, *wave, 1)[:4]
+
+
+def record_waves(scene, cfg, skey, finder):
+    """The (ro, rd, active) each bounce of one render_sample hands the
+    finder."""
+    import torch
+    from raypt_torch.render.integrator import render_sample
+    rec = []
+
+    def recording(s, ro, rd, active=None):
+        rec.append((ro.reshape(-1, 3).clone(), rd.reshape(-1, 3).clone(),
+                    active.reshape(-1).clone()))
+        return finder(s, ro, rd, active)
+
+    with torch.no_grad():
+        render_sample(scene, cfg, skey, recording)
+    return rec
+
+
+def wide_path(stats, counters, dev, scene, bvh, base, skey):
+    """Phase 10's bvh4 part: the wide tree collapsed on the card from the
+    bench scene's LBVH; wide_walk against the plain walk on the four
+    bounce wavefronts of the bench render (timed, also from graphs), on
+    bvh_large's primary wavefront and on wide_edges'; find_closest_wide
+    at a stack of 2 (its retry launches the kernel twice) against the
+    plain finder; then the bench render with backend "bvh4" through the
+    kernel (one launch a bounce) against the plain walk's render,
+    bitwise. Returns the render's launches."""
+    import torch
+    from raypt_torch.accel import lbvh
+    from raypt_torch.accel.traverse import KERNELS, PLAIN, find_closest_wide
+    from raypt_torch.accel.wide import collapse
+    from raypt_torch.render.integrator import make_finder, render_sample
+    from raypt_torch.scenes.builtin import _icosphere, stanford_bunny
+    m = scene.mesh
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    w = collapse(bvh, m.positions, m.faces, m.face_valid)
+    torch.cuda.synchronize()
+    regs, local, blocks, threads = wide_info()
+    log(f"phase 10 bvh4: collapse on the card {time.perf_counter() - t0:.4f} "
+        f"s, rows {tuple(w.rows.shape)} ({w.nw_cap} internal slots), root "
+        f"{w.root}; wide_walk: {regs} registers, {local} local bytes, "
+        f"{blocks} blocks of {threads} resident an SM")
+    cfg = base.replace(backend="bvh4")
+    finder = make_finder(scene, cfg, w)
+    waves = record_waves(scene, cfg, skey, finder)
+    stats.path = "bvh4"
+    for b, wave in enumerate(waves):
+        compare_wide(stats, f"bounce {b}", w, *wave_inputs_of(scene, wave),
+                     timed=True)
+    log("phase 10 bvh4: wide_walk bitwise equal to traverse_wide on the "
+        "bench render's four wavefronts")
+    large = stanford_bunny(mesh=_icosphere(LARGE_SUBDIV))
+    large.camera.viewport_width = large.camera.viewport_height = WIDTH
+    ls = large.freeze(dev)
+    lm = ls.mesh
+    wl = collapse(lbvh.build(lm.positions, lm.faces, lm.face_valid),
+                  lm.positions, lm.faces, lm.face_valid)
+    lcfg = cfg.replace(num_bounces=1)
+    lwave = record_waves(ls, lcfg, skey, make_finder(ls, lcfg, wl))[0]
+    compare_wide(stats, "large b0", wl, *wave_inputs_of(ls, lwave))
+    log(f"phase 10 bvh_large: {int(lm.face_valid.sum())} faces, rows "
+        f"{tuple(wl.rows.shape)} ({wl.rows.numel() * 4 / 1e6:.1f} MB); "
+        f"primary wavefront bitwise equal")
+    wide_edges(stats, scene, bvh, w, waves[1])
+    ro, rd, active = waves[1]
+
+    def retry(ops):
+        return find_closest_wide(scene, w, ro, rd, active, stack_d=2, ops=ops)
+
+    got, _ = counted(counters, {"wide_walk": 2}, lambda: retry(KERNELS))
+    want = retry(PLAIN)
+    for f in ("t", "tri", "sphere"):
+        eq, err = bitwise_equal(getattr(got, f), getattr(want, f))
+        if not eq:
+            raise AssertionError(f"find_closest_wide at stack 2: {f} differs "
+                                 f"from the plain finder's (max abs err "
+                                 f"{err})")
+
+    def render(f=finder):
+        return render_sample(scene, cfg, skey, f, return_alive=True)
+
+    render()   # warm-up
+    out, secs = counted(counters, {"wide_walk": BOUNCES}, render)
+    equal_renders("bvh4", out, render(partial(finder, ops=PLAIN)))
+    log(f"path bvh4: bench render {secs:.4f} s through {BOUNCES} wide_walk "
+        f"launches, traced {out[1].tolist()}, image mean "
+        f"{float(out[0].mean()):.6f}; bitwise equal to the plain walk's "
+        f"render; find_closest_wide at stack 2 (one retry) bitwise equal to "
+        f"the plain finder's")
+    return BOUNCES
+
+
+def cli_phase(counters, dev):
+    """Phase 10's CLI part: raypt_torch.app.cli.main in-process on the
+    card. render at its defaults (cornell_bunny, 512^2, 5 spp, 6 bounces,
+    auto with the LBVH: bvh, 30 packed_walk launches), its image bitwise
+    the direct render_frame's with the same accel; --backend bvh4 (30
+    wide_walk launches) against render_frame through the bvh4 finder;
+    --backend onehot (the bench path's four kernels, 30 launches each);
+    --frames 1 --checkpoint twice against --frames 2; --aovs and --check
+    (its image the default's); inverse on cornell_bunny at 32^2 for 3
+    steps (bvh: 8 packed_walk launches, the target's 2 and 2 a step),
+    finite losses and the saved parameters; bench exits non-zero naming
+    its item."""
+    import tempfile
+    import torch
+    from raypt_torch.app import cli
+    from raypt_torch.core.types import RenderConfig
+    from raypt_torch.render.integrator import render_frame
+    from raypt_torch.rng.sampler import key
+    frame = CLI_SPP * CLI_BOUNCES
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "r.png")
+
+        def run(*extra, expect=None):
+            argv = ["render", "-o", out] + list(extra)
+            res, secs = counted(counters, expect or {}, lambda: cli.main(argv))
+            log(f"phase 10 cli: render {' '.join(extra) or '(defaults)'}: "
+                f"{secs:.3f} s, launches {expect}, image mean "
+                f"{float(res.mean()):.6f}")
+            return res
+
+        def direct(backend):
+            b = cli._build_scene("cornell_bunny", (CLI_WIDTH, CLI_WIDTH), None)
+            s = b.freeze(dev)
+            cfg = RenderConfig(width=CLI_WIDTH, height=CLI_WIDTH,
+                               samples_per_pixel=CLI_SPP,
+                               num_bounces=CLI_BOUNCES, backend=backend)
+            with torch.no_grad():
+                return render_frame(s, cfg, key(0),
+                                    accel=cli.render_accel(s, cfg))
+
+        acc = run(expect={"packed_walk": frame})
+        equal_renders("cli render", (acc, acc.new_zeros(0)),
+                      (direct("auto"), acc.new_zeros(0)))
+        acc4 = run("--backend", "bvh4", expect={"wide_walk": frame})
+        equal_renders("cli render bvh4", (acc4, acc4.new_zeros(0)),
+                      (direct("bvh4"), acc4.new_zeros(0)))
+        run("--backend", "onehot", expect={
+            k: frame for k in ("alive_compact", "topwalk_cm_u",
+                               "cluster_expand", "alive_uncompact")})
+        ck = os.path.join(tmp, "state.npz")
+        run("--frames", "1", "--checkpoint", ck,
+            expect={"packed_walk": frame})
+        two = run("--frames", "1", "--checkpoint", ck,
+                  expect={"packed_walk": frame})
+        ref = run("--frames", "2", expect={"packed_walk": 2 * frame})
+        equal_renders("cli checkpoint resume", (two, two.new_zeros(0)),
+                      (ref, ref.new_zeros(0)))
+        checked = run("--aovs", "--check", expect={"packed_walk": frame + 1})
+        equal_renders("cli --check", (checked, checked.new_zeros(0)),
+                      (acc, acc.new_zeros(0)))
+        base = os.path.splitext(out)[0]
+        for name in ("depth", "normal", "albedo"):
+            if not os.path.getsize(f"{base}.{name}.png"):
+                raise AssertionError(f"cli --aovs wrote no {name} image")
+        argv = ["inverse", "--scene", "cornell_bunny", "--size", "32",
+                "--steps", "3", "-o", os.path.join(tmp, "params.npz")]
+        (params, losses), secs = counted(
+            counters, {"packed_walk": 8}, lambda: cli.main(argv))
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"cli inverse: losses {losses}")
+        import numpy as np
+        with np.load(os.path.join(tmp, "params.npz")) as z:
+            if int(z["__step__"]) != 3 or ".albedo_logits" not in z.files:
+                raise AssertionError(f"cli inverse: saved {z.files}")
+        log(f"phase 10 cli: inverse cornell_bunny 32^2, 3 steps (bvh, 8 "
+            f"packed_walk launches) {secs:.3f} s, losses {losses}")
+        try:
+            cli.main(["bench"])
+        except SystemExit as e:
+            if e.code in (0, None) or "Port bench" not in str(e.code):
+                raise AssertionError(f"cli bench exited with {e.code!r}")
+            log(f"phase 10 cli: bench exits non-zero: {e.code}")
+        else:
+            raise AssertionError("cli bench did not exit")
+
+
+
 def main():
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
@@ -2842,6 +3176,7 @@ def main():
     from raypt_torch.kernels import dense_pallas as dp
     from raypt_torch.kernels import onehot_walk as wk
     from raypt_torch.kernels import packed_walk as pw
+    from raypt_torch.kernels import wide_walk as ww
     from raypt_torch.accel.packed import pack
     from raypt_torch.render.integrator import (make_finder, render_frame,
                                                render_sample, resolve_backend)
@@ -3240,6 +3575,7 @@ def main():
                 "cluster_intersect_mask_woop": dn.cluster_intersect_mask_woop,
                 "cluster_intersect_grouped": dn.cluster_intersect_grouped,
                 "packed_walk": pw.packed_walk,
+                "wide_walk": ww.wide_walk,
                 **probe_counters()}
     launches = {k: 0 for k in KERNELS}
     images = {}
@@ -3484,6 +3820,14 @@ def main():
     fit_launches = fit_path(counters, dev)
     log(f"phase 9: {time.perf_counter() - t0:.1f} s; packed_walk launches a "
         f"fit step: {fit_launches}")
+
+    # phase 10: the CLI and bvh4
+    t0 = time.perf_counter()
+    launches["wide_walk"] = wide_path(stats, counters, dev, scene, bvh_card,
+                                      base, skey)
+    cli_phase(counters, dev)
+    log(f"phase 10: {time.perf_counter() - t0:.1f} s; wide_walk launches a "
+        f"bench frame: {launches['wide_walk']}")
 
     for path, ms in stats.topwalk_ms.items():
         log(f"topwalk_cm and its transpose (pallas_topwalk's counterpart), "

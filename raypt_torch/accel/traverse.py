@@ -1,6 +1,7 @@
 """Closest-hit finders (`raypt/accel/traverse.py`): the brute-force toy
 oracle; the packed skip-link finder of the `bvh` backends
-(`find_closest_packed`) and the unpacked reference walk
+(`find_closest_packed`), the wide ordered-stack finder of `bvh4`
+(`find_closest_wide`) and the unpacked reference walk
 (`find_closest_bvh`); the onehot finder, in its per-ray-exact branch (alive
 compaction, top-tree walk, cluster expansion, uncompaction), its
 dense-union branch (walk to per-tile unions, dense tile x cluster
@@ -34,11 +35,13 @@ from ..kernels import compact as _compact
 from ..kernels import dense_pallas as _woop_kernel
 from ..kernels import onehot_walk as _walk
 from ..kernels import packed_walk as _packed
+from ..kernels import wide_walk as _wide
 from .clusters import (WORKLIST_CAP, Clusters, intersect_worklist,
                        tile_union_counts, tile_worklists, worklist_slice)
 from .ctree import OnehotAccel, walk_topwalk
 from .lbvh import LBVH
 from .packed import PackedLBVH, safe_reciprocal, traverse_wavefront
+from .wide import STACK_D, WideBVH, traverse_wide
 
 
 @dataclasses.dataclass
@@ -175,6 +178,7 @@ class FinderOps(NamedTuple):
     closest_dense: Callable    # dense and pallas (kernels/intersect.py)
     intersect_woop: Callable   # onehot, Woop branch
     packed_walk: Callable      # bvh and bvh2
+    wide_walk: Callable        # bvh4
 
 
 KERNELS = FinderOps(_compact.alive_compact, _walk.topwalk_cm_u,
@@ -182,14 +186,16 @@ KERNELS = FinderOps(_compact.alive_compact, _walk.topwalk_cm_u,
                     _walk.topwalk_union, _dense.cluster_intersect_mask,
                     _dense.cluster_intersect, _walk.topwalk,
                     _woop_kernel.closest_dense,
-                    _dense.cluster_intersect_mask_woop, _packed.packed_walk)
+                    _dense.cluster_intersect_mask_woop, _packed.packed_walk,
+                    _wide.wide_walk)
 PLAIN = FinderOps(_compact.alive_compact_plain, _walk.topwalk_cm_u_plain,
                   _expand.cluster_expand_plain, _compact.alive_uncompact_plain,
                   _walk.topwalk_union_plain,
                   _dense.cluster_intersect_mask_plain,
                   _dense.cluster_intersect_plain, walk_topwalk,
                   _woop_kernel.closest_dense_plain,
-                  _dense.cluster_intersect_mask_woop_plain, traverse_wavefront)
+                  _dense.cluster_intersect_mask_woop_plain, traverse_wavefront,
+                  traverse_wide)
 
 # rays per padding chunk of the dense-union branch and the cluster
 # finder: 8 tiles (`max(8 * TILE, RAY_TILE)` in the JAX package)
@@ -413,6 +419,35 @@ def sort_wavefront(flat_d: torch.Tensor, flat_a: torch.Tensor):
     return order, inv
 
 
+def _walk_hit_ids(t_best, face, ts, si) -> HitIds:
+    """HitIds of a walk seeded with the sphere pass (ts, si): the walk's
+    t, its face where it found one, else the sphere where one was hit.
+    Dead rays keep the sphere's t."""
+    t_best, face = t_best.reshape(ts.shape), face.reshape(ts.shape)
+    tri_wins = face >= 0
+    minus1 = torch.full_like(si, -1)
+    return HitIds(t=t_best, tri=torch.where(tri_wins, face, minus1),
+                  sphere=torch.where(~tri_wins & (ts < BIG), si, minus1))
+
+
+def _pad_rays(flat_o, flat_d, flat_t, flat_a, tile: int):
+    """The flat wavefront padded with dead rays (origin 0, direction +z,
+    t BIG) to a multiple of tile, when tile is set and below its length,
+    as the JAX finders pad for their tiled loops."""
+    n = flat_o.shape[0]
+    pad = (-n) % tile if tile and n > tile else 0
+    if pad:
+        dev = flat_o.device
+        flat_o = torch.cat([flat_o, torch.zeros((pad, 3), device=dev)])
+        flat_d = torch.cat([flat_d, torch.tensor(
+            [0.0, 0.0, 1.0], device=dev).expand(pad, 3)])
+        flat_t = torch.cat([flat_t, torch.full((pad,), BIG, device=dev)])
+        flat_a = torch.cat([flat_a, torch.zeros((pad,), dtype=torch.bool,
+                                                device=dev)])
+    return (flat_o.contiguous(), flat_d.contiguous(), flat_t.contiguous(),
+            flat_a.contiguous())
+
+
 @torch.no_grad()
 def find_closest_packed(scene: Scene, pbvh: PackedLBVH, ro, rd, active=None,
                         tile: int = 0, unroll: int = 8,
@@ -452,27 +487,43 @@ def find_closest_packed(scene: Scene, pbvh: PackedLBVH, ro, rd, active=None,
         order, inv = sort_wavefront(flat_d, flat_a)
         flat_o, flat_d, flat_t, flat_a = (x[order] for x in
                                           (flat_o, flat_d, flat_t, flat_a))
-    if tile and n > tile:
-        pad = (-n) % tile
-        if pad:
-            dev = flat_o.device
-            flat_o = torch.cat([flat_o, torch.zeros((pad, 3), device=dev)])
-            flat_d = torch.cat([flat_d, torch.tensor(
-                [0.0, 0.0, 1.0], device=dev).expand(pad, 3)])
-            flat_t = torch.cat([flat_t, torch.full((pad,), BIG, device=dev)])
-            flat_a = torch.cat([flat_a, torch.zeros((pad,), dtype=torch.bool,
-                                                    device=dev)])
-    t_best, face = ops.packed_walk(pbvh, flat_o.contiguous(),
-                                   flat_d.contiguous(), flat_t.contiguous(),
-                                   flat_a.contiguous(), unroll=unroll)
+    t_best, face = ops.packed_walk(
+        pbvh, *_pad_rays(flat_o, flat_d, flat_t, flat_a, tile), unroll=unroll)
     t_best, face = t_best[:n], face[:n]
     if inv is not None:
         t_best, face = t_best[inv], face[inv]
-    t_best, face = t_best.reshape(ts.shape), face.reshape(ts.shape)
-    tri_wins = face >= 0
-    minus1 = torch.full_like(si, -1)
-    return HitIds(t=t_best, tri=torch.where(tri_wins, face, minus1),
-                  sphere=torch.where(~tri_wins & (ts < BIG), si, minus1))
+    return _walk_hit_ids(t_best, face, ts, si)
+
+
+@torch.no_grad()
+def find_closest_wide(scene: Scene, wbvh: WideBVH, ro, rd, active=None,
+                      tile: int = 0, stack_d: int = 0,
+                      ops: FinderOps = KERNELS) -> HitIds:
+    """The wide finder (`traverse.py:280-336`): spheres first, then one
+    ordered-stack walk of the whole wavefront (one kernel launch on the
+    card) seeded with the sphere t, so a triangle wins only when
+    strictly closer; dead rays keep the sphere's t and take no triangle.
+    tile pads the wavefront with dead rays to a multiple of tile and
+    changes no result (rays are independent). Rays whose stack of
+    stack_d entries (STACK_D when 0) overflowed are walked again, alone,
+    with a stack 4x deeper, and take that result; every other ray keeps
+    its first one. Deciding whether to retry reads one flag back to the
+    host (the JAX package's lax.cond)."""
+    stack_d = stack_d or STACK_D
+    ts, si = _closest_sphere(scene, ro, rd)
+    flat_a = (torch.ones(ts.numel(), dtype=torch.bool, device=ts.device)
+              if active is None else active.reshape(-1))
+    n = flat_a.shape[0]
+    flat_o, flat_d, flat_t, flat_a = _pad_rays(
+        ro.reshape(-1, 3), rd.reshape(-1, 3), ts.reshape(-1), flat_a, tile)
+    t_best, face, ovf = ops.wide_walk(wbvh, flat_o, flat_d, flat_t, flat_a,
+                                      stack_d)
+    if bool(ovf.any()):
+        t2, f2, _ = ops.wide_walk(wbvh, flat_o, flat_d, flat_t,
+                                  flat_a & ovf, 4 * stack_d)
+        t_best = torch.where(ovf, t2, t_best)
+        face = torch.where(ovf, f2, face)
+    return _walk_hit_ids(t_best[:n], face[:n], ts, si)
 
 
 def _traverse_one(bvh: LBVH, p0, p1, p2, face_valid, o, d, t0):

@@ -1,5 +1,6 @@
 """Vector math on torch tensors whose last axis is the vector axis
-(`raypt/core/math3d.py`, the parts the render path uses).
+(`raypt/core/math3d.py`): vectors, ray-primitive tests, transforms and
+tone mapping.
 
 Three-component sums are written out term by term, left to right, so
 the rounding order is fixed on every device ("no hit" is BIG).
@@ -133,6 +134,58 @@ def aabb_empty(device=None):
 
 def aabb_union(amin, amax, bmin, bmax):
     return torch.minimum(amin, bmin), torch.maximum(amax, bmax)
+
+
+def _cos_sin(a):
+    a = torch.as_tensor(a, dtype=torch.float32)
+    return torch.cos(a), torch.sin(a)
+
+
+def rot_x(a) -> torch.Tensor:
+    """Rotation by a (radians, f32) about x as a 3x3 f32 tensor."""
+    c, s = _cos_sin(a)
+    one, zero = torch.ones_like(c), torch.zeros_like(c)
+    return torch.stack([torch.stack([one, zero, zero]),
+                        torch.stack([zero, c, -s]),
+                        torch.stack([zero, s, c])])
+
+
+def rot_y(a) -> torch.Tensor:
+    c, s = _cos_sin(a)
+    one, zero = torch.ones_like(c), torch.zeros_like(c)
+    return torch.stack([torch.stack([c, zero, s]),
+                        torch.stack([zero, one, zero]),
+                        torch.stack([-s, zero, c])])
+
+
+def rot_z(a) -> torch.Tensor:
+    c, s = _cos_sin(a)
+    one, zero = torch.ones_like(c), torch.zeros_like(c)
+    return torch.stack([torch.stack([c, -s, zero]),
+                        torch.stack([s, c, zero]),
+                        torch.stack([zero, zero, one])])
+
+
+def compose_matrix(translation, rot3, scale) -> torch.Tensor:
+    """TRS compose: a 4x4 f32 whose 3x3 block is rot3 with column j
+    scaled by scale[j] and whose last column is the translation."""
+    rot3 = torch.as_tensor(rot3, dtype=torch.float32)
+    m = torch.eye(4, dtype=torch.float32, device=rot3.device)
+    m[:3, :3] = rot3 * torch.as_tensor(scale, dtype=torch.float32,
+                                       device=rot3.device)[None, :]
+    m[:3, 3] = torch.as_tensor(translation, dtype=torch.float32,
+                               device=rot3.device)
+    return m
+
+
+def transform_points(mat4, pts):
+    """A 4x4 applied to (..., 3) points (w = 1)."""
+    return pts @ mat4[:3, :3].T + mat4[:3, 3]
+
+
+def transform_dirs(mat4, dirs):
+    """A 4x4 applied to (..., 3) directions (w = 0)."""
+    return dirs @ mat4[:3, :3].T
 
 
 def euler_to_mat(ax: float, ay: float, az: float = 0.0) -> np.ndarray:

@@ -1,10 +1,12 @@
 """Host scene builder (`raypt/core/scene.py`): numpy state, frozen into
 a `Scene` of tensors by `freeze(device)`, on the card unless the caller
-asks for another device. Capacities are padded as in the JAX package, so
-both packages freeze a builder to identical arrays.
+asks for another device. Capacities are padded as in the JAX package
+(unless `pad=False`), so both packages freeze a builder to identical
+arrays. `dirty` tracks edits since the last freeze (`DirtyFlag`).
 """
 from __future__ import annotations
 
+import enum
 from typing import Optional, Sequence
 
 import numpy as np
@@ -12,6 +14,14 @@ import torch
 
 from .camera import Camera
 from .types import EnvMap, Materials, MeshArrays, Scene, Spheres
+
+
+class DirtyFlag(enum.IntFlag):
+    """What an edit invalidates: SAMPLES the progressive accumulator,
+    SCENE_MEMORY the frozen arrays, BVH the acceleration structures."""
+    SAMPLES = 1
+    SCENE_MEMORY = 2
+    BVH = 4
 
 
 def _pad_capacity(n: int) -> int:
@@ -50,9 +60,11 @@ class SceneBuilder:
         self._faces: list = []                   # (v0, v1, v2, material)
         self._textures: list = []                # (H, W, 3) f32 arrays
         self.env = env if env is not None else EnvMap.constant()
+        self.dirty = DirtyFlag.SAMPLES | DirtyFlag.SCENE_MEMORY | DirtyFlag.BVH
 
     def add_material(self, material: MaterialDef) -> int:
         self._materials.append(material)
+        self.dirty |= DirtyFlag.SCENE_MEMORY
         return len(self._materials) - 1
 
     def add_texture(self, image) -> int:
@@ -63,11 +75,13 @@ class SceneBuilder:
         if self._textures and img.shape != self._textures[0].shape:
             raise ValueError("all textures must share one resolution")
         self._textures.append(img)
+        self.dirty |= DirtyFlag.SCENE_MEMORY
         return len(self._textures) - 1
 
     def add_sphere(self, center, radius: float, material: int = 0) -> None:
         self._spheres.append((tuple(map(float, center)), float(radius),
                               int(material)))
+        self.dirty |= DirtyFlag.SCENE_MEMORY
 
     def add_triangle(self, a, b, c, material: int = 0) -> None:
         """Flat-shaded triangle, normal = normalize(cross(c-b, a-b))."""
@@ -83,6 +97,7 @@ class SceneBuilder:
             self._normals.append(n.astype(np.float32))
             self._uvs.append(np.zeros(2, np.float32))
         self._faces.append((i0, i0 + 1, i0 + 2, int(material)))
+        self.dirty |= DirtyFlag.SCENE_MEMORY | DirtyFlag.BVH
 
     def add_quad(self, a, b, c, d, material: int = 0) -> None:
         """Two triangles (a, b, c) and (c, d, a)."""
@@ -110,16 +125,21 @@ class SceneBuilder:
         for f in faces:
             self._faces.append((int(f[0]) + offset, int(f[1]) + offset,
                                 int(f[2]) + offset, int(material)))
+        self.dirty |= DirtyFlag.SCENE_MEMORY | DirtyFlag.BVH
 
-    def freeze(self, device="cuda") -> Scene:
+    def freeze(self, device="cuda", pad: bool = True) -> Scene:
+        """The Scene on `device`; with pad, every capacity rounded up by
+        `_pad_capacity`, else the exact counts (at least 1 each). Clears
+        the SCENE_MEMORY and BVH flags."""
         nmat = max(len(self._materials), 1)
         nsph = len(self._spheres)
         nvert = max(len(self._positions), 1)
         nface = len(self._faces)
-        cm = _pad_capacity(nmat)
-        cs = _pad_capacity(max(nsph, 1))
-        cv = _pad_capacity(nvert)
-        cf = _pad_capacity(max(nface, 1))
+        cap = _pad_capacity if pad else (lambda n: n)
+        cm = cap(nmat)
+        cs = cap(max(nsph, 1))
+        cv = cap(nvert)
+        cf = cap(max(nface, 1))
         # a default MaterialDef with albedo 1 fills the slots exactly as
         # the padding values do, so an empty builder needs no branch
         mats = self._materials or [MaterialDef(albedo=(1, 1, 1))]
@@ -150,6 +170,7 @@ class SceneBuilder:
             face_valid=torch.from_numpy(np.arange(cf) < nface))
         textures = (torch.from_numpy(np.stack(self._textures))
                     if self._textures else None)
+        self.dirty &= ~(DirtyFlag.SCENE_MEMORY | DirtyFlag.BVH)
         return Scene(materials=materials, spheres=spheres, mesh=mesh,
                      env=self.env, camera=self.camera.rays(),
                      textures=textures).to(device)
@@ -157,6 +178,14 @@ class SceneBuilder:
     @property
     def num_faces(self) -> int:
         return len(self._faces)
+
+    @property
+    def num_vertices(self) -> int:
+        return len(self._positions)
+
+    @property
+    def num_spheres(self) -> int:
+        return len(self._spheres)
 
 
 def _fill(shape, rows: Sequence, fill_value, dtype=np.float32):

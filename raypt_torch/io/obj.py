@@ -1,5 +1,5 @@
-"""Minimal OBJ mesh loader (numpy; a copy of `raypt/io/obj.py` without
-the native parser).
+"""Minimal OBJ mesh loader (numpy; a copy of `raypt/io/obj.py`), with
+the native parser of `io.native` first where it applies.
 
 Replaces the reference's Assimp import path (utils/AssimpLoader.cpp:29-51
 with aiProcess_Triangulate | JoinIdenticalVertices | GenSmoothNormals
@@ -16,12 +16,21 @@ from __future__ import annotations
 import numpy as np
 
 
-def load_obj(path: str):
+def load_obj(path: str, use_native: bool = True):
     """Parse an OBJ file -> dict with positions (V,3) f32, normals (V,3)
     f32, uvs (V,2) f32, faces (F,3) i64. Vertices referenced with
     differing vt/vn combinations are split, so the output is a
     consistent indexed mesh.
+
+    With use_native, the native parser (`io.native.load_obj_native`)
+    reads the file when the library is available and no corner needs
+    splitting; otherwise this Python parser does.
     """
+    if use_native:
+        from .native import load_obj_native
+        m = load_obj_native(path)
+        if m is not None:
+            return m
     positions, normals, uvs = [], [], []
     out_pos, out_nrm, out_uv, out_faces = [], [], [], []
     corner_cache: dict = {}

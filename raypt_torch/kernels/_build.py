@@ -23,7 +23,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xcompiler", "-fPIC"]
 KERNEL_SOURCES = ("compact.cu", "onehot_walk.cu", "cluster_expand.cu",
                   "cluster_intersect.cu", "dense_closest.cu", "gather.cu",
-                  "expand_diag.cu", "regroup.cu", "packed_walk.cu")
+                  "expand_diag.cu", "regroup.cu", "packed_walk.cu",
+                  "wide_walk.cu")
 KERNEL_HEADERS = ("cluster_test.cuh", "block_scan.cuh", "mask_walk.cuh",
                   "packed_walk.cuh")
 SMEM_LIMIT = 232448   # shared memory a block may use on Hopper (227 KB)
@@ -85,6 +86,9 @@ def kernel_lib() -> ctypes.CDLL:
         # rows, n_rows, ro, rd, t0, active -> t, face; r, max_steps,
         # scratch, stream
         "rk_packed_walk": [p, i64, p, p, p, p, p, p, i64, i64, p, p],
+        # rows, n_rows, root, nw_cap, ro, rd, t0, active -> t, face,
+        # overflow; r, stack_d, stream
+        "rk_wide_walk": [p, i64, i32, i64, p, p, p, p, p, p, p, i64, i32, p],
         # the scripts/ probes (raypt_torch/probes/)
         # table, n, w, idx -> out; rows, clip, stream
         "rk_gather_rows": [p, i64, i32, p, p, i64, i32, p],
@@ -115,6 +119,12 @@ def kernel_lib() -> ctypes.CDLL:
     lib.rk_packed_walk_scratch.restype = i64
     lib.rk_packed_walk_info.argtypes = [p]
     lib.rk_packed_walk_info.restype = ctypes.c_int
+    # the wide walk's largest stack_d, and its kernel's registers, local
+    # bytes, resident blocks an SM and threads a block (4 ints)
+    lib.rk_wide_walk_max_stack.argtypes = []
+    lib.rk_wide_walk_max_stack.restype = ctypes.c_int
+    lib.rk_wide_walk_info.argtypes = [p]
+    lib.rk_wide_walk_info.restype = ctypes.c_int
     return lib
 
 

@@ -2,8 +2,8 @@
 3), face order +x, -x, +y, -y, +z, -z with t running top-down, or an
 equirect panorama (H, W, 3), u = atan2(x, -z) / 2 pi + 0.5 wrapped and
 v = acos(y) / pi clamped. Bilinear filtering as the CUDA texture unit
-does it. The mip chain and the cube/equirect converters are not ported
-(ROADMAP: the "`render_aovs` and env LOD" item).
+does it. Also the box-filtered mip chain and explicit-LOD sampling
+(the reference's texCubemapLod), and the cube / equirect converters.
 """
 from __future__ import annotations
 
@@ -125,3 +125,107 @@ def rotate_y_pi(d: torch.Tensor) -> torch.Tensor:
     """The reference rotates the env lookup 180 degrees about Y:
     (x, y, z) -> (-x, y, -z)."""
     return torch.stack([-d[..., 0], d[..., 1], -d[..., 2]], dim=-1)
+
+
+# Mip chain and LOD sampling (`raypt/render/envmap.py:169-212`).
+
+
+def build_mip_chain(data: torch.Tensor, max_levels: int = 0) -> list:
+    """Box-filter mip pyramid of data (H, W, C) or (F, H, W, C): each
+    level halves H and W (an axis of 1 stays), down to 1 x 1 or to
+    max_levels > 0 levels. Returns [level0, level1, ...]."""
+    lead = data.ndim == 4
+    img = data if lead else data[None]
+    chain = [data]
+    while max(img.shape[1], img.shape[2]) > 1:
+        if max_levels and len(chain) >= max_levels:
+            break
+        f, h, w, c = img.shape
+        kh, kw = (2 if h > 1 else 1), (2 if w > 1 else 1)
+        h2, w2 = h // kh, w // kw
+        img = img[:, : h2 * kh, : w2 * kw]
+        img = img.reshape(f, h2, kh, w2, kw, c).mean(dim=(2, 4))
+        chain.append(img if lead else img[0])
+    return chain
+
+
+def sample_env_lod(env: EnvMap, chain: list, d: torch.Tensor,
+                   lod) -> torch.Tensor:
+    """Trilinear environment sample: bilinear in the two mip levels
+    around `lod` (a scalar or one per ray), linear between them; lod 0
+    is sample_env."""
+    lod = torch.as_tensor(lod, dtype=torch.float32, device=d.device)
+    n = len(chain)
+    l0 = torch.clamp(torch.floor(lod).to(torch.int64), 0, n - 1)
+    frac = torch.clamp(lod - l0.to(torch.float32), 0.0, 1.0)[..., None]
+
+    def at_level(i):
+        return sample_env(env.replace(data=chain[i]), d)
+
+    if n == 1:
+        return at_level(0)
+    levels = torch.stack([at_level(i) for i in range(n)])   # (L, ..., 3)
+
+    def pick(level):
+        idx = torch.broadcast_to(level, d.shape[:-1])[None, ..., None]
+        return torch.gather(levels, 0, idx.expand((1,) + levels.shape[1:]))[0]
+
+    a = pick(l0)
+    b = pick(torch.clamp(l0 + 1, max=n - 1))
+    return a * (1.0 - frac) + b * frac
+
+
+# Cubemap <-> equirect conversion (`raypt/render/envmap.py:215-269`).
+
+# direction basis a face: dir = normalize(axis + s' s_axis + t' t_axis)
+# with s', t' in [-1, 1] (t runs top-down, see _cube_faceuv)
+_FACE_AXES = (
+    ((1, 0, 0), (0, 0, -1), (0, -1, 0)),    # +x
+    ((-1, 0, 0), (0, 0, 1), (0, -1, 0)),    # -x
+    ((0, 1, 0), (1, 0, 0), (0, 0, 1)),      # +y
+    ((0, -1, 0), (1, 0, 0), (0, 0, -1)),    # -y
+    ((0, 0, 1), (1, 0, 0), (0, -1, 0)),     # +z
+    ((0, 0, -1), (-1, 0, 0), (0, -1, 0)),   # -z
+)
+
+
+def _face_dirs(size: int, device=None) -> torch.Tensor:
+    """(6, size, size, 3) unit directions at cube-face texel centres."""
+    sp = (torch.arange(size, dtype=torch.float32, device=device) + 0.5) \
+        / size * 2.0 - 1.0
+    s = sp[None, :, None]
+    t = sp[:, None, None]
+    faces = []
+    for axis, s_ax, t_ax in _FACE_AXES:
+        vec = [torch.tensor(v, dtype=torch.float32, device=device)
+               for v in (axis, s_ax, t_ax)]
+        d = vec[0][None, None] + s * vec[1] + t * vec[2]
+        faces.append(d / torch.linalg.norm(d, dim=-1, keepdim=True))
+    return torch.stack(faces)
+
+
+def equirect_to_cube(data: torch.Tensor, size: int = 0) -> torch.Tensor:
+    """Equirect (H, W, C) -> cubemap (6, size, size, C) by bilinear
+    resampling (size H / 2 by default, about the same angular
+    resolution)."""
+    size = size or max(data.shape[0] // 2, 1)
+    return sample_env(EnvMap(data=data, is_cube=False),
+                      _face_dirs(size, data.device))
+
+
+def cube_to_equirect(data: torch.Tensor, height: int = 0) -> torch.Tensor:
+    """Cubemap (6, S, S, C) -> equirect (height, 2 height, C) (height 2 S
+    by default)."""
+    height = height or 2 * data.shape[1]
+    width = 2 * height
+    dev = data.device
+    v = (torch.arange(height, dtype=torch.float32, device=dev) + 0.5) \
+        / height * math.pi
+    u = ((torch.arange(width, dtype=torch.float32, device=dev) + 0.5)
+         / width - 0.5) * (2.0 * math.pi)
+    y = torch.cos(v)[:, None] * torch.ones((1, width), device=dev)
+    sy = torch.sin(v)[:, None]
+    x = sy * torch.sin(u)[None, :]
+    z = -sy * torch.cos(u)[None, :]
+    return sample_env(EnvMap(data=data, is_cube=True),
+                      torch.stack([x, y, z], dim=-1))

@@ -8,11 +8,12 @@ through the shading glue only.
 The port renders `backend="onehot"` (its branches: `onehot_expand > 0`
 per-ray-exact, `onehot_expand == 0` dense-union, and with a Woop table in
 the accel the Woop branch), `"cluster"`, `"bvh"` / `"bvh2"` (the packed
-skip-link walk over an LBVH), `"bruteforce"`, `"dense"`, `"pallas"` and
-`"auto"` (`resolve_backend`), with albedo textures and, under
-`cfg.enable_refraction`, the dielectric lobe; `"bvh4"` and the packed
-layouts with more than one triangle a leaf or child lookahead raise
-(ROADMAP queue 1).
+skip-link walk over an LBVH), `"bvh4"` (the ordered-stack walk of the
+4-wide tree collapsed from an LBVH), `"bruteforce"`, `"dense"`,
+`"pallas"` and `"auto"` (`resolve_backend`), with albedo textures and,
+under `cfg.enable_refraction`, the dielectric lobe; the packed layouts
+with more than one triangle a leaf or child lookahead raise (ROADMAP
+queue 1).
 """
 from __future__ import annotations
 
@@ -25,12 +26,14 @@ from ..accel.clusters import CLUSTER_LEAF, Clusters, build_clusters
 from ..accel.ctree import OnehotAccel, build_onehot
 from ..accel.dense import WoopTris
 from ..accel import lbvh
-from ..accel.lbvh import LBVH
+from ..accel.lbvh import LBVH, LBVHTensors
 from ..accel.packed import PackedLBVH, pack
 from ..accel.traverse import (KERNELS, LBVH_ITEM, HitIds,
                               find_closest_bruteforce,
                               find_closest_cluster, find_closest_onehot,
-                              find_closest_packed, recompute_hit)
+                              find_closest_packed, find_closest_wide,
+                              recompute_hit)
+from ..accel.wide import WideBVH, collapse
 from ..core.math3d import (dot, lerp, normalize, reflect, refract,
                            schlick_fresnel)
 from ..core.types import RenderConfig, Scene
@@ -47,8 +50,8 @@ Finder = Callable[..., HitIds]
 
 def resolve_backend(scene: Scene, cfg: RenderConfig, accel=None) -> str:
     """cfg.backend, with "auto" resolved as the JAX package does: a
-    WoopTris -> "dense", an LBVH or PackedLBVH -> "bvh"; with neither, by
-    the mesh's
+    WoopTris -> "dense", an LBVH, PackedLBVH or WideBVH -> "bvh"; with
+    none of them, by the mesh's
     padded face capacity: "dense" from 64 to 8,192 faces, "bruteforce"
     below 64, "bvh" above 8,192."""
     backend = cfg.backend
@@ -56,7 +59,7 @@ def resolve_backend(scene: Scene, cfg: RenderConfig, accel=None) -> str:
         faces = scene.mesh.num_faces
         if isinstance(accel, WoopTris):
             backend = "dense"
-        elif isinstance(accel, (LBVH, PackedLBVH)):
+        elif isinstance(accel, (LBVH, PackedLBVH, WideBVH)):
             backend = "bvh"
         elif faces <= 8192:
             backend = "dense" if faces >= 64 else "bruteforce"
@@ -86,9 +89,13 @@ def make_finder(scene: Scene, cfg: RenderConfig, accel=None) -> Finder:
       * "bvh" and "bvh2": a PackedLBVH, or an LBVH (built here with
         `lbvh.build` when none is given) packed here, walked by the
         packed finder with cfg.traversal_tile / traversal_unroll /
-        ray_sort / traversal_mode. "bvh4" (the wide tree),
-        cfg.leaf_tris >= 2 and cfg.node_lookahead raise: those layouts
-        are not ported."""
+        ray_sort / traversal_mode; cfg.leaf_tris >= 2 and
+        cfg.node_lookahead raise: those layouts are not ported;
+      * "bvh4": an LBVH (built here when none is given) collapsed here
+        into the wide tree, walked by the wide finder with
+        cfg.traversal_tile. Whatever the "bvh*" backend, a WideBVH is
+        walked by the wide finder and a PackedLBVH by the packed one, as
+        in the JAX package."""
     m = scene.mesh
     backend = resolve_backend(scene, cfg, accel)
     if backend == "bruteforce":
@@ -123,19 +130,28 @@ def make_finder(scene: Scene, cfg: RenderConfig, accel=None) -> Finder:
 
 def _make_packed_finder(scene: Scene, cfg: RenderConfig, accel,
                         backend: str):
-    """make_finder's "bvh" / "bvh2" route (`raypt/render/integrator.py:
-    100-140`): the one-triangle packed table, from the accel or from an
-    LBVH built here."""
-    if backend == "bvh4":
-        raise NotImplementedError(
-            f"backend 'bvh4' (accel/wide.py) is not ported ({LBVH_ITEM})")
+    """make_finder's "bvh" / "bvh2" / "bvh4" route (`raypt/render/
+    integrator.py:101-140`): the wide tree or the one-triangle packed
+    table, from the accel or from an LBVH built here."""
+    m = scene.mesh
+    if isinstance(accel, WideBVH) or (backend == "bvh4" and not
+                                      isinstance(accel, PackedLBVH)):
+        if not isinstance(accel, WideBVH):
+            if accel is None:
+                accel = lbvh.build(m.positions, m.faces, m.face_valid)
+            if not isinstance(accel, (LBVH, LBVHTensors)):
+                raise TypeError(f"backend 'bvh4' takes an LBVH, a WideBVH "
+                                f"or a PackedLBVH, not "
+                                f"{type(accel).__name__}")
+            accel = collapse(accel, m.positions, m.faces, m.face_valid)
+        return partial(_wide_finder, accel.to(m.positions.device),
+                       cfg.traversal_tile)
     if not isinstance(accel, PackedLBVH):
         if cfg.leaf_tris >= 2 or cfg.node_lookahead:
             raise NotImplementedError(
                 f"leaf_tris={cfg.leaf_tris}, node_lookahead="
                 f"{cfg.node_lookahead}: the cherry, quad and lookahead "
                 f"packers are not ported ({LBVH_ITEM})")
-        m = scene.mesh
         if accel is None:
             accel = lbvh.build(m.positions, m.faces, m.face_valid)
         if not isinstance(accel, LBVH):
@@ -154,17 +170,26 @@ def _packed_finder(pbvh: PackedLBVH, tile, unroll, sort_rays, mode,
                                ops=ops)
 
 
+def _wide_finder(wbvh: WideBVH, tile, scene: Scene, ro, rd, active=None,
+                 ops=KERNELS):
+    return find_closest_wide(scene, wbvh, ro, rd, active=active, tile=tile,
+                             ops=ops)
+
+
 def _cluster_finder(clusters: Clusters, scene: Scene, ro, rd, active=None):
     return find_closest_cluster(scene, clusters, ro, rd, active=active)
 
 
 def trace_paths(scene: Scene, cfg: RenderConfig, skey: Key,
                 ro: torch.Tensor, rd: torch.Tensor, finder: Finder,
-                pixel_ids: torch.Tensor, return_alive: bool = False):
+                pixel_ids: torch.Tensor, return_alive: bool = False,
+                check: Optional[Callable] = None):
     """Trace one wavefront (rd unnormalized ok) for cfg.num_bounces
     bounces -> linear radiance (..., 3); with return_alive also the
     (num_bounces,) int32 counts of rays alive at the start of each
-    bounce (the segments actually traced)."""
+    bounce (the segments actually traced). check(b, throughput,
+    radiance), when given, sees the path state at the start of each
+    bounce b (`app.debug`); it changes nothing."""
     rd = normalize(rd)
     tables = build_shade_tables(scene)
     env_quads, env_hw = build_env_quads(scene.env)
@@ -176,6 +201,8 @@ def trace_paths(scene: Scene, cfg: RenderConfig, skey: Key,
     env_dir = rd                    # direction at the first miss
     traced = []
     for b in range(cfg.num_bounces):
+        if check is not None:
+            check(b, throughput, radiance)
         traced.append(alive.sum(dtype=torch.int32))
         ids = finder(scene, ro, rd, active=alive)
         hit, mp = recompute_hit_packed(tables, ro, rd, ids)
@@ -299,9 +326,11 @@ def _block_order(ids: torch.Tensor, block: int = 32):
 
 def render_sample(scene: Scene, cfg: RenderConfig, skey: Key, finder: Finder,
                   pixel_ids: Optional[torch.Tensor] = None,
-                  return_alive: bool = False):
+                  return_alive: bool = False,
+                  check: Optional[Callable] = None):
     """One sample-per-pixel pass -> (H, W, 3) radiance (or (*ids, 3) for
-    given pixel ids); with return_alive also the traced counts."""
+    given pixel ids); with return_alive also the traced counts. check
+    goes to trace_paths."""
     unshuffle = None
     if pixel_ids is None:
         pixel_ids, unshuffle = _block_order(
@@ -310,7 +339,7 @@ def render_sample(scene: Scene, cfg: RenderConfig, skey: Key, finder: Finder,
     jitter = sample_jitter(skey, pixel_ids)
     ro, rd = camera_rays_for_ids(scene, cfg, pixel_ids, jitter)
     out = trace_paths(scene, cfg, skey, ro, rd, finder, pixel_ids,
-                      return_alive=return_alive)
+                      return_alive=return_alive, check=check)
     traced = None
     if return_alive:
         out, traced = out

@@ -36,8 +36,8 @@ from chip_smoke import (MERGE_LEAVES, WL_GROUPS, WOOP_ODD_LEAF, Stats,
                         check_lbvh, check_planted, compact_layouts,
                         config5_case, copy_most_hit, edge_seeds, fit_run,
                         merge_case, mixed_tile, same_fit, walk_edges,
-                        walk_layouts, woop_faces, woop_merge, worklist_merge,
-                        zero_maps_table)
+                        walk_layouts, wide_edges, woop_faces, woop_merge,
+                        worklist_merge, zero_maps_table)
 
 pytestmark = pytest.mark.gpu
 
@@ -725,3 +725,98 @@ def test_fit_step_kernel_vs_plain_bitwise():
     case = config5_case("cuda", subdiv=4, width=32, views=2)
     same_fit("the plain walk", fit_run(case, 1), fit_run(case, 1, ops=PLAIN),
              1)
+
+
+@pytest.fixture(scope="module")
+def wide_waves(gpu_scene):
+    """The bench scene's LBVH built on the card, its wide tree collapsed
+    on the card, and the wavefronts of a 256^2 bvh4 render through it."""
+    from raypt_torch.accel import lbvh
+    from raypt_torch.accel.wide import collapse
+    scene, _ = gpu_scene
+    m = scene.mesh
+    bvh = lbvh.build(m.positions, m.faces, m.face_valid)
+    w = collapse(bvh, m.positions, m.faces, m.face_valid)
+    return bvh, w, _waves(scene, CFG.replace(backend="bvh4"), w, 4)
+
+
+@pytest.mark.parametrize("stack_d", [64, 4, 2])
+def test_wide_walk_bitwise(gpu_scene, wide_waves, stack_d):
+    """wide_walk against traverse_wide on every bounce of the 256^2 bvh4
+    render, bitwise (t, face, overflow); at stacks of 4 and 2 rays
+    overflow."""
+    from raypt_torch.accel.wide import traverse_wide
+    from raypt_torch.kernels import wide_walk as tww
+    scene, _ = gpu_scene
+    _, w, waves = wide_waves
+    overflowed = 0
+    for wave in waves:
+        o, d, t, a, _, _ = wavefront_inputs(scene, *wave, 1)
+        kt, kf, ko = tww.wide_walk(w, o, d, t, a, stack_d)
+        pt, pf, po = traverse_wide(w, o, d, t, a, stack_d)
+        assert _bits_equal(kt, pt) and torch.equal(kf, pf)
+        assert torch.equal(ko, po)
+        assert int((kf >= 0).sum()) > 0
+        overflowed += int(ko.sum())
+    assert (overflowed > 0) == (stack_d < 64)
+
+
+def test_wide_walk_edges(gpu_scene, wide_waves):
+    """chip_smoke.wide_edges: dead, signed-zero and sub-clamp directions,
+    origins in leaf boxes, NaN rays, stacks of 2 and 4, and a NaN vertex
+    in the leaves and in the boxes, each bitwise against the plain
+    walk."""
+    scene, _ = gpu_scene
+    bvh, w, waves = wide_waves
+    wide_edges(Stats(), scene, bvh, w, waves[1])
+
+
+def test_wide_walk_raises_not_falls_back(gpu_scene, wide_waves, monkeypatch):
+    """On CUDA tensors the wrapper launches the kernel (its count rises)
+    and never runs the plain walk; it refuses a table that is not
+    (N, 64), rays of the wrong shape or type, a root outside the table
+    and stacks outside 1 to 1,024."""
+    import dataclasses
+    from raypt_torch.kernels import wide_walk as tww
+    scene, _ = gpu_scene
+    _, w, waves = wide_waves
+    o, d, t, a, _, _ = wavefront_inputs(scene, *waves[0], 1)
+
+    def no_plain(*args, **kw):
+        raise AssertionError("the plain walk ran on CUDA tensors")
+
+    monkeypatch.setattr(tww, "traverse_wide", no_plain)
+    before = tww.wide_walk.launches
+    tww.wide_walk(w, o, d, t, a)
+    assert tww.wide_walk.launches == before + 1
+    for bad in (dict(rows=w.rows[:, :63].contiguous()), dict(root=-1),
+                dict(root=w.num_rows)):
+        with pytest.raises(ValueError):
+            tww.wide_walk(dataclasses.replace(w, **bad), o, d, t, a)
+    with pytest.raises(ValueError):
+        tww.wide_walk(w, o[:, :2].contiguous(), d, t, a)
+    with pytest.raises(ValueError):
+        tww.wide_walk(w, o, d, t, a.int())
+    for stack_d in (0, 1025):
+        with pytest.raises(ValueError):
+            tww.wide_walk(w, o, d, t, a, stack_d)
+
+
+def test_bvh4_render_bitwise_vs_plain(gpu_scene, wide_waves):
+    """The 256^2 bvh4 render through the kernel against the render
+    through the plain walk, bitwise, with one launch a bounce."""
+    from raypt_torch.kernels import wide_walk as tww
+    scene, _ = gpu_scene
+    _, w, _ = wide_waves
+    cfg = CFG.replace(backend="bvh4")
+    finder = make_finder(scene, cfg, w)
+    before = tww.wide_walk.launches
+    with torch.no_grad():
+        img, traced = render_sample(scene, cfg, rng.key(4), finder,
+                                    return_alive=True)
+        plain, traced_p = render_sample(scene, cfg, rng.key(4),
+                                        partial(finder, ops=PLAIN),
+                                        return_alive=True)
+    assert tww.wide_walk.launches == before + cfg.num_bounces
+    assert _bits_equal(img, plain) and torch.equal(traced, traced_p)
+    assert bool(torch.isfinite(img).all())

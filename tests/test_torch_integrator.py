@@ -209,9 +209,10 @@ def test_display_and_png(slice_run, tmp_path):
 
 
 def test_unported_settings_raise(slice_run):
-    """Backend "bvh4" raises NotImplementedError; "bvh" and "bvh2" take an
-    LBVH or a PackedLBVH (tests/test_torch_packed.py renders them) and
-    refuse the onehot accel with a TypeError; an unknown backend is an
+    """"bvh", "bvh2" and "bvh4" take an LBVH, a PackedLBVH or (bvh4) a
+    WideBVH (tests/test_torch_packed.py and tests/test_torch_wide.py
+    render them) and refuse the onehot accel with a TypeError; an
+    unknown backend is an
     error; the onehot dense-union branch (onehot_expand=0), the cluster
     backend (tests/test_torch_slice2.py renders them), "pallas" and
     "dense" (tests/test_torch_dense.py) and the refraction lobe
@@ -219,9 +220,7 @@ def test_unported_settings_raise(slice_run):
     enable_refraction is finite. Without an accel, onehot and cluster
     build the LBVH themselves."""
     scene, acc, cfg = slice_run["scene"], slice_run["accel"], slice_run["cfg"]
-    with pytest.raises(NotImplementedError):
-        tint.make_finder(scene, cfg.replace(backend="bvh4"), acc)
-    for backend in ("bvh", "bvh2"):
+    for backend in ("bvh", "bvh2", "bvh4"):
         with pytest.raises(TypeError):
             tint.make_finder(scene, cfg.replace(backend=backend), acc)
     with pytest.raises(ValueError):

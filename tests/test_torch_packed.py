@@ -258,10 +258,13 @@ def test_implicit_build_matches_jax(box, backend):
 
 
 def test_unported_layouts_raise(box):
-    """bvh4, leaf_tris >= 2, node_lookahead and traversal_mode "compact" /
-    "unrolled" raise NotImplementedError naming their ROADMAP item."""
+    """leaf_tris >= 2, node_lookahead and traversal_mode "compact" /
+    "unrolled" raise NotImplementedError naming their ROADMAP item; bvh4,
+    ported since, makes the wide finder (tests/test_torch_wide.py)."""
     scene, cfg = box["scene"], RenderConfig(width=W, height=W, backend="bvh")
-    for bad in (cfg.replace(backend="bvh4"), cfg.replace(leaf_tris=2),
+    assert tint.make_finder(scene, cfg.replace(backend="bvh4"),
+                            box["bvh"]).func is tint._wide_finder
+    for bad in (cfg.replace(leaf_tris=2),
                 cfg.replace(leaf_tris=4), cfg.replace(node_lookahead=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tint.make_finder(scene, bad, box["bvh"])
