@@ -193,10 +193,15 @@ Phases:
      its plain version, bitwise (t, face, overflow), on the bench
      render's four bvh4 wavefronts (timed through the wrapper and from
      CUDA graphs, with its bound from the visits the plain walk counts),
-     on bvh_large's primary wavefront and on wide_edges' (dead rays,
-     signed-zero and sub-clamp directions, origins in leaf boxes, NaN
-     rays, a NaN vertex in the leaves and in the boxes, stacks of 2 and
-     4, where rays overflow); find_closest_wide at a stack of 2 (its
+     on bvh_large's four (its LBVH built and collapsed on the card; the
+     kernel timed through the wrapper and from graphs, the plain walk
+     only checked), on wide_edges' (dead rays, signed-zero and sub-clamp
+     directions, origins in leaf boxes, NaN rays, a NaN vertex in the
+     leaves and in the boxes, stacks of 2 and 4, where rays overflow) and
+     on deep_stack_case's, whose stacks the plain walk's record shows
+     deeper than 32 entries, also at stacks of DEEP_STACKS (31, 32 and
+     33) entries;
+     find_closest_wide at a stack of 2 (its
      retry: two launches) against the plain finder; the bench render
      with backend "bvh4" (one launch a bounce) bitwise against the plain
      walk's. Then raypt_torch.app.cli.main in-process on the card:
@@ -367,6 +372,13 @@ FIT_LOOP_STEPS = 2       # raypt_torch.diff.fit, the loop's entry point
 # and merges (PACKED_LEAF_OPS less its leaf flag: 57 each); each live
 # ray's clamped reciprocal and its t0 + rd.x * 0 (14)
 WIDE_STACKS = (2, 4)
+# the deep-stack wavefront (deep_stack_case): internal rows of its chain
+# (a walk's stack reaches 3 entries a row: 48, above 32 and below
+# STACK_D), its rays, and the stacks it is also walked at (rays
+# overflow at each)
+DEEP_LEVELS = 16
+DEEP_RAYS = 65536
+DEEP_STACKS = (31, 32, 33)
 WIDE_INTERNAL_BYTES = 112
 WIDE_LEAF_BYTES = 192
 WIDE_INTERNAL_OPS = 4 * 30 + 5 * 5 + 3
@@ -2827,8 +2839,8 @@ def fit_path(counters, dev):
 
 def wide_info():
     """The wide walk's capacity-64 kernel as its library reports it
-    (rk_wide_walk_info): registers, local bytes (its stack), resident
-    blocks an SM, threads a block."""
+    (rk_wide_walk_info): registers, local bytes (its stack and any
+    spill), resident blocks an SM and threads a block."""
     from raypt_torch.kernels._build import kernel_lib
     info = (ctypes.c_int * 4)()
     if kernel_lib().rk_wide_walk_info(ctypes.cast(info, ctypes.c_void_p)):
@@ -2931,6 +2943,93 @@ def wide_edges(stats, scene, bvh, w, wave):
         f"{WIDE_STACKS} ({hit} rays overflowed): bitwise equal")
 
 
+def deep_stack(stats, dev):
+    """wide_walk against the plain walk on deep_stack_case's wavefront,
+    bitwise, at STACK_D and at stacks of DEEP_STACKS entries; the plain
+    walk's record must show a stack deeper than 32 entries, so deep
+    slots are written and read back, and rays must overflow the smaller
+    stacks."""
+    from raypt_torch.accel.wide import traverse_wide
+    case = deep_stack_case(device=dev)
+    depths = []
+    traverse_wide(*case, depths=depths)
+    deepest = max(int(x.max()) for x in depths if x.numel())
+    if deepest <= max(DEEP_STACKS) - 1:
+        raise AssertionError(f"deep_stack_case: the deepest stack {deepest} "
+                             f"is not above {max(DEEP_STACKS) - 1}")
+    compare_wide(stats, "deep stack default", *case)
+    overflowed = {}
+    for sd in DEEP_STACKS:
+        _, ovf = compare_wide(stats, f"deep stack {sd}", *case, stack_d=sd)
+        overflowed[sd] = int(ovf.sum())
+        if not overflowed[sd]:
+            raise AssertionError(f"deep_stack_case: no ray overflowed a "
+                                 f"stack of {sd}")
+    log(f"phase 10 deep stack: {case[1].shape[0]} rays through a chain of "
+        f"{case[0].nw_cap} internal rows, stacks up to {deepest} entries; "
+        f"bitwise equal at the default stack and at stacks {DEEP_STACKS} "
+        f"({overflowed} rays overflowed)")
+
+
+def deep_stack_case(levels=DEEP_LEVELS, rays=DEEP_RAYS, device="cuda",
+                    seed=17):
+    """A wide tree built to stack deep and a wavefront through it, as
+    (WideBVH, ro, rd, t0, active). Triangles stacked along the view axis
+    -z, each across it (p0 (-4, -4, z), e1 (12, 0, 0), e2 (0, 12, 0)),
+    four a leaf row: leaf q (q = 0 the nearest) holds faces 4 q + k at z
+    = -(1 + q + 0.2 k). A chain of `levels` internal rows: row j's
+    entries are the leaves of ranks 3 (levels - 1 - j) + 1 to + 3 and,
+    nearest, row j + 1 (for the last row, leaf 0), each box the hull of
+    what lies under it, the four in an order rotated by j. A ray from
+    the z = 0 plane heading down -z within 0.01 of the axis hits every
+    box, pushes the three leaves at each row and descends, so its stack
+    holds 3 (j + 1) entries after row j and 3 * levels at leaf 0, which
+    it hits (t about 1); then it pops and tests every pushed leaf, 4 *
+    levels + 1 visits in all. One ray in 16 is dead, one in 16 heads up
+    +z (it misses the root's entries), one in 16 starts at t0 = 3.5 (it
+    pushes only what starts nearer); the others start at BIG."""
+    import numpy as np
+    import torch
+    from raypt_torch.accel.wide import ROW, WideBVH
+    from raypt_torch.core.math3d import BIG
+    n_leaf = 3 * levels + 1
+    rows = np.zeros((levels + n_leaf + 1, ROW), np.float32)
+    rows[:, 0:3], rows[:, 3:6] = BIG, -BIG
+    bits = rows.view(np.int32)
+
+    def hull(q0, q1):   # the box of leaves q0 .. q1
+        return [-4.0, -4.0, -(1.6 + q1), 8.0, 8.0, -(1.0 + q0)]
+
+    for q in range(n_leaf):
+        for k in range(4):
+            z = -(1.0 + q + 0.2 * k)
+            rows[levels + q, 12 * k:12 * k + 9] = (-4, -4, z, 12, 0, 0, 0,
+                                                  12, 0)
+            bits[levels + q, 12 * k + 9] = 4 * q + k
+    for j in range(levels):
+        top = 3 * (levels - 1 - j)
+        entries = [(hull(0, top), j + 1 if j + 1 < levels else levels)]
+        entries += [(hull(q, q), levels + q) for q in range(top + 1, top + 4)]
+        for e in range(4):
+            box, child = entries[(e + j) % 4]
+            rows[j, 6 * e:6 * e + 6] = box
+            bits[j, 24 + e] = child
+    rng = np.random.default_rng(seed)
+    ro = np.zeros((rays, 3), np.float32)
+    ro[:, :2] = rng.uniform(-1, 1, (rays, 2))
+    rd = np.full((rays, 3), -1.0, np.float32)
+    rd[:, :2] = rng.uniform(-0.01, 0.01, (rays, 2))
+    lane = np.arange(rays) % 16
+    rd[lane == 1, 2] = 1.0
+    rd /= np.linalg.norm(rd, axis=1, keepdims=True)
+    t0 = np.where(lane == 2, 3.5, BIG).astype(np.float32)
+    dev = torch.device(device)
+    return (WideBVH(rows=torch.from_numpy(rows).to(dev), root=0,
+                    nw_cap=levels),
+            *(torch.from_numpy(x).to(dev) for x in (ro, rd, t0)),
+            torch.from_numpy(lane != 0).to(dev))
+
+
 def wave_inputs_of(scene, wave):
     """A recorded bounce (ro, rd, active) as the finder hands it to the
     walk: (o, d, t0 from the sphere pass, active)."""
@@ -2959,7 +3058,8 @@ def wide_path(stats, counters, dev, scene, bvh, base, skey):
     """Phase 10's bvh4 part: the wide tree collapsed on the card from the
     bench scene's LBVH; wide_walk against the plain walk on the four
     bounce wavefronts of the bench render (timed, also from graphs), on
-    bvh_large's primary wavefront and on wide_edges'; find_closest_wide
+    bvh_large's four (the kernel timed through the wrapper and from
+    graphs), on wide_edges' and on deep_stack's; find_closest_wide
     at a stack of 2 (its retry launches the kernel twice) against the
     plain finder; then the bench render with backend "bvh4" through the
     kernel (one launch a bounce) against the plain walk's render,
@@ -2968,6 +3068,7 @@ def wide_path(stats, counters, dev, scene, bvh, base, skey):
     from raypt_torch.accel import lbvh
     from raypt_torch.accel.traverse import KERNELS, PLAIN, find_closest_wide
     from raypt_torch.accel.wide import collapse
+    from raypt_torch.kernels import wide_walk as ww
     from raypt_torch.render.integrator import make_finder, render_sample
     from raypt_torch.scenes.builtin import _icosphere, stanford_bunny
     m = scene.mesh
@@ -2984,24 +3085,36 @@ def wide_path(stats, counters, dev, scene, bvh, base, skey):
     finder = make_finder(scene, cfg, w)
     waves = record_waves(scene, cfg, skey, finder)
     stats.path = "bvh4"
-    for b, wave in enumerate(waves):
-        compare_wide(stats, f"bounce {b}", w, *wave_inputs_of(scene, wave),
-                     timed=True)
-    log("phase 10 bvh4: wide_walk bitwise equal to traverse_wide on the "
-        "bench render's four wavefronts")
+    with SmClock() as clock:
+        for b, wave in enumerate(waves):
+            compare_wide(stats, f"bounce {b}", w, *wave_inputs_of(scene, wave),
+                         timed=True)
+    log(f"phase 10 bvh4: wide_walk bitwise equal to traverse_wide on the "
+        f"bench render's four wavefronts; {clock.summary()} while timed")
     large = stanford_bunny(mesh=_icosphere(LARGE_SUBDIV))
     large.camera.viewport_width = large.camera.viewport_height = WIDTH
     ls = large.freeze(dev)
     lm = ls.mesh
     wl = collapse(lbvh.build(lm.positions, lm.faces, lm.face_valid),
                   lm.positions, lm.faces, lm.face_valid)
-    lcfg = cfg.replace(num_bounces=1)
-    lwave = record_waves(ls, lcfg, skey, make_finder(ls, lcfg, wl))[0]
-    compare_wide(stats, "large b0", wl, *wave_inputs_of(ls, lwave))
+    large_ms = large_graph_ms = 0.0
+    for b, wave in enumerate(record_waves(ls, cfg, skey,
+                                          make_finder(ls, cfg, wl))):
+        args = (wl, *wave_inputs_of(ls, wave))
+        compare_wide(stats, f"large b{b}", *args)
+        with SmClock() as clock:
+            k_ms = cuda_ms(lambda: ww.wide_walk(*args), 10)
+            g_ms = graph_us_per_call(lambda: ww.wide_walk(*args)) / 1e3
+        large_ms += k_ms
+        large_graph_ms += g_ms
+        log(f"  large b{b} wide_walk kernel {k_ms:9.4f} ms, graph {g_ms:9.4f} "
+            f"ms (device, no host work between calls); {clock.summary()}")
     log(f"phase 10 bvh_large: {int(lm.face_valid.sum())} faces, rows "
         f"{tuple(wl.rows.shape)} ({wl.rows.numel() * 4 / 1e6:.1f} MB); "
-        f"primary wavefront bitwise equal")
+        f"four wavefronts bitwise equal; wide_walk {large_ms:.4f} ms a frame "
+        f"through the wrapper, {large_graph_ms:.4f} from CUDA graphs")
     wide_edges(stats, scene, bvh, w, waves[1])
+    deep_stack(stats, dev)
     ro, rd, active = waves[1]
 
     def retry(ops):

@@ -203,7 +203,8 @@ def sort4(tn: torch.Tensor, cid: torch.Tensor):
 @torch.no_grad()
 def traverse_wide(w: WideBVH, ro: torch.Tensor, rd: torch.Tensor,
                   t0: torch.Tensor, active: torch.Tensor,
-                  stack_d: int = STACK_D, visits: list | None = None):
+                  stack_d: int = STACK_D, visits: list | None = None,
+                  steps: list | None = None, depths: list | None = None):
     """Ordered stack walk of a wavefront: ro, rd (R, 3) f32 with rd
     normalized, t0 (R,) the starting best distance (the sphere pass's
     t), active (R,) bool. Returns (t_best (R,) f32, face (R,) int32, -1
@@ -224,7 +225,14 @@ def traverse_wide(w: WideBVH, ro: torch.Tensor, rd: torch.Tensor,
     Each step is computed for the rays still walking at the last check;
     a finished ray is inert, so checking only every CHECK_EVERY steps
     changes no result. With a `visits` list, each step appends (internal
-    rows read, leaf rows read), for the kernel's bound."""
+    rows read, leaf rows read), for the kernel's bound; with a `steps`
+    list, (the indices of the rays that took the step (int64), the rows
+    they read (int64), which of them sat on a leaf row (bool)), the
+    record of `accel.packed.traverse_wavefront` that `simd_efficiency`
+    and `mixed_share` read; with a `depths` list, those rays' stack
+    depth after the step's pushes (int64: the entries pending, pushes
+    beyond stack_d counted), whose maximum is the deepest slot a walk
+    writes plus one. A step that records syncs with the host."""
     rows = w.rows
     dev = ro.device
     n_rows = rows.shape[0]
@@ -252,6 +260,9 @@ def traverse_wide(w: WideBVH, ro: torch.Tensor, rd: torch.Tensor,
         if visits is not None:
             visits.append((int((walking & ~is_leaf).sum()),
                            int((walking & is_leaf).sum())))
+        if steps is not None:
+            steps.append((live[sel[walking]], torch.clamp(
+                nd[walking], 0, n_rows - 1), is_leaf[walking]))
 
         # internal: four ordered slab tests and the pushes, far first
         tn, cid = sort4(*slab_entries(r, o, iv, tb))
@@ -264,6 +275,8 @@ def traverse_wide(w: WideBVH, ro: torch.Tensor, rd: torch.Tensor,
             stack[sel, at] = torch.where(do & (s < stack_d), cid[:, k],
                                          stack[sel, at])
             s = s + do.to(torch.int64)
+        if depths is not None:
+            depths.append(s[walking])
 
         # leaf: four Moller-Trumbore tests in slot order
         leaf_now = walking & is_leaf

@@ -26,7 +26,7 @@ KERNEL_SOURCES = ("compact.cu", "onehot_walk.cu", "cluster_expand.cu",
                   "expand_diag.cu", "regroup.cu", "packed_walk.cu",
                   "wide_walk.cu")
 KERNEL_HEADERS = ("cluster_test.cuh", "block_scan.cuh", "mask_walk.cuh",
-                  "packed_walk.cuh")
+                  "packed_walk.cuh", "wide_walk.cuh")
 SMEM_LIMIT = 232448   # shared memory a block may use on Hopper (227 KB)
 
 

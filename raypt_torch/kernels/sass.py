@@ -8,15 +8,15 @@ import shutil
 import subprocess
 
 
-def loop_sizes(lib_path: str, loops: dict) -> dict:
+def loop_sizes(lib_path: str, loops: dict, longest: bool = False) -> dict:
     """loops: label -> (pattern of a kernel's mangled name, the
     instruction that marks one unit of work, the marks a unit; 0: the
     loop is one unit, a walk step of either kind of row). For each
     kernel found, the shortest loop (a backward branch to an earlier
-    instruction) that holds the mark, as (its instruction count, its
-    units): two units a pass where a thread tests two rays or walks two
-    rays, more where the compiler unrolled the loop. Returns label ->
-    (instructions, units)."""
+    instruction) that holds the mark, or with `longest` the longest, as
+    (its instruction count, its units): two units a pass where a thread
+    tests two rays or walks two rays, more where the compiler unrolled
+    the loop. Returns label -> (instructions, units)."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "-sass", lib_path], capture_output=True,
                           text=True, check=True).stdout
@@ -54,8 +54,10 @@ def loop_sizes(lib_path: str, loops: dict) -> dict:
                 continue
             marks = sum(mark in x for x in ins[start:end + 1])
             units = marks / per_unit if per_unit else float(marks > 0)
-            if units and (best is None or end + 1 - start < best[0]):
-                best = (end + 1 - start, units)
+            size = end + 1 - start
+            if units and (best is None or (size > best[0] if longest
+                                           else size < best[0])):
+                best = (size, units)
         if best:
             out[name] = best
     return out

@@ -51,7 +51,21 @@ constants set (`_set`), each as a library of its own:
     the instructions of its walk loop (`kernels.sass`), and per
     wavefront the SIMD efficiency and mixed-step share of its schedule
     (`accel.packed.simd_efficiency`, `mixed_share`, on the plain walk's
-    record or the while-while model's, `traverse_while_while`).
+    record or the while-while model's, `traverse_while_while`);
+  * wide: the ordered-stack walk of the 4-wide BVH (`rk_wide_walk`), the
+    package's kernel beside the designs of `csrc/wide_walk_designs.cu`
+    (WIDE_DESIGNS: "pr16", the first kernel, and the `designs::Design`s
+    over the steps of `csrc/wide_walk.cuh`; that file says how each
+    walks; KEPT is the one the package kernel writes out), built as one
+    library. Its wavefronts: the four of the bench scene's 1024^2
+    render through the bvh4 finder and the four of bvh_large's (each
+    LBVH built and collapsed on the card). Each line also gives the
+    design's registers, local bytes, resident warps an SM and shared
+    stack slots, the instructions of its walk loop, and per wavefront
+    the SIMD efficiency and mixed-step share of one thread a ray in the
+    octant order of the design's blocks and the stack depths the walk
+    reaches (`wide_schedule`: the plain walk's `steps` and `depths`
+    records).
 With `--against`, the kernels of another checkout (DIR/raypt_torch/csrc)
 join as variant "against" (a `compact.cu` without `chunk_count_kernel`,
 or whose uncompaction is `for_each_destination`'s, is called with the
@@ -66,7 +80,8 @@ walk), and the four of the bench scene's renders through the
 dense-union finder (leaf 128: walk, union and mask), the cluster finder
 (clusters of 64: worklist), the pallas finder (dense), the expand
 finder (`bench.py`'s: leaf 384, groups of 32,768; compact, cm_u,
-uncompact) and the bvh finder (packed, with bvh_large's), while
+uncompact), the bvh finder (packed, with bvh_large's) and the bvh4
+finder (wide, with bvh_large's), while
 nvidia-smi samples the SM clock. Only the renders of the kernels asked
 for are made. Prints the card's
 name and power limit, then one JSON line a variant: ms per frame of
@@ -187,10 +202,13 @@ SWEPT = {
     "cm_u": ("onehot_walk.cu", "rk_topwalk", None, {}),
     "uncompact": ("compact.cu", "rk_alive_uncompact",
                   "// The compaction's design", UNCOMPACT_VARIANTS),
-    "packed": ("packed_walk.cu", "rk_packed_walk", None, {})}
+    "packed": ("packed_walk.cu", "rk_packed_walk", None, {}),
+    "wide": ("wide_walk.cu", "rk_wide_walk", None, {})}
 # timed also from CUDA graph replay: kernels of tens of microseconds,
 # where a direct call's host work may outlast the kernel
-GRAPHED = ("union", "compact", "cm_u", "uncompact", "packed")
+GRAPHED = ("union", "compact", "cm_u", "uncompact", "packed", "wide")
+# the walks whose designs --designs picks (the package's always runs)
+DESIGNED = ("packed", "wide")
 # the walk's designs: entry rk_walk_<name> of csrc/walk_designs.cu
 WALK_DESIGNS = ("unpacked", "interleaved2", "interleaved3",
                 "packed_interleaved2", "refilled1", "refilled2")
@@ -212,6 +230,24 @@ def _packed_designs() -> dict:
 
 
 PACKED_DESIGNS = _packed_designs()
+
+
+def _wide_designs() -> dict:
+    """The wide walk's designs: name -> its designs::Design (threads a
+    block, shared stack slots, launch bound's blocks an SM, step form,
+    while-while threshold, persistent blocks an SM, cooperative leaf and
+    internal thresholds, refill threshold), read from the
+    RK_WWALK_DESIGN lines of csrc/wide_walk_designs.cu (entry points
+    rk_wwalk_<name>); None for pr16, the first kernel."""
+    with open(os.path.join(CSRC_DIR, "wide_walk_designs.cu")) as f:
+        made = re.findall(r"^RK_WWALK_DESIGN\((\w+), ([-\d, ]+)\)$", f.read(),
+                          re.M)
+    return {"pr16": None,
+            **{n: tuple(int(x) for x in v.split(", ")) for n, v in made}}
+
+
+WIDE_DESIGNS = _wide_designs()
+KEPT = "coop_mb10"   # the design csrc/wide_walk.cu writes out
 
 
 def design_pattern(design) -> str:
@@ -247,6 +283,12 @@ SIGS = {"woop": [P, I32, P, I32, I32, P, P, P, P, P, I64, P],
         "packed": [P, I64, P, P, P, P, P, P, I64, I64, P, P],
         # the packed walk before its split table's scratch
         "packed_unscratched": [P, I64, P, P, P, P, P, P, I64, I64, P],
+        # rows, n_rows, root, nw_cap, ro, rd, t0, active -> t, face,
+        # overflow; r, stack_d, stream
+        "wide": [P, I64, I32, I64, P, P, P, P, P, P, P, I64, I32, P],
+        # a wide walk design: the package's arguments, a scratch, stream
+        "wide_design": [P, I64, I32, I64, P, P, P, P, P, P, P, I64, I32, P,
+                        P],
         # alive_uncompact before its count pass's scratch
         "uncompact_unscratched": [P, P, P, P, P, I64, I32, P]}
 
@@ -291,10 +333,11 @@ def _read(*parts) -> str:
         return f.read()
 
 
-def build_variants(kernels, against: str | None) -> dict:
+def build_variants(kernels, against: str | None, designs=None) -> dict:
     """(kernel, variant) -> (library path, C entry point, signature key),
     every library built in parallel (one nvcc each); the package's own
-    kernels come from `kernel_lib()`."""
+    kernels come from `kernel_lib()`. With `designs`, a walk's designs
+    library is built only when one of them is among its designs."""
     jobs = {}
     for kernel in kernels:
         source, entry, scope, variants = SWEPT[kernel]
@@ -308,14 +351,21 @@ def build_variants(kernels, against: str | None) -> dict:
                             _read(CSRC_DIR, "walk_designs.cu"), CSRC_DIR)
         for name in WALK_DESIGNS:
             jobs[("walk", name)] = (designs, f"rk_walk_{name}", "walk")
-    if "packed" in kernels:
-        designs = _nvcc_job("packed_walk_designs", "packed_walk_designs.cu",
-                            _read(CSRC_DIR, "packed_walk_designs.cu"),
-                            CSRC_DIR)
+    def wanted(names):
+        return designs is None or bool(set(designs) & set(names))
+
+    if "packed" in kernels and wanted([*PACKED_DESIGNS, *PRESORTED]):
+        lib = _nvcc_job("packed_walk_designs", "packed_walk_designs.cu",
+                        _read(CSRC_DIR, "packed_walk_designs.cu"), CSRC_DIR)
         for name, design in PACKED_DESIGNS.items():
-            jobs[("packed", name)] = (designs, f"rk_pwalk_{name}",
+            jobs[("packed", name)] = (lib, f"rk_pwalk_{name}",
                                       "packed_unscratched" if design is None
                                       else "packed")
+    if "wide" in kernels and wanted(WIDE_DESIGNS):
+        lib = _nvcc_job("wide_walk_designs", "wide_walk_designs.cu",
+                        _read(CSRC_DIR, "wide_walk_designs.cu"), CSRC_DIR)
+        for name in WIDE_DESIGNS:
+            jobs[("wide", name)] = (lib, f"rk_wwalk_{name}", "wide_design")
     if against:
         other = os.path.join(against, "raypt_torch", "csrc")
         for kernel in kernels:
@@ -351,6 +401,9 @@ def _loaded(sig: str, path: str, fn: str):
     lib = ctypes.CDLL(path)
     f = getattr(lib, fn)
     f.argtypes, f.restype = SIGS[sig], ctypes.c_int
+    if sig == "wide_design":   # f.scratch(r): bytes of its scratch
+        f.scratch = getattr(lib, f"{fn}_scratch")
+        f.scratch.argtypes, f.scratch.restype = [I64], I64
     if sig == "packed":   # f.scratch(n_rows, r): float4 of its scratch
         size = getattr(lib, f"{fn}_scratch")
         size.restype = I64
@@ -369,8 +422,9 @@ def wavefronts(kernels=tuple(SWEPT)) -> dict:
     finder (walk, union, mask), the cluster finder (worklist), the pallas
     finder (dense), the expand finder (compact, cm_u, uncompact: each
     stage fed the package kernels' outputs of the stage before it) and
-    the bvh finder, then bvh_large's four (packed). Only the renders
-    that feed `kernels` are made."""
+    the bvh finder, then bvh_large's four (packed), and the bvh4
+    finder's, then bvh_large's (wide). Only the renders that feed
+    `kernels` are made."""
     from ..accel.clusters import (CLUSTER_LEAF, build_clusters,
                                   tile_union_counts, tile_worklists)
     from ..accel import lbvh
@@ -378,6 +432,7 @@ def wavefronts(kernels=tuple(SWEPT)) -> dict:
     from ..accel.host_bvh import build_sah
     from ..accel.packed import pack
     from ..accel.traverse import DENSE_CHUNK, onehot_inputs, wavefront_inputs
+    from ..accel.wide import collapse
     from ..core.math3d import BIG
     from ..core.types import RenderConfig
     from ..render.integrator import make_finder, render_sample
@@ -391,6 +446,7 @@ def wavefronts(kernels=tuple(SWEPT)) -> dict:
     from .dense_pallas import RAY_TILE
     out = {k: [] for k in SWEPT}
     out["packed_path"] = []   # the path of each packed wavefront
+    out["wide_path"] = []     # and of each wide one
     bench = RenderConfig(width=WIDTH, height=WIDTH, samples_per_pixel=1,
                          num_bounces=4, russian_roulette=True)
     def large_bunny():
@@ -413,7 +469,9 @@ def wavefronts(kernels=tuple(SWEPT)) -> dict:
                 onehot_expand=EXPAND_N, onehot_compact=COMPACT_N), 0,
              ("compact", "cm_u", "uncompact")),
             (stanford_bunny, bench.replace(backend="bvh"), 0, ("packed",)),
-            (large_bunny, bench.replace(backend="bvh"), 0, ("packed",))):
+            (large_bunny, bench.replace(backend="bvh"), 0, ("packed",)),
+            (stanford_bunny, bench.replace(backend="bvh4"), 0, ("wide",)),
+            (large_bunny, bench.replace(backend="bvh4"), 0, ("wide",))):
         if not set(feeds) & set(kernels):
             continue
         b = build()
@@ -423,6 +481,9 @@ def wavefronts(kernels=tuple(SWEPT)) -> dict:
         if cfg.backend == "bvh":
             acc = pack(lbvh.build(m.positions, m.faces, m.face_valid),
                        m.positions, m.faces, m.face_valid)
+        elif cfg.backend == "bvh4":
+            acc = collapse(lbvh.build(m.positions, m.faces, m.face_valid),
+                           m.positions, m.faces, m.face_valid)
         elif cfg.backend == "onehot":
             acc = build_onehot(build_sah(m), m.positions, m.faces,
                                m.face_valid, leaf=cfg.onehot_leaf,
@@ -436,6 +497,13 @@ def wavefronts(kernels=tuple(SWEPT)) -> dict:
 
         def rec(s, ro, rd, active=None, finder=finder, acc=acc, cfg=cfg,
                 c4=build is config4_scene):
+            if cfg.backend == "bvh4":
+                o, d, t, a, _, _ = wavefront_inputs(s, ro, rd, active, 1)
+                out["wide"].append((acc.rows, acc.root, acc.nw_cap, o, d, t,
+                                    a))
+                out["wide_path"].append(
+                    "bvh_large" if build is large_bunny else "bvh4")
+                return finder(s, ro, rd, active)
             if cfg.backend == "bvh":
                 o, d, t, a, _, _ = wavefront_inputs(s, ro, rd, active, 1)
                 out["packed"].append((acc.rows, o, d, t, a))
@@ -618,6 +686,25 @@ def _call_packed(fn, rows, o, d, t, a, scratch=True):
     return t_out, f_out
 
 
+def _call_wide(fn, rows, root, nw, o, d, t, a, scratch=False):
+    """The wide walk at the finder's stack (STACK_D); a design
+    (scratch=True) also takes a scratch of the bytes it asks."""
+    from ..accel.wide import STACK_D
+    r = o.shape[0]
+    t_out = torch.empty_like(t)
+    f_out = torch.empty((r,), dtype=torch.int32, device=t.device)
+    o_out = torch.empty((r,), dtype=torch.bool, device=t.device)
+    ptrs = [rows.data_ptr(), rows.shape[0], root, nw, o.data_ptr(),
+            d.data_ptr(), t.data_ptr(), a.data_ptr(), t_out.data_ptr(),
+            f_out.data_ptr(), o_out.data_ptr(), r, STACK_D]
+    if scratch:
+        size = fn.scratch(r)
+        s = torch.empty((-(-size // 8),), dtype=torch.int64, device=t.device)
+        ptrs.append(s.data_ptr() if size else None)
+    _check(fn(*ptrs, _stream()), "wide walk")
+    return t_out, f_out, o_out
+
+
 def presort(rows, o, d, t, a, keys=("octant", "morton")):
     """The wavefront with its live rays first, stably sorted by `keys`:
     "octant", the direction octant, and "morton", the Morton code of the
@@ -661,7 +748,9 @@ CALLS = {"woop": _call_union, "mask": _call_union,
          "packed": _call_packed,
          "packed_unscratched": lambda fn, *w: _call_packed(fn, *w,
                                                             scratch=False),
-         "packed_presorted": _call_presorted}
+         "packed_presorted": _call_presorted,
+         "wide": _call_wide,
+         "wide_design": lambda fn, *w: _call_wide(fn, *w, scratch=True)}
 
 
 class SmClock:
@@ -826,6 +915,114 @@ def packed_measures(built, lib, waves, designs=None) -> dict:
     return out
 
 
+# the mangled name of the package's capacity-64 wide walk kernel
+# (wide_walk_kernel<64> in csrc/wide_walk.cu's anonymous namespace, which
+# nvcc names after the file) and of pr16's
+WIDE_PACKAGE_PATTERN = r"wide_walk_cu_\w+?16wide_walk_kernelILi64E"
+WIDE_PR16_PATTERN = r"4pr1616wide_walk_kernelILi64E"
+
+
+def wide_pattern(design) -> str:
+    """The pattern of the mangled name of a wide design's capacity-64
+    walk kernel (designs::walk_kernel of csrc/wide_walk_designs.cu)."""
+    args = "".join(f"Li{v}E" for v in design)
+    return rf"7designs11walk_kernelINS_6DesignI{args}EELi64E"
+
+
+@torch.no_grad()
+def wide_schedule(waves, block: int) -> dict:
+    """Per wide wavefront, the schedule of one thread a ray with each
+    `block`-ray block's rays handed out by octant (`accel.packed.
+    octant_order`): the SIMD efficiency and mixed-step share of the
+    plain walk's `steps` record on the rays in that order, and the
+    stack depth each live ray reaches (its `depths` record's maximum):
+    the largest, and the 50th, 90th and 99th percentiles over the rays
+    that walk."""
+    from ..accel.packed import mixed_share, octant_order, simd_efficiency
+    from ..accel.wide import WideBVH, traverse_wide
+    out = {"simd_efficiency": [], "mixed_share": [], "depth_max": [],
+           "depth_p50_p90_p99": []}
+    for rows, root, nw, o, d, t, a in waves:
+        r = o.shape[0]
+        order = octant_order(d, a, block)
+        lane = order.clamp(max=r - 1)
+        live = a[lane] & (order < r)
+        steps, depths = [], []
+        traverse_wide(WideBVH(rows=rows, root=root, nw_cap=nw), o[lane],
+                      d[lane], t[lane], live, steps=steps, depths=depths)
+        deepest = torch.zeros(lane.shape[0], dtype=torch.int64,
+                              device=o.device)
+        for (rays, _, _), dep in zip(steps, depths):
+            deepest.scatter_reduce_(0, rays, dep, "amax")
+        walked = deepest[live].float()
+        out["simd_efficiency"].append(round(simd_efficiency(steps), 4))
+        out["mixed_share"].append(round(mixed_share(steps), 4))
+        out["depth_max"].append(int(walked.max()) if walked.numel() else 0)
+        q = torch.tensor([0.5, 0.9, 0.99], device=o.device)
+        out["depth_p50_p90_p99"].append(
+            [float(x) for x in torch.quantile(walked, q)]
+            if walked.numel() else [])
+        del steps, depths
+    return out
+
+
+def wide_measures(built, lib, waves, designs=None) -> dict:
+    """variant -> what the wide walk's designs are measured by, beside
+    their times: registers, local bytes, resident blocks and warps an SM
+    and shared stack slots (rk_wwalk_<name>_info, the package's
+    rk_wide_walk_info), the instructions of its loops (`kernels.sass`)
+    that hold a 16-byte global load: the shortest ("sass_loop": one step
+    of either kind of row, or, with cooperative leaves, a round of the
+    leaf phase's slot tests) and the longest ("sass_pass": a warp's pass,
+    an internal visit and a leaf phase), and per wavefront
+    `wide_schedule`'s measures for the design's
+    block size (one thread a ray: while-while designs step their lanes
+    otherwise, persistent ones take the same warps of rays)."""
+    from .sass import loop_sizes
+    out = {}
+    sizes = {"package": WIDE_DESIGNS[KEPT]}
+    names = [n for n in WIDE_DESIGNS if ("wide", n) in built
+             and (not designs or n in designs)]
+
+    def read(fn, name):   # the package's 4 ints, a design's 5
+        info = (ctypes.c_int * 5)()
+        fn.argtypes, fn.restype = [P], ctypes.c_int
+        _check(fn(ctypes.cast(info, P)), f"{name} info")
+        regs, local, blocks, threads, shared = list(info)
+        out.setdefault(name, {}).update(
+            {"registers": regs, "local_bytes": local, "blocks_per_sm": blocks,
+             "warps_per_sm": blocks * threads // 32, "shared_slots": shared})
+
+    def sass(path, loops):
+        try:
+            for key_, longest in (("sass_loop", False), ("sass_pass", True)):
+                for name, (n_ins, _) in loop_sizes(path, loops,
+                                                   longest).items():
+                    out[name][key_] = n_ins
+        except (OSError, subprocess.CalledProcessError) as e:
+            print(f"SASS not read: {e}", flush=True)
+
+    read(lib.rk_wide_walk_info, "package")
+    sass(lib._name, {"package": (WIDE_PACKAGE_PATTERN, "LDG.E.128", 0)})
+    if names:
+        path = built[("wide", names[0])][0]
+        lib_ = ctypes.CDLL(path)
+        for name in names:
+            read(getattr(lib_, f"rk_wwalk_{name}_info"), name)
+            sizes[name] = WIDE_DESIGNS[name] or (128,)
+        loops = {"pr16": (WIDE_PR16_PATTERN, "LDG.E.128", 0)}
+        loops.update({n: (wide_pattern(d), "LDG.E.128", 0)
+                      for n, d in WIDE_DESIGNS.items() if d and n in names})
+        sass(path, loops)
+    schedules = {}
+    for name, design in sizes.items():
+        block = design[0]
+        if block not in schedules:
+            schedules[block] = wide_schedule(waves["wide"], block)
+        out[name].update(schedules[block])
+    return out
+
+
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--against", help="a checkout whose kernels join the sweep")
@@ -833,9 +1030,9 @@ def main(argv=None) -> None:
     p.add_argument("--rounds", type=int, default=3)
     p.add_argument("--kernels", nargs="+", choices=tuple(SWEPT),
                    default=list(SWEPT))
-    p.add_argument("--designs", nargs="+", help="the packed walk's designs "
-                   "to time (of PACKED_DESIGNS and PRESORTED; default "
-                   "all)")
+    p.add_argument("--designs", nargs="+", help="the walks' designs to "
+                   "time (of PACKED_DESIGNS, PRESORTED and WIDE_DESIGNS; "
+                   "default all)")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device: the sweep runs on the card")
@@ -844,14 +1041,14 @@ def main(argv=None) -> None:
                           text=True, check=True).stdout.strip()
     print(card, flush=True)
     lib = kernel_lib()
-    built = build_variants(args.kernels, args.against)
+    built = build_variants(args.kernels, args.against, args.designs)
     waves = wavefronts(args.kernels)
     # (kernel, variant) -> (function, its signature key, its wavefronts)
     fns = {}
     for kernel in args.kernels:
         source, entry = SWEPT[kernel][:2]
-        sig0 = (packed_sig(_read(CSRC_DIR, source)) if kernel == "packed"
-                else kernel)
+        sig0 = {"packed": packed_sig}.get(
+            kernel, lambda _: kernel)(_read(CSRC_DIR, source))
         ref = _loaded(sig0, lib._name, entry)
         want = [CALLS[sig0](ref, *w) for w in waves[kernel]]
         variants = {(kernel, "package"): (ref, sig0, waves[kernel])}
@@ -865,19 +1062,20 @@ def main(argv=None) -> None:
             if k == kernel:
                 variants[(k, name)] = (_loaded(sig, path, fn), sig,
                                        waves[kernel])
-        if kernel == "packed":
+        if kernel == "packed" and ("packed", "pr12") in built:
             for pre, (name, keys) in PRESORTED.items():
                 variants[(kernel, pre)] = (
                     variants[(kernel, name)][0], "packed_presorted",
                     [presort(*w, keys) for w in waves[kernel]])
-            if args.designs:
-                variants = {k: v for k, v in variants.items()
-                            if k[1] in ("package", *args.designs)}
+        if kernel in DESIGNED and args.designs:
+            variants = {k: v for k, v in variants.items()
+                        if k[1] in ("package", "against", *args.designs)}
         for (k, name), (fn, sig, ws) in variants.items():
             for w, exp in zip(ws, want):
                 for x, y in zip(CALLS[sig](fn, *w), exp):
-                    if not torch.equal(x.view(torch.int32),
-                                       y.view(torch.int32)):
+                    if x.dtype == torch.float32:
+                        x, y = x.view(torch.int32), y.view(torch.int32)
+                    if not torch.equal(x, y):
                         raise AssertionError(f"{kernel} {name} differs from "
                                              f"the package's kernel")
         fns.update(variants)
@@ -892,8 +1090,11 @@ def main(argv=None) -> None:
                     graphed[key_].append(
                         [_graph_ms(lambda w=w: CALLS[sig](fn, *w))
                          for w in ws])
-    extra = (packed_measures(built, lib, waves, args.designs)
-             if "packed" in args.kernels else {})
+    extra = {}
+    if ("packed", "pr12") in built:
+        extra["packed"] = packed_measures(built, lib, waves, args.designs)
+    if "wide" in args.kernels:
+        extra["wide"] = wide_measures(built, lib, waves, args.designs)
     lines = []
     for (kernel, name), rounds in times.items():
         line = {"kernel": kernel, "variant": name, "card": card,
@@ -904,15 +1105,15 @@ def main(argv=None) -> None:
             g = graphed[(kernel, name)]
             line["graph_ms_per_frame"] = [round(sum(r), 6) for r in g]
             line["graph_ms_per_wavefront"] = [round(x, 6) for x in g[-1]]
-        if kernel == "packed":
-            paths = waves["packed_path"]
+        if kernel in DESIGNED:
+            paths = waves[f"{kernel}_path"]
             for key_, per in (("ms_per_frame", rounds),
                               ("graph_ms_per_frame", graphed.get(
                                   (kernel, name), []))):
                 line[key_ + "_by_path"] = {
                     p: [round(sum(x for x, q in zip(r, paths) if q == p), 6)
                         for r in per] for p in dict.fromkeys(paths)}
-            line.update(extra.get(name, {}))
+            line.update(extra.get(kernel, {}).get(name, {}))
         lines.append(json.dumps(line))
     print("\n".join(lines), flush=True)
     if args.out:

@@ -3,8 +3,9 @@
 package's `raypt/accel/wide.py::traverse_wide`, not a Pallas kernel.
 
 On CUDA tensors `wide_walk` launches `csrc/wide_walk.cu` (one thread a
-ray, its stack in local memory, each 128-ray block's rays handed out by
-direction octant). On CPU tensors it runs the plain torch version,
+ray, each 128-ray block's rays handed out by direction octant, each
+warp's leaf tests shared out over its lanes; the note at the head of
+that source says why). On CPU tensors it runs the plain torch version,
 `accel.wide.traverse_wide`, which the kernel equals bitwise on the card.
 """
 from __future__ import annotations
@@ -39,6 +40,8 @@ def wide_walk(w: WideBVH, ro, rd, t0, active, stack_d: int = STACK_D):
     t_out = torch.empty_like(t0)
     f_out = torch.empty((r,), dtype=torch.int32, device=t0.device)
     o_out = torch.empty((r,), dtype=torch.bool, device=t0.device)
+    if r == 0:   # no ray, no launch
+        return t_out, f_out, o_out
     launch("rk_wide_walk", rows.data_ptr(), n_rows, w.root, w.nw_cap,
            ro.data_ptr(), rd.data_ptr(), t0.data_ptr(), active.data_ptr(),
            t_out.data_ptr(), f_out.data_ptr(), o_out.data_ptr(), r, stack_d)

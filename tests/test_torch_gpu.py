@@ -35,9 +35,9 @@ from raypt_torch.scenes.config4 import config4_scene
 from chip_smoke import (MERGE_LEAVES, WL_GROUPS, WOOP_ODD_LEAF, Stats,
                         check_lbvh, check_planted, compact_layouts,
                         config5_case, copy_most_hit, edge_seeds, fit_run,
-                        merge_case, mixed_tile, same_fit, walk_edges,
-                        walk_layouts, wide_edges, woop_faces, woop_merge,
-                        worklist_merge, zero_maps_table)
+                        deep_stack_case, merge_case, mixed_tile, same_fit,
+                        walk_edges, walk_layouts, wide_edges, woop_faces,
+                        woop_merge, worklist_merge, zero_maps_table)
 
 pytestmark = pytest.mark.gpu
 
@@ -740,25 +740,41 @@ def wide_waves(gpu_scene):
     return bvh, w, _waves(scene, CFG.replace(backend="bvh4"), w, 4)
 
 
-@pytest.mark.parametrize("stack_d", [64, 4, 2])
-def test_wide_walk_bitwise(gpu_scene, wide_waves, stack_d):
-    """wide_walk against traverse_wide on every bounce of the 256^2 bvh4
-    render, bitwise (t, face, overflow); at stacks of 4 and 2 rays
-    overflow."""
+def _wide_bitwise(w, o, d, t, a, stack_d):
+    """wide_walk against traverse_wide, bitwise: the overflow flags."""
     from raypt_torch.accel.wide import traverse_wide
     from raypt_torch.kernels import wide_walk as tww
+    kt, kf, ko = tww.wide_walk(w, o, d, t, a, stack_d)
+    pt, pf, po = traverse_wide(w, o, d, t, a, stack_d)
+    assert _bits_equal(kt, pt) and torch.equal(kf, pf)
+    assert torch.equal(ko, po)
+    return kf, ko
+
+
+@pytest.mark.parametrize("stack_d", [64, 4, 2, 1, 31, 32, 33, 256])
+def test_wide_walk_bitwise(gpu_scene, wide_waves, stack_d):
+    """wide_walk against traverse_wide, bitwise (t, face, overflow), on
+    every bounce of the 256^2 bvh4 render (at stacks of 4 and less rays
+    overflow, at 64 and more none) and on deep_stack_case's wavefront,
+    whose stacks reach 48 entries (rays overflow below 48, so at 31,
+    32 and 33 a ray's deep slots are written and read back), with the
+    retry at 4x the stack of the rays that overflowed, as
+    find_closest_wide makes it."""
     scene, _ = gpu_scene
     _, w, waves = wide_waves
     overflowed = 0
     for wave in waves:
         o, d, t, a, _, _ = wavefront_inputs(scene, *wave, 1)
-        kt, kf, ko = tww.wide_walk(w, o, d, t, a, stack_d)
-        pt, pf, po = traverse_wide(w, o, d, t, a, stack_d)
-        assert _bits_equal(kt, pt) and torch.equal(kf, pf)
-        assert torch.equal(ko, po)
+        kf, ko = _wide_bitwise(w, o, d, t, a, stack_d)
         assert int((kf >= 0).sum()) > 0
         overflowed += int(ko.sum())
-    assert (overflowed > 0) == (stack_d < 64)
+    if stack_d <= 4 or stack_d >= 64:
+        assert (overflowed > 0) == (stack_d <= 4)
+    dw, do, dd, dt, da = deep_stack_case(device="cuda")
+    kf, ko = _wide_bitwise(dw, do, dd, dt, da, stack_d)
+    assert bool(ko.any()) == (stack_d < 3 * dw.nw_cap)
+    if bool(ko.any()):
+        _wide_bitwise(dw, do, dd, dt, da & ko, 4 * stack_d)
 
 
 def test_wide_walk_edges(gpu_scene, wide_waves):
@@ -800,6 +816,27 @@ def test_wide_walk_raises_not_falls_back(gpu_scene, wide_waves, monkeypatch):
     for stack_d in (0, 1025):
         with pytest.raises(ValueError):
             tww.wide_walk(w, o, d, t, a, stack_d)
+
+
+def test_wide_walk_counts_each_launch(gpu_scene, wide_waves):
+    """The wrapper's launch count rises by exactly one a call, whichever
+    compile-time stack the call takes (64, 256, 1,024 entries) and on
+    the deep-stack wavefront, and not for an empty wavefront (no
+    launch)."""
+    from raypt_torch.kernels import wide_walk as tww
+    scene, _ = gpu_scene
+    _, w, waves = wide_waves
+    o, d, t, a, _, _ = wavefront_inputs(scene, *waves[1], 1)
+    deep = deep_stack_case(device="cuda")
+    for args, stack_d in (((w, o, d, t, a), 64), ((w, o, d, t, a), 256),
+                          ((w, o, d, t, a), 1024), (deep, 16), (deep, 64)):
+        before = tww.wide_walk.launches
+        tww.wide_walk(*args, stack_d)
+        torch.cuda.synchronize()
+        assert tww.wide_walk.launches == before + 1
+    before = tww.wide_walk.launches
+    out = tww.wide_walk(w, o[:0], d[:0], t[:0], a[:0])
+    assert tww.wide_walk.launches == before and out[0].shape == (0,)
 
 
 def test_bvh4_render_bitwise_vs_plain(gpu_scene, wide_waves):

@@ -9,6 +9,7 @@ carried across (`lbvh_from_numpy`). Also an AST check that the modules
 this slice adds import neither JAX nor the JAX package."""
 import ast
 import pathlib
+import re
 
 import jax
 import jax.numpy as jnp
@@ -284,6 +285,140 @@ def test_bvh4_render_and_grads(case):
         scale = max(float(np.abs(want).max()), 1e-12)
         assert float(np.abs(got.numpy() - want).max()) <= GRAD_RTOL * scale
     assert float(alb.grad.abs().sum()) > 0
+
+
+@pytest.mark.parametrize("stack_d", [STACK_D, 2])
+def test_steps_record(case, stack_d):
+    """traverse_wide's `steps` and `depths` records change no result;
+    their rows read sum to the `visits` record's, kind by kind, step by
+    step; each step's depths align with its rays; and simd_efficiency /
+    mixed_share read the record as they read the packed walk's."""
+    from raypt_torch.accel.packed import mixed_share, simd_efficiency
+    args = [torch.from_numpy(case[k].copy())
+            for k in ("ro", "rd", "t0", "active")]
+    want = traverse_wide(case["w"], *args, stack_d=stack_d)
+    visits, steps, depths = [], [], []
+    got = traverse_wide(case["w"], *args, stack_d=stack_d, visits=visits,
+                        steps=steps, depths=depths)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+    assert len(visits) == len(steps) == len(depths)
+    for (inner, leaves), (rays, rows, leaf), dep in zip(visits, steps,
+                                                         depths):
+        assert rays.numel() == rows.numel() == dep.numel() == inner + leaves
+        assert int(leaf.sum()) == leaves
+        assert bool((rows[leaf] >= case["w"].nw_cap).all())
+        assert bool((dep >= 0).all())
+    assert sum(v[0] + v[1] for v in visits) > int(args[3].sum())
+    assert 0 < simd_efficiency(steps) <= 1 and 0 <= mixed_share(steps) <= 1
+    deepest = max(int(d.max()) for d in depths if d.numel())
+    assert deepest > stack_d if stack_d == 2 else deepest <= stack_d
+
+
+def test_deep_stack_record():
+    """chip_smoke.deep_stack_case, triangles stacked along the view axis
+    under a chain of internal rows: at 3 rows, by hand, a downward ray
+    pushes 3 leaves a row (stack depth 9 at leaf 0), hits face 0 at t
+    about 1 and visits 3 + 10 rows; the ray heading up visits the root
+    only, the ray seeded at t0 = 3.5 pushes only the leaves nearer than
+    3.5; at 8 rows the recorded depth is 24, above 16, and a stack of 16
+    overflows; the plain walk agrees with the JAX package's on both."""
+    from chip_smoke import deep_stack_case
+    w, o, d, t, a = deep_stack_case(3, 64, "cpu")
+    steps, depths = [], []
+    pt, pf, po = traverse_wide(w, o, d, t, a, steps=steps, depths=depths)
+    per_ray = torch.zeros(64, dtype=torch.int64)
+    deepest = torch.zeros(64, dtype=torch.int64)
+    for (rays, _, _), dep in zip(steps, depths):
+        per_ray[rays] += 1
+        deepest.scatter_reduce_(0, rays, dep, "amax")
+    lane = torch.arange(64) % 16
+    down = lane >= 3
+    assert int(deepest.max()) == 9 and bool((deepest[down] == 9).all())
+    assert bool((per_ray[down] == 3 + 10).all())
+    assert bool((per_ray[lane == 1] == 1).all())
+    assert bool((per_ray[lane == 0] == 0).all())
+    # t0 = 3.5: the chain's rows and leaves 1 and 2 (t about 2 and 3)
+    # only, pushed at the last row, then leaf 0
+    assert bool((deepest[lane == 2] == 2).all())
+    assert bool((per_ray[lane == 2] == 3 + 3).all())
+    assert bool((pf[down | (lane == 2)] == 0).all())
+    assert bool((pf[lane <= 1] == -1).all()) and not bool(po.any())
+    assert bool(((pt[down] - 1.0).abs() < 1e-3).all())
+    for levels, stack_d in ((3, STACK_D), (8, STACK_D), (8, 16)):
+        w, o, d, t, a = deep_stack_case(levels, 256, "cpu")
+        depths = []
+        pt, pf, po = traverse_wide(w, o, d, t, a, stack_d, depths=depths)
+        if levels == 8:
+            assert max(int(x.max()) for x in depths if x.numel()) == 24 > 16
+        assert bool(po.any()) == (stack_d < 3 * levels)
+        jw = jwide.WideBVH(rows=jnp.asarray(w.rows.numpy()),
+                           root=jnp.int32(w.root), nw_cap=w.nw_cap)
+        jt, jf, jo = jwide.traverse_wide(
+            jw, *(jnp.asarray(x.numpy()) for x in (o, d, t, a)),
+            stack_d=stack_d)
+        assert np.array_equal(pf.numpy(), np.asarray(jf))
+        assert np.array_equal(po.numpy(), np.asarray(jo))
+        np.testing.assert_allclose(pt.numpy(), np.asarray(jt), rtol=T_RTOL)
+
+
+def test_wide_designs_match_the_sweep():
+    """The sweep's WIDE_DESIGNS are the RK_WWALK_DESIGN lines of
+    csrc/wide_walk_designs.cu, each within wide::Design's static checks
+    (whole warps, a shared stack of at most 40 KB a block, its settings'
+    ranges, no while-while schedule with cooperative leaves, shared
+    internal rows only with shared leaves, refilled lanes only in
+    persistent warps with shared leaves), with pr16
+    beside them; KEPT, the design csrc/wide_walk.cu writes out, is one
+    of them: 128 threads, the launch bound's 10 blocks, no shared
+    stack, the lean step, cooperative leaves in every pass and none of
+    the other schedules, as the package source's constants say."""
+    from raypt_torch.kernels import sweep
+    root = pathlib.Path(__file__).resolve().parents[1] / "raypt_torch"
+    src = (root / "csrc" / "wide_walk_designs.cu").read_text()
+    lines = [x for x in src.splitlines() if x.startswith("RK_WWALK_DESIGN(")]
+    assert len(lines) == len(sweep.WIDE_DESIGNS) - 1 >= 10
+    assert sweep.WIDE_DESIGNS["pr16"] is None
+    for name, design in sweep.WIDE_DESIGNS.items():
+        if design is None:
+            continue
+        assert f"RK_WWALK_DESIGN({name}, " in src
+        (threads, shared, min_blocks, lean, batch, persist, coop, inner,
+         refill) = design
+        assert threads % 32 == 0 and threads <= 1024
+        assert 0 <= shared
+        assert min_blocks >= 1 and lean in (0, 1, 2, 3)
+        assert 0 <= batch <= 32 and persist >= 0 and 0 <= coop <= 32
+        assert shared * threads * 4 <= 40 * 1024 and not (coop and batch)
+        assert 0 <= inner <= 32 and (coop or not inner)
+        assert 0 <= refill <= 32 and (not refill or (persist and coop))
+    kept = sweep.WIDE_DESIGNS[sweep.KEPT]
+    package = (root / "csrc" / "wide_walk.cu").read_text()
+    consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", package))
+    assert kept == (int(consts["kThreads"]), 0, int(consts["kMinBlocks"]),
+                    1, 0, 0, 1, 0, 0)
+    assert "__launch_bounds__(kThreads, kMinBlocks)" in package
+    assert sweep.wide_pattern(kept).startswith("7designs11walk_kernel")
+
+
+def test_wide_schedule(case):
+    """The sweep's schedule measures on the CPU: the SIMD efficiency and
+    mixed share of the octant order's record in (0, 1], and the depths'
+    maximum the deepest any live ray reaches, at or above its 99th
+    percentile."""
+    from raypt_torch.kernels import sweep
+    w = case["w"]
+    wave = (w.rows, w.root, w.nw_cap,
+            *(torch.from_numpy(case[k].copy())
+              for k in ("ro", "rd", "t0", "active")))
+    got = sweep.wide_schedule([wave], 128)
+    depths = []
+    traverse_wide(w, *wave[3:], depths=depths)
+    assert got["depth_max"] == [max(int(x.max()) for x in depths
+                                    if x.numel())]
+    assert got["depth_p50_p90_p99"][0][2] <= got["depth_max"][0]
+    assert 0 < got["simd_efficiency"][0] <= 1
+    assert 0 <= got["mixed_share"][0] <= 1
 
 
 NEW_MODULES = ("app/__init__.py", "app/cli.py", "app/debug.py",
