@@ -213,6 +213,24 @@ Phases:
      against --frames 2, --aovs --check (the default's image), inverse
      on cornell_bunny at 32^2 for 3 steps (bvh: 8 packed_walk
      launches), and bench, which exits non-zero naming its ROADMAP item
+ 11. dist (raypt_torch.dist): (a) in this process on a one-rank NCCL
+     group, render_frame_sharded of the bench scene at 1024^2 through bvh
+     (the card's LBVH: 4 packed_walk launches) and through the expand
+     path's onehot accel (its four kernels, 4 launches each), bitwise
+     against render_frame with the same accel; loss_and_grad_sharded
+     (positions and albedo, bvh) bitwise against plain autograd of the
+     same loss; two make_fit_step_sharded steps bitwise against phase
+     9's make_fit_step (48 launches a step). (b) Two rank processes
+     sharing the card over gloo with the launcher's env (dist_rank):
+     the launcher's render at its defaults (cornell_bunny, 512^2, 4 spp,
+     4 bounces, bvh: 16 packed_walk launches a rank) bitwise against
+     render_frame on both ranks; its bench (Mray-seg/s); three view-
+     sharded fit steps of config #5 over 2 ranks x 8 views (24 launches
+     a rank a step), each step's loss and summed gradients within
+     DIST_LOSS_RTOL / DIST_GRAD_RTOL of the one-process step from the
+     same parameters and Adam state, the parameters bitwise equal across
+     the ranks and a second run bitwise equal; a rank that fails or
+     outlasts DIST_PROC_TIMEOUT fails the phase
 
 The last line is {"ok": true, "device": {...}}; the line before it is
 the per-kernel JSON summary: "ms", "plain_ms" and "bound_ms" are summed
@@ -359,6 +377,25 @@ FIT_TRAIN = ("albedo_logits", "lattice_scalar", "vertex_offsets")
 FIT_STEPS = 5
 FIT_PLAIN_STEPS = 2
 FIT_LOOP_STEPS = 2       # raypt_torch.diff.fit, the loop's entry point
+# phase 11, raypt_torch.dist: two ranks sharing the card over gloo (the
+# stand-in for config #5's 8-device mesh), the launcher's render defaults
+# (cornell_bunny, 512^2, 4 spp, 4 bounces, bvh: 16 packed_walk launches a
+# rank), and three view-sharded fit steps (8 views a rank: 24 launches a
+# rank a step); seconds a rendezvous or collective may wait, and a rank
+# process may run. The two ranks' partial sums add in another order than
+# one process's running sum: each step's loss is held to DIST_LOSS_RTOL
+# and its summed gradients to DIST_GRAD_RTOL of the largest |g| against
+# the one-process step from the same parameters and Adam state.
+DIST_RANKS = 2
+DIST_SIZE = 512
+DIST_SPP = 4
+DIST_BOUNCES = 4
+DIST_FIT_STEPS = 3
+DIST_TIMEOUT = 300
+DIST_PROC_TIMEOUT = 420
+DIST_LOSS_RTOL = 1e-5
+DIST_GRAD_RTOL = 1e-5
+DIST_SUM_REPS = 20         # sum_over_mesh timed alone, mean of these
 
 # the wide walk (phase 10, csrc/wide_walk.cu): the stacks that overflow
 # on the bench scene's wavefronts (find_closest_wide then walks the
@@ -2637,21 +2674,17 @@ def config5_case(dev, subdiv=LARGE_SUBDIV, width=FIT_WIDTH,
             stack_views(frames), targets)
 
 
-def fit_run(case, steps, ops=None, counters=None, tables=None):
-    """`steps` steps of the port's fit step (make_fit_step with the
-    config's settings, a refit every step) from SceneParams.init(bad,
-    lattice=FIT_LATTICE) and a fresh Adam. ops=PLAIN renders through the
-    plain walk (the finder's ops); with counters each step runs under
-    counted(), which requires FIT_VIEWS * (FIT_BOUNCES + 1) packed_walk
-    launches and no other; with a `tables` list each step's packed table
-    and realized positions are appended. Returns (losses, seconds a
-    step, the params after each step)."""
-    import torch
-    from raypt_torch.diff import SceneParams, make_fit_step
-    from raypt_torch.diff.inverse import render_rgbd
+def fit_step_of(case, ops=None, tables=None, mesh=None):
+    """The port's fit step with the config's settings (a refit every
+    step, the Laplacian prior at FIT_LAP_W, render_rgbd, rgbd_loss):
+    make_fit_step, or make_fit_step_sharded over `mesh`. ops=PLAIN
+    renders through the plain walk (the finder's ops); with a `tables`
+    list each step's packed table and realized positions are
+    appended."""
+    from raypt_torch.diff import make_fit_step
+    from raypt_torch.diff.inverse import make_fit_step_sharded, render_rgbd
     from raypt_torch.diff.priors import make_laplacian_reg
-    from raypt_torch.rng.sampler import key
-    cfg, bad, bvh, views, targets = case
+    cfg, bad, bvh, _, _ = case
     m = bad.mesh
     reg = make_laplacian_reg(m.faces.cpu().numpy(),
                              m.face_valid.cpu().numpy(),
@@ -2664,12 +2697,36 @@ def fit_run(case, steps, ops=None, counters=None, tables=None):
         return render_rgbd(scene, cfg, k,
                            finder if ops is None else partial(finder, ops=ops))
 
-    params = SceneParams.init(bad, lattice=FIT_LATTICE)
-    opt = torch.optim.Adam(params.parameters(), lr=FIT_LR)
-    step = make_fit_step(bad, cfg, FIT_TRAIN, bvh=bvh, loss_fn=rgbd_loss,
-                         refit=True, render_fn=render, param_reg=reg)
-    want = {"packed_walk": FIT_VIEWS * (FIT_BOUNCES + 1)}
-    losses, secs, after = [], [], []
+    kw = dict(bvh=bvh, loss_fn=rgbd_loss, refit=True, render_fn=render,
+              param_reg=reg)
+    if mesh is None:
+        return make_fit_step(bad, cfg, FIT_TRAIN, **kw)
+    return make_fit_step_sharded(bad, cfg, FIT_TRAIN, mesh, **kw)
+
+
+def fit_params(case):
+    """SceneParams.init(bad, lattice=FIT_LATTICE) and a fresh Adam."""
+    import torch
+    from raypt_torch.diff import SceneParams
+    params = SceneParams.init(case[1], lattice=FIT_LATTICE)
+    return params, torch.optim.Adam(params.parameters(), lr=FIT_LR)
+
+
+def fit_run(case, steps, ops=None, counters=None, tables=None, mesh=None):
+    """`steps` steps of fit_step_of(case, ops, tables, mesh) from
+    fit_params(case). With counters each step runs under counted(),
+    which requires FIT_BOUNCES + 1 packed_walk launches a view of this
+    rank and no other. Returns (losses, seconds a step, the params after
+    each step, their gradients in each step: the summed ones on a
+    mesh)."""
+    import torch
+    from raypt_torch.rng.sampler import key
+    views, targets = case[3], case[4]
+    params, opt = fit_params(case)
+    step = fit_step_of(case, ops, tables, mesh)
+    k_local = targets.shape[0] // (1 if mesh is None else mesh.size)
+    want = {"packed_walk": k_local * (FIT_BOUNCES + 1)}
+    losses, secs, after, grads = [], [], [], []
     for _ in range(steps):
         def one():
             return step(params, opt, views, targets, key(0))
@@ -2685,7 +2742,9 @@ def fit_run(case, steps, ops=None, counters=None, tables=None):
         secs.append(s)
         after.append({k: v.detach().clone()
                       for k, v in params.named_parameters()})
-    return losses, secs, after
+        grads.append({k: v.grad.detach().clone()
+                      for k, v in params.named_parameters()})
+    return losses, secs, after, grads
 
 
 def same_fit(what, a, b, steps):
@@ -2776,7 +2835,8 @@ def fit_path(counters, dev):
     a second kernel run, both bitwise equal to the first; each step's
     table is the refit of its positions and the boxes moved; then the
     loop entry point `fit` (fit_loop), refit + pack timed alone and one
-    step profiled. Returns the launches a step."""
+    step profiled. Returns (the launches a step, the case, the first
+    run, its median step's seconds after the first)."""
     import torch
     from raypt_torch.accel import lbvh
     from raypt_torch.accel.packed import pack
@@ -2834,7 +2894,7 @@ def fit_path(counters, dev):
         f"step's table the refit of its positions; the plain walk's "
         f"{FIT_PLAIN_STEPS} steps and a second run's {FIT_STEPS} bitwise "
         f"equal (losses and parameters); {time.perf_counter() - t0:.1f} s")
-    return launches
+    return launches, case, run, step_s
 
 
 def wide_info():
@@ -3229,8 +3289,308 @@ def cli_phase(counters, dev):
             raise AssertionError("cli bench did not exit")
 
 
+class one_rank_group:
+    """A one-rank NCCL group on the card (raypt_torch.dist's
+    init_distributed over a file:// store in a temporary directory),
+    destroyed on exit; yields its "tiles" mesh."""
+
+    def __enter__(self):
+        import tempfile
+        from raypt_torch.dist import sharding
+        self.tmp = tempfile.TemporaryDirectory()
+        backend = sharding.init_distributed(
+            f"file://{self.tmp.name}/store", 1, 0, device="cuda",
+            timeout=DIST_TIMEOUT)
+        if backend != "nccl":
+            raise AssertionError(f"one rank on the card: backend {backend}")
+        return sharding.default_mesh()
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+        dist.destroy_process_group()
+        self.tmp.cleanup()
+
+
+def dist_loss(p, scene, cfg, k, ids, tgt, mask, accel):
+    """Phase 11's slab loss: the masked squared error of one sample of
+    the scene with p's positions and albedo against `tgt`."""
+    import torch
+    from raypt_torch.render.integrator import make_finder, render_sample
+    from raypt_torch.rng.sampler import frame_key, sample_key
+    s = scene.replace(mesh=scene.mesh.replace(positions=p["positions"]),
+                      materials=scene.materials.replace(albedo=p["albedo"]))
+    img = render_sample(s, cfg, sample_key(frame_key(k, 0), 0),
+                        make_finder(s, cfg, accel), pixel_ids=ids)
+    return torch.sum(((img - tgt) ** 2) * mask[:, None, None])
+
+
+def dist_one_rank(counters, scene, cfgs, accels, bvh_card, fit_case,
+                  fit_first):
+    """Phase 11 (a), in this process on a one-rank NCCL group:
+    render_frame_sharded of the bench scene through bvh (over the card's
+    LBVH: packed_walk) and through the expand path's onehot accel (its
+    four kernels) bitwise against render_frame with the same accel;
+    loss_and_grad_sharded of dist_loss (positions and albedo, bvh)
+    bitwise against plain autograd of the same loss over the whole
+    image; FIT_PLAIN_STEPS steps of make_fit_step_sharded bitwise against
+    phase 9's make_fit_step run. Every sharded call under counted()."""
+    import torch
+    from raypt_torch.dist import sharding
+    from raypt_torch.render.integrator import pixel_id_grid, render_frame
+    from raypt_torch.rng.sampler import key
+    with one_rank_group() as mesh:
+        for path, accel in (("bvh", bvh_card), ("expand", accels["expand"])):
+            cfg = cfgs[path]
+            want = {k: BOUNCES for k, (paths, _, _) in KERNELS.items()
+                    if path in paths}
+            img, secs = counted(counters, want, lambda: (
+                sharding.render_frame_sharded(scene, cfg, key(0), mesh,
+                                              bvh=accel)))
+            with torch.no_grad():
+                ref = render_frame(scene, cfg, key(0), accel=accel)
+            equal_renders(f"one-rank sharded render {path}",
+                          (img, img.new_zeros(0)), (ref, ref.new_zeros(0)))
+            log(f"phase 11 one rank (nccl): render_frame_sharded {path} "
+                f"{WIDTH}^2 bitwise equal to render_frame ({secs:.3f} s, "
+                f"launches {want})")
+            if path == "bvh":
+                target = 0.8 * ref
+        cfg, accel = cfgs["bvh"], accels["bvh"]
+        m = scene.mesh
+        p = {"positions": m.positions, "albedo": scene.materials.albedo}
+        want = {"packed_walk": BOUNCES}
+        (loss, grads), secs = counted(counters, want, lambda: (
+            sharding.loss_and_grad_sharded(dist_loss, scene, p, cfg, mesh,
+                                           key(0), target, bvh=accel)))
+        leaves = {k: v.detach().requires_grad_(True) for k, v in p.items()}
+        ref = dist_loss(leaves, scene, cfg, key(0), pixel_id_grid(
+            cfg, m.positions.device), target, torch.ones(
+                cfg.height, device=m.positions.device), accel)
+        ref_grads = torch.autograd.grad(ref, list(leaves.values()))
+        for what, x, y in [("loss", loss, ref.detach())] + [
+                (k, grads[k], g) for k, g in zip(leaves, ref_grads)]:
+            eq, err = bitwise_equal(x, y)
+            if not eq:
+                raise AssertionError(f"one-rank loss_and_grad_sharded: {what} "
+                                     f"differs from plain autograd (max abs "
+                                     f"err {err})")
+        log(f"phase 11 one rank (nccl): loss_and_grad_sharded (positions, "
+            f"albedo; bvh) bitwise equal to plain autograd: loss "
+            f"{float(loss):.6f}, |grad albedo| max "
+            f"{float(grads['albedo'].abs().max()):.6g} ({secs:.3f} s)")
+        run = fit_run(fit_case, FIT_PLAIN_STEPS, counters=counters,
+                      mesh=sharding.default_mesh(axis="views"))
+        same_fit("the one-rank sharded step", run, fit_first, FIT_PLAIN_STEPS)
+        log(f"phase 11 one rank (nccl): {FIT_PLAIN_STEPS} steps of "
+            f"make_fit_step_sharded bitwise equal to phase 9's make_fit_step "
+            f"(losses and parameters; "
+            f"{FIT_VIEWS * (FIT_BOUNCES + 1)} packed_walk launches a step; "
+            f"s {[round(x, 4) for x in run[1]]})")
+
+
+def dist_rank(tmp):
+    """One rank of phase 11 (b), started by dist_two_ranks with the
+    launcher's env (RAYPT_NUM_PROCS, RAYPT_PROC_ID): the launcher's
+    render at its defaults and its bench, each over its own store under
+    `tmp`; then, over a third, DIST_FIT_STEPS view-sharded fit steps
+    (rank 0 first takes the one-process step from the same parameters
+    and Adam state; then a barrier, then the counted sharded step) and
+    a second run of them. Results to tmp/rank<r>.pt."""
+    import copy
+    import torch
+    import torch.distributed as dist
+    from raypt_torch.dist import launcher, sharding
+    from raypt_torch.kernels import packed_walk as pw
+    from raypt_torch.rng.sampler import key
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rank = int(os.environ["RAYPT_PROC_ID"])
+    counters = {"packed_walk": pw.packed_walk}
+    out = {}
+
+    def store(name):
+        os.environ["RAYPT_COORDINATOR"] = f"file://{tmp}/store_{name}"
+
+    store("render")
+    img, out["render_s"] = counted(
+        counters, {"packed_walk": DIST_SPP * DIST_BOUNCES},
+        lambda: launcher.main(["render", "-o", os.path.join(tmp, "r.png")]))
+    out["render"] = img.cpu()
+    store("bench")
+    out["bench"] = launcher.main(["bench"])
+    store("fit")
+    launcher.setup_from_env("cuda")
+    mesh = sharding.default_mesh(axis="views")
+    case = config5_case(sharding.local_device())
+    views, targets = case[3], case[4]
+    params, opt = fit_params(case)
+    step = fit_step_of(case, mesh=mesh)
+    ref_step = fit_step_of(case)
+    want = {"packed_walk": FIT_VIEWS // mesh.size * (FIT_BOUNCES + 1)}
+
+    def grads_of(ps):
+        return {k: v.grad.detach().cpu() for k, v in ps.named_parameters()}
+
+    rec = {k: [] for k in ("loss", "grads", "params", "secs", "ref_loss",
+                           "ref_grads")}
+    for _ in range(DIST_FIT_STEPS):
+        if rank == 0:
+            rp, ro = fit_params(case)
+            rp.load_state_dict(params.state_dict())
+            ro.load_state_dict(copy.deepcopy(opt.state_dict()))
+            rec["ref_loss"].append(ref_step(rp, ro, views, targets,
+                                            key(0)).cpu())
+            rec["ref_grads"].append(grads_of(rp))
+        dist.barrier()
+        loss, secs = counted(counters, want, lambda: step(
+            params, opt, views, targets, key(0)))
+        rec["loss"].append(loss.cpu())
+        rec["secs"].append(secs)
+        rec["grads"].append(grads_of(params))
+        rec["params"].append({k: v.detach().cpu()
+                              for k, v in params.named_parameters()})
+    # the summed buffer alone: what the step's all_reduce costs, after
+    # the backward and unoverlapped with it
+    grads = [v.grad for v in params.parameters()]
+    loss = torch.zeros((), device=grads[0].device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(DIST_SUM_REPS):
+        sharding.sum_over_mesh(mesh, loss, grads)
+    torch.cuda.synchronize()
+    rec["sum_ms"] = 1e3 * (time.perf_counter() - t0) / DIST_SUM_REPS
+    rec["sum_bytes"] = 4 * (1 + sum(g.numel() for g in grads))
+    again = fit_run(case, DIST_FIT_STEPS, mesh=mesh)
+    rec["again_loss"] = [x.cpu() for x in again[0]]
+    rec["again_params"] = [{k: v.cpu() for k, v in a.items()}
+                           for a in again[2]]
+    out["fit"] = rec
+    dist.destroy_process_group()
+    torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+
+
+def dist_two_ranks(dev, card, fit_step_s):
+    """Phase 11 (b): DIST_RANKS processes on the card, each running
+    dist_rank with the launcher's env; a rank that fails or outlasts
+    DIST_PROC_TIMEOUT fails the phase (every rank is then killed). The
+    launcher's image on every rank bitwise equal to this process's
+    render_frame at its settings; its bench's rate; each fit step's loss
+    and summed gradients within DIST_LOSS_RTOL and DIST_GRAD_RTOL of the
+    one-process step, the parameters bitwise equal across the ranks,
+    and the second run bitwise equal to the first."""
+    import tempfile
+    import torch
+    from raypt_torch.accel import lbvh
+    from raypt_torch.core.types import RenderConfig
+    from raypt_torch.render.integrator import render_frame
+    from raypt_torch.rng.sampler import key
+    from raypt_torch.scenes.builtin import cornell_box_with_bunny
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        logs = [open(os.path.join(tmp, f"rank{r}.log"), "w+")
+                for r in range(DIST_RANKS)]
+        env = {**os.environ, "PYTHONPATH": here,
+               "RAYPT_NUM_PROCS": str(DIST_RANKS)}
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", "import sys, chip_smoke; "
+             "chip_smoke.dist_rank(sys.argv[1])", tmp], cwd=here,
+            env={**env, "RAYPT_PROC_ID": str(r)}, stdout=logs[r],
+            stderr=subprocess.STDOUT) for r in range(DIST_RANKS)]
+        b = cornell_box_with_bunny()
+        b.camera.viewport_width = b.camera.viewport_height = DIST_SIZE
+        scene = b.freeze(dev)
+        m = scene.mesh
+        cfg = RenderConfig(width=DIST_SIZE, height=DIST_SIZE,
+                           samples_per_pixel=DIST_SPP,
+                           num_bounces=DIST_BOUNCES, backend="bvh")
+        with torch.no_grad():
+            ref = render_frame(scene, cfg, key(0), accel=lbvh.build(
+                m.positions, m.faces, m.face_valid)).cpu()
+        try:
+            for p in procs:
+                p.wait(timeout=max(1.0, DIST_PROC_TIMEOUT
+                                   - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            pass
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        texts = []
+        for lg in logs:
+            lg.seek(0)
+            texts.append(lg.read())
+            lg.close()
+        wall = time.perf_counter() - t0
+        if any(p.returncode != 0 for p in procs):
+            raise AssertionError(
+                f"phase 11: rank return codes {[p.returncode for p in procs]}"
+                f" after {wall:.1f} s:\n" + "\n".join(
+                    f"--- rank {r}:\n{t[-4000:]}" for r, t in
+                    enumerate(texts)))
+        res = [torch.load(os.path.join(tmp, f"rank{r}.pt"))
+               for r in range(DIST_RANKS)]
+    for r, t in enumerate(texts):
+        for line in t.splitlines():
+            if "raypt_torch.dist:" in line or "Mray-seg/s" in line:
+                log(f"  rank {r}: {line.strip()}")
+    for r, out in enumerate(res):
+        equal_renders(f"two-rank launcher render (rank {r})",
+                      (out["render"], ref.new_zeros(0)),
+                      (ref, ref.new_zeros(0)))
+    log(f"phase 11 two ranks (gloo, one card): launcher render "
+        f"(cornell_bunny {DIST_SIZE}^2, {DIST_SPP} spp, {DIST_BOUNCES} "
+        f"bounces, bvh) bitwise equal to render_frame on both ranks; "
+        f"{DIST_SPP * DIST_BOUNCES} packed_walk launches a rank; s "
+        f"{[round(o['render_s'], 4) for o in res]} (start-up included)")
+    log(f"phase 11 two ranks: launcher bench {DIST_SIZE}^2: "
+        f"{[round(o['bench'], 4) for o in res]} Mray-seg/s a rank's view "
+        f"of the mesh ({card})")
+    fits = [o["fit"] for o in res]
+    worst_l, worst_g = 0.0, 0.0
+    for i in range(DIST_FIT_STEPS):
+        for k, v in fits[0]["params"][i].items():
+            for other in fits[1:]:
+                if not bitwise_equal(v, other["params"][i][k])[0]:
+                    raise AssertionError(f"phase 11 fit: {k} after step {i} "
+                                         f"differs between the ranks")
+        loss, ref_loss = fits[0]["loss"][i], fits[0]["ref_loss"][i]
+        rel = abs(float(loss) / float(ref_loss) - 1.0)
+        g, rg = fits[0]["grads"][i], fits[0]["ref_grads"][i]
+        top = max(float(x.abs().max()) for x in rg.values())
+        err = max(float((g[k] - rg[k]).abs().max()) for k in rg) / top
+        worst_l, worst_g = max(worst_l, rel), max(worst_g, err)
+        log(f"phase 11 fit step {i}: loss {float(loss):.6f} (one process "
+            f"{float(ref_loss):.6f}, rel err {rel:.3e}); summed gradients "
+            f"max abs err {err:.3e} of the largest |g| {top:.4g}; "
+            f"{[round(f['secs'][i], 4) for f in fits]} s a rank")
+        if rel > DIST_LOSS_RTOL or err > DIST_GRAD_RTOL:
+            raise AssertionError(f"phase 11 fit step {i}: loss rel err {rel}"
+                                 f" or gradient err {err} beyond "
+                                 f"{DIST_LOSS_RTOL} / {DIST_GRAD_RTOL}")
+    for f in fits:
+        for i in range(DIST_FIT_STEPS):
+            same = bitwise_equal(f["loss"][i], f["again_loss"][i])[0] and all(
+                bitwise_equal(v, f["again_params"][i][k])[0]
+                for k, v in f["params"][i].items())
+            if not same:
+                raise AssertionError(f"phase 11 fit: a second run differs "
+                                     f"at step {i}")
+    secs = [s for f in fits for s in f["secs"][1:]]
+    log(f"phase 11 fit: {DIST_FIT_STEPS} steps over {DIST_RANKS} ranks x "
+        f"{FIT_VIEWS // DIST_RANKS} views: worst loss rel err {worst_l:.3e} "
+        f"(tolerance {DIST_LOSS_RTOL}), worst gradient err {worst_g:.3e} of "
+        f"the largest |g| (tolerance {DIST_GRAD_RTOL}); parameters bitwise "
+        f"equal across the ranks, a second run bitwise equal; median step "
+        f"after the first {statistics.median(secs):.4f} s on two ranks "
+        f"sharing the card, one process {fit_step_s:.4f} s (phase 9) "
+        f"({card}); the summed buffer ({fits[0]['sum_bytes']} bytes, "
+        f"gloo) alone {[round(f['sum_ms'], 4) for f in fits]} ms a rank; "
+        f"the ranks' wall {wall:.1f} s")
+
 
 def main():
+    t_start = time.perf_counter()
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
     import torch
@@ -3930,7 +4290,7 @@ def main():
 
     # phase 9: BASELINE config #5's fit step
     t0 = time.perf_counter()
-    fit_launches = fit_path(counters, dev)
+    fit_launches, fit_case, fit_first, fit_step_s = fit_path(counters, dev)
     log(f"phase 9: {time.perf_counter() - t0:.1f} s; packed_walk launches a "
         f"fit step: {fit_launches}")
 
@@ -3941,6 +4301,14 @@ def main():
     cli_phase(counters, dev)
     log(f"phase 10: {time.perf_counter() - t0:.1f} s; wide_walk launches a "
         f"bench frame: {launches['wide_walk']}")
+
+    # phase 11: raypt_torch.dist
+    t0 = time.perf_counter()
+    dist_one_rank(counters, scene, cfgs, accels, bvh_card, fit_case,
+                  fit_first)
+    dist_two_ranks(dev, smi[0], fit_step_s)
+    log(f"phase 11: {time.perf_counter() - t0:.1f} s; the call so far "
+        f"{time.perf_counter() - t_start:.1f} s ({smi[0]})")
 
     for path, ms in stats.topwalk_ms.items():
         log(f"topwalk_cm and its transpose (pallas_topwalk's counterpart), "

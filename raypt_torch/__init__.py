@@ -15,7 +15,11 @@ torch version runs instead.
                        chain and LOD), tonemap, primary-hit AOVs
   raypt_torch.diff     inverse rendering: scene parameters, mesh
                        priors, the fit step (refit and pack on the
-                       card every step) and the fit loop
+                       card every step), its view-sharded form and the
+                       fit loop
+  raypt_torch.dist     the row-sharded render and gradients and the
+                       view-sharded fit over torch.distributed, and the
+                       launcher (python -m raypt_torch.dist.launcher)
   raypt_torch.io       OBJ, PLY, glTF, DDS, Radiance .hdr, PNG / PPM /
                        NPY, checkpoints, the native SAH builder and OBJ
                        parser

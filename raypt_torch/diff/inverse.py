@@ -21,16 +21,13 @@ from ..accel.packed import pack
 from ..accel.traverse import recompute_hit
 from ..core.math3d import normalize
 from ..core.types import CameraRays, RenderConfig, Scene
+from ..dist.sharding import Mesh, check_mesh, sum_over_mesh
 from ..render.integrator import (camera_rays_for_ids, make_finder,
                                  pixel_id_grid, render_sample,
                                  resolve_backend)
 from ..rng.sampler import Key, fold_in, frame_key, sample_key
 from ..rng.sampler import key as make_key
 from .params import SceneParams, apply_params, freeze_except
-
-# what is left of diff/, named by the routes that raise
-DIST_ITEM = 'ROADMAP queue 1, the "`dist/`" item'
-
 
 def stack_views(views: Sequence[CameraRays]) -> CameraRays:
     """Per-view camera frames stacked along a leading axis K."""
@@ -97,25 +94,77 @@ def make_fit_step(scene: Scene, cfg: RenderConfig, trainable: Sequence[str],
     its u-space: realize the scene with apply_params(scene,
     param_map(params)).
     Fields not in `trainable` get zero gradients (`freeze_except`)."""
+    return _make_step(scene, cfg, trainable, None, bvh, loss_fn, refit,
+                      render_fn, param_reg, param_map)
+
+
+def make_fit_step_sharded(scene: Scene, cfg: RenderConfig,
+                          trainable: Sequence[str], mesh: Mesh,
+                          bvh: Optional[LBVH] = None,
+                          loss_fn: Callable = l2_image_loss,
+                          refit: bool = True,
+                          render_fn: Callable = None,
+                          param_reg: Callable = None,
+                          param_map: Callable = None):
+    """The view-sharded fit step (BASELINE config #5: 16 target views,
+    gradient descent sharded over the ranks): make_fit_step's step, with
+    the views as the data axis of `mesh` (`raypt_torch.dist`), which
+    must be a mesh over "views".
+
+    Every rank holds all K views and targets and takes the block [r K/n,
+    (r+1) K/n) of them; it refits and packs its own copy of the tree,
+    renders view i with fold_in(key, i), sums loss_fn over its views,
+    divides by K and runs the backward. The loss and every parameter's
+    gradient are then summed over the ranks (one all_reduce, after the
+    backward: a reduction inside the differentiated loss would count a
+    rank's gradient n times). Only then come param_reg (its gradient
+    added once), freeze_except and optimizer.step(), so every rank holds
+    the same parameters. A mesh over another axis, a rank outside the
+    mesh and K not divisible by the mesh size raise ValueError."""
+    return _make_step(scene, cfg, trainable, mesh, bvh, loss_fn, refit,
+                      render_fn, param_reg, param_map)
+
+
+def _make_step(scene, cfg, trainable, mesh, bvh, loss_fn, refit, render_fn,
+               param_reg, param_map):
+    """The fit step over the views of this rank of `mesh` (all of them
+    when mesh is None)."""
     trainable = tuple(trainable)
     render_fn = render_fn or _render
+    if mesh is not None:
+        check_mesh(mesh, "views")
     tree = None if bvh is None else bvh.tensors(scene.mesh.positions.device)
 
     def step(params: SceneParams, optimizer: torch.optim.Optimizer,
              views: CameraRays, targets: torch.Tensor, key: Key):
+        k_total = targets.shape[0]
+        views_of = range(k_total)
+        if mesh is not None:
+            if k_total % mesh.size:
+                raise ValueError(f"{k_total} views do not divide over "
+                                 f"{mesh.size} ranks")
+            k_local = k_total // mesh.size
+            views_of = range(mesh.rank * k_local, (mesh.rank + 1) * k_local)
         optimizer.zero_grad()
         p = params if param_map is None else param_map(params)
         s = apply_params(scene, p)
         accel = None if bvh is None else _fit_accel(s, cfg, bvh, tree, refit)
         finder = make_finder(s, cfg, accel)
         total = 0.0
-        for i in range(targets.shape[0]):
+        for i in views_of:
             sv = s.replace(camera=view_at(views, i))
             img = render_fn(sv, cfg, fold_in(key, i), finder)
             total = total + loss_fn(img, targets[i])
-        loss = total / targets.shape[0]
+        loss = total / k_total
         loss.backward()
         loss = loss.detach()
+        if mesh is not None:
+            ps = list(params.parameters())
+            loss, grads = sum_over_mesh(mesh, loss, [
+                torch.zeros_like(q) if q.grad is None else q.grad
+                for q in ps])
+            for q, g in zip(ps, grads):
+                q.grad = g
         if param_reg is not None:
             reg = param_reg(params)
             reg.backward()
@@ -153,19 +202,6 @@ def render_rgbd(scene: Scene, cfg: RenderConfig, key: Key, finder):
     return torch.cat([rgb, depth[..., None]], dim=-1)
 
 
-def make_fit_step_sharded(scene: Scene, cfg: RenderConfig,
-                          trainable: Sequence[str], mesh,
-                          bvh: Optional[LBVH] = None,
-                          loss_fn: Callable = l2_image_loss,
-                          refit: bool = True,
-                          render_fn: Callable = None,
-                          param_reg: Callable = None,
-                          param_map: Callable = None):
-    """The view-sharded fit step: not ported, it comes with `dist/`."""
-    raise NotImplementedError(f"make_fit_step_sharded is not ported "
-                              f"({DIST_ITEM})")
-
-
 def fit(scene: Scene, cfg: RenderConfig, views: Sequence[CameraRays],
         targets: torch.Tensor, trainable: Sequence[str],
         steps: int = 100, learning_rate: float = 1e-2,
@@ -178,16 +214,15 @@ def fit(scene: Scene, cfg: RenderConfig, views: Sequence[CameraRays],
     resample_noise=False keeps the RNG streams fixed across steps (a zero
     loss floor when the targets were rendered with the same key); True
     folds the step index into the key for fresh noise every step.
-    callback(i, params, loss) runs after each step. mesh (view sharding)
-    is not ported and raises."""
-    if mesh is not None:
-        raise NotImplementedError(f"fit(mesh=...) is not ported "
-                                  f"({DIST_ITEM})")
+    callback(i, params, loss) runs after each step. mesh: a
+    `raypt_torch.dist` Mesh over the "views" axis shards the target
+    views over its ranks (make_fit_step_sharded; BASELINE config #5)."""
     key = key if key is not None else make_key(0)
     params = SceneParams.init(scene)
     optimizer = torch.optim.Adam(params.parameters(), lr=learning_rate)
     stacked = stack_views(list(views))
-    step_fn = make_fit_step(scene, cfg, trainable, bvh=bvh)
+    step_fn = _make_step(scene, cfg, trainable, mesh, bvh, l2_image_loss,
+                         True, None, None, None)
     losses = []
     for i in range(steps):
         k = fold_in(key, i) if resample_noise else key

@@ -213,7 +213,8 @@ def _run(case, params, opt, step, n=1, key=None):
 def test_port_imports_no_jax():
     """No module of raypt_torch, nor chip_smoke.py, imports jax or the
     JAX package (read from the sources), and importing raypt_torch.diff
-    loads neither (the modules it adds to a fresh interpreter)."""
+    and raypt_torch.dist (its launcher too) loads neither (the modules
+    they add to a fresh interpreter)."""
     files = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, names in os.walk(os.path.join(REPO, "raypt_torch")):
         if "_build" in root:
@@ -236,7 +237,8 @@ def test_port_imports_no_jax():
                                    "flax"), (path, mod)
     out = subprocess.run(
         [sys.executable, "-c", "import sys; before = set(sys.modules); "
-         "import raypt_torch.diff; print(sorted(m for m in set(sys.modules) "
+         "import raypt_torch.diff, raypt_torch.dist.launcher; "
+         "print(sorted(m for m in set(sys.modules) "
          "- before if m.split('.')[0] in ('jax', 'raypt', 'optax', "
          "'flax')))"],
         cwd=REPO, capture_output=True, text=True, check=True,
@@ -780,10 +782,18 @@ def test_stack_and_view_at(case):
 
 
 def test_sharded_routes_raise(case):
-    """make_fit_step_sharded and fit(mesh=...) name the dist/ item."""
-    with pytest.raises(NotImplementedError, match="dist/"):
-        tinv.make_fit_step_sharded(case["bad"], case["cfg"], TRAIN, mesh=1)
-    with pytest.raises(NotImplementedError, match="dist/"):
+    """make_fit_step_sharded and fit(mesh=...) raise ValueError on views
+    that do not divide over the mesh's ranks (the toy's 2 over 3), on a
+    rank outside the mesh and on a mesh over another axis than
+    "views"."""
+    from raypt_torch.dist.sharding import Mesh
+    with pytest.raises(ValueError, match="do not divide"):
         fit(case["bad"], case["cfg"], port_views(case["views"]),
-            case["ttargets"], TRAIN, mesh=1)
+            case["ttargets"], TRAIN, steps=1, mesh=Mesh(None, 3, 0, "views"))
+    with pytest.raises(ValueError, match="not in the mesh"):
+        tinv.make_fit_step_sharded(case["bad"], case["cfg"], TRAIN,
+                                   mesh=Mesh(None, 1, -1, "views"))
+    with pytest.raises(ValueError, match="'views' is sharded"):
+        tinv.make_fit_step_sharded(case["bad"], case["cfg"], TRAIN,
+                                   mesh=Mesh(None, 1, 0, "tiles"))
 

@@ -857,3 +857,47 @@ def test_bvh4_render_bitwise_vs_plain(gpu_scene, wide_waves):
     assert tww.wide_walk.launches == before + cfg.num_bounces
     assert _bits_equal(img, plain) and torch.equal(traced, traced_p)
     assert bool(torch.isfinite(img).all())
+
+
+@pytest.fixture(scope="module")
+def one_rank():
+    """A one-rank NCCL group on the card (chip_smoke.one_rank_group),
+    destroyed after the module's tests."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from chip_smoke import one_rank_group
+    group = one_rank_group()
+    yield group.__enter__()
+    group.__exit__(None, None, None)
+
+
+def test_sharded_render_one_rank_bitwise(gpu_scene, one_rank):
+    """render_frame_sharded of the 256^2 bench scene through bvh (the
+    card's LBVH, packed_walk) on a one-rank NCCL group: bitwise equal to
+    render_frame with the same LBVH, one launch a bounce."""
+    from raypt_torch.accel import lbvh
+    from raypt_torch.dist import render_frame_sharded
+    from raypt_torch.kernels import packed_walk as tpw
+    from raypt_torch.render.integrator import render_frame
+    scene, _ = gpu_scene
+    m = scene.mesh
+    tree = lbvh.build(m.positions, m.faces, m.face_valid)
+    cfg = CFG.replace(backend="bvh")
+    before = tpw.packed_walk.launches
+    img = render_frame_sharded(scene, cfg, rng.key(6), one_rank, bvh=tree)
+    assert tpw.packed_walk.launches == before + cfg.num_bounces
+    with torch.no_grad():
+        ref = render_frame(scene, cfg, rng.key(6), accel=tree)
+    assert _bits_equal(img, ref) and bool(torch.isfinite(img).all())
+
+
+def test_fit_step_sharded_one_rank_bitwise(one_rank):
+    """One step of the config #5 stand-in (test_fit_step_kernel_vs_plain_
+    bitwise's: _icosphere(4), 32^2, 2 views) through make_fit_step_sharded
+    on a one-rank NCCL group's "views" mesh and through make_fit_step:
+    the loss and every parameter after the step bitwise equal."""
+    from raypt_torch.dist import default_mesh
+    case = config5_case("cuda", subdiv=4, width=32, views=2)
+    same_fit("the one-rank sharded step",
+             fit_run(case, 1, mesh=default_mesh(axis="views")),
+             fit_run(case, 1), 1)
