@@ -231,6 +231,23 @@ Phases:
      same parameters and Adam state, the parameters bitwise equal across
      the ranks and a second run bitwise equal; a rank that fails or
      outlasts DIST_PROC_TIMEOUT fails the phase
+ 12. layouts: the packed table's other layouts, each walked by its
+     kernel of csrc/packed_layouts.cu (XLA loops in the JAX package):
+     packed_walk2 (leaf_tris=2, the cherry table), packed_walk_la
+     (node_lookahead, the lookahead table), packed_walk4 and
+     packed_walk4_la (leaf_tris=4, the quad table, plain or lookahead
+     internal rows), on their tables of the card's LBVH: against their
+     plain walks, bitwise, on the bvh path's four wavefronts (timed,
+     also from graphs, with the bound and the kernels' registers), on
+     bvh_large's four (timed), on edge cases (layout_edges: dead,
+     missing, near-seeded, signed-zero, NaN and in-plane rays, a NaN
+     vertex, planted ties with their winners, invalid faces, meshes of
+     1-5 triangles); the bench render with each layout's flags (4
+     launches of its kernel, bitwise the plain walk's render, the hits
+     within the JAX tests' rule of packed_walk's); traversal_mode
+     "compact" on the five tables (one launch a bounce, bitwise the
+     tiled render; the plain compacting walk bitwise the kernel); and
+     one config #5 fit step with leaf_tris=4 (48 packed_walk4 launches)
 
 The last line is {"ok": true, "device": {...}}; the line before it is
 the per-kernel JSON summary: "ms", "plain_ms" and "bound_ms" are summed
@@ -239,7 +256,9 @@ launches of each: four, eight on config4; topwalk_cm's over the unfused
 path's four and config4's eight, which the log also gives apart; the
 grouped kernel's on the cluster path's four), "launches" are counted in
 those paths' renders of phase 4 (0 for cluster_intersect_grouped, which
-no path runs; wide_walk's in phase 10's bvh4 render); closest_dense's
+no path runs; wide_walk's in phase 10's bvh4 render; the layout walks'
+in phase 12's renders, their times on the bvh path's wavefronts);
+closest_dense's
 "library_ms" is matmul_closest, the same closest hit through
 torch.matmul, and cluster_intersect_mask_woop's is matmul_woop, through
 torch.bmm, on the same wavefronts (several calls each: no one torch
@@ -445,6 +464,41 @@ SIGNED_ZERO_DIRS = ((0.0, -0.0, 1.0), (-0.0, 0.0, -1.0), (1.0, 0.0, -0.0),
                     (-1.0, -0.0, 0.0), (0.0, 1.0, 0.0), (-0.0, -1.0, -0.0),
                     (0.6, -0.0, 0.8), (-0.0, 0.8, -0.6))
 
+# phase 12, the packed table's other layouts (csrc/packed_layouts.cu):
+# each kernel's RenderConfig flags; the planted ties (layout_tie_case):
+# triangles copied 1-4 times, invalid triangles, rays; the small meshes'
+# triangle counts (small_meshes)
+LAYOUT_FLAGS = {"packed_walk2": dict(leaf_tris=2),
+                "packed_walk_la": dict(node_lookahead=True),
+                "packed_walk4": dict(leaf_tris=4),
+                "packed_walk4_la": dict(leaf_tris=4, node_lookahead=True)}
+TIE_GROUPS = 48
+TIE_INVALID = 12
+TIE_RAYS = 8192
+SMALL_MESHES = (1, 2, 3, 4, 5)
+
+# phase 12's bounds: f32 operations of the tests each wavefront's walk
+# needs, from the packed walk's counts: a slab test 28 (12 sub / mul, 10
+# min / max, 6 compares) for every internal visit, and a second one for
+# a lookahead row's right box only where its left box missed; a
+# Moller-Trumbore test 55 for every filled slot of a visited leaf row
+# (face id >= 0: a singleton cherry's second slot and a quad's empty
+# ones need none). Beside the tests, each visit's own, (internal, leaf):
+# the leaf flag and the link select (a lookahead row two link selects);
+# a cherry leaf two BIG selects, a compare and two selects for the pick
+# and a compare and two selects to take it; a quad leaf four BIG
+# selects, three compares for the argmin and three to take it; a
+# lookahead leaf the take's compare and two selects. And the bytes each
+# visit reads (the row's kind and links first), for the log: the tables
+# stay in the 50 MB L2, so the bound counts each table once.
+SLAB_OPS = PACKED_INTERNAL_OPS - 2
+TRI_OPS = PACKED_LEAF_OPS - 3
+LAYOUT_OPS = {"packed_walk2": (2, 1 + 7), "packed_walk_la": (3, 3),
+              "packed_walk4": (2, 1 + 10), "packed_walk4_la": (3, 1 + 10)}
+LAYOUT_BYTES = {"packed_walk2": (64, 96), "packed_walk_la": (64, 64),
+                "packed_walk4": (48, 176), "packed_walk4_la": (64, 176)}
+EDGE_NAN_RAYS = 65536
+
 # the compaction's edge groups: one below the 256-lane chunk a block
 # ranks (compact.cu kChunk), one a multiple of neither 16 lanes (byte
 # loads of the mask) nor the chunk (a partial chunk a group), and one
@@ -485,6 +539,18 @@ KERNELS = {   # name -> (paths that launch it, source, TPU kernel it replaces)
     # an XLA while_loop in the JAX package too: the bvh4 backend (phase 10)
     "wide_walk": (("bvh4",), "raypt_torch/csrc/wide_walk.cu",
                   "raypt/accel/wide.py:186"),
+    # XLA while_loops too: the packed table's other layouts (phase 12),
+    # and in one launch traverse_wavefront_compact (packed.py:740)
+    "packed_walk2": (("bvh_cherry",), "raypt_torch/csrc/packed_layouts.cu",
+                     "raypt/accel/packed.py:577"),
+    "packed_walk_la": (("bvh_lookahead",),
+                       "raypt_torch/csrc/packed_layouts.cu",
+                       "raypt/accel/packed.py:328"),
+    "packed_walk4": (("bvh_quad",), "raypt_torch/csrc/packed_layouts.cu",
+                     "raypt/accel/packed.py:497"),
+    "packed_walk4_la": (("bvh_quad_lookahead",),
+                        "raypt_torch/csrc/packed_layouts.cu",
+                        "raypt/accel/packed.py:497"),
     # the scripts/ probes (raypt_torch/probes/), on no path: phase 7
     "walk_spec": ((), "raypt_torch/csrc/onehot_walk.cu",
                   "scripts/tpu_walk_spec_probe.py:146"),
@@ -605,12 +671,16 @@ class Stats:
             raise AssertionError(f"{name}: kernel and plain version differ "
                                  f"on {what} (max abs err {err})")
 
-    def time(self, name, label, kernel, plain, args, moved, ops):
+    def time(self, name, label, kernel, plain, args, moved, ops,
+             plain_ms=None):
         """CUDA-event times of one launch of the kernel and of its plain
-        version on args, and the launch's bound: the larger of `moved`
-        bytes over the HBM rate and `ops` f32 operations over the peak."""
+        version on args (mean of 2 after a warm-up, or `plain_ms` where
+        the caller timed it), and the launch's bound: the larger of
+        `moved` bytes over the HBM rate and `ops` f32 operations over the
+        peak."""
         k_ms = cuda_ms(lambda: kernel(*args), 10)
-        p_ms = cuda_ms(lambda: plain(*args), 2)
+        p_ms = (cuda_ms(lambda: plain(*args), 2) if plain_ms is None
+                else plain_ms)
         by_bytes = 1e3 * moved / HBM_BYTES_PER_S
         by_ops = 1e3 * ops / F32_OPS_PER_S
         self.ms[name] += k_ms
@@ -2462,6 +2532,451 @@ def walk_edges(stats, scene, pbvh, wave0, wave1):
         f"{int((kf >= 0).sum())} hits of {r}")
 
 
+def layout_tie_case(device, groups=TIE_GROUPS, rays=TIE_RAYS, seed=3):
+    """Phase 12's planted ties: `groups` random triangles, triangle g
+    copied 1 + g % 4 times (exact copies: the same vertex indices, so a
+    ray gets the same t bit for bit from each), the copies at ascending
+    face ids (copy 0 of every group, then copy 1, ...). Copy 0 of every
+    fifth group with copies is invalid, and TIE_INVALID more triangles
+    are invalid twice over. The tree is built as if every face were
+    valid (`build_valid`), so the invalid faces sit in cherries and quad
+    slots beside valid ones; the tables are packed with `valid`. A walk
+    visits leaves in rank order, and equal centroids sort by face id, so
+    of a group's valid copies the lowest face id (`winner`) must win
+    every tie: within a cherry (a before b), within a quad (the lowest
+    slot) and across rows (the first taken). Rays: 7 in 8 aimed at a
+    point of a valid triangle from 2-6 along its normal, on either side,
+    moved up to 1 sideways (no grazing ray: those are walk_edge_wave's);
+    1 in 8 from [-6, 6]^3 in a random direction; 1 in 10 dead; t0 BIG.
+    Returns a dict of tensors on `device`."""
+    import numpy as np
+    import torch
+    from raypt_torch.core.math3d import BIG
+    rng = np.random.default_rng(seed)
+    n_tri = groups + TIE_INVALID
+    corners = (rng.uniform(-4, 4, (n_tri, 1, 3))
+               + rng.uniform(-1, 1, (n_tri, 3, 3)))
+    copies = 1 + np.arange(groups) % 4
+    faces, group_of, valid = [], [], []
+    for c in range(4):
+        for g in range(groups):
+            if c < copies[g]:
+                faces.append(3 * g + np.arange(3))
+                group_of.append(g)
+                valid.append(not (c == 0 and copies[g] > 1 and g % 5 == 0))
+    for g in range(groups, n_tri):
+        for _ in range(2):
+            faces.append(3 * g + np.arange(3))
+            group_of.append(g)
+            valid.append(False)
+    group_of = np.array(group_of)
+    valid = np.array(valid)
+    winner = np.full(n_tri, -1)
+    for f in range(len(faces) - 1, -1, -1):
+        if valid[f]:
+            winner[group_of[f]] = f
+    aim = rng.choice(np.flatnonzero(valid), rays)
+    uv = rng.uniform(0.05, 0.45, (rays, 2))
+    tri = corners[group_of[aim]]
+    target = tri[:, 0] + uv[:, :1] * (tri[:, 1] - tri[:, 0]) + \
+        uv[:, 1:] * (tri[:, 2] - tri[:, 0])
+    normal = np.cross(tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0])
+    normal /= np.linalg.norm(normal, axis=1, keepdims=True)
+    ro = (target + rng.choice([-1.0, 1.0], (rays, 1)) * normal
+          * rng.uniform(2, 6, (rays, 1)) + rng.uniform(-1, 1, (rays, 3)))
+    rd = target - ro
+    stray = np.arange(rays) % 8 == 7
+    ro[stray] = rng.uniform(-6, 6, (int(stray.sum()), 3))
+    rd[stray] = rng.normal(size=(int(stray.sum()), 3))
+    rd /= np.linalg.norm(rd, axis=1, keepdims=True)
+
+    def t(a, dtype):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device, dtype)
+    return dict(positions=t(corners.reshape(-1, 3), torch.float32),
+                faces=t(np.stack(faces), torch.int32),
+                build_valid=torch.ones(len(faces), dtype=torch.bool,
+                                       device=device),
+                valid=t(valid, torch.bool), group_of=t(group_of, torch.int64),
+                winner=t(winner, torch.int64), ro=t(ro, torch.float32),
+                rd=t(rd, torch.float32),
+                t0=torch.full((rays,), BIG, device=device),
+                active=t(np.arange(rays) % 10 != 9, torch.bool))
+
+
+def check_ties(case, face, label):
+    """Raise unless every hit of `face` (a walk over layout_tie_case's
+    table) is a valid face and its group's winner. Returns the hits that
+    took a face of a group with copies."""
+    import torch
+    hit = face >= 0
+    f = face[hit].long()
+    if not bool(case["valid"][f].all()):
+        raise AssertionError(f"{label}: an invalid face was hit")
+    g = case["group_of"][f]
+    if not torch.equal(f, case["winner"][g]):
+        raise AssertionError(f"{label}: a tie went to another copy than the "
+                             f"lowest valid face id")
+    counts = torch.bincount(case["group_of"], minlength=len(case["winner"]))
+    return int((counts[g] > 1).sum())
+
+
+def small_lbvh(positions, faces, valid):
+    """The LBVH of a mesh, `lbvh.build`'s for 2 faces or more, and for
+    one face the one-leaf tree (its table has one row): no link, the
+    triangle's box."""
+    import numpy as np
+    from raypt_torch.accel import lbvh
+    if faces.shape[0] > 1:
+        return lbvh.build(positions, faces, valid)
+    p = positions[faces[0].long()].cpu().numpy()
+    return lbvh.LBVH(left=np.array([-1], np.int32),
+                     skip=np.array([-1], np.int32),
+                     bmin=p.min(axis=0)[None], bmax=p.max(axis=0)[None],
+                     leaf_face=np.array([0], np.int32))
+
+
+def small_meshes(device, rays=1024, seed=4):
+    """Phase 12's meshes of SMALL_MESHES triangles (a table whose root is
+    a cherry or quad row; one row for one triangle): per mesh (n, its
+    LBVH, positions, faces, valid, ro, rd, t0, active), rays from [-3,
+    3]^3 aimed at the triangles (1 in 4 stray, 1 in 10 dead)."""
+    import numpy as np
+    import torch
+    from raypt_torch.core.math3d import BIG
+    rng = np.random.default_rng(seed)
+    out = []
+    for n in SMALL_MESHES:
+        corners = (rng.uniform(-1.5, 1.5, (n, 1, 3))
+                   + rng.uniform(-1, 1, (n, 3, 3)))
+        target = corners[rng.integers(0, n, rays)].mean(axis=1)
+        target += rng.normal(scale=0.2, size=target.shape)
+        ro = rng.uniform(-3, 3, (rays, 3))
+        rd = target - ro
+        rd[::4] = rng.normal(size=rd[::4].shape)
+        rd /= np.linalg.norm(rd, axis=1, keepdims=True)
+        pos = torch.from_numpy(corners.reshape(-1, 3).astype(np.float32)).to(
+            device)
+        faces = torch.arange(3 * n, dtype=torch.int32,
+                             device=device).reshape(n, 3)
+        valid = torch.ones(n, dtype=torch.bool, device=device)
+        out.append((n, small_lbvh(pos, faces, valid), pos, faces, valid,
+                    torch.from_numpy(ro.astype(np.float32)).to(device),
+                    torch.from_numpy(rd.astype(np.float32)).to(device),
+                    torch.full((rays,), BIG, device=device),
+                    torch.from_numpy(np.arange(rays) % 10 != 9).to(device)))
+    return out
+
+
+def layout_info(table):
+    """The walk kernel of a table's layout as its library reports it
+    (rk_layout_walk_info): registers, local (spill) bytes, resident
+    blocks an SM and threads a block."""
+    from raypt_torch.accel.packed import layout_of
+    from raypt_torch.kernels._build import kernel_lib
+    from raypt_torch.kernels.packed_walk import WALKS
+    info = (ctypes.c_int * 4)()
+    if kernel_lib().rk_layout_walk_info(WALKS[layout_of(table)][1],
+                                        ctypes.cast(info, ctypes.c_void_p)):
+        raise AssertionError("rk_layout_walk_info failed")
+    return list(info)
+
+
+def layout_tests(table, steps, n_rays):
+    """The tests a layout walk needs on a wavefront, from its plain
+    walk's `steps` record: (internal visits, leaf visits, slab tests,
+    triangle tests). A lookahead row (LALBVH, or a quad table's with
+    lookahead) tests its right box only where its left box missed: where
+    the ray's next row, in the record's next step, is not the row's left
+    link. A leaf row's triangle tests are its slots with a face id >= 0."""
+    import torch
+    from raypt_torch.accel.packed import LAYOUTS, ftoi, layout_of
+    lay = LAYOUTS[layout_of(table)]
+    rows = table.rows
+    left = lay.lookahead_left
+    filled = (ftoi(rows[:, lay.faces].contiguous()) >= 0).sum(dim=1)
+    counts = torch.zeros(4, dtype=torch.int64, device=rows.device)
+    nxt = torch.full((n_rays,), -1, dtype=torch.int32, device=rows.device)
+    for k, (lanes, nodes, leaf) in enumerate(steps):
+        inner = ~leaf
+        counts[0] += inner.sum()
+        counts[1] += leaf.sum()
+        counts[2] += inner.sum()
+        counts[3] += filled[nodes[leaf].long()].sum()
+        if left is not None:
+            nxt.fill_(-1)
+            if k + 1 < len(steps):
+                nxt[steps[k + 1][0]] = steps[k + 1][1]
+            link = ftoi(rows[nodes[inner].long(), left].contiguous())
+            counts[2] += (nxt[lanes[inner]] != link).sum()
+    return [int(c) for c in counts]
+
+
+def compare_layout(stats, name, label, table, o, d, t, a, timed=False):
+    """The layout walk `name` (a wrapper of kernels.packed_walk, the one
+    of the table's layout) on one wavefront against its plain walk,
+    bitwise (t, face). Timed: the kernel by CUDA events (mean of 10) and
+    from a CUDA graph, the plain walk twice, with the bound: the larger
+    of the table read once and the rays in and out over the HBM rate,
+    and the f32 operations of the tests this wavefront's walk needs
+    (layout_tests, from the plain walk's steps record) and of its visits
+    (LAYOUT_OPS); the plain walk's time is the mean of the checking run
+    (which records the steps) and one more, by the host clock (the plain
+    walk waits for the card every step). Returns (t, face)."""
+    import torch
+    from raypt_torch.accel.packed import walk_layout
+    from raypt_torch.kernels import packed_walk as pw
+    wrapper = pw.wrapper_of(table)
+    if wrapper.__name__ != name:
+        raise AssertionError(f"{name}: the table's walk is "
+                             f"{wrapper.__name__}")
+    args = (table, o, d, t, a)
+    kt, kf = wrapper(*args)
+    steps = [] if timed else None
+    torch.cuda.synchronize()
+    t_start = time.perf_counter()
+    pt, pf = walk_layout(*args, steps=steps)
+    torch.cuda.synchronize()
+    p_ms = 1e3 * (time.perf_counter() - t_start)
+    stats.check(name, f"{label} t", kt, pt)
+    stats.check(name, f"{label} face", kf, pf)
+    if timed:
+        inner, leaves, slabs, tris = layout_tests(table, steps, o.shape[0])
+        n_steps = len(steps)
+        del steps
+        live = int(a.sum())
+        ops_i, ops_l = LAYOUT_OPS[name]
+        t_start = time.perf_counter()
+        walk_layout(*args)
+        torch.cuda.synchronize()
+        p_ms = (p_ms + 1e3 * (time.perf_counter() - t_start)) / 2
+        stats.time(name, label, wrapper, walk_layout, args,
+                   nbytes(table.rows, o, d, t, a, kt, kf),
+                   SLAB_OPS * slabs + TRI_OPS * tris + ops_i * inner
+                   + ops_l * leaves + PACKED_RAY_OPS * live, plain_ms=p_ms)
+        stats.time_graph(name, label, wrapper, args)
+        b_i, b_l = LAYOUT_BYTES[name]
+        read = b_i * inner + b_l * leaves
+        log(f"  {label:9s} visits {inner} internal + {leaves} leaf "
+            f"({(inner + leaves) / max(live, 1):.2f} a live ray, "
+            f"{n_steps} plain steps), {slabs} slab and {tris} triangle "
+            f"tests needed, hits {int((kf >= 0).sum())}; rows "
+            f"read {read / 1e9:.3f} GB ({1e3 * read / HBM_BYTES_PER_S:.4f} ms "
+            f"at the HBM rate), table {table.rows.numel() * 4 / 1e6:.1f} MB")
+    return kt, kf
+
+
+def layout_edges(stats, scene, bvh, one, tables, cfgs, wave):
+    """Phase 12's edge cases, each layout kernel bitwise against its plain
+    walk: walk_edge_wave's dead, missing, near-seeded, signed-zero, NaN
+    and in-plane rays (its first 8 EDGE_BLOCK rays, built on the
+    one-triangle table `one`; the first four kinds keep t0 and face -1);
+    a NaN vertex in the leaf rows (the tree as built) and in the boxes
+    too (the tree refitted to it), on the first EDGE_NAN_RAYS rays of
+    the wavefront; layout_tie_case's planted ties
+    (their winners kept, no invalid face hit); and small_meshes' meshes
+    of 1-5 triangles."""
+    import torch
+    from raypt_torch.accel import lbvh
+    from raypt_torch.accel.traverse import wavefront_inputs
+    from raypt_torch.render.integrator import pack_layout
+    m = scene.mesh
+    dev = m.positions.device
+    o, d, t, a, groups, n_par = walk_edge_wave(scene, one, *wave)
+    o, d, t, a = (x[:8 * EDGE_BLOCK].contiguous() for x in (o, d, t, a))
+    for name, table in tables.items():
+        kt, kf = compare_layout(stats, name, "edges", table, o, d, t, a)
+        for g in ("dead", "miss", "near seed", "nan"):
+            sl = groups[g]
+            if not (bitwise_equal(kt[sl], t[sl])[0]
+                    and bool((kf[sl] == -1).all())):
+                raise AssertionError(f"{name}: the {g} rays changed their "
+                                     f"seed or took a face")
+    pos = m.positions.clone()
+    pos[m.faces[0, 0].long()] = float("nan")
+    boxes = lbvh.refit(bvh.tensors(dev), pos, m.faces, m.face_valid)
+    sub = tuple(x[:EDGE_NAN_RAYS] for x in
+                wavefront_inputs(scene, *wave, 1)[:4])
+    for name, cfg in cfgs.items():
+        for label, tree in (("nan vertex", bvh), ("nan boxes", boxes)):
+            compare_layout(stats, name, label, pack_layout(
+                cfg, tree, pos, m.faces, m.face_valid), *sub)
+    case = layout_tie_case(dev)
+    tie_tree = lbvh.build(case["positions"], case["faces"],
+                          case["build_valid"])
+    tied = {}
+    for name, cfg in cfgs.items():
+        table = pack_layout(cfg, tie_tree, case["positions"], case["faces"],
+                            case["valid"])
+        _, kf = compare_layout(stats, name, "ties", table, *(
+            case[k] for k in ("ro", "rd", "t0", "active")))
+        tied[name] = check_ties(case, kf, name)
+    for n, tree, p, faces, valid, *rays in small_meshes(dev):
+        for name, cfg in cfgs.items():
+            compare_layout(stats, name, f"{n} tris", pack_layout(
+                cfg, tree, p, faces, valid), *rays)
+    log(f"phase 12 edges: every layout kernel bitwise on dead, missing, "
+        f"near-seeded, signed-zero, NaN and {n_par} in-plane rays (the "
+        f"first four kept t0 and face -1), a NaN vertex in the leaf rows "
+        f"and in the boxes, {TIE_GROUPS} triangles copied 1-4 times with "
+        f"invalid copies (hits on a tied copy, each its lowest valid face "
+        f"id: {tied}) and meshes of {SMALL_MESHES} triangles")
+
+
+def layouts_phase(stats, counters, launches, dev, scene, bvh, base, skey,
+                  waves, large, fit_case, fit_first):
+    """Phase 12: the packed table's other layouts (csrc/packed_layouts.cu)
+    at the bench path's width. (1) Each kernel on its table of the card's
+    LBVH (pack_layout) against its plain walk, bitwise, on the bvh
+    path's four wavefronts (timed, also from graphs, with the bound, the
+    kernel's registers and local bytes), and on bvh_large's four (kernel
+    timed, plain checked; `large` is phase 10's scene and LBVH). (2)
+    layout_edges. (3) The bench render with
+    each layout's flags through make_finder: BOUNCES launches of its
+    kernel and none of another walk, bitwise the plain walk's render;
+    the kernel's hits on (1)'s wavefronts within the JAX tests' rule of
+    packed_walk's (t within rtol / atol 1e-5, the same face where t does
+    not tie within rtol 1e-6). (4) traversal_mode "compact" on the five
+    tables: one launch a bounce, the render bitwise the tiled one's, and
+    on bounce 1 the plain traverse_wavefront_compact bitwise the
+    kernel's. (5) One BASELINE config #5 fit step with leaf_tris=4:
+    FIT_VIEWS * (FIT_BOUNCES + 1) launches of packed_walk4 and none of
+    packed_walk, its table pack_quads(refit) of the step's positions, its
+    loss and parameters logged beside phase 9's first step."""
+    import torch
+    from raypt_torch.accel import lbvh
+    from raypt_torch.accel.packed import (pack, pack_quads,
+                                          traverse_wavefront_compact)
+    from raypt_torch.accel.traverse import PLAIN
+    from raypt_torch.kernels import packed_walk as pw
+    from raypt_torch.render.integrator import (make_finder, pack_layout,
+                                               render_sample)
+    m = scene.mesh
+    cfgs = {name: base.replace(backend="bvh", **flags)
+            for name, flags in LAYOUT_FLAGS.items()}
+    tables = {name: pack_layout(cfg, bvh, m.positions, m.faces, m.face_valid)
+              for name, cfg in cfgs.items()}
+    one = pack(bvh, m.positions, m.faces, m.face_valid)
+    inputs = [wave_inputs_of(scene, w) for w in waves]
+
+    # (1) the bench path's wavefronts, then bvh_large's
+    part = [time.perf_counter()]
+    results = {}
+    for name, table in tables.items():
+        regs, local, blocks, threads = layout_info(table)
+        log(f"phase 12 {name}: {type(table).__name__} rows "
+            f"{tuple(table.rows.shape)}; {regs} registers, {local} local "
+            f"bytes, {blocks} blocks of {threads} resident an SM")
+        stats.path = KERNELS[name][0][0]
+        with SmClock() as clock:
+            results[name] = [compare_layout(stats, name, f"bounce {b}", table,
+                                            *args, timed=True)
+                             for b, args in enumerate(inputs)]
+        log(f"phase 12 {name}: bitwise on the bvh path's four wavefronts; "
+            f"{clock.summary()} while timed")
+    part.append(time.perf_counter())
+    ls, ltree = large
+    lm = ls.mesh
+    lcfg = base.replace(backend="bvh")
+    lwaves = [wave_inputs_of(ls, w) for w in record_waves(
+        ls, lcfg, skey, make_finder(ls, lcfg, ltree))]
+    for name, cfg in cfgs.items():
+        table = pack_layout(cfg, ltree, lm.positions, lm.faces, lm.face_valid)
+        wrapper = pw.wrapper_of(table)
+        k_ms = g_ms = 0.0
+        for b, args in enumerate(lwaves):
+            compare_layout(stats, name, f"large b{b}", table, *args)
+            k_ms += cuda_ms(lambda: wrapper(table, *args), 10)
+            g_ms += graph_us_per_call(lambda: wrapper(table, *args)) / 1e3
+        log(f"phase 12 bvh_large {name}: bitwise on its four wavefronts; "
+            f"{k_ms:.4f} ms a frame through the wrapper, {g_ms:.4f} from CUDA "
+            f"graphs ({int(lm.face_valid.sum())} faces, rows "
+            f"{tuple(table.rows.shape)})")
+
+    # (2) edge cases
+    part.append(time.perf_counter())
+    layout_edges(stats, scene, bvh, one, tables, cfgs, waves[1])
+    part.append(time.perf_counter())
+
+    # (3) renders through make_finder, and the hits against packed_walk's
+    base_hits = [pw.packed_walk(one, *args) for args in inputs]
+    for name, cfg in cfgs.items():
+        finder = make_finder(scene, cfg, bvh)
+        if not bitwise_equal(finder.args[0].rows, tables[name].rows)[0]:
+            raise AssertionError(f"{name}: make_finder's table is not "
+                                 f"pack_layout's")
+
+        def render(f=finder, cfg=cfg):
+            return render_sample(scene, cfg, skey, f, return_alive=True)
+
+        render()   # warm-up
+        out, secs = counted(counters, {name: BOUNCES}, render)
+        equal_renders(name, out, render(partial(finder, ops=PLAIN)))
+        launches[name] = BOUNCES
+        differ = 0
+        for (kt, kf), (bt, bf) in zip(results[name], base_hits):
+            near = torch.isclose(kt, bt, rtol=1e-5, atol=1e-5)
+            same = (kf == bf) | torch.isclose(kt, bt, rtol=1e-6, atol=0.0)
+            if not bool((near & same).all()):
+                raise AssertionError(f"{name}: hits outside the JAX tests' "
+                                     f"rule of packed_walk's")
+            differ += int(((kt != bt) | (kf != bf)).sum())
+        log(f"phase 12 render {name}: {secs:.4f} s through {BOUNCES} "
+            f"launches, traced {out[1].tolist()}, image mean "
+            f"{float(out[0].mean()):.6f}; bitwise the plain walk's render; "
+            f"on the four wavefronts {differ} rays differ from packed_walk's "
+            f"hits at all, all within the rule")
+
+    # (4) the compacting mode on the five tables
+    part.append(time.perf_counter())
+    for name, table in (("packed_walk", one), *tables.items()):
+        renders = []
+        for mode in ("tiled", "compact"):
+            cfg = base.replace(backend="bvh", traversal_mode=mode)
+            finder = make_finder(scene, cfg, table)
+            renders.append(counted(counters, {name: BOUNCES},
+                                   lambda f=finder, cfg=cfg: render_sample(
+                                       scene, cfg, skey, f,
+                                       return_alive=True))[0])
+        equal_renders(f"{name} compact", renders[1], renders[0])
+        kt, kf = pw.compact_walk(table, *inputs[1])
+        pt, pf = traverse_wavefront_compact(table, *inputs[1])
+        stats.check(name, "compact bounce 1 t", kt, pt)
+        stats.check(name, "compact bounce 1 face", kf, pf)
+    log("phase 12 compact: on the five tables one launch a bounce, the "
+        "render bitwise the tiled mode's, and the plain "
+        "traverse_wavefront_compact bitwise the kernel on bounce 1")
+
+    # (5) the fit step with leaf_tris=4
+    part.append(time.perf_counter())
+    cfg5, bad, tree5, views, targets = fit_case
+    case = (cfg5.replace(leaf_tris=4), bad, tree5, views, targets)
+    steps = []
+    run = fit_run(case, 1, counters=counters, tables=steps,
+                  walk="packed_walk4")
+    _, rows, pos = steps[0]
+    bm = bad.mesh
+    want = pack_quads(lbvh.refit(tree5.tensors(dev), pos, bm.faces,
+                                 bm.face_valid), pos, bm.faces, bm.face_valid)
+    if not bitwise_equal(rows, want.rows)[0]:
+        raise AssertionError("the leaf_tris=4 fit step's table is not "
+                             "pack_quads of the refitted tree")
+    loss = float(run[0][0])
+    if not math.isfinite(loss):
+        raise AssertionError(f"the leaf_tris=4 fit step's loss is {loss}")
+    diff = max(float((v - fit_first[2][0][k]).abs().max())
+               for k, v in run[2][0].items())
+    log(f"phase 12 fit: one leaf_tris=4 step, {run[1][0]:.4f} s, "
+        f"{FIT_VIEWS * (FIT_BOUNCES + 1)} packed_walk4 launches and none of "
+        f"packed_walk; its table pack_quads(refit) of the step's positions; "
+        f"loss {loss:.8f} (phase 9's first step {float(fit_first[0][0]):.8f}), "
+        f"parameters at most {diff:.3g} from phase 9's after it")
+    part.append(time.perf_counter())
+    log("phase 12 parts, s: " + ", ".join(
+        f"{k} {b - a:.1f}" for k, a, b in zip(
+            ("bench wavefronts", "bvh_large", "edges", "renders", "compact",
+             "fit"), part, part[1:])))
+
+
 def cli_default_path(counters, dev):
     """The CLI's default render through the API (raypt/app/cli.py:90-119):
     cornell_box_with_bunny at CLI_WIDTH^2, CLI_SPP spp, CLI_BOUNCES
@@ -2712,11 +3227,13 @@ def fit_params(case):
     return params, torch.optim.Adam(params.parameters(), lr=FIT_LR)
 
 
-def fit_run(case, steps, ops=None, counters=None, tables=None, mesh=None):
+def fit_run(case, steps, ops=None, counters=None, tables=None, mesh=None,
+            walk="packed_walk"):
     """`steps` steps of fit_step_of(case, ops, tables, mesh) from
     fit_params(case). With counters each step runs under counted(),
-    which requires FIT_BOUNCES + 1 packed_walk launches a view of this
-    rank and no other. Returns (losses, seconds a step, the params after
+    which requires FIT_BOUNCES + 1 launches of the walk `walk` (the
+    kernel of the case's table layout) a view of this rank and no
+    other. Returns (losses, seconds a step, the params after
     each step, their gradients in each step: the summed ones on a
     mesh)."""
     import torch
@@ -2725,7 +3242,7 @@ def fit_run(case, steps, ops=None, counters=None, tables=None, mesh=None):
     params, opt = fit_params(case)
     step = fit_step_of(case, ops, tables, mesh)
     k_local = targets.shape[0] // (1 if mesh is None else mesh.size)
-    want = {"packed_walk": k_local * (FIT_BOUNCES + 1)}
+    want = {walk: k_local * (FIT_BOUNCES + 1)}
     losses, secs, after, grads = [], [], [], []
     for _ in range(steps):
         def one():
@@ -3123,7 +3640,8 @@ def wide_path(stats, counters, dev, scene, bvh, base, skey):
     at a stack of 2 (its retry launches the kernel twice) against the
     plain finder; then the bench render with backend "bvh4" through the
     kernel (one launch a bounce) against the plain walk's render,
-    bitwise. Returns the render's launches."""
+    bitwise. Returns the render's launches and bvh_large's scene and
+    LBVH."""
     import torch
     from raypt_torch.accel import lbvh
     from raypt_torch.accel.traverse import KERNELS, PLAIN, find_closest_wide
@@ -3155,8 +3673,8 @@ def wide_path(stats, counters, dev, scene, bvh, base, skey):
     large.camera.viewport_width = large.camera.viewport_height = WIDTH
     ls = large.freeze(dev)
     lm = ls.mesh
-    wl = collapse(lbvh.build(lm.positions, lm.faces, lm.face_valid),
-                  lm.positions, lm.faces, lm.face_valid)
+    ltree = lbvh.build(lm.positions, lm.faces, lm.face_valid)
+    wl = collapse(ltree, lm.positions, lm.faces, lm.face_valid)
     large_ms = large_graph_ms = 0.0
     for b, wave in enumerate(record_waves(ls, cfg, skey,
                                           make_finder(ls, cfg, wl))):
@@ -3200,7 +3718,7 @@ def wide_path(stats, counters, dev, scene, bvh, base, skey):
         f"{float(out[0].mean()):.6f}; bitwise equal to the plain walk's "
         f"render; find_closest_wide at stack 2 (one retry) bitwise equal to "
         f"the plain finder's")
-    return BOUNCES
+    return BOUNCES, (ls, ltree)
 
 
 def cli_phase(counters, dev):
@@ -4049,6 +4567,7 @@ def main():
                 "cluster_intersect_grouped": dn.cluster_intersect_grouped,
                 "packed_walk": pw.packed_walk,
                 "wide_walk": ww.wide_walk,
+                **{name: getattr(pw, name) for name in LAYOUT_FLAGS},
                 **probe_counters()}
     launches = {k: 0 for k in KERNELS}
     images = {}
@@ -4296,8 +4815,8 @@ def main():
 
     # phase 10: the CLI and bvh4
     t0 = time.perf_counter()
-    launches["wide_walk"] = wide_path(stats, counters, dev, scene, bvh_card,
-                                      base, skey)
+    launches["wide_walk"], large = wide_path(stats, counters, dev, scene,
+                                             bvh_card, base, skey)
     cli_phase(counters, dev)
     log(f"phase 10: {time.perf_counter() - t0:.1f} s; wide_walk launches a "
         f"bench frame: {launches['wide_walk']}")
@@ -4308,6 +4827,13 @@ def main():
                   fit_first)
     dist_two_ranks(dev, smi[0], fit_step_s)
     log(f"phase 11: {time.perf_counter() - t0:.1f} s; the call so far "
+        f"{time.perf_counter() - t_start:.1f} s ({smi[0]})")
+
+    # phase 12: the packed table's other layouts
+    t0 = time.perf_counter()
+    layouts_phase(stats, counters, launches, dev, scene, bvh_card, base, skey,
+                  waves["bvh"], large, fit_case, fit_first)
+    log(f"phase 12: {time.perf_counter() - t0:.1f} s; the call so far "
         f"{time.perf_counter() - t_start:.1f} s ({smi[0]})")
 
     for path, ms in stats.topwalk_ms.items():

@@ -1,6 +1,7 @@
 """Closest-hit finders (`raypt/accel/traverse.py`): the brute-force toy
 oracle; the packed skip-link finder of the `bvh` backends
-(`find_closest_packed`), the wide ordered-stack finder of `bvh4`
+(`find_closest_packed`, over any of the four packed tables), the wide
+ordered-stack finder of `bvh4`
 (`find_closest_wide`) and the unpacked reference walk
 (`find_closest_bvh`); the onehot finder, in its per-ray-exact branch (alive
 compaction, top-tree walk, cluster expansion, uncompaction), its
@@ -40,7 +41,8 @@ from .clusters import (WORKLIST_CAP, Clusters, intersect_worklist,
                        tile_union_counts, tile_worklists, worklist_slice)
 from .ctree import OnehotAccel, walk_topwalk
 from .lbvh import LBVH
-from .packed import PackedLBVH, safe_reciprocal, traverse_wavefront
+from .packed import (safe_reciprocal, traverse_wavefront_compact,
+                     walk_layout)
 from .wide import STACK_D, WideBVH, traverse_wide
 
 
@@ -177,8 +179,9 @@ class FinderOps(NamedTuple):
     walk_mask: Callable        # onehot, non-fused and Woop branches
     closest_dense: Callable    # dense and pallas (kernels/intersect.py)
     intersect_woop: Callable   # onehot, Woop branch
-    packed_walk: Callable      # bvh and bvh2
+    packed_walk: Callable      # bvh and bvh2: the table's layout's walk
     wide_walk: Callable        # bvh4
+    compact_walk: Callable     # bvh, traversal_mode "compact" / "unrolled"
 
 
 KERNELS = FinderOps(_compact.alive_compact, _walk.topwalk_cm_u,
@@ -186,16 +189,16 @@ KERNELS = FinderOps(_compact.alive_compact, _walk.topwalk_cm_u,
                     _walk.topwalk_union, _dense.cluster_intersect_mask,
                     _dense.cluster_intersect, _walk.topwalk,
                     _woop_kernel.closest_dense,
-                    _dense.cluster_intersect_mask_woop, _packed.packed_walk,
-                    _wide.wide_walk)
+                    _dense.cluster_intersect_mask_woop, _packed.walk_layout,
+                    _wide.wide_walk, _packed.compact_walk)
 PLAIN = FinderOps(_compact.alive_compact_plain, _walk.topwalk_cm_u_plain,
                   _expand.cluster_expand_plain, _compact.alive_uncompact_plain,
                   _walk.topwalk_union_plain,
                   _dense.cluster_intersect_mask_plain,
                   _dense.cluster_intersect_plain, walk_topwalk,
                   _woop_kernel.closest_dense_plain,
-                  _dense.cluster_intersect_mask_woop_plain, traverse_wavefront,
-                  traverse_wide)
+                  _dense.cluster_intersect_mask_woop_plain, walk_layout,
+                  traverse_wide, traverse_wavefront_compact)
 
 # rays per padding chunk of the dense-union branch and the cluster
 # finder: 8 tiles (`max(8 * TILE, RAY_TILE)` in the JAX package)
@@ -402,11 +405,6 @@ def find_closest_cluster(scene: Scene, clusters: Clusters, ro, rd,
     return _hit_ids(t_best, face, flat_a, ro.reshape(-1, 3).shape[0], ts, si)
 
 
-# what is left of the LBVH item, named by the routes that raise
-LBVH_ITEM = ('ROADMAP queue 1, the "LBVH build and the packed `bvh` '
-             'backend" item')
-
-
 def sort_wavefront(flat_d: torch.Tensor, flat_a: torch.Tensor):
     """Stable permutation putting live rays first, in their order, and
     dead rays last: (order, inv). flat_d is not part of the key; the
@@ -449,32 +447,25 @@ def _pad_rays(flat_o, flat_d, flat_t, flat_a, tile: int):
 
 
 @torch.no_grad()
-def find_closest_packed(scene: Scene, pbvh: PackedLBVH, ro, rd, active=None,
-                        tile: int = 0, unroll: int = 8,
-                        sort_rays: bool = False, mode: str = "tiled",
+def find_closest_packed(scene: Scene, pbvh, ro, rd, active=None,
+                        tile: int = 0, sort_rays: bool = False,
+                        mode: str = "tiled",
                         ops: FinderOps = KERNELS) -> HitIds:
-    """The packed finder (`traverse.py:195-277`, mode "tiled"): spheres
-    first, then one skip-link walk seeded with the sphere t, so a
+    """The packed finder (`traverse.py:195-277`) over a PackedLBVH,
+    Packed2LBVH, PackedLALBVH or Packed4LBVH: spheres first, then one
+    skip-link walk of the table's layout seeded with the sphere t, so a
     triangle wins only when strictly closer. Dead rays (`active`) keep
     the sphere's t and take no triangle.
 
-    sort_rays puts live rays first (`sort_wavefront`) and tile pads the
-    wavefront with dead rays (origin 0, direction +z, t BIG) to a
-    multiple of tile, as the JAX package does; both, and unroll, only
-    schedule its XLA loop: rays are independent, so the result is the
-    same under every setting. The whole wavefront goes to
-    ops.packed_walk in one call (one kernel launch on the card). Modes
-    "compact" / "unrolled" and the cherry, quad and lookahead tables are
-    not ported and raise."""
-    if mode in ("compact", "unrolled"):
-        raise NotImplementedError(
-            f"traversal_mode {mode!r} (traverse_wavefront_compact) is not "
-            f"ported ({LBVH_ITEM})")
-    if not isinstance(pbvh, PackedLBVH):
-        raise NotImplementedError(
-            f"{type(pbvh).__name__}: only the one-triangle PackedLBVH is "
-            f"ported; the cherry, quad and lookahead tables are not "
-            f"({LBVH_ITEM})")
+    Mode "compact" / "unrolled": ops.compact_walk (the plain compacting
+    walk, or on the card the table's kernel, one launch), without sort
+    or tile, as in the JAX package. Any other mode is "tiled": sort_rays
+    puts live rays first (`sort_wavefront`) and tile pads the wavefront
+    with dead rays (origin 0, direction +z, t BIG) to a multiple of tile,
+    as the JAX package does; both only schedule its XLA loop, as its
+    `unroll` does (which no walk here takes). The whole wavefront goes to
+    ops.packed_walk in one call (one kernel launch on the card). Rays
+    are independent, so every mode and setting gives the same result."""
     ts, si = _closest_sphere(scene, ro, rd)
     flat_o = ro.reshape(-1, 3)
     flat_d = rd.reshape(-1, 3)
@@ -482,13 +473,17 @@ def find_closest_packed(scene: Scene, pbvh: PackedLBVH, ro, rd, active=None,
     flat_a = (torch.ones_like(flat_t, dtype=torch.bool) if active is None
               else active.reshape(-1))
     n = flat_o.shape[0]
+    if mode in ("compact", "unrolled"):
+        t_best, face = ops.compact_walk(
+            pbvh, *_pad_rays(flat_o, flat_d, flat_t, flat_a, 0))
+        return _walk_hit_ids(t_best, face, ts, si)
     inv = None
     if sort_rays and n > 1:
         order, inv = sort_wavefront(flat_d, flat_a)
         flat_o, flat_d, flat_t, flat_a = (x[order] for x in
                                           (flat_o, flat_d, flat_t, flat_a))
     t_best, face = ops.packed_walk(
-        pbvh, *_pad_rays(flat_o, flat_d, flat_t, flat_a, tile), unroll=unroll)
+        pbvh, *_pad_rays(flat_o, flat_d, flat_t, flat_a, tile))
     t_best, face = t_best[:n], face[:n]
     if inv is not None:
         t_best, face = t_best[inv], face[inv]

@@ -17,13 +17,12 @@ import torch
 
 from ..accel import lbvh
 from ..accel.lbvh import LBVH
-from ..accel.packed import pack
 from ..accel.traverse import recompute_hit
 from ..core.math3d import normalize
 from ..core.types import CameraRays, RenderConfig, Scene
 from ..dist.sharding import Mesh, check_mesh, sum_over_mesh
 from ..render.integrator import (camera_rays_for_ids, make_finder,
-                                 pixel_id_grid, render_sample,
+                                 pack_layout, pixel_id_grid, render_sample,
                                  resolve_backend)
 from ..rng.sampler import Key, fold_in, frame_key, sample_key
 from ..rng.sampler import key as make_key
@@ -52,13 +51,14 @@ def _fit_accel(scene: Scene, cfg: RenderConfig, bvh: LBVH, tree,
                refit: bool):
     """The accel a fit step hands make_finder for the realized scene:
     the tree refitted to its positions when `refit`. On the packed
-    routes the tree's tensors are refitted and packed where they lie;
+    routes the tree's tensors are refitted and packed where they lie,
+    in the layout cfg selects (`pack_layout`, as make_finder packs);
     the cluster routes read the LBVH on the host."""
     m = scene.mesh
     if resolve_backend(scene, cfg, bvh) in ("bvh", "bvh2"):
         if refit:
             tree = lbvh.refit(tree, m.positions, m.faces, m.face_valid)
-        return pack(tree, m.positions, m.faces, m.face_valid)
+        return pack_layout(cfg, tree, m.positions, m.faces, m.face_valid)
     return lbvh.refit(bvh, m.positions, m.faces, m.face_valid) if refit \
         else bvh
 

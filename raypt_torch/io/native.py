@@ -1,15 +1,17 @@
 """ctypes binding to the native host runtime in `native/raypt_native.cpp`
 (the JAX package's `raypt/io/native.py`): the SAH builder, the OBJ
-parser and smooth normals.
+parser, smooth normals, the reference-semantics midpoint BVH and the
+morton order.
 
 The source is compiled into the port's build directory on first use
 with `g++ -O3 -fPIC -std=c++17 -shared`. The committed
 `native/libraypt_native.so` is never loaded: it was built with
 `-march=native`, which ends in SIGILL, not an OSError, on a host with
 another CPU. A failed build raises; there is no tree-builder fallback.
-The OBJ helpers keep the JAX package's contract instead: without the
-library (`available()` false) `load_obj_native` returns None and
-`smooth_normals_native` computes in numpy.
+The other helpers keep the JAX package's contract instead: without the
+library (`available()` false) `load_obj_native`, `build_midpoint_bvh`
+and `morton_order` return None and `smooth_normals_native` computes in
+numpy.
 
 Without `-march=native` g++ emits no fused multiply-adds, so on meshes
 where two SAH split costs nearly tie the tree can differ from the one
@@ -49,6 +51,15 @@ def load() -> C.CDLL:
         C.POINTER(C.c_float), C.c_int, C.POINTER(C.c_int), C.c_int,
         C.POINTER(C.c_float)]
     lib.rn_smooth_normals.restype = None
+    lib.rn_build_midpoint_bvh.argtypes = [
+        C.POINTER(C.c_float), C.c_int, C.POINTER(C.c_int), C.c_int,
+        C.POINTER(C.POINTER(C.c_float)), C.POINTER(C.POINTER(C.c_uint32)),
+        C.POINTER(C.POINTER(C.c_uint32))]
+    lib.rn_build_midpoint_bvh.restype = C.c_int
+    lib.rn_morton_order.argtypes = [
+        C.POINTER(C.c_float), C.c_int, C.POINTER(C.c_uint32),
+        C.POINTER(C.c_int)]
+    lib.rn_morton_order.restype = None
     return lib
 
 
@@ -143,3 +154,45 @@ def smooth_normals_native(positions: np.ndarray, faces: np.ndarray):
         f32.ctypes.data_as(C.POINTER(C.c_int)), len(f32),
         out.ctypes.data_as(C.POINTER(C.c_float)))
     return out
+
+
+def build_midpoint_bvh(positions: np.ndarray, faces: np.ndarray):
+    """The reference-semantics midpoint BVH (the largest axis's midpoint,
+    the other axes on failure, a leaf when no axis splits): a dict of
+    bounds (2F-1, 6) f32, meta (2F-1, 2) uint32 (a leaf's first and
+    count, an internal node's left child and 0), order (F,) uint32 and
+    nodes_used (the nodes written, from the front), or None without the
+    library or when F < 1."""
+    if not available():
+        return None
+    lib = load()
+    positions = np.ascontiguousarray(positions, np.float32)
+    f32 = np.ascontiguousarray(faces, np.int32)
+    b_p = C.POINTER(C.c_float)()
+    m_p = C.POINTER(C.c_uint32)()
+    o_p = C.POINTER(C.c_uint32)()
+    n = lib.rn_build_midpoint_bvh(
+        positions.ctypes.data_as(C.POINTER(C.c_float)), len(positions),
+        f32.ctypes.data_as(C.POINTER(C.c_int)), len(f32),
+        C.byref(b_p), C.byref(m_p), C.byref(o_p))
+    if n < 0:
+        return None
+    total = 2 * len(f32) - 1
+    return {"bounds": _take(lib, b_p, total * 6, np.float32).reshape(-1, 6),
+            "meta": _take(lib, m_p, total * 2, np.uint32).reshape(-1, 2),
+            "order": _take(lib, o_p, len(f32), np.uint32), "nodes_used": n}
+
+
+def morton_order(centroids: np.ndarray):
+    """30-bit morton codes of (N, 3) centroids over their bounds and
+    their stable ascending order: a dict of codes (N,) uint32 and order
+    (N,) int32, or None without the library."""
+    if not available():
+        return None
+    c = np.ascontiguousarray(centroids, np.float32)
+    codes = np.zeros(len(c), np.uint32)
+    order = np.zeros(len(c), np.int32)
+    load().rn_morton_order(c.ctypes.data_as(C.POINTER(C.c_float)), len(c),
+                           codes.ctypes.data_as(C.POINTER(C.c_uint32)),
+                           order.ctypes.data_as(C.POINTER(C.c_int)))
+    return {"codes": codes, "order": order}

@@ -24,7 +24,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 KERNEL_SOURCES = ("compact.cu", "onehot_walk.cu", "cluster_expand.cu",
                   "cluster_intersect.cu", "dense_closest.cu", "gather.cu",
                   "expand_diag.cu", "regroup.cu", "packed_walk.cu",
-                  "wide_walk.cu")
+                  "wide_walk.cu", "packed_layouts.cu")
 KERNEL_HEADERS = ("cluster_test.cuh", "block_scan.cuh", "mask_walk.cuh",
                   "packed_walk.cuh", "wide_walk.cuh")
 SMEM_LIMIT = 232448   # shared memory a block may use on Hopper (227 KB)
@@ -86,6 +86,8 @@ def kernel_lib() -> ctypes.CDLL:
         # rows, n_rows, ro, rd, t0, active -> t, face; r, max_steps,
         # scratch, stream
         "rk_packed_walk": [p, i64, p, p, p, p, p, p, i64, i64, p, p],
+        # layout, rows, n_rows, ro, rd, t0, active -> t, face; r, stream
+        "rk_layout_walk": [i32, p, i64, p, p, p, p, p, p, i64, p],
         # rows, n_rows, root, nw_cap, ro, rd, t0, active -> t, face,
         # overflow; r, stack_d, stream
         "rk_wide_walk": [p, i64, i32, i64, p, p, p, p, p, p, p, i64, i32, p],
@@ -119,6 +121,10 @@ def kernel_lib() -> ctypes.CDLL:
     lib.rk_packed_walk_scratch.restype = i64
     lib.rk_packed_walk_info.argtypes = [p]
     lib.rk_packed_walk_info.restype = ctypes.c_int
+    # a layout walk's kernel's registers, local bytes, resident blocks an
+    # SM and threads a block (4 ints)
+    lib.rk_layout_walk_info.argtypes = [i32, p]
+    lib.rk_layout_walk_info.restype = ctypes.c_int
     # the wide walk's largest stack_d, and its kernel's registers, local
     # bytes, resident blocks an SM and threads a block (4 ints)
     lib.rk_wide_walk_max_stack.argtypes = []

@@ -11,9 +11,10 @@ the accel the Woop branch), `"cluster"`, `"bvh"` / `"bvh2"` (the packed
 skip-link walk over an LBVH), `"bvh4"` (the ordered-stack walk of the
 4-wide tree collapsed from an LBVH), `"bruteforce"`, `"dense"`,
 `"pallas"` and `"auto"` (`resolve_backend`), with albedo textures and,
-under `cfg.enable_refraction`, the dielectric lobe; the packed layouts
-with more than one triangle a leaf or child lookahead raise (ROADMAP
-queue 1).
+under `cfg.enable_refraction`, the dielectric lobe. The `bvh` routes
+walk the table `pack_layout` chooses by `cfg.leaf_tris` and
+`cfg.node_lookahead` (one, two or four triangles a leaf row, lookahead
+internal rows), in `cfg.traversal_mode`.
 """
 from __future__ import annotations
 
@@ -27,8 +28,9 @@ from ..accel.ctree import OnehotAccel, build_onehot
 from ..accel.dense import WoopTris
 from ..accel import lbvh
 from ..accel.lbvh import LBVH, LBVHTensors
-from ..accel.packed import PackedLBVH, pack
-from ..accel.traverse import (KERNELS, LBVH_ITEM, HitIds,
+from ..accel.packed import (PACKED_TABLES, PackedLBVH, pack, pack_cherries,
+                            pack_lookahead, pack_quads)
+from ..accel.traverse import (KERNELS, HitIds,
                               find_closest_bruteforce,
                               find_closest_cluster, find_closest_onehot,
                               find_closest_packed, find_closest_wide,
@@ -86,16 +88,16 @@ def make_finder(scene: Scene, cfg: RenderConfig, accel=None) -> Finder:
         (> 0 per-ray-exact, 0 dense-union);
       * "cluster": Clusters, or an LBVH (built here when none is given)
         clustered at CLUSTER_LEAF;
-      * "bvh" and "bvh2": a PackedLBVH, or an LBVH (built here with
-        `lbvh.build` when none is given) packed here, walked by the
-        packed finder with cfg.traversal_tile / traversal_unroll /
-        ray_sort / traversal_mode; cfg.leaf_tris >= 2 and
-        cfg.node_lookahead raise: those layouts are not ported;
+      * "bvh" and "bvh2": one of the four packed tables (PACKED_TABLES),
+        walked as it is, or an LBVH (built here with `lbvh.build` when
+        none is given) packed here by `pack_layout`, walked by the packed
+        finder with cfg.traversal_tile / ray_sort / traversal_mode
+        (cfg.traversal_unroll schedules the JAX package's loop only);
       * "bvh4": an LBVH (built here when none is given) collapsed here
         into the wide tree, walked by the wide finder with
         cfg.traversal_tile. Whatever the "bvh*" backend, a WideBVH is
-        walked by the wide finder and a PackedLBVH by the packed one, as
-        in the JAX package."""
+        walked by the wide finder and a packed table by the packed one,
+        as in the JAX package."""
     m = scene.mesh
     backend = resolve_backend(scene, cfg, accel)
     if backend == "bruteforce":
@@ -128,46 +130,56 @@ def make_finder(scene: Scene, cfg: RenderConfig, accel=None) -> Finder:
                    expand_n=cfg.onehot_expand, compact_n=cfg.onehot_compact)
 
 
+def pack_layout(cfg: RenderConfig, bvh, positions, faces, face_valid):
+    """The packed table of an LBVH (or its `LBVHTensors`) in the layout
+    cfg selects (`raypt/render/integrator.py:124-133`): leaf_tris >= 4
+    the quad table (lookahead internal rows when node_lookahead), >= 2
+    the cherry table, else node_lookahead the lookahead table, else the
+    one-triangle table; on the positions' device."""
+    if cfg.leaf_tris >= 4:
+        return pack_quads(bvh, positions, faces, face_valid,
+                          lookahead=cfg.node_lookahead)
+    if cfg.leaf_tris >= 2:
+        return pack_cherries(bvh, positions, faces, face_valid)
+    if cfg.node_lookahead:
+        return pack_lookahead(bvh, positions, faces, face_valid)
+    return pack(bvh, positions, faces, face_valid)
+
+
 def _make_packed_finder(scene: Scene, cfg: RenderConfig, accel,
                         backend: str):
     """make_finder's "bvh" / "bvh2" / "bvh4" route (`raypt/render/
-    integrator.py:101-140`): the wide tree or the one-triangle packed
-    table, from the accel or from an LBVH built here."""
+    integrator.py:101-140`): the wide tree, or a packed table from the
+    accel or packed here (`pack_layout`) from an LBVH, built here when
+    none is given."""
     m = scene.mesh
     if isinstance(accel, WideBVH) or (backend == "bvh4" and not
-                                      isinstance(accel, PackedLBVH)):
+                                      isinstance(accel, PACKED_TABLES)):
         if not isinstance(accel, WideBVH):
             if accel is None:
                 accel = lbvh.build(m.positions, m.faces, m.face_valid)
             if not isinstance(accel, (LBVH, LBVHTensors)):
                 raise TypeError(f"backend 'bvh4' takes an LBVH, a WideBVH "
-                                f"or a PackedLBVH, not "
+                                f"or a packed table, not "
                                 f"{type(accel).__name__}")
             accel = collapse(accel, m.positions, m.faces, m.face_valid)
         return partial(_wide_finder, accel.to(m.positions.device),
                        cfg.traversal_tile)
-    if not isinstance(accel, PackedLBVH):
-        if cfg.leaf_tris >= 2 or cfg.node_lookahead:
-            raise NotImplementedError(
-                f"leaf_tris={cfg.leaf_tris}, node_lookahead="
-                f"{cfg.node_lookahead}: the cherry, quad and lookahead "
-                f"packers are not ported ({LBVH_ITEM})")
+    if not isinstance(accel, PACKED_TABLES):
         if accel is None:
             accel = lbvh.build(m.positions, m.faces, m.face_valid)
         if not isinstance(accel, LBVH):
             raise TypeError(f"backend {backend!r} takes an LBVH or a "
-                            f"PackedLBVH, not {type(accel).__name__}")
-        accel = pack(accel, m.positions, m.faces, m.face_valid)
+                            f"packed table, not {type(accel).__name__}")
+        accel = pack_layout(cfg, accel, m.positions, m.faces, m.face_valid)
     return partial(_packed_finder, accel.to(scene.mesh.positions.device),
-                   cfg.traversal_tile, cfg.traversal_unroll, cfg.ray_sort,
-                   cfg.traversal_mode)
+                   cfg.traversal_tile, cfg.ray_sort, cfg.traversal_mode)
 
 
-def _packed_finder(pbvh: PackedLBVH, tile, unroll, sort_rays, mode,
-                   scene: Scene, ro, rd, active=None, ops=KERNELS):
+def _packed_finder(pbvh, tile, sort_rays, mode, scene: Scene, ro, rd,
+                   active=None, ops=KERNELS):
     return find_closest_packed(scene, pbvh, ro, rd, active=active, tile=tile,
-                               unroll=unroll, sort_rays=sort_rays, mode=mode,
-                               ops=ops)
+                               sort_rays=sort_rays, mode=mode, ops=ops)
 
 
 def _wide_finder(wbvh: WideBVH, tile, scene: Scene, ro, rd, active=None,

@@ -212,15 +212,23 @@ def _run(case, params, opt, step, n=1, key=None):
 
 def test_port_imports_no_jax():
     """No module of raypt_torch, nor chip_smoke.py, imports jax or the
-    JAX package (read from the sources), and importing raypt_torch.diff
-    and raypt_torch.dist (its launcher too) loads neither (the modules
-    they add to a fresh interpreter)."""
+    JAX package (read from the sources), and importing every module of
+    raypt_torch (outside its build directory: the packed layouts,
+    kernels.packed_walk, diff, dist and its launcher among them) loads
+    none of jax, raypt, optax or flax (the modules they add to a fresh
+    interpreter)."""
     files = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, names in os.walk(os.path.join(REPO, "raypt_torch")):
         if "_build" in root:
             continue
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 40
+    modules = sorted(
+        os.path.relpath(p, REPO)[:-3].replace(os.sep, ".").removesuffix(
+            ".__init__") for p in files if p.endswith(".py")
+        and os.path.basename(p) != "chip_smoke.py")
+    assert {"raypt_torch.accel.packed", "raypt_torch.kernels.packed_walk",
+            "raypt_torch.diff", "raypt_torch.dist.launcher"} <= set(modules)
     for path in files:
         with open(path) as f:
             tree = ast.parse(f.read())
@@ -236,11 +244,11 @@ def test_port_imports_no_jax():
                 assert top not in ("jax", "jaxlib", "raypt", "optax",
                                    "flax"), (path, mod)
     out = subprocess.run(
-        [sys.executable, "-c", "import sys; before = set(sys.modules); "
-         "import raypt_torch.diff, raypt_torch.dist.launcher; "
+        [sys.executable, "-c", "import importlib, sys; before = "
+         "set(sys.modules); [importlib.import_module(m) for m in sys.argv[1:]]; "
          "print(sorted(m for m in set(sys.modules) "
          "- before if m.split('.')[0] in ('jax', 'raypt', 'optax', "
-         "'flax')))"],
+         "'flax')))", *modules],
         cwd=REPO, capture_output=True, text=True, check=True,
         env={**os.environ, "PYTHONPATH": REPO})
     assert out.stdout.strip() == "[]", out.stdout
@@ -456,6 +464,68 @@ def test_fit_step_matches_jax(case, jax_fit):
     for k in TRAIN:
         assert not torch.equal(getattr(params, k), init[k]), k
     assert jl[-1] < jl[0]
+
+
+@pytest.mark.parametrize("flags", [dict(leaf_tris=4),
+                                   dict(node_lookahead=True)],
+                         ids=["quad", "lookahead"])
+def test_fit_step_layout_matches_jax(case, flags):
+    """make_fit_step with leaf_tris=4 or node_lookahead=True walks the
+    table those flags select, as the JAX step's make_finder does: a
+    Packed4LBVH / PackedLALBVH, packed every step from the tree refitted
+    to the realized positions. One step under SGD at LR in both packages
+    (fault 3.8's rule): the loss to LOSS_RTOL, every field's change (the
+    gradient times LR) within SGD_RTOL of its largest."""
+    import dataclasses
+
+    from raypt_torch.accel.packed import Packed4LBVH, PackedLALBVH
+    from raypt_torch.render.integrator import pack_layout
+    jcfg = dataclasses.replace(case["jcfg"], **flags)
+    cfg = case["cfg"].replace(**flags)
+    jreg, jpmap = _priors(jpri, case["jbad"])
+    opt = optax.sgd(LR)
+    jparams = jpar.SceneParams.init(case["jbad"], lattice=LATTICE)
+    jstep = jinv.make_fit_step(case["jbad"], jcfg, opt, TRAIN,
+                               bvh=case["jbvh"], loss_fn=rgbd_loss_jax,
+                               render_fn=jinv.render_rgbd, param_reg=jreg,
+                               param_map=jpmap)
+    jafter, _, jl = jstep(jparams, opt.init(jparams), case["jstack"],
+                          case["targets"], case["key"])
+    jafter = _jparams_dict(jafter)
+
+    tables = []
+
+    def spy(scene, cfg, key, finder):
+        tables.append((finder.args[0], scene.mesh.positions.detach()))
+        return tinv.render_rgbd(scene, cfg, key, finder)
+
+    reg, pmap = _priors(tpri, case["bad"])
+    params = SceneParams.init(case["bad"], lattice=LATTICE)
+    init = {k: v.detach().clone() for k, v in params.named_parameters()}
+    step = make_fit_step(case["bad"], cfg, TRAIN, bvh=case["bvh"],
+                         loss_fn=rgbd_loss, render_fn=spy, param_reg=reg,
+                         param_map=pmap)
+    loss = _run(case, params, torch.optim.SGD(params.parameters(), lr=LR),
+                step)[0]
+    table, pos = tables[0]
+    assert type(table) is (Packed4LBVH if "leaf_tris" in flags
+                           else PackedLALBVH)
+    m = case["bad"].mesh
+    want = pack_layout(cfg, tlbvh.refit(case["bvh"], pos, m.faces,
+                                        m.face_valid), pos, m.faces,
+                       m.face_valid)
+    assert torch.equal(table.rows.view(torch.int32),
+                       want.rows.view(torch.int32))
+    np.testing.assert_allclose(loss, float(jl), rtol=LOSS_RTOL)
+    for k in tpar.FIELDS:
+        ref = jafter[k]
+        if ref is None:
+            continue
+        moved = np.abs(ref - init[k].numpy()).max()
+        ulp = np.spacing(np.abs(ref).max().astype(np.float32))
+        np.testing.assert_allclose(getattr(params, k).detach().numpy(), ref,
+                                   rtol=0, atol=SGD_RTOL * moved + 2 * ulp,
+                                   err_msg=k)
 
 
 def test_adam_matches_optax():

@@ -32,8 +32,10 @@ from raypt_torch.rng import sampler as rng
 from raypt_torch.scenes.builtin import stanford_bunny
 from raypt_torch.scenes.config4 import config4_scene
 
-from chip_smoke import (MERGE_LEAVES, WL_GROUPS, WOOP_ODD_LEAF, Stats,
-                        check_lbvh, check_planted, compact_layouts,
+from chip_smoke import (LAYOUT_FLAGS, MERGE_LEAVES, WL_GROUPS,
+                        WOOP_ODD_LEAF, Stats, check_lbvh, check_planted,
+                        check_ties, compact_layouts, layout_tie_case,
+                        small_meshes,
                         config5_case, copy_most_hit, edge_seeds, fit_run,
                         deep_stack_case, merge_case, mixed_tile, same_fit,
                         walk_edges, walk_layouts, wide_edges, woop_faces,
@@ -901,3 +903,81 @@ def test_fit_step_sharded_one_rank_bitwise(one_rank):
     same_fit("the one-rank sharded step",
              fit_run(case, 1, mesh=default_mesh(axis="views")),
              fit_run(case, 1), 1)
+
+
+@pytest.mark.parametrize("name", list(LAYOUT_FLAGS))
+def test_layout_walk_bitwise(gpu_scene, bvh_waves, name):
+    """Each kernel of csrc/packed_layouts.cu (the cherry, lookahead, quad
+    and lookahead-quad walks) on its table of the card's LBVH, against
+    its plain walk, bitwise: on every bounce of the 256^2 bvh render,
+    on chip_smoke.layout_tie_case (whose ties keep their winners) and on
+    the meshes of 1-5 triangles; compact_walk is one launch of the same
+    kernel with the same result; another table type is a TypeError."""
+    from raypt_torch.accel import lbvh
+    from raypt_torch.accel.packed import traverse_wavefront_compact, walk_layout
+    from raypt_torch.kernels import packed_walk as tpw
+    from raypt_torch.render.integrator import pack_layout
+    scene, _ = gpu_scene
+    pb, waves = bvh_waves
+    m = scene.mesh
+    cfg = CFG.replace(backend="bvh", **LAYOUT_FLAGS[name])
+    table = pack_layout(cfg, lbvh.build(m.positions, m.faces, m.face_valid),
+                        m.positions, m.faces, m.face_valid)
+    wrapper = getattr(tpw, name)
+    assert tpw.wrapper_of(table) is wrapper
+    for wave in waves:
+        args = (table, *wavefront_inputs(scene, *wave, 1)[:4])
+        before = wrapper.launches
+        kt, kf = wrapper(*args)
+        assert wrapper.launches == before + 1
+        pt, pf = walk_layout(*args)
+        assert _bits_equal(kt, pt) and torch.equal(kf, pf)
+        ct, cf = tpw.compact_walk(*args)
+        assert wrapper.launches == before + 2
+        assert _bits_equal(ct, kt) and torch.equal(cf, kf)
+    pt, pf = traverse_wavefront_compact(*args)
+    assert _bits_equal(kt, pt) and torch.equal(kf, pf)
+    case = layout_tie_case("cuda")
+    tie = pack_layout(cfg, lbvh.build(case["positions"], case["faces"],
+                                      case["build_valid"]),
+                      case["positions"], case["faces"], case["valid"])
+    rays = tuple(case[k] for k in ("ro", "rd", "t0", "active"))
+    kt, kf = wrapper(tie, *rays)
+    pt, pf = walk_layout(tie, *rays)
+    assert _bits_equal(kt, pt) and torch.equal(kf, pf)
+    assert check_ties(case, kf, name) > 0
+    for n, bvh, pos, faces, valid, *rays in small_meshes("cuda"):
+        small = pack_layout(cfg, bvh, pos, faces, valid)
+        kt, kf = wrapper(small, *rays)
+        pt, pf = walk_layout(small, *rays)
+        assert _bits_equal(kt, pt) and torch.equal(kf, pf), n
+    with pytest.raises(TypeError):
+        wrapper(pb, *args[1:])
+
+
+@pytest.mark.parametrize("name", list(LAYOUT_FLAGS))
+def test_layout_render_bitwise(gpu_scene, name):
+    """The 256^2 bvh render with the layout's flags, the table packed in
+    make_finder from an LBVH built there: one launch of the layout's
+    kernel a bounce and none of packed_walk, in both traversal modes;
+    the image bitwise the plain walk's render's and the compact mode's."""
+    from raypt_torch.kernels import packed_walk as tpw
+    scene, _ = gpu_scene
+    wrapper = getattr(tpw, name)
+    images = []
+    for mode in ("tiled", "compact"):
+        cfg = CFG.replace(backend="bvh", traversal_mode=mode,
+                          **LAYOUT_FLAGS[name])
+        finder = make_finder(scene, cfg)
+        before, one = wrapper.launches, tpw.packed_walk.launches
+        with torch.no_grad():
+            img = render_sample(scene, cfg, rng.sample_key(rng.frame_key(
+                rng.key(0), 0), 0), finder)
+        assert wrapper.launches == before + cfg.num_bounces
+        assert tpw.packed_walk.launches == one
+        with torch.no_grad():
+            ref = render_sample(scene, cfg, rng.sample_key(rng.frame_key(
+                rng.key(0), 0), 0), partial(finder, ops=PLAIN))
+        assert _bits_equal(img, ref) and bool(torch.isfinite(img).all())
+        images.append(img)
+    assert _bits_equal(*images)

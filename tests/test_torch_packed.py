@@ -258,25 +258,66 @@ def test_implicit_build_matches_jax(box, backend):
 
 
 def test_unported_layouts_raise(box):
-    """leaf_tris >= 2, node_lookahead and traversal_mode "compact" /
-    "unrolled" raise NotImplementedError naming their ROADMAP item; bvh4,
-    ported since, makes the wide finder (tests/test_torch_wide.py)."""
-    scene, cfg = box["scene"], RenderConfig(width=W, height=W, backend="bvh")
+    """The layouts and modes that raised until they were ported now
+    route: every leaf_tris / node_lookahead combination packs its table
+    type from the LBVH (bvh and bvh2; a packed table of any layout is
+    walked as it is, under bvh4 too; "auto" resolves only a PackedLBVH
+    to bvh, as in the JAX package), the finder runs in the mode and,
+    on the CPU, gives the tiled one-triangle finder's faces where t does
+    not tie; the kernel ops pick the layout's wrapper. A wrong accel type
+    still raises TypeError, in make_finder and in find_closest_packed;
+    bvh4 with an LBVH makes the wide finder (tests/test_torch_wide.py).
+    In each traversal_mode."""
+    for mode in ("tiled", "compact", "unrolled"):
+        _routes(box, mode)
+
+
+def _routes(box, mode):
+    from raypt_torch.accel.packed import (Packed2LBVH, Packed4LBVH,
+                                          PackedLALBVH)
+    from raypt_torch.kernels import packed_walk as tpw
+    scene = box["scene"]
+    cfg = RenderConfig(width=W, height=W, backend="bvh", traversal_mode=mode)
     assert tint.make_finder(scene, cfg.replace(backend="bvh4"),
                             box["bvh"]).func is tint._wide_finder
-    for bad in (cfg.replace(leaf_tris=2),
-                cfg.replace(leaf_tris=4), cfg.replace(node_lookahead=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tint.make_finder(scene, bad, box["bvh"])
-    ro = torch.zeros((4, 3))
-    rd = torch.tensor([[0.0, 0.0, 1.0]]).expand(4, 3).contiguous()
-    for mode in ("compact", "unrolled"):
-        finder = tint.make_finder(scene, cfg.replace(traversal_mode=mode),
-                                  box["bvh"])
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            finder(scene, ro, rd)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttrav.find_closest_packed(scene, box["bvh"], ro, rd)
+    rng = np.random.default_rng(4)
+    ro = torch.from_numpy(rng.uniform(-10, 10, (512, 3)).astype(np.float32))
+    rd = torch.from_numpy(rng.normal(size=(512, 3)).astype(np.float32))
+    rd = rd / rd.norm(dim=1, keepdim=True)
+    ref = tint.make_finder(scene, cfg.replace(traversal_mode="tiled"),
+                           box["bvh"])(scene, ro, rd)
+    routes = {(1, False): (PackedLBVH, "packed_walk"),
+              (1, True): (PackedLALBVH, "packed_walk_la"),
+              (2, False): (Packed2LBVH, "packed_walk2"),
+              (2, True): (Packed2LBVH, "packed_walk2"),
+              (3, True): (Packed2LBVH, "packed_walk2"),
+              (4, False): (Packed4LBVH, "packed_walk4"),
+              (4, True): (Packed4LBVH, "packed_walk4_la"),
+              (8, False): (Packed4LBVH, "packed_walk4")}
+    for (leaf_tris, la), (kind, wrapper) in routes.items():
+        c = cfg.replace(leaf_tris=leaf_tris, node_lookahead=la)
+        for backend in ("bvh", "bvh2"):
+            f = tint.make_finder(scene, c.replace(backend=backend), box["bvh"])
+            assert f.func is tint._packed_finder and f.args[3] == mode
+            table = f.args[0]
+            assert type(table) is kind and tpw.wrapper_of(table).__name__ \
+                == wrapper
+            assert getattr(table, "lookahead", la) == la
+        for backend in ("bvh2", "bvh4"):
+            again = tint.make_finder(scene, c.replace(backend=backend),
+                                     table)
+            assert again.func is tint._packed_finder and \
+                type(again.args[0]) is kind
+            assert again.args[0].rows is table.rows
+        got = f(scene, ro, rd)
+        assert torch.equal(got.sphere, ref.sphere)
+        assert ((got.tri == ref.tri).numpy()
+                | np.isclose(got.t.numpy(), ref.t.numpy(), rtol=1e-6)).all()
+    for bad in (object(), box["bvh"].tensors("cpu")):
+        with pytest.raises(TypeError):
+            tint.make_finder(scene, cfg, bad)
+    with pytest.raises(TypeError):
+        ttrav.find_closest_packed(scene, box["bvh"], ro, rd, mode=mode)
 
 
 @pytest.fixture(scope="module")

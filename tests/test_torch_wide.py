@@ -31,7 +31,8 @@ from raypt.rng import frame_key, sample_key
 from raypt_torch.accel import traverse as ttrav
 from raypt_torch.accel.ctree import lbvh_from_numpy
 from raypt_torch.accel.lbvh import LBVH
-from raypt_torch.accel.packed import PackedLBVH, pack
+from raypt_torch.accel.packed import (PackedLBVH, pack, pack_cherries,
+                                      pack_lookahead, pack_quads)
 from raypt_torch.accel.wide import (STACK_D, WideBVH, collapse,
                                     traverse_wide, wide_from_numpy)
 from raypt_torch.core.math3d import BIG
@@ -219,8 +220,9 @@ def test_make_finder_routes(case):
     """bvh4 with an LBVH, its LBVHTensors or no accel collapses the tree
     here; a WideBVH is walked whatever the bvh backend, and auto resolves
     to bvh with it; a PackedLBVH under bvh4 takes the packed finder, as
-    in the JAX package. The packers' layouts still raise, naming their
-    ROADMAP item; an accel of another kind is a TypeError."""
+    in the JAX package, and so does a table of any other layout; the
+    bvh finder packs the layout its flags select (tests/
+    test_torch_layouts.py); an accel of another kind is a TypeError."""
     box = case
     s = box["scene"]
     m = s.mesh
@@ -237,11 +239,17 @@ def test_make_finder_routes(case):
         assert f.func is tint._wide_finder and f.args[0] is not None
     packed = pack(box["bvh"], m.positions, m.faces, m.face_valid)
     assert tint.make_finder(s, cfg, packed).func is tint._packed_finder
-    for bad in (cfg.replace(backend="bvh", leaf_tris=2),
-                cfg.replace(backend="bvh", leaf_tris=4),
-                cfg.replace(backend="bvh", node_lookahead=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tint.make_finder(s, bad, box["bvh"])
+    for flags, packer in ((dict(leaf_tris=2), pack_cherries),
+                          (dict(leaf_tris=4), pack_quads),
+                          (dict(node_lookahead=True), pack_lookahead)):
+        f = tint.make_finder(s, cfg.replace(backend="bvh", **flags),
+                             box["bvh"])
+        want = packer(box["bvh"], m.positions, m.faces, m.face_valid)
+        assert f.func is tint._packed_finder and type(f.args[0]) is type(want)
+        assert torch.equal(f.args[0].rows.view(torch.int32),
+                           want.rows.view(torch.int32))
+        assert tint.make_finder(s, cfg.replace(**flags),
+                                want).func is tint._packed_finder
     with pytest.raises(TypeError):
         tint.make_finder(s, cfg, object())
 
