@@ -238,11 +238,14 @@ Phases:
      packed_walk4_la (leaf_tris=4, the quad table, plain or lookahead
      internal rows), on their tables of the card's LBVH: against their
      plain walks, bitwise, on the bvh path's four wavefronts (timed,
-     also from graphs, with the bound and the kernels' registers), on
-     bvh_large's four (timed), on edge cases (layout_edges: dead,
-     missing, near-seeded, signed-zero, NaN and in-plane rays, a NaN
-     vertex, planted ties with their winners, invalid faces, meshes of
-     1-5 triangles); the bench render with each layout's flags (4
+     also from graphs, with the bound and the kernels' registers; the
+     cherry and quad kernels' split-table build timed apart, from
+     graphs, and held bitwise against its plain model
+     accel.packed.slot_table, their walks against traverse_slots on
+     bounce 1), on bvh_large's four (timed), on edge cases
+     (layout_edges: dead, missing, near-seeded, signed-zero, NaN and
+     in-plane rays, a NaN vertex, planted ties with their winners,
+     invalid faces, meshes of 1-5 triangles); the bench render with each layout's flags (4
      launches of its kernel, bitwise the plain walk's render, the hits
      within the JAX tests' rule of packed_walk's); traversal_mode
      "compact" on the five tables (one launch a bounce, bitwise the
@@ -488,15 +491,18 @@ SMALL_MESHES = (1, 2, 3, 4, 5)
 # a cherry leaf two BIG selects, a compare and two selects for the pick
 # and a compare and two selects to take it; a quad leaf four BIG
 # selects, three compares for the argmin and three to take it; a
-# lookahead leaf the take's compare and two selects. And the bytes each
-# visit reads (the row's kind and links first), for the log: the tables
-# stay in the 50 MB L2, so the bound counts each table once.
+# lookahead leaf the take's compare and two selects. And the bytes the
+# kernels read, for the log: (an internal visit, a leaf visit, a tested
+# slot). The cherry and quad kernels (PR 20) read their split table's
+# 32-byte internal rows and a 48-byte entry a tested slot; the lookahead
+# kernels the rows themselves (the row's kind and links first). The
+# tables stay in the 50 MB L2, so the bound counts each table once.
 SLAB_OPS = PACKED_INTERNAL_OPS - 2
 TRI_OPS = PACKED_LEAF_OPS - 3
 LAYOUT_OPS = {"packed_walk2": (2, 1 + 7), "packed_walk_la": (3, 3),
               "packed_walk4": (2, 1 + 10), "packed_walk4_la": (3, 1 + 10)}
-LAYOUT_BYTES = {"packed_walk2": (64, 96), "packed_walk_la": (64, 64),
-                "packed_walk4": (48, 176), "packed_walk4_la": (64, 176)}
+LAYOUT_BYTES = {"packed_walk2": (32, 0, 48), "packed_walk_la": (64, 64, 0),
+                "packed_walk4": (32, 0, 48), "packed_walk4_la": (64, 176, 0)}
 EDGE_NAN_RAYS = 65536
 
 # the compaction's edge groups: one below the 256-lane chunk a block
@@ -2669,16 +2675,20 @@ def small_meshes(device, rays=1024, seed=4):
 
 def layout_info(table):
     """The walk kernel of a table's layout as its library reports it
-    (rk_layout_walk_info): registers, local (spill) bytes, resident
-    blocks an SM and threads a block."""
+    (rk_layout_walk_info, rk_layout_walk_scratch): registers, local
+    (spill) bytes, resident blocks an SM, threads a block and the bytes
+    of its scratch (the cherry and quad kernels' split table; 0 for the
+    lookahead kernels)."""
     from raypt_torch.accel.packed import layout_of
     from raypt_torch.kernels._build import kernel_lib
     from raypt_torch.kernels.packed_walk import WALKS
     info = (ctypes.c_int * 4)()
-    if kernel_lib().rk_layout_walk_info(WALKS[layout_of(table)][1],
+    code = WALKS[layout_of(table)][1]
+    if kernel_lib().rk_layout_walk_info(code,
                                         ctypes.cast(info, ctypes.c_void_p)):
         raise AssertionError("rk_layout_walk_info failed")
-    return list(info)
+    scratch = kernel_lib().rk_layout_walk_scratch(code, table.rows.shape[0])
+    return [*info, 16 * scratch]
 
 
 def layout_tests(table, steps, n_rays):
@@ -2754,8 +2764,8 @@ def compare_layout(stats, name, label, table, o, d, t, a, timed=False):
                    SLAB_OPS * slabs + TRI_OPS * tris + ops_i * inner
                    + ops_l * leaves + PACKED_RAY_OPS * live, plain_ms=p_ms)
         stats.time_graph(name, label, wrapper, args)
-        b_i, b_l = LAYOUT_BYTES[name]
-        read = b_i * inner + b_l * leaves
+        b_i, b_l, b_s = LAYOUT_BYTES[name]
+        read = b_i * inner + b_l * leaves + b_s * tris
         log(f"  {label:9s} visits {inner} internal + {leaves} leaf "
             f"({(inner + leaves) / max(live, 1):.2f} a live ray, "
             f"{n_steps} plain steps), {slabs} slab and {tris} triangle "
@@ -2763,6 +2773,42 @@ def compare_layout(stats, name, label, table, o, d, t, a, timed=False):
             f"read {read / 1e9:.3f} GB ({1e3 * read / HBM_BYTES_PER_S:.4f} ms "
             f"at the HBM rate), table {table.rows.numel() * 4 / 1e6:.1f} MB")
     return kt, kf
+
+
+def split_checks(stats, name, table, args, walked):
+    """Phase 12's checks of a cherry or quad kernel's split table: its
+    build alone (kernels.packed_walk.layout_table, over a scratch of NaN
+    bits) bitwise the plain model accel.packed.slot_table on the rows it
+    writes, and timed from a CUDA graph, a frame's four builds beside the
+    kernel's graph time a frame (which holds them); the plain model's
+    walk traverse_slots bitwise the kernel's result `walked` on the
+    wavefront `args` (bounce 1)."""
+    import torch
+    from raypt_torch.accel.packed import (LAYOUTS, SLOT_LAYOUTS, layout_of,
+                                          slot_counts, slot_table,
+                                          traverse_slots)
+    from raypt_torch.kernels import packed_walk as pw
+    lay = layout_of(table)
+    k = SLOT_LAYOUTS[lay].slots
+    leaf = table.rows[:, LAYOUTS[lay].leaf_col] > 0.5
+    slot = torch.arange(k, device=leaf.device)[None]
+    written = leaf[:, None] & (slot < slot_counts(table).clamp(min=1)[:, None])
+    (gi, gl), (wi, wl) = ((x.view(torch.int32) for x in t) for t in (
+        pw.layout_table(table, fill=float("nan")), slot_table(table)))
+    n = leaf.shape[0]
+    if not (torch.equal(gi[~leaf], wi[~leaf])
+            and torch.equal(gl.view(n, k, -1)[written],
+                            wl.view(n, k, -1)[written])):
+        raise AssertionError(f"{name}: the split table is not slot_table's")
+    mt, mf = traverse_slots(table, *args)
+    stats.check(name, "model bounce 1 t", walked[0], mt)
+    stats.check(name, "model bounce 1 face", walked[1], mf)
+    b_ms = 4 * graph_us_per_call(lambda: pw.layout_table(table)) / 1e3
+    frame = stats.graph_ms[name]
+    log(f"phase 12 {name} split table: built bitwise slot_table's "
+        f"({table.rows.shape[0]} rows), traverse_slots bitwise the kernel on "
+        f"bounce 1; four builds {b_ms:.4f} ms from graphs of the kernel's "
+        f"{frame:.4f} ms a frame ({100 * b_ms / max(frame, 1e-9):.1f}%)")
 
 
 def layout_edges(stats, scene, bvh, one, tables, cfgs, wave):
@@ -2844,7 +2890,8 @@ def layouts_phase(stats, counters, launches, dev, scene, bvh, base, skey,
     loss and parameters logged beside phase 9's first step."""
     import torch
     from raypt_torch.accel import lbvh
-    from raypt_torch.accel.packed import (pack, pack_quads,
+    from raypt_torch.accel.packed import (SLOT_LAYOUTS, layout_of, pack,
+                                          pack_quads,
                                           traverse_wavefront_compact)
     from raypt_torch.accel.traverse import PLAIN
     from raypt_torch.kernels import packed_walk as pw
@@ -2862,10 +2909,11 @@ def layouts_phase(stats, counters, launches, dev, scene, bvh, base, skey,
     part = [time.perf_counter()]
     results = {}
     for name, table in tables.items():
-        regs, local, blocks, threads = layout_info(table)
+        regs, local, blocks, threads, scratch = layout_info(table)
         log(f"phase 12 {name}: {type(table).__name__} rows "
             f"{tuple(table.rows.shape)}; {regs} registers, {local} local "
-            f"bytes, {blocks} blocks of {threads} resident an SM")
+            f"bytes, {blocks} blocks of {threads} resident an SM, scratch "
+            f"{scratch / 1e6:.3f} MB")
         stats.path = KERNELS[name][0][0]
         with SmClock() as clock:
             results[name] = [compare_layout(stats, name, f"bounce {b}", table,
@@ -2873,6 +2921,8 @@ def layouts_phase(stats, counters, launches, dev, scene, bvh, base, skey,
                              for b, args in enumerate(inputs)]
         log(f"phase 12 {name}: bitwise on the bvh path's four wavefronts; "
             f"{clock.summary()} while timed")
+        if layout_of(table) in SLOT_LAYOUTS:
+            split_checks(stats, name, table, inputs[1], results[name][1])
     part.append(time.perf_counter())
     ls, ltree = large
     lm = ls.mesh
@@ -2890,7 +2940,8 @@ def layouts_phase(stats, counters, launches, dev, scene, bvh, base, skey,
         log(f"phase 12 bvh_large {name}: bitwise on its four wavefronts; "
             f"{k_ms:.4f} ms a frame through the wrapper, {g_ms:.4f} from CUDA "
             f"graphs ({int(lm.face_valid.sum())} faces, rows "
-            f"{tuple(table.rows.shape)})")
+            f"{tuple(table.rows.shape)}, scratch "
+            f"{layout_info(table)[4] / 1e6:.3f} MB)")
 
     # (2) edge cases
     part.append(time.perf_counter())

@@ -12,7 +12,9 @@ face gets e1 = e2 = 0, so det = 0 and it is never hit.
 the one `csrc/packed_walk.cu` (`kernels.packed_walk`) is held against,
 bitwise, on the card. `split_table`, `traverse_split` and
 `octant_order` model what the kernel changes (its table, its walk, its
-rays' order) for the CPU tests and the design sweep.
+rays' order) for the CPU tests and the design sweep; `slot_table` and
+`traverse_slots` model the cherry and quad kernels' split tables and
+walks (`csrc/packed_layouts.cuh`).
 
 The table's other layouts (`raypt/accel/packed.py:170-849`): the
 cherry-merged 32-wide table (`Packed2LBVH`, `pack_cherries`), the
@@ -179,25 +181,37 @@ def split_table(rows: torch.Tensor):
     unwritten; no walk reads them)."""
     bits = rows.contiguous().view(torch.int32)
     is_leaf = rows[:, 14] > 0.5
-    n = rows.shape[0]
-
-    def code(s):
-        ok = s >= 0
-        leaf = is_leaf[s.clamp(0, n - 1).long()] & ok
-        return torch.where(ok, torch.where(leaf, s | LEAF_BIT, s),
-                           torch.full_like(s, -1))
-
-    inner = torch.zeros((n, 8), dtype=torch.int32, device=rows.device)
-    inner[:, 0:6] = bits[:, 0:6]
-    inner[:, 6] = code(bits[:, 12])
-    inner[:, 7] = code(bits[:, 13])
-    leaves = torch.zeros((n, 12), dtype=torch.int32, device=rows.device)
+    inner = _split_inner(bits, is_leaf, 12, 13)
+    leaves = torch.zeros((rows.shape[0], 12), dtype=torch.int32,
+                         device=rows.device)
     leaves[:, 0:9] = bits[:, 0:9]
     leaves[:, 9] = bits[:, 12]
-    leaves[:, 10] = code(bits[:, 13])
-    inner[is_leaf] = 0
+    leaves[:, 10] = _codes(bits[:, 13], is_leaf)
     leaves[~is_leaf] = 0
     return inner.view(torch.float32), leaves.view(torch.float32)
+
+
+def _codes(s, is_leaf, scale=1):
+    """The split codes of links s (int32) into rows of kind is_leaf: -1
+    for s < 0, s for an internal row, scale * s | LEAF_BIT for a leaf
+    row (its first entry where a leaf row has `scale` of them)."""
+    ok = s >= 0
+    leaf = is_leaf[s.clamp(0, is_leaf.shape[0] - 1).long()] & ok
+    return torch.where(ok, torch.where(leaf, s * scale | LEAF_BIT, s),
+                       torch.full_like(s, -1))
+
+
+def _split_inner(bits, is_leaf, left, skip, scale=1):
+    """A split table's internal rows (N, 8) int32 from the rows' bits:
+    [bmin, bmax, code(left), code(skip)], the columns left and skip
+    holding the links (_codes with `scale`); zeros on leaf rows."""
+    inner = torch.zeros((bits.shape[0], 8), dtype=torch.int32,
+                        device=bits.device)
+    inner[:, 0:6] = bits[:, 0:6]
+    inner[:, 6] = _codes(bits[:, left], is_leaf, scale)
+    inner[:, 7] = _codes(bits[:, skip], is_leaf, scale)
+    inner[is_leaf] = 0
+    return inner
 
 
 def split_steps(table, c, si, sl, ro, rd, inv, t_best, face,
@@ -270,6 +284,139 @@ def traverse_split(pbvh: PackedLBVH, ro: torch.Tensor, rd: torch.Tensor,
         split_steps(table, c, torch.nonzero(c >= 0).flatten(),
                     torch.nonzero(c < -1).flatten(), ro, rd, inv, t_best,
                     face, left, trace)
+    return t_best, face
+
+
+class SlotLayout(NamedTuple):
+    """A layout whose kernel walks a split table of triangle slots
+    (csrc/packed_layouts.cuh): its slots a leaf row and the columns of
+    an internal row's left and skip links."""
+    slots: int
+    left: int
+    skip: int
+
+
+# the cherry and quad tables' (the lookahead tables' kernels walk the
+# rows themselves)
+SLOT_LAYOUTS = {"cherry": SlotLayout(2, 18, 20), "quad": SlotLayout(4, 48, 49)}
+SLOT = 12   # floats a slot entry: p0, e1, e2, face, next code, flag
+
+
+def slot_counts(pbvh) -> torch.Tensor:
+    """(N,) int32: the slots the kernel tests of each leaf row of a
+    cherry or quad table, one past its last slot that is not empty
+    (empty: face id -1 and e1 = 0, bits of either sign; no ray hits it);
+    0 on internal rows."""
+    name = layout_of(pbvh)
+    lay, k = LAYOUTS[name], SLOT_LAYOUTS[name].slots
+    bits = pbvh.rows.contiguous().view(torch.int32)
+    n = bits.shape[0]
+    e1 = bits[:, :9 * k].reshape(n, k, 9)[..., 3:6]
+    empty = (bits[:, lay.faces] == -1) & ((e1 & 0x7FFFFFFF) == 0).all(dim=2)
+    slot = torch.arange(1, k + 1, dtype=torch.int32, device=bits.device)
+    count = torch.where(empty, 0, slot).amax(dim=1)
+    return torch.where(pbvh.rows[:, lay.leaf_col] > 0.5, count, 0)
+
+
+def slot_table(pbvh):
+    """csrc/packed_layouts.cuh's split table of a cherry or quad table
+    (its slot_build_kernel, the kept design's): (inner (N, 8), leaves
+    (N, 12 * slots)) f32, the rows' floats copied bit for bit, links as
+    codes (_codes: a leaf row s's is its first slot entry, slots * s |
+    LEAF_BIT).
+      inner:  [bmin, bmax, code(left), code(skip)]         (internal rows)
+      leaves: entry slots * n + k at [12 k : 12 k + 12] of row n =
+              [p0, e1, e2, face, next, flag] of the row's triangle k
+    for k below max(count, 1) (slot_counts): next, the code of entry
+    k + 1, or on the last entry the code of the row's skip; flag, 0, or
+    on the last entry 2 where an empty slot follows it, else 1. Entries
+    past those and the rows of the other kind are zeros here (the kernel
+    leaves them unwritten; no walk reads them)."""
+    name = layout_of(pbvh)
+    lay, sl = LAYOUTS[name], SLOT_LAYOUTS[name]
+    k = sl.slots
+    bits = pbvh.rows.contiguous().view(torch.int32)
+    n = bits.shape[0]
+    is_leaf = pbvh.rows[:, lay.leaf_col] > 0.5
+    inner = _split_inner(bits, is_leaf, sl.left, sl.skip, k)
+    count = slot_counts(pbvh)
+    written = count.clamp(min=1)[:, None]
+    slot = torch.arange(k, dtype=torch.int32, device=bits.device)[None]
+    last = slot + 1 == written
+    entry = k * torch.arange(n, dtype=torch.int32, device=bits.device)[:, None]
+    leaves = torch.zeros((n, k, SLOT), dtype=torch.int32, device=bits.device)
+    leaves[..., 0:9] = bits[:, :9 * k].reshape(n, k, 9)
+    leaves[..., 9] = bits[:, lay.faces]
+    leaves[..., 10] = torch.where(
+        last, _codes(bits[:, sl.skip], is_leaf, k)[:, None],
+        (entry + slot + 1) | LEAF_BIT)
+    leaves[..., 11] = torch.where(
+        last, torch.where(count < k, 2, 1)[:, None], 0).to(torch.int32)
+    leaves[slot.expand(n, k) >= written] = 0
+    leaves[~is_leaf] = 0
+    return inner.view(torch.float32), leaves.view(torch.float32).reshape(
+        n, k * SLOT)
+
+
+def slot_steps(table, c, si, sl, ro, rd, inv, t_best, face, m, f):
+    """One step of the rays `si` on internal rows and `sl` on slot
+    entries over a slot table (slot_table's pair), in place: their codes
+    c, each ray's pick of its row so far (m, f: +inf and -1 between
+    rows), and t_best and face where a row's pick is taken. An entry's
+    step tests its triangle (a miss counts as BIG) into the pick, taken
+    when strictly less; on the row's last entry the first empty slot's
+    miss (t BIG, face -1) wins where an empty slot follows (flag 2) and
+    BIG is less, the pick is taken when strictly nearer than t_best and
+    is reset: the plain step's result, a slot at a time."""
+    inner, leaves = table
+    split_steps((inner, None), c, si, si[:0], ro, rd, inv, t_best, face)
+    if not sl.numel():
+        return
+    row = leaves.reshape(-1, SLOT)[(c[sl] & ~LEAF_BIT).long()]
+    bits = row.view(torch.int32)
+    hit, t = leaf_hit(row[:, 0:3], row[:, 3:6], row[:, 6:9], ro[sl], rd[sl],
+                      t_best[sl])
+    tk = torch.where(hit, t, torch.full_like(t, BIG))
+    ms, fs = m[sl], f[sl]
+    better = tk < ms
+    ms = torch.where(better, tk, ms)
+    fs = torch.where(better, bits[:, 9], fs)
+    flag = bits[:, 11]
+    empty_wins = (flag == 2) & (BIG < ms)
+    ms = torch.where(empty_wins, torch.full_like(ms, BIG), ms)
+    fs = torch.where(empty_wins, torch.full_like(fs, -1), fs)
+    take = (flag != 0) & (ms < t_best[sl])
+    t_best[sl] = torch.where(take, ms, t_best[sl])
+    face[sl] = torch.where(take, fs, face[sl])
+    m[sl] = torch.where(flag != 0, torch.full_like(ms, float("inf")), ms)
+    f[sl] = torch.where(flag != 0, torch.full_like(fs, -1), fs)
+    c[sl] = bits[:, 10]
+
+
+@torch.no_grad()
+def traverse_slots(pbvh, ro: torch.Tensor, rd: torch.Tensor,
+                   t0: torch.Tensor, active: torch.Tensor):
+    """The cherry and quad kernels' walk: walk_layout's contract and
+    result over slot_table's split table, every iteration each ray whose
+    walk goes on taking one step of its own code's kind (slot_steps: an
+    internal row's slab test, or one slot's triangle test), as a thread
+    of the kernel does. Each ray reads the rows walk_layout reads in the
+    same order, each leaf row a slot at a time, so the result is the
+    same bit for bit."""
+    name = layout_of(pbvh)
+    table = slot_table(pbvh)
+    # row 0's code: its first entry, 0, when it is a leaf row
+    root = LEAF_BIT if bool(pbvh.rows[0, LAYOUTS[name].leaf_col] > 0.5) else 0
+    c = torch.where(active, root, -1).to(torch.int32)
+    inv = safe_reciprocal(rd)
+    t_best = t0.clone()
+    face = torch.full((ro.shape[0],), -1, dtype=torch.int32, device=ro.device)
+    m = torch.full_like(t_best, float("inf"))
+    f = torch.full_like(face, -1)
+    while bool((c != -1).any()):
+        slot_steps(table, c, torch.nonzero(c >= 0).flatten(),
+                   torch.nonzero(c < -1).flatten(), ro, rd, inv, t_best, face,
+                   m, f)
     return t_best, face
 
 

@@ -26,7 +26,7 @@ KERNEL_SOURCES = ("compact.cu", "onehot_walk.cu", "cluster_expand.cu",
                   "expand_diag.cu", "regroup.cu", "packed_walk.cu",
                   "wide_walk.cu", "packed_layouts.cu")
 KERNEL_HEADERS = ("cluster_test.cuh", "block_scan.cuh", "mask_walk.cuh",
-                  "packed_walk.cuh", "wide_walk.cuh")
+                  "packed_walk.cuh", "wide_walk.cuh", "packed_layouts.cuh")
 SMEM_LIMIT = 232448   # shared memory a block may use on Hopper (227 KB)
 
 
@@ -86,8 +86,11 @@ def kernel_lib() -> ctypes.CDLL:
         # rows, n_rows, ro, rd, t0, active -> t, face; r, max_steps,
         # scratch, stream
         "rk_packed_walk": [p, i64, p, p, p, p, p, p, i64, i64, p, p],
-        # layout, rows, n_rows, ro, rd, t0, active -> t, face; r, stream
-        "rk_layout_walk": [i32, p, i64, p, p, p, p, p, p, i64, p],
+        # layout, rows, n_rows, ro, rd, t0, active -> t, face; r,
+        # scratch, stream
+        "rk_layout_walk": [i32, p, i64, p, p, p, p, p, p, i64, p, p],
+        # layout, rows, n_rows -> scratch (the split table); stream
+        "rk_layout_build": [i32, p, i64, p, p],
         # rows, n_rows, root, nw_cap, ro, rd, t0, active -> t, face,
         # overflow; r, stack_d, stream
         "rk_wide_walk": [p, i64, i32, i64, p, p, p, p, p, p, p, i64, i32, p],
@@ -121,8 +124,11 @@ def kernel_lib() -> ctypes.CDLL:
     lib.rk_packed_walk_scratch.restype = i64
     lib.rk_packed_walk_info.argtypes = [p]
     lib.rk_packed_walk_info.restype = ctypes.c_int
-    # a layout walk's kernel's registers, local bytes, resident blocks an
-    # SM and threads a block (4 ints)
+    # a layout walk's scratch (float4) for n_rows, and its kernel's
+    # registers, local bytes, resident blocks an SM and threads a block
+    # (4 ints)
+    lib.rk_layout_walk_scratch.argtypes = [i32, i64]
+    lib.rk_layout_walk_scratch.restype = i64
     lib.rk_layout_walk_info.argtypes = [i32, p]
     lib.rk_layout_walk_info.restype = ctypes.c_int
     # the wide walk's largest stack_d, and its kernel's registers, local

@@ -65,7 +65,22 @@ constants set (`_set`), each as a library of its own:
     the SIMD efficiency and mixed-step share of one thread a ray in the
     octant order of the design's blocks and the stack depths the walk
     reaches (`wide_schedule`: the plain walk's `steps` and `depths`
-    records).
+    records);
+  * layouts: the cherry and quad walks (`rk_layout_walk`, layouts 0 and
+    2), the package's kernels beside the designs of
+    `csrc/packed_layouts_designs.cu` (LAYOUT_DESIGNS: "pr19", PR 19's
+    kernels over the tables' own rows, and the `rk::lay::Design`s over
+    the split tables of `csrc/packed_layouts.cuh`; that file says how
+    each walks; the package writes out LAYOUT_KEPT), built as one
+    library, each design both layouts. Its wavefronts: the four of the
+    bench scene's 1024^2 render through the bvh finder and the four of
+    bvh_large's, each walked over the cherry and the quad table of the
+    same LBVH (`*_by_path`: "bvh_cherry", "bvh_quad", "bvh_large_cherry",
+    "bvh_large_quad"). Each line also gives, per layout, the design's
+    registers, local bytes and resident warps an SM, the instructions
+    of its loops that hold a 16-byte load (the shortest, "sass_loop",
+    and the longest, "sass_pass"), and per path the bytes a visit reads
+    (`layout_bytes`, on the plain walk's record).
 With `--against`, the kernels of another checkout (DIR/raypt_torch/csrc)
 join as variant "against" (a `compact.cu` without `chunk_count_kernel`,
 or whose uncompaction is `for_each_destination`'s, is called with the
@@ -203,12 +218,14 @@ SWEPT = {
     "uncompact": ("compact.cu", "rk_alive_uncompact",
                   "// The compaction's design", UNCOMPACT_VARIANTS),
     "packed": ("packed_walk.cu", "rk_packed_walk", None, {}),
-    "wide": ("wide_walk.cu", "rk_wide_walk", None, {})}
+    "wide": ("wide_walk.cu", "rk_wide_walk", None, {}),
+    "layouts": ("packed_layouts.cu", "rk_layout_walk", None, {})}
 # timed also from CUDA graph replay: kernels of tens of microseconds,
 # where a direct call's host work may outlast the kernel
-GRAPHED = ("union", "compact", "cm_u", "uncompact", "packed", "wide")
+GRAPHED = ("union", "compact", "cm_u", "uncompact", "packed", "wide",
+           "layouts")
 # the walks whose designs --designs picks (the package's always runs)
-DESIGNED = ("packed", "wide")
+DESIGNED = ("packed", "wide", "layouts")
 # the walk's designs: entry rk_walk_<name> of csrc/walk_designs.cu
 WALK_DESIGNS = ("unpacked", "interleaved2", "interleaved3",
                 "packed_interleaved2", "refilled1", "refilled2")
@@ -248,6 +265,28 @@ def _wide_designs() -> dict:
 
 WIDE_DESIGNS = _wide_designs()
 KEPT = "coop_mb10"   # the design csrc/wide_walk.cu writes out
+# the layouts swept (rk_layout_walk's codes) and each one's slots a leaf
+# row
+LAYOUT_CODES = {0: "cherry", 2: "quad"}
+
+
+def _layout_designs() -> dict:
+    """The cherry and quad walks' designs: name -> its rk::lay::Design
+    (threads a block, launch bound's blocks an SM, slot loads, every slot
+    tested), read from the RK_LWALK_DESIGN lines of
+    csrc/packed_layouts_designs.cu (entry points rk_lwalk_<name>_cherry
+    and _quad); None for pr19, PR 19's kernels over the rows."""
+    made = re.findall(r"^RK_LWALK_DESIGN\((\w+), ([-\d, ]+)\)$",
+                      _read(CSRC_DIR, "packed_layouts_designs.cu"), re.M)
+    return {"pr19": None,
+            **{n: tuple(int(x) for x in v.split(", ")) for n, v in made}}
+
+
+def layout_kept() -> tuple:
+    """The design csrc/packed_layouts.cu writes out (its `Kept`)."""
+    m = re.search(r"using Kept = rk::lay::Design<([-\d, ]+)>;",
+                  _read(CSRC_DIR, "packed_layouts.cu"))
+    return tuple(int(x) for x in m.group(1).split(", "))
 
 
 def design_pattern(design) -> str:
@@ -290,7 +329,12 @@ SIGS = {"woop": [P, I32, P, I32, I32, P, P, P, P, P, I64, P],
         "wide_design": [P, I64, I32, I64, P, P, P, P, P, P, P, I64, I32, P,
                         P],
         # alive_uncompact before its count pass's scratch
-        "uncompact_unscratched": [P, P, P, P, P, I64, I32, P]}
+        "uncompact_unscratched": [P, P, P, P, P, I64, I32, P],
+        # layout, rows, n_rows, ro, rd, t0, active -> t, face; r, scratch,
+        # stream
+        "layouts": [I32, P, I64, P, P, P, P, P, P, I64, P, P],
+        # a layout design's walk of one layout: the same without the code
+        "layouts_design": [P, I64, P, P, P, P, P, P, I64, P, P]}
 
 
 def _set(src: str, scope: str, consts: dict) -> str:
@@ -333,6 +377,9 @@ def _read(*parts) -> str:
         return f.read()
 
 
+LAYOUT_DESIGNS = _layout_designs()
+
+
 def build_variants(kernels, against: str | None, designs=None) -> dict:
     """(kernel, variant) -> (library path, C entry point, signature key),
     every library built in parallel (one nvcc each); the package's own
@@ -361,6 +408,12 @@ def build_variants(kernels, against: str | None, designs=None) -> dict:
             jobs[("packed", name)] = (lib, f"rk_pwalk_{name}",
                                       "packed_unscratched" if design is None
                                       else "packed")
+    if "layouts" in kernels and wanted(LAYOUT_DESIGNS):
+        lib = _nvcc_job("packed_layouts_designs", "packed_layouts_designs.cu",
+                        _read(CSRC_DIR, "packed_layouts_designs.cu"), CSRC_DIR)
+        for name in LAYOUT_DESIGNS:
+            jobs[("layouts", name)] = (lib, f"rk_lwalk_{name}",
+                                       "layouts_design")
     if "wide" in kernels and wanted(WIDE_DESIGNS):
         lib = _nvcc_job("wide_walk_designs", "wide_walk_designs.cu",
                         _read(CSRC_DIR, "wide_walk_designs.cu"), CSRC_DIR)
@@ -399,11 +452,23 @@ def packed_sig(text: str) -> str:
 
 def _loaded(sig: str, path: str, fn: str):
     lib = ctypes.CDLL(path)
+    if sig == "layouts_design":   # layout code -> its walk, with f.scratch
+        return {code: _loaded("layouts_one", path, f"{fn}_{name}")
+                for code, name in LAYOUT_CODES.items()}
+    if sig == "layouts_one":
+        f = getattr(lib, fn)
+        f.argtypes, f.restype = SIGS["layouts_design"], ctypes.c_int
+        f.scratch = getattr(lib, f"{fn}_scratch")
+        f.scratch.argtypes, f.scratch.restype = [I64], I64
+        return f
     f = getattr(lib, fn)
     f.argtypes, f.restype = SIGS[sig], ctypes.c_int
     if sig == "wide_design":   # f.scratch(r): bytes of its scratch
         f.scratch = getattr(lib, f"{fn}_scratch")
         f.scratch.argtypes, f.scratch.restype = [I64], I64
+    if sig == "layouts":   # f.scratch(code, n_rows): float4 of its scratch
+        f.scratch = lib.rk_layout_walk_scratch
+        f.scratch.argtypes, f.scratch.restype = [I32, I64], I64
     if sig == "packed":   # f.scratch(n_rows, r): float4 of its scratch
         size = getattr(lib, f"{fn}_scratch")
         size.restype = I64
@@ -430,7 +495,7 @@ def wavefronts(kernels=tuple(SWEPT)) -> dict:
     from ..accel import lbvh
     from ..accel.ctree import build_onehot
     from ..accel.host_bvh import build_sah
-    from ..accel.packed import pack
+    from ..accel.packed import pack, pack_cherries, pack_quads
     from ..accel.traverse import DENSE_CHUNK, onehot_inputs, wavefront_inputs
     from ..accel.wide import collapse
     from ..core.math3d import BIG
@@ -447,6 +512,7 @@ def wavefronts(kernels=tuple(SWEPT)) -> dict:
     out = {k: [] for k in SWEPT}
     out["packed_path"] = []   # the path of each packed wavefront
     out["wide_path"] = []     # and of each wide one
+    out["layouts_path"] = []  # and of each layout one
     bench = RenderConfig(width=WIDTH, height=WIDTH, samples_per_pixel=1,
                          num_bounces=4, russian_roulette=True)
     def large_bunny():
@@ -468,8 +534,10 @@ def wavefronts(kernels=tuple(SWEPT)) -> dict:
                 backend="onehot", onehot_leaf=EXPAND_LEAF,
                 onehot_expand=EXPAND_N, onehot_compact=COMPACT_N), 0,
              ("compact", "cm_u", "uncompact")),
-            (stanford_bunny, bench.replace(backend="bvh"), 0, ("packed",)),
-            (large_bunny, bench.replace(backend="bvh"), 0, ("packed",)),
+            (stanford_bunny, bench.replace(backend="bvh"), 0,
+             ("packed", "layouts")),
+            (large_bunny, bench.replace(backend="bvh"), 0,
+             ("packed", "layouts")),
             (stanford_bunny, bench.replace(backend="bvh4"), 0, ("wide",)),
             (large_bunny, bench.replace(backend="bvh4"), 0, ("wide",))):
         if not set(feeds) & set(kernels):
@@ -478,9 +546,15 @@ def wavefronts(kernels=tuple(SWEPT)) -> dict:
         b.camera.viewport_width = b.camera.viewport_height = WIDTH
         scene = b.freeze("cuda")
         m = scene.mesh
+        tables = {}
         if cfg.backend == "bvh":
-            acc = pack(lbvh.build(m.positions, m.faces, m.face_valid),
-                       m.positions, m.faces, m.face_valid)
+            tree = lbvh.build(m.positions, m.faces, m.face_valid)
+            acc = pack(tree, m.positions, m.faces, m.face_valid)
+            if "layouts" in kernels:
+                tables = {code: packer(tree, m.positions, m.faces,
+                                       m.face_valid).rows
+                          for code, packer in ((0, pack_cherries),
+                                               (2, pack_quads))}
         elif cfg.backend == "bvh4":
             acc = collapse(lbvh.build(m.positions, m.faces, m.face_valid),
                            m.positions, m.faces, m.face_valid)
@@ -496,7 +570,7 @@ def wavefronts(kernels=tuple(SWEPT)) -> dict:
         finder = make_finder(scene, cfg, acc)
 
         def rec(s, ro, rd, active=None, finder=finder, acc=acc, cfg=cfg,
-                c4=build is config4_scene):
+                c4=build is config4_scene, tables=tables):
             if cfg.backend == "bvh4":
                 o, d, t, a, _, _ = wavefront_inputs(s, ro, rd, active, 1)
                 out["wide"].append((acc.rows, acc.root, acc.nw_cap, o, d, t,
@@ -506,9 +580,14 @@ def wavefronts(kernels=tuple(SWEPT)) -> dict:
                 return finder(s, ro, rd, active)
             if cfg.backend == "bvh":
                 o, d, t, a, _, _ = wavefront_inputs(s, ro, rd, active, 1)
-                out["packed"].append((acc.rows, o, d, t, a))
-                out["packed_path"].append(
-                    "bvh_large" if build is large_bunny else "bvh")
+                path = "bvh_large" if build is large_bunny else "bvh"
+                if "packed" in kernels:
+                    out["packed"].append((acc.rows, o, d, t, a))
+                    out["packed_path"].append(path)
+                for code, rows in tables.items():
+                    out["layouts"].append((code, rows, o, d, t, a))
+                    out["layouts_path"].append(
+                        f"{path}_{LAYOUT_CODES[code]}")
                 return finder(s, ro, rd, active)
             if cfg.backend == "pallas":
                 mats = finder.args[0]
@@ -705,6 +784,21 @@ def _call_wide(fn, rows, root, nw, o, d, t, a, scratch=False):
     return t_out, f_out, o_out
 
 
+def _call_layouts(fn, code, rows, o, d, t, a):
+    """The cherry or quad walk (`code`) of the package (fn takes the code)
+    or of a design (fn: code -> its walk), with the scratch it asks."""
+    f, args = (fn[code], ()) if isinstance(fn, dict) else (fn, (code,))
+    n = fn.scratch(code, rows.shape[0]) if args else f.scratch(rows.shape[0])
+    s = torch.empty((max(n, 1), 4), dtype=torch.float32, device=t.device)
+    t_out = torch.empty_like(t)
+    f_out = torch.empty(t.shape, dtype=torch.int32, device=t.device)
+    _check(f(*args, rows.data_ptr(), rows.shape[0], o.data_ptr(),
+             d.data_ptr(), t.data_ptr(), a.data_ptr(), t_out.data_ptr(),
+             f_out.data_ptr(), o.shape[0], s.data_ptr(), _stream()),
+           "layout walk")
+    return t_out, f_out
+
+
 def presort(rows, o, d, t, a, keys=("octant", "morton")):
     """The wavefront with its live rays first, stably sorted by `keys`:
     "octant", the direction octant, and "morton", the Morton code of the
@@ -750,7 +844,8 @@ CALLS = {"woop": _call_union, "mask": _call_union,
                                                             scratch=False),
          "packed_presorted": _call_presorted,
          "wide": _call_wide,
-         "wide_design": lambda fn, *w: _call_wide(fn, *w, scratch=True)}
+         "wide_design": lambda fn, *w: _call_wide(fn, *w, scratch=True),
+         "layouts": _call_layouts, "layouts_design": _call_layouts}
 
 
 class SmClock:
@@ -1023,6 +1118,129 @@ def wide_measures(built, lib, waves, designs=None) -> dict:
     return out
 
 
+# the bytes a visit reads: PR 19's walks over the rows, (internal, leaf)
+# by layout; the split walks an internal row's sector and 48 bytes a
+# tested slot
+ROW_WALK_BYTES = {"cherry": (64, 96), "quad": (48, 176)}
+SPLIT_INNER_BYTES = 32
+SLOT_BYTES = 48
+
+
+@torch.no_grad()
+def layout_visits(waves) -> dict:
+    """path -> [internal visits, leaf visits, filled slots, slots] summed
+    over the path's layout wavefronts, from the plain walk's `steps`
+    record (filled: the slots below a leaf row's count,
+    `accel.packed.slot_counts`)."""
+    from ..accel.packed import (SLOT_LAYOUTS, Packed2LBVH, Packed4LBVH,
+                                slot_counts, walk_layout)
+    out = {}
+    for (code, rows, o, d, t, a), path in zip(waves["layouts"],
+                                              waves["layouts_path"]):
+        table = (Packed2LBVH if code == 0 else Packed4LBVH)(rows=rows)
+        count = slot_counts(table)
+        steps = []
+        walk_layout(table, o, d, t, a, steps=steps)
+        acc = out.setdefault(path, [0, 0, 0, 0])
+        for _, nodes, leaf in steps:
+            acc[0] += int((~leaf).sum())
+            acc[1] += int(leaf.sum())
+            acc[2] += int(count[nodes[leaf].long()].sum())
+        acc[3] = acc[1] * SLOT_LAYOUTS[LAYOUT_CODES[code]].slots
+        del steps
+    return out
+
+
+def layout_bytes(design, layout: str, visits) -> float:
+    """The bytes a visit of a layout design (LAYOUT_DESIGNS' value; None
+    for pr19) reads, from layout_visits' counts of one path."""
+    inner, leaves, filled, slots = visits
+    if design is None:
+        b_i, b_l = ROW_WALK_BYTES[layout]
+        read = b_i * inner + b_l * leaves
+    else:
+        read = SPLIT_INNER_BYTES * inner + SLOT_BYTES * (
+            slots if design[3] else filled)
+    return read / max(inner + leaves, 1)
+
+
+def slot_pattern(width: int, design) -> str:
+    """The pattern of the mangled name of a split layout walk
+    (rk::lay::slot_walk_kernel, or a design's row_step_kernel, of the
+    layout of `width` floats a row)."""
+    args = "".join(f"Li{v}E" for v in design)
+    return (rf"(?:slot_walk|row_step)_kernelINS0_4ColsILi{width}E\w*?"
+            rf"DesignI{args}EE")
+
+
+def layouts_measures(built, lib, waves, designs=None) -> dict:
+    """variant -> what the cherry and quad walks' designs are measured
+    by, beside their times, each per layout: registers, local bytes and
+    resident warps an SM (rk_layout_walk_info, rk_lwalk_<name>_<layout>
+    _info), the instructions of the shortest and the longest loop that
+    holds a 16-byte load (`kernels.sass`: "sass_loop", "sass_pass"), and
+    per path the bytes a visit reads (`layout_bytes`)."""
+    from .sass import loop_sizes
+    names = [n for n in LAYOUT_DESIGNS if ("layouts", n) in built
+             and (not designs or n in designs)]
+    out = {}
+    info = (ctypes.c_int * 4)()
+
+    def put(name, layout, fn):
+        _check(fn(ctypes.cast(info, P)), f"{name} {layout} info")
+        regs, local, blocks, threads = list(info)
+        d = out.setdefault(name, {})
+        d.setdefault("registers", {})[layout] = regs
+        d.setdefault("local_bytes", {})[layout] = local
+        d.setdefault("warps_per_sm", {})[layout] = blocks * threads // 32
+
+    def sass(path, loops):
+        try:
+            for key_, longest in (("sass_loop", False), ("sass_pass", True)):
+                for (name, layout), (n_ins, _) in loop_sizes(
+                        path, loops, longest).items():
+                    out[name].setdefault(key_, {})[layout] = n_ins
+        except (OSError, subprocess.CalledProcessError) as e:
+            print(f"SASS not read: {e}", flush=True)
+
+    widths = {"cherry": 32, "quad": 64}
+    lib.rk_layout_walk_info.argtypes = [I32, P]
+    for code, layout in LAYOUT_CODES.items():
+        put("package", layout,
+            lambda p, code=code: lib.rk_layout_walk_info(code, p))
+    sass(lib._name, {("package", lay): (slot_pattern(w, layout_kept()),
+                                        "LDG.E.128", 0)
+                     for lay, w in widths.items()})
+    if names:
+        path = built[("layouts", names[0])][0]
+        lib_ = ctypes.CDLL(path)
+        loops = {}
+        for name in names:
+            for layout in LAYOUT_CODES.values():
+                f = getattr(lib_, f"rk_lwalk_{name}_{layout}_info")
+                f.argtypes, f.restype = [P], ctypes.c_int
+                put(name, layout, f)
+                design = LAYOUT_DESIGNS[name]
+                if design is not None:
+                    loops[(name, layout)] = (slot_pattern(widths[layout],
+                                                          design),
+                                             "LDG.E.128", 0)
+        if "pr19" in names:
+            loops[("pr19", "cherry")] = (r"layout_walk_kernelIN4pr196CherryE",
+                                         "LDG.E.128", 0)
+            loops[("pr19", "quad")] = (r"layout_walk_kernelINS0_4QuadILb0EEE",
+                                       "LDG.E.128", 0)
+        sass(path, loops)
+    visits = layout_visits(waves)
+    for name in ("package", *names):
+        design = layout_kept() if name == "package" else LAYOUT_DESIGNS[name]
+        out[name]["bytes_per_visit"] = {
+            p: round(layout_bytes(design, p.rsplit("_", 1)[1], v), 3)
+            for p, v in visits.items()}
+    out["package"]["visits"] = visits
+    return out
+
+
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--against", help="a checkout whose kernels join the sweep")
@@ -1031,8 +1249,8 @@ def main(argv=None) -> None:
     p.add_argument("--kernels", nargs="+", choices=tuple(SWEPT),
                    default=list(SWEPT))
     p.add_argument("--designs", nargs="+", help="the walks' designs to "
-                   "time (of PACKED_DESIGNS, PRESORTED and WIDE_DESIGNS; "
-                   "default all)")
+                   "time (of PACKED_DESIGNS, PRESORTED, WIDE_DESIGNS and "
+                   "LAYOUT_DESIGNS; default all)")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device: the sweep runs on the card")
@@ -1095,6 +1313,8 @@ def main(argv=None) -> None:
         extra["packed"] = packed_measures(built, lib, waves, args.designs)
     if "wide" in args.kernels:
         extra["wide"] = wide_measures(built, lib, waves, args.designs)
+    if "layouts" in args.kernels:
+        extra["layouts"] = layouts_measures(built, lib, waves, args.designs)
     lines = []
     for (kernel, name), rounds in times.items():
         line = {"kernel": kernel, "variant": name, "card": card,
