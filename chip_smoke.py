@@ -238,10 +238,10 @@ Phases:
      packed_walk4_la (leaf_tris=4, the quad table, plain or lookahead
      internal rows), on their tables of the card's LBVH: against their
      plain walks, bitwise, on the bvh path's four wavefronts (timed,
-     also from graphs, with the bound and the kernels' registers; the
-     cherry and quad kernels' split-table build timed apart, from
-     graphs, and held bitwise against its plain model
-     accel.packed.slot_table, their walks against traverse_slots on
+     also from graphs, with the bound, the kernels' registers and the
+     SASS of their walks; each kernel's split-table build timed apart,
+     from graphs, and held bitwise against its plain model
+     accel.packed.slot_table, its walk against traverse_slots on
      bounce 1), on bvh_large's four (timed), on edge cases
      (layout_edges: dead, missing, near-seeded, signed-zero, NaN and
      in-plane rays, a NaN vertex, planted ties with their winners,
@@ -491,18 +491,16 @@ SMALL_MESHES = (1, 2, 3, 4, 5)
 # a cherry leaf two BIG selects, a compare and two selects for the pick
 # and a compare and two selects to take it; a quad leaf four BIG
 # selects, three compares for the argmin and three to take it; a
-# lookahead leaf the take's compare and two selects. And the bytes the
-# kernels read, for the log: (an internal visit, a leaf visit, a tested
-# slot). The cherry and quad kernels (PR 20) read their split table's
-# 32-byte internal rows and a 48-byte entry a tested slot; the lookahead
-# kernels the rows themselves (the row's kind and links first). The
-# tables stay in the 50 MB L2, so the bound counts each table once.
+# lookahead leaf the take's compare and two selects. The bytes the
+# kernels read, for the log: every kernel reads its split table, a
+# 32-byte sector (SPLIT_INNER_BYTES) a slab test (a lookahead row's
+# second sector only where its left box missed) and a 48-byte entry
+# (SPLIT_LEAF_BYTES) a tested slot. The tables stay in the 50 MB L2, so
+# the bound counts each table once.
 SLAB_OPS = PACKED_INTERNAL_OPS - 2
 TRI_OPS = PACKED_LEAF_OPS - 3
 LAYOUT_OPS = {"packed_walk2": (2, 1 + 7), "packed_walk_la": (3, 3),
               "packed_walk4": (2, 1 + 10), "packed_walk4_la": (3, 1 + 10)}
-LAYOUT_BYTES = {"packed_walk2": (32, 0, 48), "packed_walk_la": (64, 64, 0),
-                "packed_walk4": (32, 0, 48), "packed_walk4_la": (64, 176, 0)}
 EDGE_NAN_RAYS = 65536
 
 # the compaction's edge groups: one below the 256-lane chunk a block
@@ -2677,8 +2675,7 @@ def layout_info(table):
     """The walk kernel of a table's layout as its library reports it
     (rk_layout_walk_info, rk_layout_walk_scratch): registers, local
     (spill) bytes, resident blocks an SM, threads a block and the bytes
-    of its scratch (the cherry and quad kernels' split table; 0 for the
-    lookahead kernels)."""
+    of its scratch (its split table)."""
     from raypt_torch.accel.packed import layout_of
     from raypt_torch.kernels._build import kernel_lib
     from raypt_torch.kernels.packed_walk import WALKS
@@ -2689,6 +2686,27 @@ def layout_info(table):
         raise AssertionError("rk_layout_walk_info failed")
     scratch = kernel_lib().rk_layout_walk_scratch(code, table.rows.shape[0])
     return [*info, 16 * scratch]
+
+
+def layout_sass():
+    """Per layout, the instructions of its walk kernel's shortest loop
+    with a 16-byte global load (one step) and its longest (a pass), from
+    cuobjdump -sass of the kernels' library (`kernels.sass.loop_sizes`,
+    the kernel named as `kernels.sweep.slot_pattern` names it), as a
+    phrase for the log; empty where the SASS cannot be read."""
+    from raypt_torch.kernels._build import kernel_lib
+    from raypt_torch.kernels.sass import loop_sizes
+    from raypt_torch.kernels.sweep import layout_kept, slot_pattern
+    loops = {lay: (slot_pattern(lay, d), "LDG.E.128", 0)
+             for lay, d in layout_kept().items()}
+    try:
+        step, loop = (loop_sizes(kernel_lib()._name, loops, longest)
+                      for longest in (False, True))
+    except (OSError, subprocess.CalledProcessError) as e:
+        log(f"  SASS not read: {e}")
+        return {}
+    return {lay: f"{step[lay][0]} instructions a step, {loop[lay][0]} a pass"
+            for lay in loops if lay in step and lay in loop}
 
 
 def layout_tests(table, steps, n_rays):
@@ -2764,20 +2782,20 @@ def compare_layout(stats, name, label, table, o, d, t, a, timed=False):
                    SLAB_OPS * slabs + TRI_OPS * tris + ops_i * inner
                    + ops_l * leaves + PACKED_RAY_OPS * live, plain_ms=p_ms)
         stats.time_graph(name, label, wrapper, args)
-        b_i, b_l, b_s = LAYOUT_BYTES[name]
-        read = b_i * inner + b_l * leaves + b_s * tris
+        read = SPLIT_INNER_BYTES * slabs + SPLIT_LEAF_BYTES * tris
         log(f"  {label:9s} visits {inner} internal + {leaves} leaf "
             f"({(inner + leaves) / max(live, 1):.2f} a live ray, "
             f"{n_steps} plain steps), {slabs} slab and {tris} triangle "
-            f"tests needed, hits {int((kf >= 0).sum())}; rows "
-            f"read {read / 1e9:.3f} GB ({1e3 * read / HBM_BYTES_PER_S:.4f} ms "
+            f"tests needed, hits {int((kf >= 0).sum())}; split table "
+            f"read {read / 1e9:.3f} GB, {read / max(inner + leaves, 1):.2f} "
+            f"bytes a visit ({1e3 * read / HBM_BYTES_PER_S:.4f} ms "
             f"at the HBM rate), table {table.rows.numel() * 4 / 1e6:.1f} MB")
     return kt, kf
 
 
 def split_checks(stats, name, table, args, walked):
-    """Phase 12's checks of a cherry or quad kernel's split table: its
-    build alone (kernels.packed_walk.layout_table, over a scratch of NaN
+    """Phase 12's checks of a layout kernel's split table: its build
+    alone (kernels.packed_walk.layout_table, over a scratch of NaN
     bits) bitwise the plain model accel.packed.slot_table on the rows it
     writes, and timed from a CUDA graph, a frame's four builds beside the
     kernel's graph time a frame (which holds them); the plain model's
@@ -2874,8 +2892,10 @@ def layouts_phase(stats, counters, launches, dev, scene, bvh, base, skey,
     at the bench path's width. (1) Each kernel on its table of the card's
     LBVH (pack_layout) against its plain walk, bitwise, on the bvh
     path's four wavefronts (timed, also from graphs, with the bound, the
-    kernel's registers and local bytes), and on bvh_large's four (kernel
-    timed, plain checked; `large` is phase 10's scene and LBVH). (2)
+    kernel's registers, local bytes and the instructions of its walk's
+    shortest and longest loop), its split table and walk against their
+    plain models (split_checks), and on bvh_large's four (kernel timed,
+    plain checked; `large` is phase 10's scene and LBVH). (2)
     layout_edges. (3) The bench render with
     each layout's flags through make_finder: BOUNCES launches of its
     kernel and none of another walk, bitwise the plain walk's render;
@@ -2890,8 +2910,7 @@ def layouts_phase(stats, counters, launches, dev, scene, bvh, base, skey,
     loss and parameters logged beside phase 9's first step."""
     import torch
     from raypt_torch.accel import lbvh
-    from raypt_torch.accel.packed import (SLOT_LAYOUTS, layout_of, pack,
-                                          pack_quads,
+    from raypt_torch.accel.packed import (layout_of, pack, pack_quads,
                                           traverse_wavefront_compact)
     from raypt_torch.accel.traverse import PLAIN
     from raypt_torch.kernels import packed_walk as pw
@@ -2908,12 +2927,14 @@ def layouts_phase(stats, counters, launches, dev, scene, bvh, base, skey,
     # (1) the bench path's wavefronts, then bvh_large's
     part = [time.perf_counter()]
     results = {}
+    sass = layout_sass()
     for name, table in tables.items():
         regs, local, blocks, threads, scratch = layout_info(table)
         log(f"phase 12 {name}: {type(table).__name__} rows "
             f"{tuple(table.rows.shape)}; {regs} registers, {local} local "
             f"bytes, {blocks} blocks of {threads} resident an SM, scratch "
-            f"{scratch / 1e6:.3f} MB")
+            f"{scratch / 1e6:.3f} MB; SASS of its walk "
+            f"{sass.get(layout_of(table), 'not read')}")
         stats.path = KERNELS[name][0][0]
         with SmClock() as clock:
             results[name] = [compare_layout(stats, name, f"bounce {b}", table,
@@ -2921,8 +2942,7 @@ def layouts_phase(stats, counters, launches, dev, scene, bvh, base, skey,
                              for b, args in enumerate(inputs)]
         log(f"phase 12 {name}: bitwise on the bvh path's four wavefronts; "
             f"{clock.summary()} while timed")
-        if layout_of(table) in SLOT_LAYOUTS:
-            split_checks(stats, name, table, inputs[1], results[name][1])
+        split_checks(stats, name, table, inputs[1], results[name][1])
     part.append(time.perf_counter())
     ls, ltree = large
     lm = ls.mesh

@@ -13,7 +13,7 @@ the one `csrc/packed_walk.cu` (`kernels.packed_walk`) is held against,
 bitwise, on the card. `split_table`, `traverse_split` and
 `octant_order` model what the kernel changes (its table, its walk, its
 rays' order) for the CPU tests and the design sweep; `slot_table` and
-`traverse_slots` model the cherry and quad kernels' split tables and
+`traverse_slots` model the other layouts' kernels' split tables and
 walks (`csrc/packed_layouts.cuh`).
 
 The table's other layouts (`raypt/accel/packed.py:170-849`): the
@@ -191,25 +191,42 @@ def split_table(rows: torch.Tensor):
     return inner.view(torch.float32), leaves.view(torch.float32)
 
 
-def _codes(s, is_leaf, scale=1):
+def _codes(s, is_leaf, scale=1, inner=1):
     """The split codes of links s (int32) into rows of kind is_leaf: -1
-    for s < 0, s for an internal row, scale * s | LEAF_BIT for a leaf
-    row (its first entry where a leaf row has `scale` of them)."""
+    for s < 0, inner * s for an internal row (its first 32-byte row
+    where an internal row has `inner` of them), scale * s | LEAF_BIT for
+    a leaf row (its first entry where a leaf row has `scale` of them)."""
     ok = s >= 0
     leaf = is_leaf[s.clamp(0, is_leaf.shape[0] - 1).long()] & ok
-    return torch.where(ok, torch.where(leaf, s * scale | LEAF_BIT, s),
+    return torch.where(ok, torch.where(leaf, s * scale | LEAF_BIT, s * inner),
                        torch.full_like(s, -1))
 
 
-def _split_inner(bits, is_leaf, left, skip, scale=1):
-    """A split table's internal rows (N, 8) int32 from the rows' bits:
-    [bmin, bmax, code(left), code(skip)], the columns left and skip
-    holding the links (_codes with `scale`); zeros on leaf rows."""
-    inner = torch.zeros((bits.shape[0], 8), dtype=torch.int32,
+def _split_inner(bits, is_leaf, left, skip, scale=1, right=None):
+    """A split table's internal rows from the rows' bits, zeros on leaf
+    rows, links as codes (_codes with `scale`) from the columns left,
+    skip and, for lookahead rows, right: (N, 8) int32 [bmin, bmax,
+    code(left), code(skip)], or with `right` (N, 16), two 32-byte rows of
+    that form, sectors A = [lmin, lmax, code(left), 2 n + 1] and B =
+    [rmin, rmax, code(right), code(skip)], an internal row s's code 2 s
+    (its sector A)."""
+    n = bits.shape[0]
+    inner = torch.zeros((n, 8 if right is None else 16), dtype=torch.int32,
                         device=bits.device)
+    sectors = 1 if right is None else 2   # 32-byte rows an internal row
+
+    def codes(col):
+        return _codes(bits[:, col], is_leaf, scale, sectors)
     inner[:, 0:6] = bits[:, 0:6]
-    inner[:, 6] = _codes(bits[:, left], is_leaf, scale)
-    inner[:, 7] = _codes(bits[:, skip], is_leaf, scale)
+    inner[:, 6] = codes(left)
+    if right is None:
+        inner[:, 7] = codes(skip)
+    else:
+        inner[:, 7] = 2 * torch.arange(n, dtype=torch.int32,
+                                       device=bits.device) + 1
+        inner[:, 8:14] = bits[:, 6:12]
+        inner[:, 14] = codes(right)
+        inner[:, 15] = codes(skip)
     inner[is_leaf] = 0
     return inner
 
@@ -289,24 +306,28 @@ def traverse_split(pbvh: PackedLBVH, ro: torch.Tensor, rd: torch.Tensor,
 
 class SlotLayout(NamedTuple):
     """A layout whose kernel walks a split table of triangle slots
-    (csrc/packed_layouts.cuh): its slots a leaf row and the columns of
-    an internal row's left and skip links."""
+    (csrc/packed_layouts.cuh): its slots a leaf row, the columns of an
+    internal row's left and skip links and, where its internal rows
+    hold both children's boxes (lookahead), of the right link."""
     slots: int
     left: int
     skip: int
+    right: int | None = None
 
 
-# the cherry and quad tables' (the lookahead tables' kernels walk the
-# rows themselves)
-SLOT_LAYOUTS = {"cherry": SlotLayout(2, 18, 20), "quad": SlotLayout(4, 48, 49)}
+# every layout but the one-triangle table's (packed_walk.cuh's split_table)
+SLOT_LAYOUTS = {"cherry": SlotLayout(2, 18, 20),
+                "lookahead": SlotLayout(1, 12, 13, 15),
+                "quad": SlotLayout(4, 48, 49),
+                "quad_la": SlotLayout(4, 48, 49, 51)}
 SLOT = 12   # floats a slot entry: p0, e1, e2, face, next code, flag
 
 
 def slot_counts(pbvh) -> torch.Tensor:
     """(N,) int32: the slots the kernel tests of each leaf row of a
-    cherry or quad table, one past its last slot that is not empty
-    (empty: face id -1 and e1 = 0, bits of either sign; no ray hits it);
-    0 on internal rows."""
+    table of SLOT_LAYOUTS, one past its last slot that is not empty
+    (empty: face id -1 and e1 = 0, bits of either sign; no ray hits it),
+    the lookahead table's one triangle always; 0 on internal rows."""
     name = layout_of(pbvh)
     lay, k = LAYOUTS[name], SLOT_LAYOUTS[name].slots
     bits = pbvh.rows.contiguous().view(torch.int32)
@@ -314,23 +335,28 @@ def slot_counts(pbvh) -> torch.Tensor:
     e1 = bits[:, :9 * k].reshape(n, k, 9)[..., 3:6]
     empty = (bits[:, lay.faces] == -1) & ((e1 & 0x7FFFFFFF) == 0).all(dim=2)
     slot = torch.arange(1, k + 1, dtype=torch.int32, device=bits.device)
-    count = torch.where(empty, 0, slot).amax(dim=1)
+    count = torch.where(empty, 0, slot).amax(dim=1) if k > 1 else \
+        torch.ones(n, dtype=torch.int32, device=bits.device)
     return torch.where(pbvh.rows[:, lay.leaf_col] > 0.5, count, 0)
 
 
 def slot_table(pbvh):
-    """csrc/packed_layouts.cuh's split table of a cherry or quad table
-    (its slot_build_kernel, the kept design's): (inner (N, 8), leaves
-    (N, 12 * slots)) f32, the rows' floats copied bit for bit, links as
-    codes (_codes: a leaf row s's is its first slot entry, slots * s |
-    LEAF_BIT).
+    """csrc/packed_layouts.cuh's split table of a table of SLOT_LAYOUTS
+    (its slot_build_kernel, the kept designs'): (inner (N, 8), or (N,
+    16) with lookahead rows, leaves (N, 12 * slots)) f32, the rows'
+    floats copied bit for bit, links as codes (_codes: a leaf row s's is
+    its first slot entry, slots * s | LEAF_BIT; an internal row s's s,
+    or on a lookahead table 2 s, its sector A).
       inner:  [bmin, bmax, code(left), code(skip)]         (internal rows)
+              or [lmin, lmax, code(left), 2 n + 1 | rmin, rmax,
+              code(right), code(skip)]                  (lookahead rows)
       leaves: entry slots * n + k at [12 k : 12 k + 12] of row n =
               [p0, e1, e2, face, next, flag] of the row's triangle k
     for k below max(count, 1) (slot_counts): next, the code of entry
     k + 1, or on the last entry the code of the row's skip; flag, 0, or
-    on the last entry 2 where an empty slot follows it, else 1. Entries
-    past those and the rows of the other kind are zeros here (the kernel
+    on the last entry 2 where an empty slot follows it, else 1 (0 on the
+    lookahead table's one entry: split_table's leaf row). Entries past
+    those and the rows of the other kind are zeros here (the kernel
     leaves them unwritten; no walk reads them)."""
     name = layout_of(pbvh)
     lay, sl = LAYOUTS[name], SLOT_LAYOUTS[name]
@@ -338,7 +364,7 @@ def slot_table(pbvh):
     bits = pbvh.rows.contiguous().view(torch.int32)
     n = bits.shape[0]
     is_leaf = pbvh.rows[:, lay.leaf_col] > 0.5
-    inner = _split_inner(bits, is_leaf, sl.left, sl.skip, k)
+    inner = _split_inner(bits, is_leaf, sl.left, sl.skip, k, sl.right)
     count = slot_counts(pbvh)
     written = count.clamp(min=1)[:, None]
     slot = torch.arange(k, dtype=torch.int32, device=bits.device)[None]
@@ -347,30 +373,44 @@ def slot_table(pbvh):
     leaves = torch.zeros((n, k, SLOT), dtype=torch.int32, device=bits.device)
     leaves[..., 0:9] = bits[:, :9 * k].reshape(n, k, 9)
     leaves[..., 9] = bits[:, lay.faces]
+    sectors = 1 if sl.right is None else 2
     leaves[..., 10] = torch.where(
-        last, _codes(bits[:, sl.skip], is_leaf, k)[:, None],
+        last, _codes(bits[:, sl.skip], is_leaf, k, sectors)[:, None],
         (entry + slot + 1) | LEAF_BIT)
-    leaves[..., 11] = torch.where(
-        last, torch.where(count < k, 2, 1)[:, None], 0).to(torch.int32)
+    if k > 1:
+        leaves[..., 11] = torch.where(
+            last, torch.where(count < k, 2, 1)[:, None], 0).to(torch.int32)
     leaves[slot.expand(n, k) >= written] = 0
     leaves[~is_leaf] = 0
     return inner.view(torch.float32), leaves.view(torch.float32).reshape(
         n, k * SLOT)
 
 
-def slot_steps(table, c, si, sl, ro, rd, inv, t_best, face, m, f):
+def slot_steps(table, c, si, sl, ro, rd, inv, t_best, face, m, f,
+               right=None):
     """One step of the rays `si` on internal rows and `sl` on slot
     entries over a slot table (slot_table's pair), in place: their codes
     c, each ray's pick of its row so far (m, f: +inf and -1 between
-    rows), and t_best and face where a row's pick is taken. An entry's
-    step tests its triangle (a miss counts as BIG) into the pick, taken
-    when strictly less; on the row's last entry the first empty slot's
-    miss (t BIG, face -1) wins where an empty slot follows (flag 2) and
-    BIG is less, the pick is taken when strictly nearer than t_best and
-    is reset: the plain step's result, a slot at a time."""
+    rows), and t_best and face where a row's pick is taken. An internal
+    step is the slab test of a 32-byte row (an internal row, or a
+    lookahead row's sector: A's left box, whose miss goes to sector B,
+    the right box; `right` gets the count of B's tests appended). An
+    entry's step tests its triangle: on the lookahead table's one entry,
+    taken when hit strictly nearer (split_steps' leaf step); else a miss
+    counts as BIG into the pick, taken when strictly less, and on the
+    row's last entry the first empty slot's miss (t BIG, face -1) wins
+    where an empty slot follows (flag 2) and BIG is less, the pick is
+    taken when strictly nearer than t_best and is reset: the plain
+    step's result, a slot at a time."""
     inner, leaves = table
-    split_steps((inner, None), c, si, si[:0], ro, rd, inv, t_best, face)
+    if right is not None and inner.shape[1] == 16:
+        right.append(int((c[si] & 1).sum()))
+    split_steps((inner.reshape(-1, 8), None), c, si, si[:0], ro, rd, inv,
+                t_best, face)
     if not sl.numel():
+        return
+    if leaves.shape[1] == SLOT:
+        split_steps((None, leaves), c, sl[:0], sl, ro, rd, inv, t_best, face)
         return
     row = leaves.reshape(-1, SLOT)[(c[sl] & ~LEAF_BIT).long()]
     bits = row.view(torch.int32)
@@ -395,14 +435,16 @@ def slot_steps(table, c, si, sl, ro, rd, inv, t_best, face, m, f):
 
 @torch.no_grad()
 def traverse_slots(pbvh, ro: torch.Tensor, rd: torch.Tensor,
-                   t0: torch.Tensor, active: torch.Tensor):
-    """The cherry and quad kernels' walk: walk_layout's contract and
+                   t0: torch.Tensor, active: torch.Tensor,
+                   right: list | None = None):
+    """The kernels of csrc/packed_layouts.cu: walk_layout's contract and
     result over slot_table's split table, every iteration each ray whose
-    walk goes on taking one step of its own code's kind (slot_steps: an
-    internal row's slab test, or one slot's triangle test), as a thread
-    of the kernel does. Each ray reads the rows walk_layout reads in the
-    same order, each leaf row a slot at a time, so the result is the
-    same bit for bit."""
+    walk goes on taking one step of its own code's kind (slot_steps: the
+    slab test of an internal row or of a lookahead row's sector, or one
+    slot's triangle test), as a thread of the kernel does. Each ray
+    reads the rows walk_layout reads in the same order, each leaf row a
+    slot at a time, so the result is the same bit for bit. `right`: a
+    list that gets each step's right-box tests."""
     name = layout_of(pbvh)
     table = slot_table(pbvh)
     # row 0's code: its first entry, 0, when it is a leaf row
@@ -416,7 +458,7 @@ def traverse_slots(pbvh, ro: torch.Tensor, rd: torch.Tensor,
     while bool((c != -1).any()):
         slot_steps(table, c, torch.nonzero(c >= 0).flatten(),
                    torch.nonzero(c < -1).flatten(), ro, rd, inv, t_best, face,
-                   m, f)
+                   m, f, right)
     return t_best, face
 
 

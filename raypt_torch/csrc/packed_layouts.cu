@@ -29,25 +29,31 @@
 //
 // What bounds them on this card, as measured (NVIDIA H100 80GB HBM3,
 // 700 W): the bytes a step pulls from L2 and the steps a warp waits on.
-// PR 19's cherry walk read 64 bytes an internal visit (two sectors: its
-// links lie in [20:24]) and 96 a leaf, always testing both triangles;
+// PR 19's walks read the rows themselves, a step first loading the
+// float4 of the row's kind and links and then the floats its kind
+// needs: two dependent L2 round trips a visit. Its cherry walk read 64
+// bytes an internal visit and 96 a leaf, always testing both triangles;
 // its quad walk 48 and 176, testing four slots where 2.52 are filled on
-// average. Both took 1.9-2.2x the one-triangle split walk's time
-// (csrc/packed_walk.cu) though they visit 6-14% fewer rows.
+// average; its lookahead walk 64 a visit of either kind, both child
+// boxes read where the right one is needed only after a left miss.
 //
 // What the design does about it (packed_layouts.cuh; the sweep's
-// `step_mb12`, python -m raypt_torch.kernels.sweep --kernels layouts):
-// the cherry and quad walks read a split table derived from the rows on
-// every call (its build a launch of its own, counted in the walk's
-// time): 32-byte internal rows (one sector) and 48-byte entries of the
-// filled triangle slots only; links carry the kind of the row they
-// point at. A walk step is a slab test or one slot's triangle test, as
-// in the one-triangle walk: testing a leaf row's slots in one step made
-// a warp wait on its lanes' longest row (2.2-3.0 ms a bench frame
-// against 1.9-2.1). One thread walks one ray, each 128-ray block's rays
-// handed out by direction octant; the launch bound of 12 blocks an SM
-// holds the kernel to 40 registers. The lookahead walks keep PR 19's
-// design: one thread a ray over the rows themselves.
+// `step_mb12` and, for the lookahead walks, `la_sectors_mb12`, python -m
+// raypt_torch.kernels.sweep --kernels layouts): every walk reads a split
+// table derived from the rows on every call (its build a launch of its
+// own, counted in the walk's time) whose links carry the kind of the row
+// they point at, so a step issues its loads at once: a 32-byte internal
+// row (one sector), a 48-byte entry a filled triangle slot. A lookahead
+// row is two such sectors, each a step of its own: the left box, then,
+// only where it misses, the right box. A walk step is a slab test or one
+// slot's triangle test, as in the one-triangle walk: testing a leaf
+// row's slots in one step made a warp wait on its lanes' longest row
+// (2.2-3.0 ms a bench frame against 1.9-2.1), and testing a lookahead
+// row's two boxes in one step (157-166 SASS a pass against 123-135)
+// cost 11-12% (2.01 / 2.17 ms against 1.79 / 2.01); loading both
+// sectors at once cost more (2.23 / 2.32). One thread walks one ray,
+// each 128-ray block's rays handed out by direction octant; the launch
+// bound of 12 blocks an SM holds the kernel to 40 registers.
 #include <cuda_runtime.h>
 
 #include "packed_layouts.cuh"
@@ -55,54 +61,68 @@
 namespace {
 
 using rk::lay::CherryCols;
+using rk::lay::LookaheadCols;
 using rk::lay::QuadCols;
+using rk::lay::QuadLookaheadCols;
 
-// The kept split design (the sweep's "step_mb12", the "package" of
-// --kernels layouts): 128 threads, a launch bound of 12 blocks an SM
-// (40 registers), one slot a step, the filled slots only.
-using Kept = rk::lay::Design<128, 12, 4, 0>;
+// The kept split designs (the "package" of the sweep's --kernels
+// layouts): 128 threads, a launch bound of 12 blocks an SM (40
+// registers), one slot a step, the filled slots only; the cherry and
+// quad walks' is the sweep's "step_mb12", the lookahead walks'
+// "la_sectors_mb12" (a lookahead row's two sectors steps of their own).
+using Kept = rk::lay::Design<128, 12, 4, 0, 0>;
+using KeptLookahead = rk::lay::Design<128, 12, 4, 0, 2>;
 
 // The layouts, by the code the wrappers pass (kernels/packed_walk.py:
 // WALKS).
 enum Layout { kCherry = 0, kLookahead = 1, kQuad = 2, kQuadLookahead = 3 };
 
-}  // namespace
-
-// The float4 of scratch the walk of a table of layout `layout` with
-// n_rows rows needs: its split table (cherry, quad), or none (0).
-extern "C" long long rk_layout_walk_scratch(int layout, long long n_rows) {
+// f(C, D) for layout `layout`'s columns and kept design; `bad` for any
+// other code.
+template <class F, class R>
+R by_layout(int layout, F f, R bad) {
     switch (layout) {
         case kCherry:
-            return rk::lay::slot_scratch_f4<CherryCols>(n_rows);
+            return f(CherryCols{}, Kept{});
+        case kLookahead:
+            return f(LookaheadCols{}, KeptLookahead{});
         case kQuad:
-            return rk::lay::slot_scratch_f4<QuadCols>(n_rows);
+            return f(QuadCols{}, Kept{});
+        case kQuadLookahead:
+            return f(QuadLookaheadCols{}, KeptLookahead{});
         default:
-            return 0;
+            return bad;
     }
 }
 
-// The split table of a cherry or quad table alone, into `scratch`
-// (rk_layout_walk_scratch float4): the walk's first launch, for its
-// timing and tests.
+}  // namespace
+
+// The float4 of scratch the walk of a table of layout `layout` with
+// n_rows rows needs: its split table.
+extern "C" long long rk_layout_walk_scratch(int layout, long long n_rows) {
+    return by_layout(
+        layout, [&](auto c, auto) { return rk::lay::slot_scratch_f4<decltype(c)>(n_rows); },
+        0LL);
+}
+
+// The split table of a table alone, into `scratch` (rk_layout_walk_scratch
+// float4): the walk's first launch, for its timing and tests.
 extern "C" int rk_layout_build(int layout, const float* rows, long long n_rows,
                                void* scratch, void* stream) {
     if (n_rows < 1 || scratch == nullptr) return (int)cudaErrorInvalidValue;
     const cudaStream_t s = (cudaStream_t)stream;
-    switch (layout) {
-        case kCherry:
-            return (int)rk::lay::build_slot_table<CherryCols, Kept>(rows, n_rows,
-                                                                               scratch, s);
-        case kQuad:
-            return (int)rk::lay::build_slot_table<QuadCols, Kept>(rows, n_rows,
-                                                                             scratch, s);
-        default:
-            return (int)cudaErrorInvalidValue;
-    }
+    return by_layout(
+        layout,
+        [&](auto c, auto d) {
+            return (int)rk::lay::build_slot_table<decltype(c), decltype(d)>(rows, n_rows,
+                                                                            scratch, s);
+        },
+        (int)cudaErrorInvalidValue);
 }
 
 // The walk of a table of layout `layout` (Layout) with n_rows rows over
-// r rays; the cherry and quad walks build their split table into
-// `scratch` (rk_layout_walk_scratch float4) first. rows must be 16-byte
+// r rays: the build of its split table into `scratch`
+// (rk_layout_walk_scratch float4), then the walk. rows must be 16-byte
 // aligned.
 extern "C" int rk_layout_walk(int layout, const float* rows, long long n_rows,
                               const float* ro, const float* rd, const float* t0,
@@ -112,43 +132,24 @@ extern "C" int rk_layout_walk(int layout, const float* rows, long long n_rows,
         return (int)cudaErrorInvalidValue;
     if (r == 0) return 0;
     const cudaStream_t s = (cudaStream_t)stream;
-    switch (layout) {
-        case kCherry:
-            return (int)rk::lay::launch_slot_walk<CherryCols, Kept>(
+    return by_layout(
+        layout,
+        [&](auto c, auto d) {
+            return (int)rk::lay::launch_slot_walk<decltype(c), decltype(d)>(
                 rows, n_rows, ro, rd, t0, active, t_out, face_out, r, scratch, s);
-        case kLookahead:
-            return (int)rk::lay::launch_row_walk<rk::lay::Lookahead>(rows, ro, rd, t0, active,
-                                                                     t_out, face_out, r, s);
-        case kQuad:
-            return (int)rk::lay::launch_slot_walk<QuadCols, Kept>(
-                rows, n_rows, ro, rd, t0, active, t_out, face_out, r, scratch, s);
-        case kQuadLookahead:
-            return (int)rk::lay::launch_row_walk<rk::lay::Quad<true>>(
-                rows, ro, rd, t0, active, t_out, face_out, r, s);
-        default:
-            return (int)cudaErrorInvalidValue;
-    }
+        },
+        (int)cudaErrorInvalidValue);
 }
 
 // A layout's walk kernel's registers, local (spill) bytes, resident
 // blocks an SM and threads a block (info[0..3]).
 extern "C" int rk_layout_walk_info(int layout, int* info) {
-    using rk::lay::layout_walk_kernel;
-    using rk::lay::slot_walk_kernel;
-    switch (layout) {
-        case kCherry:
-            return rk::walk_kernel_info(slot_walk_kernel<CherryCols, Kept>, Kept::kThreads,
-                                        info);
-        case kLookahead:
-            return rk::walk_kernel_info(layout_walk_kernel<rk::lay::Lookahead>,
-                                        rk::lay::kRowThreads, info);
-        case kQuad:
-            return rk::walk_kernel_info(slot_walk_kernel<QuadCols, Kept>, Kept::kThreads,
-                                        info);
-        case kQuadLookahead:
-            return rk::walk_kernel_info(layout_walk_kernel<rk::lay::Quad<true>>,
-                                        rk::lay::kRowThreads, info);
-        default:
-            return (int)cudaErrorInvalidValue;
-    }
+    return by_layout(
+        layout,
+        [&](auto c, auto d) {
+            using D = decltype(d);
+            return rk::walk_kernel_info(rk::lay::slot_walk_kernel<decltype(c), D>,
+                                        D::kThreads, info);
+        },
+        (int)cudaErrorInvalidValue);
 }

@@ -1,36 +1,48 @@
 // The walks of the packed table's other layouts (raypt_torch/accel/
-// packed.py: the cherry, lookahead and quad tables): the steps over the
-// rows themselves that the lookahead walks take (and PR 19's cherry and
-// quad walks, the design `pr19` of packed_layouts_designs.cu), and the
-// split tables of the cherry and quad layouts with their walk, which
-// packed_layouts.cu and the designs of packed_layouts_designs.cu (timed
-// by the sweep) share.
+// packed.py: the cherry, lookahead and quad tables): the split tables
+// that every walk of packed_layouts.cu reads, their build and their
+// walk, which packed_layouts.cu and the designs of
+// packed_layouts_designs.cu (timed by the sweep) share. PR 19's walks
+// over the rows themselves are the design `pr19` of that file.
 //
 // Every operation is the plain torch version's (_step2, _step_la,
 // _quad_step), in its order, through the helpers of packed_walk.cuh.
 // Built with -fmad=false, each walk is bitwise equal to its plain walk.
 //
-// The split tables. The cherry and quad walks do not read the rows
-// themselves but a table derived from them on every call
-// (slot_build_kernel), like packed_walk.cuh's split table of the
-// one-triangle layout:
+// The split tables. The walks do not read the rows themselves but a
+// table derived from them on every call (slot_build_kernel), like
+// packed_walk.cuh's split table of the one-triangle layout. An internal
+// row n of a table with plain internal rows (cherry, quad):
 //   inner[2 n .. 2 n + 1] = [bmin, bmax.x | bmax.y, bmax.z, code(left),
 //                            code(skip)]           (32 bytes, one sector)
-//   leaves[3 e .. 3 e + 2] = slot entry e = S n + k, slot k of leaf row n
-//     (S slots a row, 2 or 4): [p0, e1.x | e1.y, e1.z, e2.x, e2.y | e2.z,
-//     face, X, Y] (48 bytes)
+// and of a table with lookahead rows (lookahead, quad with lookahead),
+// two sectors of that same form, 32-byte rows 2 n and 2 n + 1, the
+// second read only where the left box misses (the kept designs'; see
+// kSectorSteps for the sweep's other forms):
+//   inner[4 n .. 4 n + 1] = [lmin, lmax.x | lmax.y, lmax.z, code(left),
+//                            2 n + 1]                         (sector A)
+//   inner[4 n + 2 .. 4 n + 3] = [rmin, rmax.x | rmax.y, rmax.z,
+//                                code(right), code(skip)]     (sector B)
+// A leaf row's triangle slots (S a row: 1, 2 or 4):
+//   leaves[3 e .. 3 e + 2] = slot entry e = S n + k, slot k of leaf row n:
+//     [p0, e1.x | e1.y, e1.z, e2.x, e2.y | e2.z, face, X, Y] (48 bytes)
 // inner indexed by the row's own number n, codes as packed_walk.cuh's
-// (-1 the walk's end, s an internal row, S s | 0x80000000 a leaf row's
-// first entry, the kind read from the layout's flag column). No link is
-// renumbered, so each ray visits the same rows in the same order. A
-// leaf row's count is one past its last slot that is not empty; an
-// empty slot has face id -1 and e1 = 0 (the packers' empty slots: a
-// singleton cherry's b, a quad row's slots past its triangles), and no
-// ray hits it (det is 0 or NaN). An invalid face keeps its id >= 0 and
-// zero edges: it is tested. Entries from max(count, 1) on stay
-// unwritten. The kept design (Design::kStep) takes one entry a step:
-// X is the code of the next entry (the row's next slot, or after its
-// last the row's skip) and Y the last entry's flag (1, or 2 where an
+// (-1 the walk's end, s an internal row (2 s, its sector A, on a
+// lookahead table), S s | 0x80000000 a leaf row's first entry, the kind
+// read from the layout's flag column; row 0 may be a leaf row). No link
+// is renumbered, so each ray visits the same rows in the same order.
+//
+// The lookahead table's leaf row (S = 1) is packed_walk.cuh's split
+// leaf row: X the skip's code, Y 0; its step is the plain one's, the
+// triangle taken where it is hit strictly nearer than t_best. The
+// cherry and quad tables' leaf rows: a row's count is one past its last
+// slot that is not empty; an empty slot has face id -1 and e1 = 0 (the
+// packers' empty slots: a singleton cherry's b, a quad row's slots past
+// its triangles), and no ray hits it (det is 0 or NaN). An invalid face
+// keeps its id >= 0 and zero edges: it is tested. Entries from max(count,
+// 1) on stay unwritten. The kept designs (Design::kStep) take one entry
+// a step: X is the code of the next entry (the row's next slot, or after
+// its last the row's skip) and Y the last entry's flag (1, or 2 where an
 // empty slot follows it, else 0); the other designs take a row a step,
 // slot 0's X the skip and Y the count. Either way the slots below the
 // count are tested in slot order, each a miss counting as BIG, the
@@ -39,6 +51,13 @@
 // one, t = BIG, face -1) wins where BIG is less than every tested t, as
 // the plain step's argmin over all slots does, and the pick is taken
 // when strictly nearer than t_best.
+//
+// A lookahead row's sectors are steps of their own, each the plain
+// slab step over 32 bytes: sector A's left box, a hit going left and a
+// miss to sector B, whose right box, tested with the same t_best (no
+// leaf test comes between), picks right or skip. That is `where(hl,
+// left, where(hr, right, skip))` of the plain step bit for bit, since
+// the choice never reads hr where hl holds.
 #pragma once
 
 #include <climits>
@@ -114,174 +133,64 @@ __device__ __forceinline__ bool mt_hit_early(float p0x, float p0y, float p0z, fl
     return v >= 0.0f && u + v <= 1.0f && t > 0.0f && t < t_best;
 }
 
-// mt_hit of the triangle at q[0:9] (p0, e1, e2).
-__device__ __forceinline__ bool tri_hit(const float* q, const WalkRay& w, float t_best,
-                                        float& t) {
-    return mt_hit(q[0], q[1], q[2], q[3], q[4], q[5], q[6], q[7], q[8], w, t_best, t);
+// mt_hit or mt_hit_early of the triangle of a slot entry's three float4.
+template <bool kEarly>
+__device__ __forceinline__ bool entry_hit(const float4& a, const float4& b, const float4& g,
+                                          const WalkRay& w, float t_best, float& t) {
+    return kEarly ? mt_hit_early(a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, g.x, w, t_best, t)
+                  : mt_hit(a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, g.x, w, t_best, t);
 }
-
-// n float4 of a row into f[0 .. 4 n).
-template <int kN>
-__device__ __forceinline__ void load_f4(const float4* row, float* f) {
-#pragma unroll
-    for (int k = 0; k < kN; ++k) {
-        const float4 v = __ldg(row + k);
-        f[4 * k] = v.x;
-        f[4 * k + 1] = v.y;
-        f[4 * k + 2] = v.z;
-        f[4 * k + 3] = v.w;
-    }
-}
-
-// A lookahead row's child boxes (f[0:6] left, f[6:12] right): the next
-// node.
-__device__ __forceinline__ int child_link(const float* f, int left, int right, int skip,
-                                          const WalkRay& w, float t_best) {
-    if (box_hit(f[0], f[1], f[2], f[3], f[4], f[5], w, t_best)) return left;
-    if (box_hit(f[6], f[7], f[8], f[9], f[10], f[11], w, t_best)) return right;
-    return skip;
-}
-
-// ---------------------------------------------------------------------------
-// The walks over the rows themselves (PR 19's design): each step reads
-// first the float4 that holds the row's kind and links (lookahead
-// [12:16], quad [48:52]) and then only the floats its kind needs.
-// ---------------------------------------------------------------------------
-
-// The lookahead table's step (_step_la).
-struct Lookahead {
-    static constexpr int kF4 = 4;   // 16 floats a row
-    static __device__ __forceinline__ int step(const float4* row, const WalkRay& w,
-                                               float& t_best, int& face) {
-        const float4 k = __ldg(row + 3);   // [12:16]: left / face, skip, flag, right
-        const int skip = __float_as_int(k.y);
-        float f[12];
-        load_f4<3>(row, f);
-        if (k.z > 0.5f) {
-            float t;
-            if (tri_hit(f, w, t_best, t)) {
-                t_best = t;
-                face = __float_as_int(k.x);
-            }
-            return skip;
-        }
-        return child_link(f, __float_as_int(k.x), __float_as_int(k.w), skip, w, t_best);
-    }
-};
-
-// The quad table's step (_quad_step), with plain or lookahead internal
-// rows: a leaf row's four tests, empty slots too.
-template <bool kLookahead>
-struct Quad {
-    static constexpr int kF4 = 16;   // 64 floats a row
-    static __device__ __forceinline__ int step(const float4* row, const WalkRay& w,
-                                               float& t_best, int& face) {
-        const float4 k = __ldg(row + 12);   // [48:52]: left, skip, flag, right
-        const int skip = __float_as_int(k.y);
-        float f[36];
-        if (k.z > 0.5f) {
-            load_f4<9>(row, f);
-            float tmin = kBig;
-            int kbest = 0;
-#pragma unroll
-            for (int s = 0; s < 4; ++s) {
-                float t;
-                const float tk = tri_hit(f + 9 * s, w, t_best, t) ? t : kBig;
-                if (tk < tmin) {   // the first slot of the least t
-                    tmin = tk;
-                    kbest = s;
-                }
-            }
-            if (tmin < t_best) {
-                const float4 ids = __ldg(row + 11);   // [44:48]
-                t_best = tmin;
-                face = __float_as_int(kbest == 0 ? ids.x : kbest == 1 ? ids.y
-                                                   : kbest == 2 ? ids.z : ids.w);
-            }
-            return skip;
-        }
-        const int left = __float_as_int(k.x);
-        if constexpr (kLookahead) {
-            load_f4<3>(row, f);
-            return child_link(f, left, __float_as_int(k.w), skip, w, t_best);
-        } else {
-            load_f4<2>(row, f);
-            return box_hit(f[0], f[1], f[2], f[3], f[4], f[5], w, t_best) ? left : skip;
-        }
-    }
-};
-
-constexpr int kRowThreads = 128;   // a block of the walks over the rows
-
-// One thread a ray: the ray sorted_ray hands the thread, walked over
-// the rows of layout S.
-template <class S>
-__global__ void __launch_bounds__(kRowThreads)
-layout_walk_kernel(const float4* __restrict__ rows, const float* __restrict__ ro,
-                   const float* __restrict__ rd, const float* __restrict__ t0,
-                   const bool* __restrict__ active, float* __restrict__ t_out,
-                   int* __restrict__ face_out, long long r) {
-    const long long slot = (long long)blockIdx.x * kRowThreads + threadIdx.x;
-    const long long i = sorted_ray<kRowThreads>(slot, rd, active, r, true);
-    const bool in = i < r;
-    float t_best = in ? t0[i] : 0.0f;
-    int face = -1;
-    int node = (in && active[i]) ? 0 : -1;
-    WalkRay w{};
-    if (node >= 0) w = load_walk_ray(ro, rd, i);
-    while (node >= 0) node = S::step(rows + (long long)S::kF4 * node, w, t_best, face);
-    if (in) {
-        t_out[i] = t_best;
-        face_out[i] = face;
-    }
-}
-
-template <class S>
-cudaError_t launch_row_walk(const float* rows, const float* ro, const float* rd,
-                            const float* t0, const bool* active, float* t_out,
-                            int* face_out, long long r, cudaStream_t s) {
-    const unsigned grid = (unsigned)((r + kRowThreads - 1) / kRowThreads);
-    layout_walk_kernel<S><<<grid, kRowThreads, 0, s>>>(reinterpret_cast<const float4*>(rows),
-                                                       ro, rd, t0, active, t_out, face_out,
-                                                       r);
-    return cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
-// The split tables of the cherry and quad layouts, and their walk.
-// ---------------------------------------------------------------------------
 
 // A layout's columns (accel/packed.py: LAYOUTS, SLOT_LAYOUTS): floats a
 // row, triangle slots (slot k's p0, e1, e2 at [9 k : 9 k + 9], its face
-// id at [kFace0 + k]), the leaf flag, the left and skip links.
-template <int kWidth_, int kSlots_, int kFace0_, int kFlag_, int kLeft_, int kSkip_>
+// id at [kFace0 + k]), the leaf flag, the left and skip links and, on a
+// table with lookahead internal rows, the right link (else -1).
+template <int kWidth_, int kSlots_, int kFace0_, int kFlag_, int kLeft_, int kSkip_,
+          int kRight_ = -1>
 struct Cols {
     static constexpr int kWidth = kWidth_, kSlots = kSlots_, kFace0 = kFace0_,
-                         kFlag = kFlag_, kLeft = kLeft_, kSkip = kSkip_;
+                         kFlag = kFlag_, kLeft = kLeft_, kSkip = kSkip_, kRight = kRight_;
+    static constexpr bool kLookahead = kRight_ >= 0;
+    static constexpr int kInner = kLookahead ? 4 : 2;   // float4 an internal row
 };
 using CherryCols = Cols<32, 2, 18, 21, 18, 20>;
+using LookaheadCols = Cols<16, 1, 12, 14, 12, 13, 15>;
 using QuadCols = Cols<64, 4, 44, 50, 48, 49>;
+using QuadLookaheadCols = Cols<64, 4, 44, 50, 48, 49, 51>;
 
 // A split walk's design: threads a block (its rays handed out by
 // octant), the launch bound's blocks an SM, how a step takes a leaf
-// row's slots (kLoad), and every slot tested (1: each leaf row's count
-// is its slots) or the filled ones only (0). kLoad 4 (kStep), the kept
-// design: one slot entry a step, each entry carrying the code of the
-// next (its row's next slot, or after its last slot the row's skip) and
-// a flag on the last (1, or 2 where an empty slot follows it); a ray
-// keeps its row's pick (m, f) across the row's steps and takes it at the
-// last (slot_step). The others, a row a step, are the sweep's designs
-// (packed_layouts_designs.cu): slot 0 holds the row's skip and count,
-// and with kCodeCount the link codes carry the count too. kLoad 6: kStep
-// with mt_hit_early.
-template <int kThreads_, int kMinBlocks_, int kLoad_, int kAllSlots_>
+// row's slots (kLoad), every slot tested (1: each leaf row's count is
+// its slots) or the filled ones only (0), and how a lookahead row's
+// sectors are read (kBoth): sector B only where the left box misses, in
+// the same step (0); both at once (1); or sector B a step of its own
+// (2: kSectorSteps, below). kLoad 4 (kStep), the kept designs: one slot entry a step,
+// each entry carrying the code of the next (its row's next slot, or
+// after its last slot the row's skip) and a flag on the last (1, or 2
+// where an empty slot follows it); a ray keeps its row's pick (m, f)
+// across the row's steps and takes it at the last (slot_step). The
+// others, a row a step, are the sweep's designs of the cherry and quad
+// walks (packed_layouts_designs.cu): slot 0 holds the row's skip and
+// count, and with kCodeCount the link codes carry the count too. kLoad
+// 6: kStep with mt_hit_early.
+template <int kThreads_, int kMinBlocks_, int kLoad_, int kAllSlots_, int kBoth_>
 struct Design {
     static constexpr int kThreads = kThreads_, kMinBlocks = kMinBlocks_, kLoad = kLoad_,
-                         kAllSlots = kAllSlots_;
+                         kAllSlots = kAllSlots_, kBoth = kBoth_;
     static constexpr bool kCodeCount = kLoad == 2 || kLoad == 3 || kLoad == 5;
     static constexpr bool kStep = kLoad == 4 || kLoad == 6;
     static constexpr bool kEarly = kLoad == 6;
 };
+
+// Whether a walk of layout C with design D takes a lookahead row's
+// sectors as steps of their own (the table at the top of this file:
+// each sector a 32-byte row for slab_step, an internal row s's code 2
+// s). The sweep's other forms (kBoth 0, 1) take a lookahead row in one
+// step (lookahead_step) over sectors A = [lmin, lmax, code(left),
+// code(right)] and B = [rmin, rmax, code(skip), 0], an internal row's
+// code s.
+template <class C, class D>
+constexpr bool kSectorSteps = C::kLookahead && D::kBoth == 2;
 
 constexpr int kCountShift = 28;        // a leaf code's count bits, 28-30
 constexpr int kEntryMask = 0x0FFFFFFF;   // a code's slot entry: 2^28 of them
@@ -308,15 +217,16 @@ template <class C, class D>
 __device__ __forceinline__ int slot_code(const int* __restrict__ rows, int s) {
     if (s < 0) return -1;
     const int* row = rows + (long long)C::kWidth * s;
-    if (!(__int_as_float(row[C::kFlag]) > 0.5f)) return s;
+    if (!(__int_as_float(row[C::kFlag]) > 0.5f)) return kSectorSteps<C, D> ? 2 * s : s;
     const int entry = C::kSlots * s | kLeafBit;
     if (D::kCodeCount) return entry | (slot_count<C, D::kAllSlots>(row) << kCountShift);
     return entry;
 }
 
 // The split table of `rows`, one thread a row, bits copied as ints. A
-// leaf row writes its slots below max(count, 1), an internal row its
-// two float4; the rest stays unwritten (no walk reads it).
+// leaf row writes its slots below max(count, 1) (the lookahead table's
+// its one entry), an internal row its two or four float4; the rest
+// stays unwritten (no walk reads it).
 template <class C, class D>
 __global__ void __launch_bounds__(kBuildThreads)
 slot_build_kernel(const int* __restrict__ rows, long long n_rows, int4* __restrict__ inner,
@@ -325,7 +235,7 @@ slot_build_kernel(const int* __restrict__ rows, long long n_rows, int4* __restri
     if (n >= n_rows) return;
     const int* row = rows + (long long)C::kWidth * n;
     if (__int_as_float(row[C::kFlag]) > 0.5f) {
-        const int count = slot_count<C, D::kAllSlots>(row);
+        const int count = C::kSlots == 1 ? 1 : slot_count<C, D::kAllSlots>(row);
         const int skip = slot_code<C, D>(rows, row[C::kSkip]);
         const long long e0 = (long long)C::kSlots * n;
         int4* out = leaves + kSlotF4 * e0;
@@ -336,18 +246,65 @@ slot_build_kernel(const int* __restrict__ rows, long long n_rows, int4* __restri
             if (D::kStep) {   // the next entry's code; the last slot's flag
                 const bool last = k + 1 == written;
                 x = last ? skip : (int)(e0 + k + 1) | kLeafBit;
-                y = last ? (count < C::kSlots ? 2 : 1) : 0;
+                y = last && C::kSlots > 1 ? (count < C::kSlots ? 2 : 1) : 0;
             }
             out[3 * k] = make_int4(q[0], q[1], q[2], q[3]);
             out[3 * k + 1] = make_int4(q[4], q[5], q[6], q[7]);
             out[3 * k + 2] = make_int4(q[8], row[C::kFace0 + k], x, y);
         }
     } else {
-        int4* out = inner + (long long)kInnerF4 * n;
+        int4* out = inner + (long long)C::kInner * n;
+        const int left = slot_code<C, D>(rows, row[C::kLeft]);
+        const int skip = slot_code<C, D>(rows, row[C::kSkip]);
         out[0] = make_int4(row[0], row[1], row[2], row[3]);
-        out[1] = make_int4(row[4], row[5], slot_code<C, D>(rows, row[C::kLeft]),
-                           slot_code<C, D>(rows, row[C::kSkip]));
+        if constexpr (kSectorSteps<C, D>) {
+            out[1] = make_int4(row[4], row[5], left, (int)(2 * n + 1));
+            out[2] = make_int4(row[6], row[7], row[8], row[9]);
+            out[3] = make_int4(row[10], row[11], slot_code<C, D>(rows, row[C::kRight]), skip);
+        } else if constexpr (C::kLookahead) {
+            out[1] = make_int4(row[4], row[5], left, slot_code<C, D>(rows, row[C::kRight]));
+            out[2] = make_int4(row[6], row[7], row[8], row[9]);
+            out[3] = make_int4(row[10], row[11], skip, 0);
+        } else {
+            out[1] = make_int4(row[4], row[5], left, skip);
+        }
     }
+}
+
+// A lookahead row's step: the left box of sector A; where it misses,
+// the right box of sector B (loaded then, or with A where kBoth), both
+// with t_best; the code of the next row.
+template <bool kBoth>
+__device__ __forceinline__ int lookahead_step(const float4* __restrict__ inner, int c,
+                                              const WalkRay& w, float t_best) {
+    const float4* row = inner + 4 * (long long)c;
+    const float4 a = __ldg(row), b = __ldg(row + 1);
+    float4 p, q;
+    if constexpr (kBoth) {
+        p = __ldg(row + 2);
+        q = __ldg(row + 3);
+    }
+    if (box_hit(a.x, a.y, a.z, a.w, b.x, b.y, w, t_best)) return __float_as_int(b.z);
+    if constexpr (!kBoth) {
+        p = __ldg(row + 2);
+        q = __ldg(row + 3);
+    }
+    return __float_as_int(box_hit(p.x, p.y, p.z, p.w, q.x, q.y, w, t_best) ? b.w : q.z);
+}
+
+// The lookahead table's leaf step (its one entry): the triangle taken
+// when hit strictly nearer than t_best; the code of the row's skip.
+template <bool kEarly>
+__device__ __forceinline__ int tri_step(const float4* __restrict__ leaves, int c,
+                                        const WalkRay& w, float& t_best, int& face) {
+    const float4* e = leaves + (long long)kSlotF4 * (c & kEntryMask);
+    const float4 a = __ldg(e), b = __ldg(e + 1), g = __ldg(e + 2);
+    float t;
+    if (entry_hit<kEarly>(a, b, g, w, t_best, t)) {
+        t_best = t;
+        face = __float_as_int(g.y);
+    }
+    return __float_as_int(g.z);
 }
 
 // One slot's test (mt_hit, or mt_hit_early, on its three float4), a
@@ -357,10 +314,7 @@ template <bool kEarly = false>
 __device__ __forceinline__ void slot_pick(const float4& a, const float4& b, const float4& g,
                                           const WalkRay& w, float t_best, float& m, int& f) {
     float t;
-    const bool hit =
-        kEarly ? mt_hit_early(a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, g.x, w, t_best, t)
-               : mt_hit(a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, g.x, w, t_best, t);
-    const float tk = hit ? t : kBig;
+    const float tk = entry_hit<kEarly>(a, b, g, w, t_best, t) ? t : kBig;
     if (tk < m) {
         m = tk;
         f = __float_as_int(g.y);
@@ -394,7 +348,9 @@ __device__ __forceinline__ int slot_step(const float4* __restrict__ leaves, int 
 }
 
 // One thread a ray: the ray sorted_ray hands the thread, walked over
-// the split table of layout C one slot a step (Design::kStep).
+// the split table of layout C one row or slot a step (Design::kStep):
+// an internal row's slab test (a lookahead row's one or two), a leaf
+// entry's triangle test.
 template <class C, class D>
 __global__ void __launch_bounds__(D::kThreads, D::kMinBlocks)
 slot_walk_kernel(const float* __restrict__ rows, const float4* __restrict__ inner,
@@ -414,9 +370,18 @@ slot_walk_kernel(const float* __restrict__ rows, const float4* __restrict__ inne
     if (c != -1) w = load_walk_ray(ro, rd, i);
     float m = __int_as_float(0x7f800000);   // the row's pick so far
     int f = -1;
-    while (c != -1)
-        c = c >= 0 ? slab_step<RowLoads>(inner, c, w, t_best)
-                   : slot_step<D::kEarly>(leaves, c, w, t_best, face, m, f);
+    while (c != -1) {
+        if (c >= 0) {
+            if constexpr (C::kLookahead && !kSectorSteps<C, D>)
+                c = lookahead_step<D::kBoth>(inner, c, w, t_best);
+            else
+                c = slab_step<RowLoads>(inner, c, w, t_best);
+        } else if constexpr (C::kSlots == 1) {
+            c = tri_step<D::kEarly>(leaves, c, w, t_best, face);
+        } else {
+            c = slot_step<D::kEarly>(leaves, c, w, t_best, face, m, f);
+        }
+    }
     if (in) {
         t_out[i] = t_best;
         face_out[i] = face;
@@ -427,7 +392,7 @@ slot_walk_kernel(const float* __restrict__ rows, const float4* __restrict__ inne
 // of kSlots slots for each table row.
 template <class C>
 long long slot_scratch_f4(long long n_rows) {
-    return (kInnerF4 + (long long)kSlotF4 * C::kSlots) * n_rows;
+    return (C::kInner + (long long)kSlotF4 * C::kSlots) * n_rows;
 }
 
 // Builds the split table into `scratch` (slot_scratch_f4 float4: the
@@ -440,7 +405,7 @@ cudaError_t build_slot_table(const float* rows, long long n_rows, void* scratch,
     int4* inner = reinterpret_cast<int4*>(scratch);
     slot_build_kernel<C, D>
         <<<(unsigned)((n_rows + kBuildThreads - 1) / kBuildThreads), kBuildThreads, 0, s>>>(
-            reinterpret_cast<const int*>(rows), n_rows, inner, inner + kInnerF4 * n_rows);
+            reinterpret_cast<const int*>(rows), n_rows, inner, inner + C::kInner * n_rows);
     return cudaGetLastError();
 }
 
@@ -452,7 +417,7 @@ cudaError_t launch_slot_walk(const float* rows, long long n_rows, const float* r
                              cudaStream_t s) {
     if (const cudaError_t e = build_slot_table<C, D>(rows, n_rows, scratch, s)) return e;
     const float4* inner = reinterpret_cast<const float4*>(scratch);
-    const float4* leaves = inner + kInnerF4 * n_rows;
+    const float4* leaves = inner + C::kInner * n_rows;
     const unsigned grid = (unsigned)((r + D::kThreads - 1) / D::kThreads);
     slot_walk_kernel<C, D><<<grid, D::kThreads, 0, s>>>(rows, inner, leaves, ro, rd, t0,
                                                         active, t_out, face_out, r);

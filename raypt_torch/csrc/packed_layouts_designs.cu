@@ -1,34 +1,71 @@
-// Design variants of the cherry and quad walks (rk_layout_walk in
-// packed_layouts.cu, layouts 0 and 2), built and timed only by `python
-// -m raypt_torch.kernels.sweep --kernels layouts`, which holds each
-// one's t and face bitwise against the package kernel's. Each variant
-// has, for each of the two layouts (L = cherry, quad), a C entry point
-// rk_lwalk_<name>_<L> (the package's arguments, without the layout),
-// rk_lwalk_<name>_<L>_info (registers, local bytes, resident blocks an
-// SM, threads a block) and rk_lwalk_<name>_<L>_scratch (float4 of
-// scratch for n_rows rows):
+// Design variants of the layout walks (rk_layout_walk in
+// packed_layouts.cu), built and timed only by `python -m
+// raypt_torch.kernels.sweep --kernels layouts`, which holds each one's t
+// and face bitwise against the package kernel's. Each variant has, for
+// each layout L it walks, a C entry point rk_lwalk_<name>_<L> (the
+// package's arguments, without the layout), rk_lwalk_<name>_<L>_info
+// (registers, local bytes, resident blocks an SM, threads a block) and
+// rk_lwalk_<name>_<L>_scratch (float4 of scratch for n_rows rows):
 //   * pr19: PR 19's kernels as they were, one thread a ray over the
-//     table's own rows (layout_walk_kernel<Cherry>, <Quad<false>>): a
-//     step reads the float4 of the row's kind and links, then its kind's
-//     floats (a cherry internal row 64 bytes, a leaf 96; a quad internal
-//     row 48, a leaf 176) and tests every slot; no scratch;
-//   * the split-table walks, each a rk::lay::Design over the table of
-//     packed_layouts.cuh (RK_LWALK_DESIGN: threads a block, the launch
-//     bound's blocks an SM, how a step takes a leaf row's slots, every
-//     slot tested), each block's rays handed out by direction octant:
-//     kLoad 4 one slot a step (the header's slot_walk_kernel, the kept
-//     design's walk), 0-3 and 5 this file's row_step_kernel.
+//     table's own rows (layout_walk_kernel<Cherry>, <Lookahead>,
+//     <Quad<false>>, <Quad<true>>), all four layouts: a step reads the
+//     float4 of the row's kind and links, then its kind's floats (a
+//     cherry internal row 64 bytes, a leaf 96; a lookahead row 64; a quad
+//     internal row 48, a lookahead one 64, a leaf 176) and tests every
+//     slot; no scratch;
+//   * the split-table walks, each a rk::lay::Design over the tables of
+//     packed_layouts.cuh (threads a block, the launch bound's blocks an
+//     SM, how a step takes a leaf row's slots, every slot tested, how a
+//     lookahead row's sectors are read), each block's rays handed
+//     out by direction octant: RK_LWALK_DESIGN the cherry and quad
+//     layouts' (kLoad 4 one slot a step, the header's slot_walk_kernel,
+//     the kept design's walk; 0-3 and 5 this file's row_step_kernel),
+//     RK_LWALK_LA_DESIGN the lookahead and quad-lookahead layouts' (the
+//     header's slot_walk_kernel).
 #include <cuda_runtime.h>
 
 #include "packed_layouts.cuh"
 
 namespace pr19 {
 
+using rk::kBig;
+using rk::load_walk_ray;
+using rk::sorted_ray;
 using rk::WalkRay;
 using rk::lay::box_hit;
-using rk::kBig;
-using rk::lay::load_f4;
-using rk::lay::tri_hit;
+using rk::lay::mt_hit;
+
+// mt_hit of the triangle at q[0:9] (p0, e1, e2).
+__device__ __forceinline__ bool tri_hit(const float* q, const WalkRay& w, float t_best,
+                                        float& t) {
+    return mt_hit(q[0], q[1], q[2], q[3], q[4], q[5], q[6], q[7], q[8], w, t_best, t);
+}
+
+// n float4 of a row into f[0 .. 4 n).
+template <int kN>
+__device__ __forceinline__ void load_f4(const float4* row, float* f) {
+#pragma unroll
+    for (int k = 0; k < kN; ++k) {
+        const float4 v = __ldg(row + k);
+        f[4 * k] = v.x;
+        f[4 * k + 1] = v.y;
+        f[4 * k + 2] = v.z;
+        f[4 * k + 3] = v.w;
+    }
+}
+
+// A lookahead row's child boxes (f[0:6] left, f[6:12] right): the next
+// node.
+__device__ __forceinline__ int child_link(const float* f, int left, int right, int skip,
+                                          const WalkRay& w, float t_best) {
+    if (box_hit(f[0], f[1], f[2], f[3], f[4], f[5], w, t_best)) return left;
+    if (box_hit(f[6], f[7], f[8], f[9], f[10], f[11], w, t_best)) return right;
+    return skip;
+}
+
+// The steps over the rows themselves: each reads first the float4 that
+// holds the row's kind and links (cherry [20:24], lookahead [12:16],
+// quad [48:52]) and then only the floats its kind needs.
 
 // The cherry table's step (_step2) over the rows themselves.
 struct Cherry {
@@ -59,12 +96,111 @@ struct Cherry {
     }
 };
 
+// The lookahead table's step (_step_la).
+struct Lookahead {
+    static constexpr int kF4 = 4;   // 16 floats a row
+    static __device__ __forceinline__ int step(const float4* row, const WalkRay& w,
+                                               float& t_best, int& face) {
+        const float4 k = __ldg(row + 3);   // [12:16]: left / face, skip, flag, right
+        const int skip = __float_as_int(k.y);
+        float f[12];
+        load_f4<3>(row, f);
+        if (k.z > 0.5f) {
+            float t;
+            if (tri_hit(f, w, t_best, t)) {
+                t_best = t;
+                face = __float_as_int(k.x);
+            }
+            return skip;
+        }
+        return child_link(f, __float_as_int(k.x), __float_as_int(k.w), skip, w, t_best);
+    }
+};
+
+// The quad table's step (_quad_step), with plain or lookahead internal
+// rows: a leaf row's four tests, empty slots too.
+template <bool kLookahead>
+struct Quad {
+    static constexpr int kF4 = 16;   // 64 floats a row
+    static __device__ __forceinline__ int step(const float4* row, const WalkRay& w,
+                                               float& t_best, int& face) {
+        const float4 k = __ldg(row + 12);   // [48:52]: left, skip, flag, right
+        const int skip = __float_as_int(k.y);
+        float f[36];
+        if (k.z > 0.5f) {
+            load_f4<9>(row, f);
+            float tmin = kBig;
+            int kbest = 0;
+#pragma unroll
+            for (int s = 0; s < 4; ++s) {
+                float t;
+                const float tk = tri_hit(f + 9 * s, w, t_best, t) ? t : kBig;
+                if (tk < tmin) {   // the first slot of the least t
+                    tmin = tk;
+                    kbest = s;
+                }
+            }
+            if (tmin < t_best) {
+                const float4 ids = __ldg(row + 11);   // [44:48]
+                t_best = tmin;
+                face = __float_as_int(kbest == 0 ? ids.x : kbest == 1 ? ids.y
+                                                   : kbest == 2 ? ids.z : ids.w);
+            }
+            return skip;
+        }
+        const int left = __float_as_int(k.x);
+        if constexpr (kLookahead) {
+            load_f4<3>(row, f);
+            return child_link(f, left, __float_as_int(k.w), skip, w, t_best);
+        } else {
+            load_f4<2>(row, f);
+            return box_hit(f[0], f[1], f[2], f[3], f[4], f[5], w, t_best) ? left : skip;
+        }
+    }
+};
+
+constexpr int kRowThreads = 128;   // a block of the walks
+
+// One thread a ray: the ray sorted_ray hands the thread, walked over
+// the rows of layout S.
+template <class S>
+__global__ void __launch_bounds__(kRowThreads)
+layout_walk_kernel(const float4* __restrict__ rows, const float* __restrict__ ro,
+                   const float* __restrict__ rd, const float* __restrict__ t0,
+                   const bool* __restrict__ active, float* __restrict__ t_out,
+                   int* __restrict__ face_out, long long r) {
+    const long long slot = (long long)blockIdx.x * kRowThreads + threadIdx.x;
+    const long long i = sorted_ray<kRowThreads>(slot, rd, active, r, true);
+    const bool in = i < r;
+    float t_best = in ? t0[i] : 0.0f;
+    int face = -1;
+    int node = (in && active[i]) ? 0 : -1;
+    WalkRay w{};
+    if (node >= 0) w = load_walk_ray(ro, rd, i);
+    while (node >= 0) node = S::step(rows + (long long)S::kF4 * node, w, t_best, face);
+    if (in) {
+        t_out[i] = t_best;
+        face_out[i] = face;
+    }
+}
+
+template <class S>
+cudaError_t launch_row_walk(const float* rows, const float* ro, const float* rd,
+                            const float* t0, const bool* active, float* t_out,
+                            int* face_out, long long r, cudaStream_t s) {
+    const unsigned grid = (unsigned)((r + kRowThreads - 1) / kRowThreads);
+    layout_walk_kernel<S><<<grid, kRowThreads, 0, s>>>(reinterpret_cast<const float4*>(rows),
+                                                       ro, rd, t0, active, t_out, face_out,
+                                                       r);
+    return cudaGetLastError();
+}
+
 template <class S>
 int launch(const float* rows, const float* ro, const float* rd, const float* t0,
            const bool* active, float* t_out, int* face_out, long long r, void* stream) {
     if (r == 0) return 0;
-    return (int)rk::lay::launch_row_walk<S>(rows, ro, rd, t0, active, t_out, face_out, r,
-                                            (cudaStream_t)stream);
+    return (int)launch_row_walk<S>(rows, ro, rd, t0, active, t_out, face_out, r,
+                                   (cudaStream_t)stream);
 }
 
 }  // namespace pr19
@@ -78,13 +214,14 @@ int launch(const float* rows, const float* ro, const float* rd, const float* t0,
         return pr19::launch<S>(rows, ro, rd, t0, active, t_out, face_out, r, stream);      \
     }                                                                                      \
     extern "C" int rk_lwalk_pr19_##layout##_info(int* info) {                              \
-        return rk::walk_kernel_info(rk::lay::layout_walk_kernel<S>, rk::lay::kRowThreads,  \
-                                    info);                                                 \
+        return rk::walk_kernel_info(pr19::layout_walk_kernel<S>, pr19::kRowThreads, info); \
     }                                                                                      \
     extern "C" long long rk_lwalk_pr19_##layout##_scratch(long long n_rows) { return 0; }
 
 RK_LWALK_PR19(cherry, pr19::Cherry)
-RK_LWALK_PR19(quad, rk::lay::Quad<false>)
+RK_LWALK_PR19(lookahead, pr19::Lookahead)
+RK_LWALK_PR19(quad, pr19::Quad<false>)
+RK_LWALK_PR19(quad_la, pr19::Quad<true>)
 
 namespace rk {
 namespace lay {
@@ -299,7 +436,7 @@ cudaError_t launch_design(const float* rows, long long n_rows, const float* ro,
         const float4* inner = reinterpret_cast<const float4*>(scratch);
         const unsigned grid = (unsigned)((r + D::kThreads - 1) / D::kThreads);
         row_step_kernel<C, D><<<grid, D::kThreads, 0, s>>>(
-            rows, inner, inner + kInnerF4 * n_rows, ro, rd, t0, active, t_out, face_out, r);
+            rows, inner, inner + C::kInner * n_rows, ro, rd, t0, active, t_out, face_out, r);
         return cudaGetLastError();
     }
 }
@@ -337,27 +474,51 @@ int design_info(int* info) {
     RK_LWALK_ONE(name, cherry, rk::lay::CherryCols, __VA_ARGS__)                           \
     RK_LWALK_ONE(name, quad, rk::lay::QuadCols, __VA_ARGS__)
 
-RK_LWALK_DESIGN(rolled, 128, 1, 0, 0)
-RK_LWALK_DESIGN(unrolled, 128, 1, 1, 0)
-RK_LWALK_DESIGN(code_all, 128, 1, 2, 0)
-RK_LWALK_DESIGN(code_pairs, 128, 1, 3, 0)
-RK_LWALK_DESIGN(code_all_t64, 64, 1, 2, 0)
-RK_LWALK_DESIGN(code_all_t256, 256, 1, 2, 0)
-RK_LWALK_DESIGN(code_all_mb12, 128, 12, 2, 0)
-RK_LWALK_DESIGN(code_pairs_mb12, 128, 12, 3, 0)
-RK_LWALK_DESIGN(code_pairs_mb16, 128, 16, 3, 0)
-RK_LWALK_DESIGN(rolled_mb12, 128, 12, 0, 0)
-RK_LWALK_DESIGN(rolled_t256, 256, 1, 0, 0)
-RK_LWALK_DESIGN(all_slots, 128, 1, 0, 1)
-RK_LWALK_DESIGN(code_all_slots, 128, 1, 2, 1)
-RK_LWALK_DESIGN(step, 128, 1, 4, 0)
-RK_LWALK_DESIGN(step_t64, 64, 1, 4, 0)
-RK_LWALK_DESIGN(step_t256, 256, 1, 4, 0)
-RK_LWALK_DESIGN(step_mb12, 128, 12, 4, 0)
-RK_LWALK_DESIGN(step_mb16, 128, 16, 4, 0)
-RK_LWALK_DESIGN(step_all_slots, 128, 1, 4, 1)
-RK_LWALK_DESIGN(coop, 128, 1, 5, 0)
-RK_LWALK_DESIGN(coop_mb12, 128, 12, 5, 0)
-RK_LWALK_DESIGN(coop_mb10, 128, 10, 5, 0)
-RK_LWALK_DESIGN(step_early, 128, 1, 6, 0)
-RK_LWALK_DESIGN(step_early_mb12, 128, 12, 6, 0)
+#define RK_LWALK_LA_DESIGN(name, ...)                                                      \
+    RK_LWALK_ONE(name, lookahead, rk::lay::LookaheadCols, __VA_ARGS__)                     \
+    RK_LWALK_ONE(name, quad_la, rk::lay::QuadLookaheadCols, __VA_ARGS__)
+
+RK_LWALK_DESIGN(rolled, 128, 1, 0, 0, 0)
+RK_LWALK_DESIGN(unrolled, 128, 1, 1, 0, 0)
+RK_LWALK_DESIGN(code_all, 128, 1, 2, 0, 0)
+RK_LWALK_DESIGN(code_pairs, 128, 1, 3, 0, 0)
+RK_LWALK_DESIGN(code_all_t64, 64, 1, 2, 0, 0)
+RK_LWALK_DESIGN(code_all_t256, 256, 1, 2, 0, 0)
+RK_LWALK_DESIGN(code_all_mb12, 128, 12, 2, 0, 0)
+RK_LWALK_DESIGN(code_pairs_mb12, 128, 12, 3, 0, 0)
+RK_LWALK_DESIGN(code_pairs_mb16, 128, 16, 3, 0, 0)
+RK_LWALK_DESIGN(rolled_mb12, 128, 12, 0, 0, 0)
+RK_LWALK_DESIGN(rolled_t256, 256, 1, 0, 0, 0)
+RK_LWALK_DESIGN(all_slots, 128, 1, 0, 1, 0)
+RK_LWALK_DESIGN(code_all_slots, 128, 1, 2, 1, 0)
+RK_LWALK_DESIGN(step, 128, 1, 4, 0, 0)
+RK_LWALK_DESIGN(step_t64, 64, 1, 4, 0, 0)
+RK_LWALK_DESIGN(step_t256, 256, 1, 4, 0, 0)
+RK_LWALK_DESIGN(step_mb12, 128, 12, 4, 0, 0)
+RK_LWALK_DESIGN(step_mb16, 128, 16, 4, 0, 0)
+RK_LWALK_DESIGN(step_all_slots, 128, 1, 4, 1, 0)
+RK_LWALK_DESIGN(coop, 128, 1, 5, 0, 0)
+RK_LWALK_DESIGN(coop_mb12, 128, 12, 5, 0, 0)
+RK_LWALK_DESIGN(coop_mb10, 128, 10, 5, 0, 0)
+RK_LWALK_DESIGN(step_early, 128, 1, 6, 0, 0)
+RK_LWALK_DESIGN(step_early_mb12, 128, 12, 6, 0, 0)
+
+// The lookahead walks' designs (one slot a step; kLoad 6 with
+// mt_hit_early; kBoth 1 loads a lookahead row's two sectors at once, 2
+// takes sector B as a step of its own).
+RK_LWALK_LA_DESIGN(la, 128, 1, 4, 0, 0)
+RK_LWALK_LA_DESIGN(la_mb12, 128, 12, 4, 0, 0)
+RK_LWALK_LA_DESIGN(la_mb16, 128, 16, 4, 0, 0)
+RK_LWALK_LA_DESIGN(la_t256_mb6, 256, 6, 4, 0, 0)
+RK_LWALK_LA_DESIGN(la_both, 128, 1, 4, 0, 1)
+RK_LWALK_LA_DESIGN(la_both_mb12, 128, 12, 4, 0, 1)
+RK_LWALK_LA_DESIGN(la_early, 128, 1, 6, 0, 0)
+RK_LWALK_LA_DESIGN(la_early_mb12, 128, 12, 6, 0, 0)
+RK_LWALK_LA_DESIGN(la_both_early_mb12, 128, 12, 6, 0, 1)
+RK_LWALK_LA_DESIGN(la_sectors, 128, 1, 4, 0, 2)
+RK_LWALK_LA_DESIGN(la_sectors_mb12, 128, 12, 4, 0, 2)
+RK_LWALK_LA_DESIGN(la_sectors_mb16, 128, 16, 4, 0, 2)
+RK_LWALK_LA_DESIGN(la_sectors_early_mb12, 128, 12, 6, 0, 2)
+RK_LWALK_LA_DESIGN(la_sectors_mb14, 128, 14, 4, 0, 2)
+RK_LWALK_LA_DESIGN(la_sectors_t256_mb6, 256, 6, 4, 0, 2)
+RK_LWALK_LA_DESIGN(la_sectors_t64_mb24, 64, 24, 4, 0, 2)

@@ -10,12 +10,12 @@ into a scratch this wrapper allocates, then walks one ray a thread over
 it (its plain models: `accel.packed.split_table`, `octant_order`).
 `packed_walk2`, `packed_walk_la`, `packed_walk4` and `packed_walk4_la`
 launch `csrc/packed_layouts.cu`'s walk of the cherry, lookahead, quad
-and lookahead-quad tables: the cherry and quad kernels first build the
-split table of `csrc/packed_layouts.cuh` into a scratch this wrapper
-allocates, then walk one ray a thread over it (its plain models:
-`accel.packed.slot_table`, `traverse_slots`); the lookahead kernels walk
-the rows themselves. On CPU tensors each runs its plain torch version
-(`accel.packed`), which its kernel equals bitwise on the card.
+and lookahead-quad tables: each kernel first builds its table's split
+table of `csrc/packed_layouts.cuh` into a scratch this wrapper
+allocates, then walks one ray a thread over it (its plain models:
+`accel.packed.slot_table`, `traverse_slots`). On CPU tensors each runs
+its plain torch version (`accel.packed`), which its kernel equals
+bitwise on the card.
 
 `WALKS` holds each layout's wrapper and its kernel's code in
 `csrc/packed_layouts.cu`, by `accel.packed.LAYOUTS`' names;
@@ -79,8 +79,8 @@ def packed_walk(pbvh: PackedLBVH, ro, rd, t0, active,
 
 def _layout_walk(name, pbvh, ro, rd, t0, active):
     """The launch of layout `name`'s kernel (with the scratch of its
-    split table for the cherry and quad walks), or its plain walk on CPU
-    tensors. An empty wavefront launches nothing."""
+    split table), or its plain walk on CPU tensors. An empty wavefront
+    launches nothing."""
     _check_layout(pbvh, name)
     wrapper, code = WALKS[name]
     rows = pbvh.rows
@@ -98,40 +98,41 @@ def _layout_walk(name, pbvh, ro, rd, t0, active):
     scratch = _scratch(code, rows)
     launch("rk_layout_walk", code, rows.data_ptr(), rows.shape[0],
            ro.data_ptr(), rd.data_ptr(), t0.data_ptr(), active.data_ptr(),
-           t_out.data_ptr(), f_out.data_ptr(), r,
-           None if scratch is None else scratch.data_ptr())
+           t_out.data_ptr(), f_out.data_ptr(), r, scratch.data_ptr())
     wrapper.launches += 1
     return t_out, f_out
 
 
 def _scratch(code, rows, fill=None):
     """The scratch of layout `code`'s kernel for the table `rows` (float4
-    rows, the split table of the cherry and quad walks), or None where it
-    takes none; filled with `fill` where given."""
+    rows, its split table), filled with `fill` where given."""
     n = kernel_lib().rk_layout_walk_scratch(code, rows.shape[0])
-    if not n:
-        return None
     if fill is None:
         return torch.empty((n, 4), dtype=torch.float32, device=rows.device)
     return torch.full((n, 4), fill, dtype=torch.float32, device=rows.device)
 
 
 def layout_table(pbvh, fill=None):
-    """The split table the cherry or quad kernel builds from a table on
-    the card before its walk (`accel.packed.slot_table`'s (inner, leaves)
-    on the card), built alone: the walk's first launch, for its tests and
+    """The split table a layout's kernel builds from a table on the card
+    before its walk (`accel.packed.slot_table`'s (inner, leaves) on the
+    card), built alone: the walk's first launch, for its tests and
     timing. `fill`: the scratch's value before the build (the rows of
-    the other kind stay as they were); counts no launch of the walk."""
+    the other kind stay as they were); counts no launch of the walk.
+    The one-triangle table's split table is packed_walk's: TypeError."""
     name = layout_of(pbvh)
     if name not in packed.SLOT_LAYOUTS:
-        raise TypeError(f"the {name} table's walk builds no split table")
+        raise TypeError(f"layout_table builds the split tables of "
+                        f"{tuple(packed.SLOT_LAYOUTS)}, not the {name} "
+                        f"table's")
     rows = pbvh.rows
     scratch = _scratch(WALKS[name][1], rows, fill)
     launch("rk_layout_build", WALKS[name][1], rows.data_ptr(), rows.shape[0],
            scratch.data_ptr())
     n = rows.shape[0]
-    return (scratch[:2 * n].view(n, 8),
-            scratch[2 * n:].view(n, 12 * packed.SLOT_LAYOUTS[name].slots))
+    sl = packed.SLOT_LAYOUTS[name]
+    width = 8 if sl.right is None else 16   # an internal row's floats
+    return (scratch[:width // 4 * n].view(n, width),
+            scratch[width // 4 * n:].view(n, packed.SLOT * sl.slots))
 
 
 def packed_walk2(pbvh, ro, rd, t0, active):

@@ -3,9 +3,20 @@ that `cuobjdump -sass` prints for a built library (on the machine with
 the CUDA toolkit)."""
 from __future__ import annotations
 
+import functools
 import re
 import shutil
 import subprocess
+
+
+@functools.lru_cache(maxsize=None)
+def _sass(lib_path: str) -> str:
+    """`cuobjdump -sass` of a built library, read once a process (each
+    library is built once a process; several callers read the
+    kernels')."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    return subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                          text=True, check=True).stdout
 
 
 def loop_sizes(lib_path: str, loops: dict, longest: bool = False) -> dict:
@@ -17,11 +28,8 @@ def loop_sizes(lib_path: str, loops: dict, longest: bool = False) -> dict:
     (its instruction count, its units): two units a pass where a thread
     tests two rays or walks two rays, more where the compiler unrolled
     the loop. Returns label -> (instructions, units)."""
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    sass = subprocess.run([tool, "-sass", lib_path], capture_output=True,
-                          text=True, check=True).stdout
     funcs, body = {}, None
-    for line in sass.splitlines():
+    for line in _sass(lib_path).splitlines():
         m = re.match(r"\s*Function : (\S+)", line)
         if m:
             name = next((k for k, (pat, _, _) in loops.items()

@@ -66,21 +66,27 @@ constants set (`_set`), each as a library of its own:
     octant order of the design's blocks and the stack depths the walk
     reaches (`wide_schedule`: the plain walk's `steps` and `depths`
     records);
-  * layouts: the cherry and quad walks (`rk_layout_walk`, layouts 0 and
-    2), the package's kernels beside the designs of
+  * layouts: the walks of the packed table's other layouts
+    (`rk_layout_walk`, layouts 0-3: cherry, lookahead, quad, quad_la),
+    the package's kernels beside the designs of
     `csrc/packed_layouts_designs.cu` (LAYOUT_DESIGNS: "pr19", PR 19's
-    kernels over the tables' own rows, and the `rk::lay::Design`s over
-    the split tables of `csrc/packed_layouts.cuh`; that file says how
-    each walks; the package writes out LAYOUT_KEPT), built as one
-    library, each design both layouts. Its wavefronts: the four of the
-    bench scene's 1024^2 render through the bvh finder and the four of
-    bvh_large's, each walked over the cherry and the quad table of the
-    same LBVH (`*_by_path`: "bvh_cherry", "bvh_quad", "bvh_large_cherry",
-    "bvh_large_quad"). Each line also gives, per layout, the design's
+    kernels over the tables' own rows, all four layouts, and the
+    `rk::lay::Design`s over the split tables of
+    `csrc/packed_layouts.cuh`, each the cherry and quad layouts or the
+    two lookahead ones (LAYOUT_WALKS); that file says how each walks; the
+    package writes out `layout_kept()`), built as one library. Its
+    wavefronts: the four of the bench scene's 1024^2 render through the
+    bvh finder and the four of bvh_large's, each walked over the four
+    tables of the same LBVH (`*_by_path`: "bvh_cherry", "bvh_lookahead",
+    "bvh_quad", "bvh_quad_la" and the same of "bvh_large"); a design
+    runs and is timed on its layouts' wavefronts only (its
+    "ms_per_wavefront" null on the others, its "ms_per_frame" summed
+    over its own). Each line also gives, per layout, the design's
     registers, local bytes and resident warps an SM, the instructions
     of its loops that hold a 16-byte load (the shortest, "sass_loop",
     and the longest, "sass_pass"), and per path the bytes a visit reads
-    (`layout_bytes`, on the plain walk's record).
+    (`layout_bytes`, on the plain walk's record and the plain model's
+    right-box tests).
 With `--against`, the kernels of another checkout (DIR/raypt_torch/csrc)
 join as variant "against" (a `compact.cu` without `chunk_count_kernel`,
 or whose uncompaction is `for_each_destination`'s, is called with the
@@ -115,11 +121,13 @@ import shutil
 import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
+from functools import partial
 
 import torch
 
 from .._native_build import BUILD_DIR, build_library
-from ..accel.packed import (WARP, PackedLBVH, safe_reciprocal, split_start,
+from ..accel.packed import (WARP, Packed2LBVH, Packed4LBVH, PackedLALBVH,
+                            PackedLBVH, safe_reciprocal, split_start,
                             split_steps, split_table)
 from ._build import CSRC_DIR, KERNEL_HEADERS, NVCC_FLAGS, _nvcc, kernel_lib
 
@@ -265,28 +273,53 @@ def _wide_designs() -> dict:
 
 WIDE_DESIGNS = _wide_designs()
 KEPT = "coop_mb10"   # the design csrc/wide_walk.cu writes out
-# the layouts swept (rk_layout_walk's codes) and each one's slots a leaf
-# row
-LAYOUT_CODES = {0: "cherry", 2: "quad"}
+# the layouts swept, by rk_layout_walk's codes
+LAYOUT_CODES = {0: "cherry", 1: "lookahead", 2: "quad", 3: "quad_la"}
+# the layouts each kind of design line of csrc/packed_layouts_designs.cu
+# walks: RK_LWALK_DESIGN the plain internal rows', RK_LWALK_LA_DESIGN the
+# lookahead rows'
+DESIGN_LINES = {"RK_LWALK_DESIGN": (0, 2), "RK_LWALK_LA_DESIGN": (1, 3)}
 
 
-def _layout_designs() -> dict:
-    """The cherry and quad walks' designs: name -> its rk::lay::Design
-    (threads a block, launch bound's blocks an SM, slot loads, every slot
-    tested), read from the RK_LWALK_DESIGN lines of
-    csrc/packed_layouts_designs.cu (entry points rk_lwalk_<name>_cherry
-    and _quad); None for pr19, PR 19's kernels over the rows."""
-    made = re.findall(r"^RK_LWALK_DESIGN\((\w+), ([-\d, ]+)\)$",
-                      _read(CSRC_DIR, "packed_layouts_designs.cu"), re.M)
-    return {"pr19": None,
-            **{n: tuple(int(x) for x in v.split(", ")) for n, v in made}}
+def _layout_designs() -> tuple:
+    """The layout walks' designs: (name -> its rk::lay::Design (threads a
+    block, launch bound's blocks an SM, slot loads, every slot tested,
+    how a lookahead row's sectors are read), name -> the codes of the
+    layouts it walks), read from the design lines of
+    csrc/packed_layouts_designs.cu (entry points rk_lwalk_<name>_<layout>);
+    None for pr19, PR 19's kernels over the rows, all four layouts."""
+    src = _read(CSRC_DIR, "packed_layouts_designs.cu")
+    designs, walks = {"pr19": None}, {"pr19": tuple(LAYOUT_CODES)}
+    for line, codes in DESIGN_LINES.items():
+        for n, v in re.findall(rf"^{line}\((\w+), ([-\d, ]+)\)$", src, re.M):
+            designs[n] = tuple(int(x) for x in v.split(", "))
+            walks[n] = codes
+    return designs, walks
 
 
-def layout_kept() -> tuple:
-    """The design csrc/packed_layouts.cu writes out (its `Kept`)."""
-    m = re.search(r"using Kept = rk::lay::Design<([-\d, ]+)>;",
-                  _read(CSRC_DIR, "packed_layouts.cu"))
-    return tuple(int(x) for x in m.group(1).split(", "))
+def layout_kept() -> dict:
+    """The designs csrc/packed_layouts.cu writes out, by layout: its
+    `Kept` (cherry, quad) and `KeptLookahead` (lookahead, quad_la)."""
+    src = _read(CSRC_DIR, "packed_layouts.cu")
+
+    def kept(name):
+        m = re.search(rf"using {name} = rk::lay::Design<([-\d, ]+)>;", src)
+        return tuple(int(x) for x in m.group(1).split(", "))
+    plain, ahead = kept("Kept"), kept("KeptLookahead")
+    return {LAYOUT_CODES[c]: ahead if c in DESIGN_LINES["RK_LWALK_LA_DESIGN"]
+            else plain for c in LAYOUT_CODES}
+
+
+def layout_cols() -> dict:
+    """Each layout's rk::lay::Cols arguments (7 ints, the right link -1
+    where its internal rows are plain), read from
+    csrc/packed_layouts.cuh."""
+    names = {"Cherry": "cherry", "Lookahead": "lookahead", "Quad": "quad",
+             "QuadLookahead": "quad_la"}
+    made = re.findall(r"^using (\w+)Cols = Cols<([-\d, ]+)>;$",
+                      _read(CSRC_DIR, "packed_layouts.cuh"), re.M)
+    return {names[n]: (tuple(int(x) for x in v.split(", ")) + (-1,))[:7]
+            for n, v in made}
 
 
 def design_pattern(design) -> str:
@@ -377,7 +410,7 @@ def _read(*parts) -> str:
         return f.read()
 
 
-LAYOUT_DESIGNS = _layout_designs()
+LAYOUT_DESIGNS, LAYOUT_WALKS = _layout_designs()
 
 
 def build_variants(kernels, against: str | None, designs=None) -> dict:
@@ -453,8 +486,9 @@ def packed_sig(text: str) -> str:
 def _loaded(sig: str, path: str, fn: str):
     lib = ctypes.CDLL(path)
     if sig == "layouts_design":   # layout code -> its walk, with f.scratch
-        return {code: _loaded("layouts_one", path, f"{fn}_{name}")
-                for code, name in LAYOUT_CODES.items()}
+        return {code: _loaded("layouts_one", path,
+                              f"{fn}_{LAYOUT_CODES[code]}")
+                for code in LAYOUT_WALKS[fn[len("rk_lwalk_"):]]}
     if sig == "layouts_one":
         f = getattr(lib, fn)
         f.argtypes, f.restype = SIGS["layouts_design"], ctypes.c_int
@@ -495,7 +529,8 @@ def wavefronts(kernels=tuple(SWEPT)) -> dict:
     from ..accel import lbvh
     from ..accel.ctree import build_onehot
     from ..accel.host_bvh import build_sah
-    from ..accel.packed import pack, pack_cherries, pack_quads
+    from ..accel.packed import (pack, pack_cherries, pack_lookahead,
+                                pack_quads)
     from ..accel.traverse import DENSE_CHUNK, onehot_inputs, wavefront_inputs
     from ..accel.wide import collapse
     from ..core.math3d import BIG
@@ -553,8 +588,10 @@ def wavefronts(kernels=tuple(SWEPT)) -> dict:
             if "layouts" in kernels:
                 tables = {code: packer(tree, m.positions, m.faces,
                                        m.face_valid).rows
-                          for code, packer in ((0, pack_cherries),
-                                               (2, pack_quads))}
+                          for code, packer in (
+                              (0, pack_cherries), (1, pack_lookahead),
+                              (2, pack_quads),
+                              (3, partial(pack_quads, lookahead=True)))}
         elif cfg.backend == "bvh4":
             acc = collapse(lbvh.build(m.positions, m.faces, m.face_valid),
                            m.positions, m.faces, m.face_valid)
@@ -785,8 +822,8 @@ def _call_wide(fn, rows, root, nw, o, d, t, a, scratch=False):
 
 
 def _call_layouts(fn, code, rows, o, d, t, a):
-    """The cherry or quad walk (`code`) of the package (fn takes the code)
-    or of a design (fn: code -> its walk), with the scratch it asks."""
+    """The walk of layout `code` of the package (fn takes the code) or of
+    a design (fn: code -> its walk), with the scratch it asks."""
     f, args = (fn[code], ()) if isinstance(fn, dict) else (fn, (code,))
     n = fn.scratch(code, rows.shape[0]) if args else f.scratch(rows.shape[0])
     s = torch.empty((max(n, 1), 4), dtype=torch.float32, device=t.device)
@@ -1119,67 +1156,93 @@ def wide_measures(built, lib, waves, designs=None) -> dict:
 
 
 # the bytes a visit reads: PR 19's walks over the rows, (internal, leaf)
-# by layout; the split walks an internal row's sector and 48 bytes a
-# tested slot
-ROW_WALK_BYTES = {"cherry": (64, 96), "quad": (48, 176)}
+# by layout; the split walks a 32-byte sector a box tested (a lookahead
+# row's sector B only where its left box misses, unless the design loads
+# both sectors at once, kBoth 1) and 48 bytes a tested slot
+ROW_WALK_BYTES = {"cherry": (64, 96), "lookahead": (64, 64),
+                  "quad": (48, 176), "quad_la": (64, 176)}
 SPLIT_INNER_BYTES = 32
 SLOT_BYTES = 48
+# each layout's table type, by its code
+LAYOUT_TABLES = {0: Packed2LBVH, 1: PackedLALBVH, 2: Packed4LBVH,
+                 3: partial(Packed4LBVH, lookahead=True)}
+
+
+def _path_layout(path: str) -> str:
+    """The layout of a layout wavefront's path ("bvh_quad_la" ->
+    "quad_la")."""
+    return max((n for n in LAYOUT_CODES.values() if path.endswith("_" + n)),
+               key=len)
 
 
 @torch.no_grad()
 def layout_visits(waves) -> dict:
-    """path -> [internal visits, leaf visits, filled slots, slots] summed
-    over the path's layout wavefronts, from the plain walk's `steps`
-    record (filled: the slots below a leaf row's count,
-    `accel.packed.slot_counts`)."""
-    from ..accel.packed import (SLOT_LAYOUTS, Packed2LBVH, Packed4LBVH,
-                                slot_counts, walk_layout)
+    """path -> [internal visits, leaf visits, filled slots, slots,
+    right-box tests] summed over the path's layout wavefronts, from the
+    plain walk's `steps` record (filled: the slots below a leaf row's
+    count, `accel.packed.slot_counts`) and, for a lookahead table, the
+    plain model's right-box tests (`accel.packed.traverse_slots`)."""
+    from ..accel import packed
     out = {}
     for (code, rows, o, d, t, a), path in zip(waves["layouts"],
                                               waves["layouts_path"]):
-        table = (Packed2LBVH if code == 0 else Packed4LBVH)(rows=rows)
-        count = slot_counts(table)
+        table = LAYOUT_TABLES[code](rows=rows)
+        count = packed.slot_counts(table)
         steps = []
-        walk_layout(table, o, d, t, a, steps=steps)
-        acc = out.setdefault(path, [0, 0, 0, 0])
+        packed.walk_layout(table, o, d, t, a, steps=steps)
+        acc = out.setdefault(path, [0, 0, 0, 0, 0])
         for _, nodes, leaf in steps:
             acc[0] += int((~leaf).sum())
             acc[1] += int(leaf.sum())
             acc[2] += int(count[nodes[leaf].long()].sum())
-        acc[3] = acc[1] * SLOT_LAYOUTS[LAYOUT_CODES[code]].slots
         del steps
+        acc[3] = acc[1] * packed.SLOT_LAYOUTS[LAYOUT_CODES[code]].slots
+        if packed.SLOT_LAYOUTS[LAYOUT_CODES[code]].right is not None:
+            right = []
+            packed.traverse_slots(table, o, d, t, a, right=right)
+            acc[4] += sum(right)
     return out
 
 
 def layout_bytes(design, layout: str, visits) -> float:
     """The bytes a visit of a layout design (LAYOUT_DESIGNS' value; None
     for pr19) reads, from layout_visits' counts of one path."""
-    inner, leaves, filled, slots = visits
+    inner, leaves, filled, slots, right = visits
     if design is None:
         b_i, b_l = ROW_WALK_BYTES[layout]
         read = b_i * inner + b_l * leaves
     else:
-        read = SPLIT_INNER_BYTES * inner + SLOT_BYTES * (
+        both = design[4] == 1 and layout in ("lookahead", "quad_la")
+        sectors = inner + (inner if both else right)
+        read = SPLIT_INNER_BYTES * sectors + SLOT_BYTES * (
             slots if design[3] else filled)
     return read / max(inner + leaves, 1)
 
 
-def slot_pattern(width: int, design) -> str:
+def slot_pattern(layout: str, design) -> str:
     """The pattern of the mangled name of a split layout walk
-    (rk::lay::slot_walk_kernel, or a design's row_step_kernel, of the
-    layout of `width` floats a row)."""
-    args = "".join(f"Li{v}E" for v in design)
-    return (rf"(?:slot_walk|row_step)_kernelINS0_4ColsILi{width}E\w*?"
-            rf"DesignI{args}EE")
+    (rk::lay::slot_walk_kernel, or a design's row_step_kernel) of a
+    layout (by its name in LAYOUT_CODES)."""
+    def args(v):
+        return "".join(f"Li{'n' if x < 0 else ''}{abs(x)}E" for x in v)
+    return (rf"(?:slot_walk|row_step)_kernelINS0_4ColsI"
+            rf"{args(layout_cols()[layout])}EENS0_6DesignI{args(design)}EE")
+
+
+# the mangled names of PR 19's walks (pr19::layout_walk_kernel<S>)
+PR19_PATTERNS = {"cherry": r"pr1918layout_walk_kernelINS_6CherryE",
+                 "lookahead": r"pr1918layout_walk_kernelINS_9LookaheadE",
+                 "quad": r"pr1918layout_walk_kernelINS_4QuadILb0EEE",
+                 "quad_la": r"pr1918layout_walk_kernelINS_4QuadILb1EEE"}
 
 
 def layouts_measures(built, lib, waves, designs=None) -> dict:
-    """variant -> what the cherry and quad walks' designs are measured
-    by, beside their times, each per layout: registers, local bytes and
-    resident warps an SM (rk_layout_walk_info, rk_lwalk_<name>_<layout>
-    _info), the instructions of the shortest and the longest loop that
-    holds a 16-byte load (`kernels.sass`: "sass_loop", "sass_pass"), and
-    per path the bytes a visit reads (`layout_bytes`)."""
+    """variant -> what the layout walks' designs are measured by, beside
+    their times, each per layout: registers, local bytes and resident
+    warps an SM (rk_layout_walk_info, rk_lwalk_<name>_<layout>_info), the
+    instructions of the shortest and the longest loop that holds a
+    16-byte load (`kernels.sass`: "sass_loop", "sass_pass"), and per
+    path the bytes a visit reads (`layout_bytes`)."""
     from .sass import loop_sizes
     names = [n for n in LAYOUT_DESIGNS if ("layouts", n) in built
              and (not designs or n in designs)]
@@ -1203,40 +1266,37 @@ def layouts_measures(built, lib, waves, designs=None) -> dict:
         except (OSError, subprocess.CalledProcessError) as e:
             print(f"SASS not read: {e}", flush=True)
 
-    widths = {"cherry": 32, "quad": 64}
+    kept = layout_kept()
     lib.rk_layout_walk_info.argtypes = [I32, P]
     for code, layout in LAYOUT_CODES.items():
         put("package", layout,
             lambda p, code=code: lib.rk_layout_walk_info(code, p))
-    sass(lib._name, {("package", lay): (slot_pattern(w, layout_kept()),
-                                        "LDG.E.128", 0)
-                     for lay, w in widths.items()})
+    sass(lib._name, {("package", lay): (slot_pattern(lay, d), "LDG.E.128", 0)
+                     for lay, d in kept.items()})
     if names:
         path = built[("layouts", names[0])][0]
         lib_ = ctypes.CDLL(path)
         loops = {}
         for name in names:
-            for layout in LAYOUT_CODES.values():
+            for code in LAYOUT_WALKS[name]:
+                layout = LAYOUT_CODES[code]
                 f = getattr(lib_, f"rk_lwalk_{name}_{layout}_info")
                 f.argtypes, f.restype = [P], ctypes.c_int
                 put(name, layout, f)
                 design = LAYOUT_DESIGNS[name]
-                if design is not None:
-                    loops[(name, layout)] = (slot_pattern(widths[layout],
-                                                          design),
-                                             "LDG.E.128", 0)
-        if "pr19" in names:
-            loops[("pr19", "cherry")] = (r"layout_walk_kernelIN4pr196CherryE",
-                                         "LDG.E.128", 0)
-            loops[("pr19", "quad")] = (r"layout_walk_kernelINS0_4QuadILb0EEE",
-                                       "LDG.E.128", 0)
+                loops[(name, layout)] = (
+                    PR19_PATTERNS[layout] if design is None
+                    else slot_pattern(layout, design), "LDG.E.128", 0)
         sass(path, loops)
     visits = layout_visits(waves)
     for name in ("package", *names):
-        design = layout_kept() if name == "package" else LAYOUT_DESIGNS[name]
+        walked = [LAYOUT_CODES[c] for c in LAYOUT_WALKS.get(name,
+                                                             LAYOUT_CODES)]
         out[name]["bytes_per_visit"] = {
-            p: round(layout_bytes(design, p.rsplit("_", 1)[1], v), 3)
-            for p, v in visits.items()}
+            p: round(layout_bytes(kept[_path_layout(p)] if name == "package"
+                                  else LAYOUT_DESIGNS[name],
+                                  _path_layout(p), v), 3)
+            for p, v in visits.items() if _path_layout(p) in walked}
     out["package"]["visits"] = visits
     return out
 
@@ -1278,8 +1338,11 @@ def main(argv=None) -> None:
                 ref, kernel, [w[:4] for w in waves[kernel]])
         for (k, name), (path, fn, sig) in built.items():
             if k == kernel:
-                variants[(k, name)] = (_loaded(sig, path, fn), sig,
-                                       waves[kernel])
+                f = _loaded(sig, path, fn)
+                # a layout design walks some layouts: None for the others
+                ws = [w if sig != "layouts_design" or w[0] in f else None
+                      for w in waves[kernel]]
+                variants[(k, name)] = (f, sig, ws)
         if kernel == "packed" and ("packed", "pr12") in built:
             for pre, (name, keys) in PRESORTED.items():
                 variants[(kernel, pre)] = (
@@ -1290,6 +1353,8 @@ def main(argv=None) -> None:
                         if k[1] in ("package", "against", *args.designs)}
         for (k, name), (fn, sig, ws) in variants.items():
             for w, exp in zip(ws, want):
+                if w is None:
+                    continue
                 for x, y in zip(CALLS[sig](fn, *w), exp):
                     if x.dtype == torch.float32:
                         x, y = x.view(torch.int32), y.view(torch.int32)
@@ -1303,10 +1368,12 @@ def main(argv=None) -> None:
         for _ in range(args.rounds):
             for key_, (fn, sig, ws) in fns.items():
                 times[key_].append(
-                    [_ms(lambda w=w: CALLS[sig](fn, *w)) for w in ws])
+                    [None if w is None else _ms(lambda w=w: CALLS[sig](fn, *w))
+                     for w in ws])
                 if key_ in graphed:
                     graphed[key_].append(
-                        [_graph_ms(lambda w=w: CALLS[sig](fn, *w))
+                        [None if w is None else
+                         _graph_ms(lambda w=w: CALLS[sig](fn, *w))
                          for w in ws])
     extra = {}
     if ("packed", "pr12") in built:
@@ -1315,24 +1382,31 @@ def main(argv=None) -> None:
         extra["wide"] = wide_measures(built, lib, waves, args.designs)
     if "layouts" in args.kernels:
         extra["layouts"] = layouts_measures(built, lib, waves, args.designs)
+    def frame(r, paths=None, p=None):   # a round's sum (over one path's)
+        return round(sum(x for x, q in zip(r, paths or r) if x is not None
+                         and (p is None or q == p)), 6)
+
     lines = []
     for (kernel, name), rounds in times.items():
         line = {"kernel": kernel, "variant": name, "card": card,
                 "sm_clock_mhz": clock.summary(),
-                "ms_per_frame": [round(sum(r), 6) for r in rounds],
-                "ms_per_wavefront": [round(x, 6) for x in rounds[-1]]}
+                "ms_per_frame": [frame(r) for r in rounds],
+                "ms_per_wavefront": [x if x is None else round(x, 6)
+                                     for x in rounds[-1]]}
         if (kernel, name) in graphed:
             g = graphed[(kernel, name)]
-            line["graph_ms_per_frame"] = [round(sum(r), 6) for r in g]
-            line["graph_ms_per_wavefront"] = [round(x, 6) for x in g[-1]]
+            line["graph_ms_per_frame"] = [frame(r) for r in g]
+            line["graph_ms_per_wavefront"] = [x if x is None else round(x, 6)
+                                              for x in g[-1]]
         if kernel in DESIGNED:
             paths = waves[f"{kernel}_path"]
+            walked = {q for x, q in zip(rounds[-1], paths) if x is not None}
             for key_, per in (("ms_per_frame", rounds),
                               ("graph_ms_per_frame", graphed.get(
                                   (kernel, name), []))):
                 line[key_ + "_by_path"] = {
-                    p: [round(sum(x for x, q in zip(r, paths) if q == p), 6)
-                        for r in per] for p in dict.fromkeys(paths)}
+                    p: [frame(r, paths, p) for r in per]
+                    for p in dict.fromkeys(paths) if p in walked}
             line.update(extra.get(kernel, {}).get(name, {}))
         lines.append(json.dumps(line))
     print("\n".join(lines), flush=True)

@@ -912,13 +912,13 @@ def test_layout_walk_bitwise(gpu_scene, bvh_waves, name):
     its plain walk, bitwise: on every bounce of the 256^2 bvh render,
     on chip_smoke.layout_tie_case (whose ties keep their winners) and on
     the meshes of 1-5 triangles; compact_walk is one launch of the same
-    kernel with the same result; another table type is a TypeError. The
-    cherry and quad kernels also against their plain models: the split
-    table they build (layout_table over a zeroed scratch) bitwise
-    slot_table's, their results traverse_slots' on the same cases."""
+    kernel with the same result; another table type is a TypeError. Each
+    kernel also against its plain models: the split table it builds
+    (layout_table over a zeroed scratch) bitwise slot_table's (the
+    lookahead tables' two sectors an internal row too), its results
+    traverse_slots' on the same cases."""
     from raypt_torch.accel import lbvh
-    from raypt_torch.accel.packed import (SLOT_LAYOUTS, slot_table,
-                                          traverse_slots,
+    from raypt_torch.accel.packed import (slot_table, traverse_slots,
                                           traverse_wavefront_compact,
                                           walk_layout)
     from raypt_torch.kernels import packed_walk as tpw
@@ -931,11 +931,9 @@ def test_layout_walk_bitwise(gpu_scene, bvh_waves, name):
                         m.positions, m.faces, m.face_valid)
     wrapper = getattr(tpw, name)
     assert tpw.wrapper_of(table) is wrapper
-    split = table.layout in SLOT_LAYOUTS
-    if split:
-        for got, want in zip(tpw.layout_table(table, fill=0.0),
-                             slot_table(table)):
-            assert _bits_equal(got, want)
+    for got, want in zip(tpw.layout_table(table, fill=0.0),
+                         slot_table(table)):
+        assert _bits_equal(got, want)
     for wave in waves:
         args = (table, *wavefront_inputs(scene, *wave, 1)[:4])
         before = wrapper.launches
@@ -943,9 +941,8 @@ def test_layout_walk_bitwise(gpu_scene, bvh_waves, name):
         assert wrapper.launches == before + 1
         pt, pf = walk_layout(*args)
         assert _bits_equal(kt, pt) and torch.equal(kf, pf)
-        if split:
-            mt, mf = traverse_slots(*args)
-            assert _bits_equal(kt, mt) and torch.equal(kf, mf)
+        mt, mf = traverse_slots(*args)
+        assert _bits_equal(kt, mt) and torch.equal(kf, mf)
         ct, cf = tpw.compact_walk(*args)
         assert wrapper.launches == before + 2
         assert _bits_equal(ct, kt) and torch.equal(cf, kf)
@@ -960,17 +957,15 @@ def test_layout_walk_bitwise(gpu_scene, bvh_waves, name):
     pt, pf = walk_layout(tie, *rays)
     assert _bits_equal(kt, pt) and torch.equal(kf, pf)
     assert check_ties(case, kf, name) > 0
-    if split:
-        mt, mf = traverse_slots(tie, *rays)
-        assert _bits_equal(kt, mt) and torch.equal(kf, mf)
+    mt, mf = traverse_slots(tie, *rays)
+    assert _bits_equal(kt, mt) and torch.equal(kf, mf)
     for n, bvh, pos, faces, valid, *rays in small_meshes("cuda"):
         small = pack_layout(cfg, bvh, pos, faces, valid)
         kt, kf = wrapper(small, *rays)
         pt, pf = walk_layout(small, *rays)
         assert _bits_equal(kt, pt) and torch.equal(kf, pf), n
-        if split:
-            mt, mf = traverse_slots(small, *rays)
-            assert _bits_equal(kt, mt) and torch.equal(kf, mf), n
+        mt, mf = traverse_slots(small, *rays)
+        assert _bits_equal(kt, mt) and torch.equal(kf, mf), n
     with pytest.raises(TypeError):
         wrapper(pb, *args[1:])
 

@@ -316,10 +316,14 @@ def test_small_meshes_split(index):
 
 def test_layout_designs_match_the_sweep():
     """The sweep's layout designs (LAYOUT_DESIGNS, read from the
-    RK_LWALK_DESIGN lines of csrc/packed_layouts_designs.cu) have one
-    line each with every rk::lay::Design field; pr19 is PR 19's two
-    kernels; the design the package writes out is one of them; the
-    header the sources include is built with them."""
+    RK_LWALK_DESIGN lines, the cherry and quad walks', and the
+    RK_LWALK_LA_DESIGN lines, the lookahead walks', of
+    csrc/packed_layouts_designs.cu) have one line each with every
+    rk::lay::Design field, and walk their lines' layouts (LAYOUT_WALKS);
+    pr19 is PR 19's four kernels; the design the package writes out for
+    each layout is one of that layout's designs, one slot a step; each
+    layout's Cols are the plain model's columns; the header the sources
+    include is built with them."""
     import os
     import re
 
@@ -327,12 +331,30 @@ def test_layout_designs_match_the_sweep():
     from raypt_torch.kernels._build import CSRC_DIR, KERNEL_HEADERS
     src = sweep._read(CSRC_DIR, "packed_layouts_designs.cu")
     made = re.findall(r"^RK_LWALK_DESIGN\((\w+),", src, re.M)
-    assert len(made) == len(set(made)) == len(sweep.LAYOUT_DESIGNS) - 1
-    assert all(len(sweep.LAYOUT_DESIGNS[n]) == 4 for n in made)
+    made_la = re.findall(r"^RK_LWALK_LA_DESIGN\((\w+),", src, re.M)
+    names = made + made_la
+    assert len(names) == len(set(names)) == len(sweep.LAYOUT_DESIGNS) - 1
+    assert made_la, "the lookahead walks' designs"
+    assert all(len(sweep.LAYOUT_DESIGNS[n]) == 5 for n in names)
+    assert all(sweep.LAYOUT_WALKS[n] == (0, 2) for n in made)
+    assert all(sweep.LAYOUT_WALKS[n] == (1, 3) for n in made_la)
     assert sweep.LAYOUT_DESIGNS["pr19"] is None
+    assert sweep.LAYOUT_WALKS["pr19"] == (0, 1, 2, 3)
     for layout in sweep.LAYOUT_CODES.values():
         assert f"RK_LWALK_PR19({layout}," in src
-    assert sweep.layout_kept() in sweep.LAYOUT_DESIGNS.values()
-    assert sweep.layout_kept()[2] == 4   # one slot a step: slot_table's
+        assert layout in sweep.PR19_PATTERNS
+    kept = sweep.layout_kept()
+    assert set(kept) == set(sweep.LAYOUT_CODES.values())
+    for code, layout in sweep.LAYOUT_CODES.items():
+        assert any(kept[layout] == sweep.LAYOUT_DESIGNS[n]
+                   and code in sweep.LAYOUT_WALKS[n] for n in names), layout
+        assert kept[layout][2] == 4   # one slot a step: slot_table's
+        width, slots, face0, flag, left, skip, right = \
+            sweep.layout_cols()[layout]
+        lay, sl = tp.LAYOUTS[layout], tp.SLOT_LAYOUTS[layout]
+        assert (width, slots, face0, flag, left, skip) == (
+            lay.width, sl.slots, lay.faces.start, lay.leaf_col, sl.left,
+            sl.skip)
+        assert right == (-1 if sl.right is None else sl.right)
     assert "packed_layouts.cuh" in KERNEL_HEADERS
     assert os.path.exists(os.path.join(CSRC_DIR, "packed_layouts.cuh"))
