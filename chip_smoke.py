@@ -15,8 +15,9 @@ bounces, roulette) through:
                closest_dense, every ray against every triangle
   unfused      the onehot finder's non-fused branch at leaf 128
                (find_closest_onehot(..., use_pallas_intersect=False)):
-               topwalk_cm, then tile unions, ascending-id worklists and
-               the reference worklist intersection in torch
+               topwalk_cm, then tile unions and ascending-id worklists
+               in torch, intersect_worklist (the worklist test of the
+               JAX package's XLA intersect_worklist_jnp, with its rules)
   auto         RenderConfig's default backend, which resolves to "dense"
                for this mesh; the port serves "dense" with the pallas
                path's finder: closest_dense
@@ -63,8 +64,12 @@ Phases:
      of one repeated ray for the union walk, the leaf-16 accel (1,026
      clusters: 40 mask words, 33 union words) on 65,536 rays, the
      cluster finder at cap 8, where tiles overflow into its fallback
-     (whose worklist intersection is also timed, with its peak memory,
-     at 2^22 and at STEP_PAIRS pairs a step), a tile of rays that hit
+     (intersect_worklist's kernel, held on the overflowed tiles against
+     its plain version, which is also timed, with its peak memory, at
+     2^22 and at STEP_PAIRS pairs a step), intersect_worklist on
+     worklist_edges' cases (-1 gaps, a repeated id, an all -1 and an
+     all-dead tile, a coincident triangle in a later lane, a tie across
+     two slots) on 65,536 rays of the unfused path, a tile of rays that hit
      nothing, duplicated triangles tying within a triangle chunk and
      across chunks, tables of one chunk exactly and of a size that
      needs padding, and zero maps among the real triangles (tables of
@@ -113,7 +118,7 @@ Phases:
      division over all 2^32 bit patterns (inv_det_sweep). The SM clock is
      sampled (nvidia-smi) while each path's kernels are timed; phase 2
      reads the instructions a triangle test takes in each intersection
-     kernel's inner loop (the union template's three instances, the
+     kernel's inner loop (the union template's four instances, the
      expansion, closest_dense), and a walk step in the mask-only,
      union, mask-and-union and packed walks', from cuobjdump -sass of the
      built library, and the packed walk's registers and resident warps
@@ -135,10 +140,21 @@ Phases:
      against a float64 test of both faces; the non-fused finder at cap
      2, whose
      tiles overflow into residual rounds, against its kernel-free and
-     default-cap results
+     default-cap results; then options_phase: the onehot finder's
+     options (sort_rays "alive", "mask", True; segment_sort 2048 and a
+     non-divisor; tile_b 128 and 512; walk_tile 512 and 128;
+     overflow_fallback off on the non-fused branch) on the dense-union
+     path's bounce-1 wavefront, each bitwise the result without it,
+     with its launches and its forward ms beside the default's, and the
+     dense-union forward frame with it (bitwise the default frame, its
+     median seconds beside the default's); the
+     compaction at one group of all 2^20 lanes against its plain
+     version; and find_closest_cluster(use_pallas=False) through the
+     kernel against PLAIN, timed beside use_pallas=True
   6. the bench loss (mean image) forward and backward w.r.t. mesh
      positions and material albedo on every path but auto (the pallas
-     path's finder) and unfused (forward only there), on the bvh path
+     path's finder) and unfused (forward only there, through
+     intersect_worklist's kernel), on the bvh path
      with the grads through the kernel and plain finders bitwise equal:
      finite grads, nonzero albedo grad, median
      seconds of 3 runs after a warm-up, and one fwd+bwd step traced with
@@ -537,6 +553,12 @@ KERNELS = {   # name -> (paths that launch it, source, TPU kernel it replaces)
                                     "raypt/kernels/cluster_pallas.py:486"),
     "cluster_intersect_grouped": ((), "raypt_torch/csrc/cluster_intersect.cu",
                                   "raypt/kernels/cluster_pallas.py:183"),
+    # intersect_worklist_jnp, an XLA function in the JAX package: the
+    # non-fused path's worklist test (also the cluster finder's overflow
+    # fallback and use_pallas=False, phase 3 and 5)
+    "intersect_worklist": (("unfused",),
+                           "raypt_torch/csrc/cluster_intersect.cu",
+                           "raypt/accel/clusters.py:318"),
     # an XLA while_loop in the JAX package, not a Pallas kernel
     "packed_walk": (("bvh",), "raypt_torch/csrc/packed_walk.cu",
                     "raypt/accel/packed.py:85"),
@@ -1378,12 +1400,23 @@ def compare_pallas(stats, label, scene, mats, chunk, ro, rd, timed,
     return kt, kf
 
 
-def compare_unfused(stats, label, scene, accel, ro, rd, active, timed):
-    """The non-fused path's mask-only walk on one wavefront, kernel
-    against plain version, word-major and transposed (the (R, words)
-    form the finder takes). Returns the kernel's (words, R) mask."""
+def compare_unfused(stats, label, scene, accel, ro, rd, active, timed,
+                    worklist=True):
+    """The non-fused path's stages on one wavefront, kernels against
+    plain versions: the mask-only walk, word-major and transposed (the
+    (R, words) form the finder takes), and, with `worklist`, the
+    worklist intersection of the first WORKLIST_CAP clusters of each
+    tile's union (the finder's first round; its plain version timed once,
+    by the run checked, where timed). Returns the kernel's (words, R)
+    mask, and with `worklist` the intersection's (worklist, rows, o, d,
+    seed)."""
+    import torch
+    from raypt_torch.accel.clusters import (WORKLIST_CAP, tile_union_counts,
+                                            worklist_slice)
     from raypt_torch.accel.ctree import walk_topwalk
     from raypt_torch.accel.traverse import DENSE_CHUNK, wavefront_inputs
+    from raypt_torch.core.math3d import BIG
+    from raypt_torch.kernels import cluster_pallas as dn
     from raypt_torch.kernels import onehot_walk as wk
 
     o, d, t, a, _, _ = wavefront_inputs(scene, ro, rd, active, DENSE_CHUNK)
@@ -1393,6 +1426,34 @@ def compare_unfused(stats, label, scene, accel, ro, rd, active, timed):
     stats.check("topwalk_cm", f"{label} mask", km, wk.topwalk_cm_plain(*wargs))
     stats.check("topwalk_cm", f"{label} (R, words) mask", wk.topwalk(*wargs),
                 walk_topwalk(*wargs))
+    if worklist:
+        union, counts = tile_union_counts(km.T.contiguous(), dn.TILE)
+        wl = worklist_slice(union, accel.num_clusters, WORKLIST_CAP)
+        seed = torch.where(a, t, torch.full_like(t, -BIG))
+        rows = accel.clusters.tri_rows
+        iargs = (wl, rows, o, d, seed)
+        kt, kf = dn.intersect_worklist(*iargs)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        pt, pf = dn.intersect_worklist_plain(*iargs)
+        end.record()
+        torch.cuda.synchronize()
+        stats.check("intersect_worklist", f"{label} t", kt, pt)
+        stats.check("intersect_worklist", f"{label} face", kf, pf)
+        if timed:
+            n = counts.clamp(max=WORKLIST_CAP)
+            tests = live_tests(a, n, dn.TILE)
+            stats.time("intersect_worklist", label, dn.intersect_worklist,
+                       dn.intersect_worklist_plain, iargs,
+                       nbytes(wl, rows, o, d, seed, kt, kf),
+                       MT_OPS * rows.shape[1] * tests,
+                       plain_ms=start.elapsed_time(end))
+            every = dn.TILE * int(n.sum())
+            log(f"  {label:9s} worklist clusters per tile "
+                f"{float(n.float().mean()):.2f}, max {int(n.max())} of "
+                f"{WORKLIST_CAP} slots; live ray-cluster tests {tests} "
+                f"({tests / max(every, 1):.4f} of all)")
     if timed:
         # what the function needs: the table once, a live ray's origin,
         # direction and t, every ray's flag and mask column
@@ -1410,7 +1471,219 @@ def compare_unfused(stats, label, scene, accel, ro, rd, active, timed):
                                                             0.0) + ms
         log(f"  {label:9s} topwalk (kernel + transpose) {ms:9.3f} ms; walk "
             f"visits {visits}, {nw} words, {busy} blocks with a live ray")
-    return km
+    return (km, iargs) if worklist else km
+
+
+def worklist_edges(stats, wl, rows, o, d, seed, rng_seed=7):
+    """intersect_worklist against its plain version, bitwise, on edge
+    cases built from one wavefront's (worklist, rows, o, d, seed), each
+    also held to what the rules say it must give: the worklist's entries
+    spread over twice the slots with -1 gaps between them (seeded) and
+    with each list's first id repeated at its end (both: the result
+    unchanged); tile 0's slots all -1 and tile 1's rays dead (their
+    seeds and face -1 kept, the other tiles unchanged); a copy of the
+    most-hit triangle in the last lane of its cluster, under another
+    face id (the first lane wins: the rays that hit it keep it); and a
+    copy of that cluster under other face ids as cluster C, in a slot
+    after each list (the earlier slot keeps the tie: unchanged) and
+    before it (the copy wins: those rays' faces move to the copy's, t
+    unchanged). Returns the number of rays each planted tie decided."""
+    import torch
+    from raypt_torch.core.math3d import BIG
+    from raypt_torch.kernels import cluster_pallas as dn
+
+    def both(label, w, r=rows, s=seed):
+        args = (w.contiguous(), r.contiguous(), o, d, s.contiguous())
+        kt, kf = dn.intersect_worklist(*args)
+        pt, pf = dn.intersect_worklist_plain(*args)
+        stats.check("intersect_worklist", f"edges {label} t", kt, pt)
+        stats.check("intersect_worklist", f"edges {label} face", kf, pf)
+        return kt, kf
+
+    def same(label, a, b, where=None):
+        for x, y in zip(a, b):
+            if not bitwise_equal(x, y, where)[0]:
+                raise AssertionError(f"intersect_worklist edges: {label} "
+                                     f"changed the result")
+
+    base = both("base", wl)
+    n_tiles, cap = wl.shape
+    dev = wl.device
+    gen = torch.Generator().manual_seed(rng_seed)
+    gaps = torch.full((n_tiles, 2 * cap), -1, dtype=torch.int32, device=dev)
+    slot = 2 * torch.arange(cap) + torch.randint(0, 2, (n_tiles, cap),
+                                                 generator=gen)
+    gaps.scatter_(1, slot.to(dev), wl)
+    same("-1 gaps", both("gaps", gaps), base)
+    same("a repeated id", both("repeat", torch.cat([wl, wl[:, :1]], 1)), base)
+    empty = wl.clone()
+    empty[0] = -1
+    dead = seed.clone()
+    dead[dn.TILE:2 * dn.TILE] = -BIG
+    t, f = both("empty and dead tiles", empty, s=dead)
+    first = slice(0, 2 * dn.TILE)
+    if not (bitwise_equal(t[first], dead[first])[0]
+            and bool((f[first] == -1).all())):
+        raise AssertionError("intersect_worklist edges: an all -1 or all-dead "
+                             "tile changed its rays")
+    same("an empty and a dead tile", (t[2 * dn.TILE:], f[2 * dn.TILE:]),
+         (base[0][2 * dn.TILE:], base[1][2 * dn.TILE:]))
+    # the most-hit face (not 0, the padded lanes' id) in a lane below the
+    # last of its cluster
+    leaf = rows.shape[1]
+    fids = rows[..., 9].contiguous().view(torch.int32)
+    hits = base[1][base[1] > 0]
+    order = torch.bincount(hits.long()).argsort(descending=True)
+    for f0 in order.tolist():
+        at = torch.nonzero(fids == f0)
+        if at.shape[0] == 1 and int(at[0, 1]) < leaf - 1:
+            c, j = (int(x) for x in at[0])
+            break
+    else:
+        raise AssertionError("intersect_worklist edges: no hit face to copy")
+    off = 1 << 24
+    lanes = rows.clone()
+    lanes[c, leaf - 1, :9] = rows[c, j, :9]
+    lanes[c, leaf - 1, 9] = torch.tensor(f0 + off, dtype=torch.int32,
+                                         device=dev).view(torch.float32)
+    on_f0 = base[1] == f0
+    same("a coincident triangle in a later lane", both("lanes", wl, lanes),
+         base, on_f0)
+    copy = torch.cat([rows, rows[c:c + 1]])
+    copy[-1, :, 9] = (fids[c] + off).view(torch.float32)
+    has_c = (wl == c).any(dim=1, keepdim=True)
+    extra = torch.where(has_c, rows.shape[0], -1).to(torch.int32)
+    same("a tie with an earlier slot", both("after", torch.cat([wl, extra], 1),
+                                            copy), base)
+    kt, kf = both("before", torch.cat([extra, wl], 1), copy)
+    in_c = torch.isin(base[1], fids[c][fids[c] > 0])
+    if not (bitwise_equal(kt, base[0])[0]
+            and torch.equal(kf[in_c], base[1][in_c] + off)
+            and torch.equal(kf[~in_c], base[1][~in_c])):
+        raise AssertionError("intersect_worklist edges: the copy in the "
+                             "earlier slot did not take its cluster's hits")
+    return int(on_f0.sum()), int(in_c.sum())
+
+
+def options_phase(stats, counters, scene, accels, waves, cfg, skey):
+    """The onehot finder's options and the cluster finder's use_pallas on
+    the card (phase 5): on the dense-union path's bounce-1 wavefront
+    (2^20 rays), each option's result bitwise the default's, with the
+    launches it makes (a sort or a segment: one compaction and one
+    uncompaction), timed (CUDA events, mean of 3 after a warm-up) beside
+    the default, and the dense-union path's forward frame (`cfg`, `skey`)
+    with the option, bitwise the default's image and traced counts
+    (seconds: median of 3 after a warm-up); alive_compact and its
+    inverse at a group of the whole
+    wavefront bitwise against their plain versions; overflow_fallback
+    off on the non-fused branch at the default cap (no union exceeds
+    it); and find_closest_cluster(use_pallas=False) on the cluster
+    path's bounce-1 wavefront against the same finder through PLAIN,
+    timed beside use_pallas=True."""
+    import torch
+    from raypt_torch.accel.traverse import (DENSE_CHUNK, PLAIN,
+                                            find_closest_cluster,
+                                            find_closest_onehot,
+                                            wavefront_inputs)
+    from raypt_torch.kernels import compact as cp
+    from raypt_torch.render.integrator import render_sample
+
+    ro, rd, active = waves["dense_union"][1]
+    o, d, t, a, _, _ = wavefront_inputs(scene, ro, rd, active, DENSE_CHUNK)
+    r = o.shape[0]
+    counts = cp.new_counts(a, r)
+    k_out = cp.alive_compact(o, d, t, a, r, counts)
+    p_out = cp.alive_compact_plain(o, d, t, a, r)
+    for what, x, y in zip(("ro", "rd", "t0", "alive"), k_out, p_out):
+        if not bitwise_equal(x, y)[0]:
+            raise AssertionError(f"alive_compact at group {r}: {what} differs "
+                                 f"from its plain version")
+    face = torch.arange(r, dtype=torch.int32, device=o.device)
+    for x, y in zip(cp.alive_uncompact(t, face, a, r, counts),
+                    cp.alive_uncompact_plain(t, face, a, r)):
+        if not bitwise_equal(x, y)[0]:
+            raise AssertionError(f"alive_uncompact at group {r} differs from "
+                                 f"its plain version")
+    log(f"phase 5 options: alive_compact and alive_uncompact at one group of "
+        f"{r} lanes bitwise equal to their plain versions")
+    base_kw = dict(accel=accels["dense_union"], expand_n=0, compact_n=0)
+    unfused_kw = dict(base_kw, use_pallas_intersect=False)
+    sort = {"alive_compact": 1, "alive_uncompact": 1}
+    union = {"topwalk_union": 1, "cluster_intersect_mask": 1}
+    masked = {"topwalk_cm": 1, "cluster_intersect_mask": 1}
+    cases = [  # label, keywords, launches
+        ("none", base_kw, union),
+        ("sort_rays alive", dict(base_kw, sort_rays="alive"),
+         dict(masked, **sort)),
+        ("sort_rays mask", dict(base_kw, sort_rays="mask"),
+         dict(masked, **sort)),
+        ("sort_rays True", dict(base_kw, sort_rays=True), dict(masked, **sort)),
+        ("segment_sort 2048", dict(base_kw, segment_sort=2048),
+         dict(union, **sort)),
+        ("segment_sort 3000 (no-op)", dict(base_kw, segment_sort=3000), union),
+        ("tile_b 128", dict(base_kw, tile_b=128), union),
+        ("tile_b 512", dict(base_kw, tile_b=512), union),
+        ("walk_tile 512", dict(base_kw, walk_tile=512), union),
+        ("walk_tile 128", dict(base_kw, walk_tile=128), masked),
+        ("unfused", unfused_kw, {"topwalk_cm": 1, "intersect_worklist": 1}),
+        ("unfused, overflow_fallback off",
+         dict(unfused_kw, overflow_fallback=False),
+         {"topwalk_cm": 1, "intersect_worklist": 1}),
+    ]
+    ref, frames = {}, {}
+    for label, kw, expect in cases:
+        def run(kw=kw):
+            return find_closest_onehot(scene, ro, rd, active, **kw)
+
+        def frame(kw=kw):
+            with torch.no_grad():
+                return render_sample(scene, cfg, skey,
+                                     partial(find_closest_onehot, **kw),
+                                     return_alive=True)
+        out, _ = counted(counters, expect, run)
+        ms = cuda_ms(run, 3)
+        key = "unfused" if label.startswith("unfused") else "none"
+        ref.setdefault(key, out)
+        frames.setdefault(key, frame())
+        for what in ("t", "tri", "sphere"):
+            eq, err = bitwise_equal(getattr(out, what), getattr(ref[key], what))
+            if not eq:
+                raise AssertionError(f"option {label}: {what} differs from "
+                                     f"{key} (max abs err {err})")
+        img, traced = frame()
+        if not (bitwise_equal(img, frames[key][0])[0]
+                and torch.equal(traced, frames[key][1])):
+            raise AssertionError(f"option {label}: the frame differs from "
+                                 f"{key}'s")
+        secs = statistics.median(seconds(frame))
+        log(f"  option {label:30s} bounce 1 {ms:9.3f} ms, frame fwd "
+            f"{secs:.4f} s, bitwise equal to {key}; launches {expect}")
+    ro, rd, active = waves["cluster"][1]
+    clusters = accels["cluster"]
+    outs = {}
+    for use_pallas in (True, False):
+        def run(use_pallas=use_pallas):
+            return find_closest_cluster(scene, clusters, ro, rd, active,
+                                        use_pallas=use_pallas)
+        expect = ({"cluster_intersect": 1} if use_pallas
+                  else {"intersect_worklist": 1})
+        outs[use_pallas], _ = counted(counters, expect, run)
+        log(f"  cluster finder use_pallas={use_pallas}: forward "
+            f"{cuda_ms(run, 3):9.3f} ms; launches {expect}")
+    t0 = time.perf_counter()
+    plain = find_closest_cluster(scene, clusters, ro, rd, active,
+                                 use_pallas=False, ops=PLAIN)
+    torch.cuda.synchronize()
+    for what in ("t", "tri", "sphere"):
+        eq, err = bitwise_equal(getattr(outs[False], what),
+                                getattr(plain, what))
+        if not eq:
+            raise AssertionError(f"cluster finder use_pallas=False: {what} "
+                                 f"differs through PLAIN (max abs err {err})")
+    same = int((outs[False].tri == outs[True].tri).sum())
+    log(f"  cluster finder use_pallas=False bitwise equal through PLAIN "
+        f"({time.perf_counter() - t0:.2f} s plain); faces equal to "
+        f"use_pallas=True on {same} of {plain.tri.numel()} rays")
 
 
 def matmul_woop(union, woop_cm, ro, rd, t0, tiles_per_call=512):
@@ -1476,7 +1749,7 @@ def compare_woop(stats, label, scene, accel, ro, rd, active, timed):
     from raypt_torch.core.math3d import BIG
     from raypt_torch.kernels import cluster_pallas as dn
     mask = compare_unfused(stats, label, scene, accel, ro, rd, active,
-                           timed=timed)
+                           timed=timed, worklist=False)
     union, counts = tile_union_counts(mask.T.contiguous(), dn.TILE)
     o, d, t, a, _, _ = wavefront_inputs(scene, ro, rd, active, DENSE_CHUNK)
     seed = torch.where(a, t, torch.full_like(t, -BIG))
@@ -1800,6 +2073,8 @@ SASS_LOOPS = {
         r"\d+union_kernelINS_6MtTestENS_10ListSourceE", "MUFU.RCP", 1),
     "union_kernel<WoopTest<4>>": (r"\d+union_kernelINS_8WoopTestILi4E",
                                   "MUFU.RCP", 1),
+    "union_kernel<WorklistTest, SlotSource>": (
+        r"\d+union_kernelINS_12WorklistTestENS_10SlotSourceE", "MUFU.RCP", 1),
     "closest_dense_kernel": (r"\d+closest_dense_kernelE", "MUFU.RCP", 1),
     "topwalk_mask_kernel": (r"\d+topwalk_mask_kernelE", "LDS.128", 2),
     "topwalk_union_kernel": (r"\d+topwalk_union_kernelE", "LDS.128", 2),
@@ -4219,9 +4494,7 @@ def main():
         f"{blocks} blocks of {threads} resident an SM ({blocks * threads // 32} "
         f"warps), a block's rays {'by octant' if octant else 'in order'}")
 
-    from raypt_torch.accel import clusters as cl
     from raypt_torch.accel.clusters import (CLUSTER_LEAF, build_clusters,
-                                            intersect_worklist,
                                             tile_union_counts, tile_worklists)
     from raypt_torch.accel.ctree import build_onehot
     from raypt_torch.accel.dense import WoopTris, build_woop
@@ -4471,7 +4744,7 @@ def main():
                       (accel16, f"leaf {MULTIWORD_LEAF}")):
         ro, rd, active = waves["unfused"][1]
         compare_unfused(stats, "layouts", scene, acc, ro, rd,
-                        walk_layouts(active), timed=False)
+                        walk_layouts(active), timed=False, worklist=False)
         log(f"  walk layouts ({what}): a dead, a one-live and a "
             f"last-warp-only block, bitwise")
     # and topwalk_cm_u on the same blocks of the expand path's wavefront
@@ -4522,7 +4795,8 @@ def main():
                        ("sphere", k.sphere, p.sphere)):
         stats.check("cluster_intersect", f"overflow {what}", x, y)
     log(f"  overflow: cap {OVERFLOW_CAP}, {n_over} of {o.shape[0] // dn.TILE} "
-        f"tiles overflow; finder through kernels and plain bitwise equal "
+        f"tiles overflow; finder through kernels (the fallback through "
+        f"intersect_worklist's kernel) and plain bitwise equal "
         f"({time.perf_counter() - t0:.1f} s for both)")
     # the fallback's worklist intersection (every ray of an overflowed
     # tile against every cluster) at 2^22 and at STEP_PAIRS pairs a step
@@ -4531,28 +4805,46 @@ def main():
     rays = (ov[:, None] * dn.TILE + torch.arange(dn.TILE, device=dev)
             ).flatten()
     every = torch.arange(clusters.num_clusters, dtype=torch.int32,
-                         device=dev).expand(ov.numel(), -1)
-    fb_args = (clusters, every, o[rays].contiguous(), d[rays].contiguous(),
-               seed[rays].contiguous(), dn.TILE)
-    step_pairs = cl.STEP_PAIRS
+                         device=dev).expand(ov.numel(), -1).contiguous()
+    fb_args = (every, clusters.tri_rows, o[rays].contiguous(),
+               d[rays].contiguous(), seed[rays].contiguous())
+    kt, kf = dn.intersect_worklist(*fb_args)
+    ms = cuda_ms(lambda: dn.intersect_worklist(*fb_args), 10)
+    step_pairs = dn.STEP_PAIRS
     fb_out = []
     for pairs in (1 << 22, step_pairs):
-        cl.STEP_PAIRS = pairs
+        dn.STEP_PAIRS = pairs
         torch.cuda.synchronize()
         held = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        fb_out.append(intersect_worklist(*fb_args))
+        fb_out.append(dn.intersect_worklist_plain(*fb_args))
         torch.cuda.synchronize()
-        log(f"  overflow fallback's intersect_worklist at {pairs} pairs a "
-            f"step: {time.perf_counter() - t0:.3f} s, peak "
+        log(f"  overflow fallback's plain intersect_worklist at {pairs} pairs "
+            f"a step: {time.perf_counter() - t0:.3f} s, peak "
             f"{(torch.cuda.max_memory_allocated() - held) / 2**20:.0f} MiB "
             f"above the {held / 2**30:.2f} GiB held ({rays.numel()} rays x "
             f"{clusters.num_clusters} clusters)")
-    cl.STEP_PAIRS = step_pairs
+    dn.STEP_PAIRS = step_pairs
     for x, y in zip(*fb_out):
         if not bitwise_equal(x, y)[0]:
             raise AssertionError("intersect_worklist depends on its step")
+    stats.check("intersect_worklist", "overflowed tiles t", kt, fb_out[0][0])
+    stats.check("intersect_worklist", "overflowed tiles face", kf,
+                fb_out[0][1])
+    log(f"  overflow fallback's intersect_worklist kernel: {ms:.4f} ms on the "
+        f"{ov.numel()} overflowed tiles, bitwise equal to the plain version")
+    # the worklist kernel's edge cases on the non-fused path's bounce-1
+    # wavefront (its first MULTIWORD_RAYS rays)
+    ro, rd, active = (x[:MULTIWORD_RAYS].contiguous()
+                      for x in waves["unfused"][1])
+    _, wl_args = compare_unfused(stats, "wl edges", scene, accels["unfused"],
+                                 ro, rd, active, timed=False)
+    lanes, slots = worklist_edges(stats, *wl_args)
+    log(f"  intersect_worklist edges: -1 gaps, a repeated id, an all -1 and "
+        f"an all-dead tile, a coincident triangle in a later lane ({lanes} "
+        f"rays: the first lane kept) and a copied cluster before and after "
+        f"its original ({slots} rays: the earlier slot kept), bitwise")
     # closest_dense: a tile of rays that hit nothing (from far outside the
     # scene, pointing away)
     ro, rd, _ = waves["pallas"][1]
@@ -4636,6 +4928,7 @@ def main():
                 "topwalk_cm": wk.topwalk_cm,
                 "cluster_intersect_mask_woop": dn.cluster_intersect_mask_woop,
                 "cluster_intersect_grouped": dn.cluster_intersect_grouped,
+                "intersect_worklist": dn.intersect_worklist,
                 "packed_walk": pw.packed_walk,
                 "wide_walk": ww.wide_walk,
                 **{name: getattr(pw, name) for name in LAYOUT_FLAGS},
@@ -4797,9 +5090,13 @@ def main():
         f"rounds); bitwise equal through kernels and plain versions and to "
         f"the default cap ({time.perf_counter() - t0:.1f} s for the three)")
     compare_finders_woop_mt(scene4, accel4, waves["config4"])
+    t0 = time.perf_counter()
+    options_phase(stats, counters, scene, accels, waves, cfgs["dense_union"],
+                  skey)
+    log(f"phase 5 options: {time.perf_counter() - t0:.1f} s")
 
-    # phase 6: the bench loss forward and backward; forward only on the
-    # non-fused path, whose worklist intersection is plain torch (the auto
+    # phase 6: the bench loss forward and backward; the non-fused path's
+    # forward only (its finder is not one RenderConfig selects; the auto
     # path runs the pallas path's finder)
     for path in ("expand", "dense_union", "cluster", "pallas", "config4",
                  "bvh"):

@@ -5,9 +5,11 @@ device with `.to(device)`; and the per-tile glue of the cluster finders,
 in torch on the clusters' device: the dense box cull into nearest-first
 worklists (`tile_worklists`), the union of per-ray masks over ray tiles
 (`tile_union_counts`), the ascending-id worklists of those unions
-(`worklist_slice`) and the worklist intersection reference
-(`intersect_worklist`) that the cluster finder's overflow fallback and
-the onehot finder's non-fused branch run; and the Woop table of the
+(`worklist_slice`, `worklists_from_masks`), each ray's first wanted
+cluster (`first_wanted`, the onehot finder's "mask" sort key) and the
+worklist intersection reference (`intersect_worklist`, the plain version
+of the kernel that the cluster finder's overflow fallback and the
+onehot finder's non-fused branch run); and the Woop table of the
 clusters' triangles (`build_woop_cm`), built on the host.
 """
 from __future__ import annotations
@@ -17,8 +19,9 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..core.math3d import BIG, EPS, STEP_PAIRS, cross, dot
+from ..core.math3d import BIG, STEP_PAIRS
 from ..core.types import TensorTree
+from ..kernels.cluster_pallas import intersect_worklist_plain
 from .lbvh import LBVH
 
 CLUSTER_LEAF = 64     # triangles per cluster of backend "cluster"
@@ -186,10 +189,40 @@ def worklist_slice(union: torch.Tensor, c_total: int, cap: int,
     wanted = ((union[:, (cid >> 5).long()] >> (cid & 31)) & 1).bool()
     pos = torch.cumsum(wanted, dim=1, dtype=torch.int32) - 1 - round_ * cap
     take = wanted & (pos >= 0) & (pos < cap)
-    wl = torch.full((n_tiles, cap), -1, dtype=torch.int32, device=dev)
-    tiles, cols = torch.nonzero(take, as_tuple=True)
-    wl[tiles, pos[tiles, cols].long()] = cols.to(torch.int32)
-    return wl
+    # a scatter into one spare column for what is not taken: no host sync
+    wl = torch.full((n_tiles, cap + 1), -1, dtype=torch.int32, device=dev)
+    wl.scatter_(1, torch.where(take, pos, cap).long(),
+                cid.expand(n_tiles, c_total))
+    return wl[:, :cap].contiguous()
+
+
+def worklists_from_masks(mask: torch.Tensor, tile: int, cap: int,
+                         c_total: int):
+    """Per-tile worklists from per-ray wanted-cluster masks (R, CW) int32,
+    R divisible by the power-of-two tile (`worklists_from_masks`): the
+    first cap clusters of each tile's union in ascending id. Returns
+    (worklist (R // tile, cap) int32 [-1 pad], counts clamped to cap,
+    overflow: the union holds more than cap)."""
+    union, counts = tile_union_counts(mask, tile)
+    wl = worklist_slice(union, c_total, cap, 0)
+    return wl, torch.clamp(counts, max=cap), counts > cap
+
+
+def first_wanted(mask: torch.Tensor) -> torch.Tensor:
+    """Each ray's lowest set bit of its (R, CW) int32 wanted-cluster mask
+    as a cluster id (the nearest wanted cluster in Morton order), 1 << 29
+    where the mask is empty: (R,) int32 (`first_wanted`). The bit's
+    index is read from the exponent of the isolated bit as a float, as
+    in the JAX package; int32 negation wraps there and here, so bit 31
+    (whose isolated bit is -2^31) counts as 31."""
+    lsb = mask & -mask
+    f = (lsb.to(torch.int64) & 0xFFFFFFFF).to(torch.float32)
+    idx = (f.view(torch.int32) >> 23) - 127
+    base = torch.arange(mask.shape[1], dtype=torch.int32,
+                        device=mask.device) * 32
+    cand = torch.where(lsb != 0, base[None, :] + idx,
+                       torch.full_like(idx, 1 << 29))
+    return torch.amin(cand, dim=1)
 
 
 
@@ -245,68 +278,15 @@ def tile_worklists(clusters: Clusters, ro, rd, t0, tile: int,
 
 
 
-@torch.no_grad()
 def intersect_worklist(clusters: Clusters, worklist, ro, rd, t0,
                        tile: int):
-    """Reference worklist intersection (`intersect_worklist_jnp`): every
-    ray of a tile against every slot of the tile's worklist, in slot
-    order. Its rules differ from the kernel's: every slot is scanned
+    """Reference worklist intersection (`intersect_worklist_jnp`) over
+    tiles of `tile` rays: `kernels.cluster_pallas.
+    intersect_worklist_plain` on the clusters' triangles, the plain
+    version of the worklist kernel `kernels.cluster_pallas.
+    intersect_worklist` (whose tiles are 256 rays). Every slot is scanned
     (-1 slots test nothing), a miss is inf, within a cluster the first
-    slot of the smallest t wins (argmin), and the test is written with
-    cross/dot. Across slots the carry takes a strictly smaller t. Tiles
-    are processed in chunks of about STEP_PAIRS ray-triangle pairs a
-    slot; none depends on another.
-
-    The cluster finder's overflow fallback runs this and not the
-    worklist kernel, because the JAX package's fallback is this function:
-    its tie and rounding rules decide which face an overflowed ray hits,
-    and the kernel's (lowest face id at a tie, explicit operation order)
-    would pick another face where two triangles tie or round apart.
-
-    A chunk of tiles scans its slots only up to the last one that any of
-    its tiles fills: both worklist builders pad with trailing -1, a -1
-    slot tests nothing, and inf < t never holds for a seed <= BIG, so
-    the result is the same. Reading the chunks' slot counts costs one
-    host sync."""
-    r = ro.shape[0]
-    n_tiles, cap = worklist.shape
-    leaf = clusters.tri_rows.shape[1]
-    o_all = ro.view(n_tiles, tile, 1, 3)
-    d_all = rd.view(n_tiles, tile, 1, 3)
-    tb = t0.reshape(n_tiles, tile).clone()
-    fb = torch.full_like(tb, -1, dtype=torch.int32)
-    chunk = max(1, STEP_PAIRS // (tile * leaf))
-    slot = torch.arange(1, cap + 1, device=worklist.device)
-    filled = torch.where(worklist >= 0, slot, 0).amax(dim=1)
-    starts = range(0, n_tiles, chunk)
-    ends = torch.stack([filled[s0:s0 + chunk].amax() for s0 in starts]
-                       ).tolist() if n_tiles else []
-    for s0, n_slots in zip(starts, ends):
-        tiles = slice(s0, s0 + chunk)
-        o, d = o_all[tiles], d_all[tiles]
-        for w in range(n_slots):
-            cid = worklist[tiles, w]
-            rows = clusters.tri_rows[torch.clamp(cid, min=0).long()]
-            p0 = rows[..., 0:3][:, None]             # (T, 1, leaf, 3)
-            e1 = rows[..., 3:6][:, None]
-            e2 = rows[..., 6:9][:, None]
-            fid = rows[..., 9].contiguous().view(torch.int32)[:, None]
-            pvec = cross(d, e2)
-            det = dot(e1, pvec)
-            ok_det = torch.abs(det) > EPS
-            inv_det = (torch.where(ok_det, 1.0, 0.0)
-                       / torch.where(ok_det, det, torch.ones_like(det)))
-            tvec = o - p0
-            u = dot(tvec, pvec) * inv_det
-            qvec = cross(tvec, e1)
-            v = dot(d, qvec) * inv_det
-            t = dot(e2, qvec) * inv_det
-            hit = (ok_det & (u >= 0) & (v >= 0) & (u + v <= 1.0) & (t > 0.0)
-                   & (cid >= 0)[:, None, None])
-            t = torch.where(hit, t, torch.full_like(t, torch.inf))
-            tmin, col = torch.min(t, dim=-1)         # first index of the min
-            fmin = torch.gather(fid.expand(t.shape), -1, col[..., None])[..., 0]
-            better = tmin < tb[tiles]
-            tb[tiles] = torch.where(better, tmin, tb[tiles])
-            fb[tiles] = torch.where(better, fmin, fb[tiles])
-    return tb.view(r), fb.view(r)
+    lane of the smallest t wins, and the test is written with cross/dot;
+    across slots the carry takes a strictly smaller t."""
+    return intersect_worklist_plain(worklist, clusters.tri_rows, ro, rd, t0,
+                                    tile)

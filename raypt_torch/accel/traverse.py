@@ -9,9 +9,11 @@ dense-union branch (walk to per-tile unions, dense tile x cluster
 intersection), its Woop branch (walk to per-ray masks, tile unions,
 dense tile x cluster intersection with the Woop test) and its non-fused
 branch (walk to per-ray masks, tile unions, ascending-id worklists, the
-reference worklist intersection and its residual rounds); and the
-cluster finder (dense box cull into
-per-tile worklists, worklist intersection, overflow fallback).
+worklist intersection of the JAX package's XLA reference and its
+residual rounds), with the options that sort the rays before or after
+the walk (`sort_rays`, `segment_sort`, `onehot_sort_key`); and the
+cluster finder (dense box cull into per-tile worklists, worklist
+intersection, overflow fallback).
 
 Finders return only discrete results and run without autograd; shading
 recomputes the chosen hit differentiably (`render.shading` in the
@@ -37,7 +39,7 @@ from ..kernels import dense_pallas as _woop_kernel
 from ..kernels import onehot_walk as _walk
 from ..kernels import packed_walk as _packed
 from ..kernels import wide_walk as _wide
-from .clusters import (WORKLIST_CAP, Clusters, intersect_worklist,
+from .clusters import (WORKLIST_CAP, Clusters, first_wanted,
                        tile_union_counts, tile_worklists, worklist_slice)
 from .ctree import OnehotAccel, walk_topwalk
 from .lbvh import LBVH
@@ -182,6 +184,9 @@ class FinderOps(NamedTuple):
     packed_walk: Callable      # bvh and bvh2: the table's layout's walk
     wide_walk: Callable        # bvh4
     compact_walk: Callable     # bvh, traversal_mode "compact" / "unrolled"
+    # onehot, non-fused branch; cluster finder, overflow fallback and
+    # use_pallas=False (intersect_worklist_jnp's rules)
+    intersect_worklist: Callable
 
 
 KERNELS = FinderOps(_compact.alive_compact, _walk.topwalk_cm_u,
@@ -190,7 +195,8 @@ KERNELS = FinderOps(_compact.alive_compact, _walk.topwalk_cm_u,
                     _dense.cluster_intersect, _walk.topwalk,
                     _woop_kernel.closest_dense,
                     _dense.cluster_intersect_mask_woop, _packed.walk_layout,
-                    _wide.wide_walk, _packed.compact_walk)
+                    _wide.wide_walk, _packed.compact_walk,
+                    _dense.intersect_worklist)
 PLAIN = FinderOps(_compact.alive_compact_plain, _walk.topwalk_cm_u_plain,
                   _expand.cluster_expand_plain, _compact.alive_uncompact_plain,
                   _walk.topwalk_union_plain,
@@ -198,7 +204,8 @@ PLAIN = FinderOps(_compact.alive_compact_plain, _walk.topwalk_cm_u_plain,
                   _dense.cluster_intersect_plain, walk_topwalk,
                   _woop_kernel.closest_dense_plain,
                   _dense.cluster_intersect_mask_woop_plain, walk_layout,
-                  traverse_wide, traverse_wavefront_compact)
+                  traverse_wide, traverse_wavefront_compact,
+                  _dense.intersect_worklist_plain)
 
 # rays per padding chunk of the dense-union branch and the cluster
 # finder: 8 tiles (`max(8 * TILE, RAY_TILE)` in the JAX package)
@@ -228,12 +235,16 @@ def wavefront_inputs(scene: Scene, ro, rd, active, chunk: int):
             flat_a.contiguous(), ts, si)
 
 
+def expand_chunk(compact_n: int) -> int:
+    """The per-ray-exact branch's padding chunk: a multiple of the walk
+    tile and of compact_n (so compaction never switches itself off)."""
+    return math.lcm(_walk.RAY_TILE, compact_n or 1)
+
+
 def onehot_inputs(scene: Scene, ro, rd, active, compact_n: int):
-    """wavefront_inputs of the per-ray-exact branch: R is padded to a
-    multiple of the walk tile and of compact_n (so compaction never
-    switches itself off)."""
-    return wavefront_inputs(scene, ro, rd, active,
-                            math.lcm(_walk.RAY_TILE, compact_n or 1))
+    """wavefront_inputs of the per-ray-exact branch, padded to
+    expand_chunk(compact_n)."""
+    return wavefront_inputs(scene, ro, rd, active, expand_chunk(compact_n))
 
 
 def _hit_ids(t_best, face, alive, n: int, ts, si) -> HitIds:
@@ -248,39 +259,192 @@ def _hit_ids(t_best, face, alive, n: int, ts, si) -> HitIds:
                   sphere=torch.where(~tri_wins & (ts < BIG), si, minus1))
 
 
+def _spread3(x: torch.Tensor) -> torch.Tensor:
+    """The low 7 bits of int32 x spread to every third bit: bit k -> bit
+    3k (the Morton helper of `onehot_sort_key`)."""
+    x = x & 0x7F
+    x = (x | (x << 8)) & 0x0100F00F
+    x = (x | (x << 4)) & 0x010C30C3
+    x = (x | (x << 2)) & 0x09249249
+    return x
+
+
+def onehot_sort_key(flat_o, flat_d, flat_a, bmin, bmax) -> torch.Tensor:
+    """The onehot finder's ray-binning key (`onehot_sort_key`): dead rays
+    last (1 << 30), else the 6-bit-per-axis Morton code of the origin in
+    the box [bmin, bmax] (each extent at least 1e-6), then the direction
+    octant (x < 0: 4, y < 0: 2, z < 0: 1). (R,) int32. As in the JAX
+    package, no finder calls it."""
+    ext = torch.clamp(bmax - bmin, min=1e-6)
+    q = torch.clamp(((flat_o - bmin) / ext) * 64.0, 0.0, 63.0).to(torch.int32)
+    m = (_spread3(q[:, 0]) | (_spread3(q[:, 1]) << 1)
+         | (_spread3(q[:, 2]) << 2))
+    octant = ((flat_d[:, 0] < 0).to(torch.int32) * 4
+              + (flat_d[:, 1] < 0).to(torch.int32) * 2
+              + (flat_d[:, 2] < 0).to(torch.int32))
+    key = (m << 3) | octant
+    return torch.where(flat_a, key, torch.full_like(key, 1 << 30))
+
+
+SORT_MODES = ("none", "alive", "mask")
+
+
+def _sort_mode(sort_rays) -> str:
+    """sort_rays as a mode: False -> "none", True -> "mask" (the JAX
+    package's mapping), or one of SORT_MODES; anything else raises (the
+    JAX package would permute the rays and never restore them)."""
+    mode = {False: "none", True: "mask"}.get(sort_rays, sort_rays)
+    if mode not in SORT_MODES:
+        raise ValueError(f"sort_rays must be a bool or one of {SORT_MODES}, "
+                         f"got {sort_rays!r}")
+    return mode
+
+
+def _jax_chunk(tile_b: int, walk_tile: int, expand_n: int,
+               compact_n: int) -> int:
+    """The JAX package's padding chunk for these options
+    (`traverse.py:556-560`)."""
+    chunk = max(8 * tile_b, _walk.RAY_TILE)
+    if expand_n:
+        chunk = max(chunk, 8 * expand_n, walk_tile or _walk.RAY_TILE)
+    if compact_n:
+        chunk = max(chunk, compact_n)
+    return chunk
+
+
 @torch.no_grad()
 def find_closest_onehot(scene: Scene, ro, rd, active=None, *,
                         accel: OnehotAccel, expand_n: int, compact_n: int,
                         use_pallas_intersect: bool = True, cap: int = 0,
+                        overflow_fallback: bool = True, sort_rays="none",
+                        tile_b: int = 0, segment_sort: int = 0,
+                        walk_tile: int = 0,
                         ops: FinderOps = KERNELS) -> HitIds:
-    """The onehot finder. With use_pallas_intersect set (the default), an
-    accel that carries a Woop table selects the Woop branch
-    (`_onehot_woop`), whatever expand_n; otherwise expand_n > 0 selects
-    the per-ray-exact branch: compact
-    live rays to the front of each compact_n group (when compact_n > 0),
-    walk the top tree to per-ray masks, test each ray's wanted clusters,
-    restore the ray order; the CUDA expansion runs one thread per ray, so
-    expand_n's value shapes nothing else. expand_n == 0 selects the
-    dense-union branch: walk the top tree to the union of each 256-ray
-    tile's wanted clusters and test every ray of a tile against every
-    cluster of its union; compact_n is not applied there, as in the JAX
-    package. use_pallas_intersect=False selects the non-fused branch
-    (`_onehot_unfused`), whatever expand_n; cap bounds its worklists
-    (WORKLIST_CAP when 0). The JAX package's use_pallas_walk is not
-    taken: `ops` alone chooses between a kernel and its plain version
-    (PLAIN.walk_mask is the plain walk that flag selects there)."""
-    if not use_pallas_intersect:
-        return _onehot_unfused(scene, ro, rd, active, accel,
-                               cap or WORKLIST_CAP, ops)
-    if accel.woop_cm is not None:
-        return _onehot_woop(scene, ro, rd, active, accel, ops)
-    if not expand_n:
-        return _onehot_dense_union(scene, ro, rd, active, accel, ops)
+    """The onehot finder, routed as the JAX package routes it
+    (`traverse.py:553-797`). Branches:
+    - per-ray-exact (`_onehot_expand`): expand_n > 0, use_pallas_intersect,
+      no Woop table, sort_rays "none" and segment_sort 0. Compact live
+      rays to the front of each compact_n group (when compact_n > 0),
+      walk the top tree to per-ray masks, test each ray's wanted clusters,
+      restore the ray order; the CUDA expansion runs one thread per ray,
+      so expand_n's value shapes nothing else.
+    - otherwise the rays are sorted as asked (below), then walked: to the
+      union of each 256-ray tile's wanted clusters in the walk kernel
+      (ops.walk_union) when use_pallas_intersect, sort_rays "none", no
+      Woop table and (walk_tile or RAY_TILE) % tile_b == 0, else to
+      per-ray masks (ops.walk_mask) folded into the tiles' unions. Then
+      the Woop branch (a Woop table and use_pallas_intersect: every ray
+      of a tile against every cluster of its union with the Woop test),
+      the dense-union branch (use_pallas_intersect: the same with the
+      Moller-Trumbore test) or the non-fused branch
+      (use_pallas_intersect=False: the union's first cap clusters in
+      ascending id through the worklist kernel, cap WORKLIST_CAP when 0;
+      with overflow_fallback, residual rounds while a tile's union holds
+      more; without, a tile whose union exceeds cap may miss its hit).
+      compact_n is not applied there, as in the JAX package.
+
+    Sorting, each undone before the result is returned, so exactness is
+    unaffected (each ray's mask lies inside its tile's union):
+    - sort_rays "alive" (when the padded wavefront holds more than tile_b
+      rays): live rays first, stably, over the whole wavefront, before
+      the walk; "mask" (or True) also sorts the rays stably by
+      `first_wanted` of their masks after the walk (dead rays last).
+      False means "none".
+    - segment_sort = g > 0, without a sort_rays sort and where g divides
+      the padded wavefront: live rays first, stably, within each g-ray
+      group, before the walk.
+    Both partitions are `alive_compact` with group R or g (ops.compact;
+    one kernel launch on the card) and are undone by ops.uncompact; the
+    "mask" sort and its inverse are torch argsort and gathers.
+
+    tile_b (a power of two, TILE when 0) and walk_tile size the TPU's
+    programs in the JAX package; here they enter only the routing above,
+    the "alive" threshold and the padding: with tile_b, walk_tile or
+    segment_sort set, the wavefront is also padded to a multiple of the
+    JAX package's chunk, so segment_sort applies where it does there. The
+    CUDA blocks stay 256 rays, and no result depends on either, except
+    with overflow_fallback=False, where a truncated worklist belongs to
+    a 256-ray tile here and to a tile_b-ray tile there.
+
+    The JAX package's use_pallas_walk is not taken: `ops` alone chooses
+    between a kernel and its plain version (PLAIN.walk_mask is the plain
+    walk that flag selects there)."""
+    mode = _sort_mode(sort_rays)
+    if tile_b < 0 or tile_b & (tile_b - 1):
+        raise ValueError(f"tile_b must be a power of two, got {tile_b}")
+    woop = accel.woop_cm is not None
+    expand = (bool(expand_n) and use_pallas_intersect and not woop
+              and mode == "none" and not segment_sort)
+    chunk = expand_chunk(compact_n) if expand else DENSE_CHUNK
+    if tile_b or walk_tile or segment_sort:
+        chunk = math.lcm(chunk, _jax_chunk(tile_b or _dense.TILE, walk_tile,
+                                           expand_n, compact_n))
+    tile_b = tile_b or _dense.TILE
+    wave = wavefront_inputs(scene, ro, rd, active, chunk)
+    n = ro.reshape(-1, 3).shape[0]
+    if expand:
+        return _onehot_expand(scene, wave, n, accel, compact_n, ops)
+    flat_o, flat_d, flat_t, flat_a, ts, si = wave
+    r = flat_o.shape[0]
+    do_sort = mode != "none" and r > tile_b
+    group = r if do_sort else (
+        segment_sort if segment_sort and r % segment_sort == 0 else 0)
+    orig_a, counts = flat_a, None
+    if group:   # the compaction's chunk counts, for the uncompaction
+        counts = _compact.new_counts(flat_a, group)
+        flat_o, flat_d, flat_t, flat_a = ops.compact(
+            flat_o, flat_d, flat_t, flat_a, group, counts)
+    c_total = accel.num_clusters
+    num_words = -(-c_total // 32)
+    inv2 = None
+    if (use_pallas_intersect and mode == "none" and not woop
+            and (walk_tile or _walk.RAY_TILE) % tile_b == 0):
+        union = ops.walk_union(accel.table, flat_o, flat_d, flat_t, flat_a,
+                               num_words)
+    else:
+        mask = ops.walk_mask(accel.table, flat_o, flat_d, flat_t, flat_a,
+                             num_words)
+        if do_sort and mode == "mask":
+            skey = torch.where(flat_a, first_wanted(mask),
+                               torch.full((r,), 1 << 29, dtype=torch.int32,
+                                          device=mask.device))
+            order2 = torch.argsort(skey, stable=True)
+            inv2 = torch.empty_like(order2)
+            inv2[order2] = torch.arange(r, device=order2.device)
+            mask, flat_o, flat_d, flat_t, flat_a = (
+                x[order2].contiguous()
+                for x in (mask, flat_o, flat_d, flat_t, flat_a))
+        union, union_counts = tile_union_counts(mask, _dense.TILE)
+    seed = torch.where(flat_a, flat_t, torch.full_like(flat_t, -BIG))
+    if use_pallas_intersect and woop:
+        t_best, packed = ops.intersect_woop(union, accel.woop_cm, flat_o,
+                                            flat_d, seed)
+        face = torch.where(packed >= 0,
+                           accel.fid_flat[torch.clamp(packed, min=0).long()],
+                           torch.full_like(packed, -1))
+    elif use_pallas_intersect:
+        t_best, face = ops.intersect_mask(union, accel.clusters.tri_rows,
+                                          flat_o, flat_d, seed)
+    else:
+        t_best, face = _onehot_unfused(accel, union, union_counts, flat_o,
+                                       flat_d, seed, cap or WORKLIST_CAP,
+                                       overflow_fallback, ops)
+    if inv2 is not None:
+        t_best, face = t_best[inv2], face[inv2]
+    if group:
+        t_best, face = ops.uncompact(t_best, face, orig_a, group, counts)
+    return _hit_ids(t_best, face, orig_a, n, ts, si)
+
+
+def _onehot_expand(scene: Scene, wave, n: int, accel: OnehotAccel,
+                   compact_n: int, ops: FinderOps) -> HitIds:
+    """The per-ray-exact branch (`traverse.py:619-667`) on the padded
+    wavefront (a multiple of the walk tile and of compact_n, so
+    compaction never switches itself off): mask words padded to 8, dead
+    rays seed -BIG."""
     if scene.mesh.num_faces >= 1 << 24:
         raise ValueError("face ids must stay below 2^24")
-    flat_o, flat_d, flat_t, flat_a, ts, si = onehot_inputs(
-        scene, ro, rd, active, compact_n)
-    n = ro.reshape(-1, 3).shape[0]
+    flat_o, flat_d, flat_t, flat_a, ts, si = wave
     orig_a = flat_a
     counts = None   # the compaction's chunk counts, for the uncompaction
     if compact_n:
@@ -298,88 +462,49 @@ def find_closest_onehot(scene: Scene, ro, rd, active=None, *,
     return _hit_ids(t_best, face, orig_a, n, ts, si)
 
 
-def _onehot_dense_union(scene: Scene, ro, rd, active, accel: OnehotAccel,
-                        ops: FinderOps) -> HitIds:
-    """The dense-union branch (`traverse.py:668-681, 702-729`): union
-    words unpadded, ceil(C / 32); dead rays seed -BIG, so they take no
-    hit."""
-    flat_o, flat_d, flat_t, flat_a, ts, si = wavefront_inputs(
-        scene, ro, rd, active, DENSE_CHUNK)
-    num_words = -(-accel.num_clusters // 32)
-    union = ops.walk_union(accel.table, flat_o, flat_d, flat_t, flat_a,
-                           num_words)
-    seed = torch.where(flat_a, flat_t, torch.full_like(flat_t, -BIG))
-    t_best, face = ops.intersect_mask(union, accel.clusters.tri_rows, flat_o,
-                                      flat_d, seed)
-    return _hit_ids(t_best, face, flat_a, ro.reshape(-1, 3).shape[0], ts, si)
-
-
-def _onehot_woop(scene: Scene, ro, rd, active, accel: OnehotAccel,
-                 ops: FinderOps) -> HitIds:
-    """The Woop branch (`traverse.py:544, 683-685, 702-720`): the per-ray
-    (R, words) mask from the mask-only walk, words ceil(C / 32); each
-    256-ray tile's union; every ray of a tile against every cluster of
-    its union with the Woop test; face = fid_flat[packed]. Dead rays seed
-    -BIG. There are no residual rounds and no compaction."""
-    flat_o, flat_d, flat_t, flat_a, ts, si = wavefront_inputs(
-        scene, ro, rd, active, DENSE_CHUNK)
-    mask = ops.walk_mask(accel.table, flat_o, flat_d, flat_t, flat_a,
-                         -(-accel.num_clusters // 32))
-    union, _ = tile_union_counts(mask, _dense.TILE)
-    seed = torch.where(flat_a, flat_t, torch.full_like(flat_t, -BIG))
-    t_best, packed = ops.intersect_woop(union, accel.woop_cm, flat_o, flat_d,
-                                        seed)
-    face = torch.where(packed >= 0,
-                       accel.fid_flat[torch.clamp(packed, min=0).long()],
-                       torch.full_like(packed, -1))
-    return _hit_ids(t_best, face, flat_a, ro.reshape(-1, 3).shape[0], ts, si)
-
-
-def _onehot_unfused(scene: Scene, ro, rd, active, accel: OnehotAccel,
-                    cap: int, ops: FinderOps) -> HitIds:
-    """The non-fused branch (`traverse.py:683-688, 702-703, 730-782`):
-    the per-ray (R, words) mask from the mask-only walk (ops.walk_mask),
-    words unpadded, ceil(C / 32); each 256-ray tile's union and its count
-    of clusters; the union's first cap clusters in ascending id go to the
-    reference worklist intersection, and if any tile wants more than cap
-    (deciding costs one host read of the largest count), bounded residual
-    rounds take the next cap each, seeded with the result so far, until
-    the largest union is covered; a round's result replaces the carry
-    only where it found a face. Without those rounds a tile whose union
-    exceeds cap could miss its hit."""
-    flat_o, flat_d, flat_t, flat_a, ts, si = wavefront_inputs(
-        scene, ro, rd, active, DENSE_CHUNK)
+def _onehot_unfused(accel: OnehotAccel, union, counts, flat_o, flat_d, seed,
+                    cap: int, overflow_fallback: bool, ops: FinderOps):
+    """The non-fused branch's intersection (`traverse.py:730-782`): the
+    first cap clusters of each 256-ray tile's union in ascending id
+    through ops.intersect_worklist; with overflow_fallback, where C > cap
+    and a tile's union holds more than cap clusters (deciding costs one
+    host read of the largest count), bounded residual rounds take the
+    next cap each, seeded with the result so far, until the largest
+    union is covered; a round's result replaces the carry only where it
+    found a face. Returns (t, face) of the wavefront."""
     c_total = accel.num_clusters
-    mask = ops.walk_mask(accel.table, flat_o, flat_d, flat_t, flat_a,
-                         -(-c_total // 32))
-    union, counts = tile_union_counts(mask, _dense.TILE)
-    seed = torch.where(flat_a, flat_t, torch.full_like(flat_t, -BIG))
+    rows = accel.clusters.tri_rows
 
     def isect(round_, t_in):
-        return intersect_worklist(
-            accel.clusters, worklist_slice(union, c_total, cap, round_),
-            flat_o, flat_d, t_in, _dense.TILE)
+        return ops.intersect_worklist(
+            worklist_slice(union, c_total, cap, round_), rows, flat_o, flat_d,
+            t_in)
 
     t_best, face = isect(0, seed)
+    if not overflow_fallback or c_total <= cap:
+        return t_best, face
     for r in range(1, -(-int(counts.max()) // cap)):
         t_r, f_r = isect(r, t_best)
         keep = f_r >= 0
         t_best = torch.where(keep, t_r, t_best)
         face = torch.where(keep, f_r, face)
-    return _hit_ids(t_best, face, flat_a, ro.reshape(-1, 3).shape[0], ts, si)
+    return t_best, face
 
 
 @torch.no_grad()
 def find_closest_cluster(scene: Scene, clusters: Clusters, ro, rd,
-                         active=None, cap: int = 0,
+                         active=None, use_pallas: bool = True, cap: int = 0,
                          ops: FinderOps = KERNELS) -> HitIds:
     """The two-level cluster finder (`traverse.py:361-430`): a dense box
     cull gives each 256-ray tile a nearest-first worklist of at most cap
-    clusters (WORKLIST_CAP when 0), the worklist kernel tests every ray
-    of the tile against them, and a tile whose cull found more than cap
+    clusters (WORKLIST_CAP when 0); the worklist kernel tests every ray
+    of the tile against them (ops.intersect; with use_pallas=False,
+    ops.intersect_worklist, the JAX package's XLA reference and its tie
+    rule, over every slot), and a tile whose cull found more than cap
     clusters is re-intersected against every cluster with
-    `intersect_worklist` (the JAX package's lax.cond fallback). Deciding
-    whether to run the fallback reads one flag back to the host."""
+    ops.intersect_worklist (the JAX package's lax.cond fallback).
+    Deciding whether to run the fallback reads one flag back to the
+    host."""
     cap = cap or WORKLIST_CAP
     tile = _dense.TILE
     flat_o, flat_d, flat_t, flat_a, ts, si = wavefront_inputs(
@@ -388,18 +513,21 @@ def find_closest_cluster(scene: Scene, clusters: Clusters, ro, rd,
     seed = torch.where(flat_a, flat_t, torch.full_like(flat_t, -BIG))
     wl, cnt, overflow = tile_worklists(clusters, flat_o, flat_d, seed, tile,
                                        cap)
-    t_best, face = ops.intersect(wl, cnt, clusters.tri_rows, flat_o, flat_d,
-                                 seed)
+    rows = clusters.tri_rows
+    if use_pallas:
+        t_best, face = ops.intersect(wl, cnt, rows, flat_o, flat_d, seed)
+    else:
+        t_best, face = ops.intersect_worklist(wl, rows, flat_o, flat_d, seed)
     if bool(overflow.any()):
         ov = torch.nonzero(overflow).flatten()
         rays = (ov[:, None] * tile + torch.arange(tile, device=ov.device)
                 ).flatten()
         c_total = clusters.num_clusters
-        every = torch.arange(c_total, dtype=torch.int32,
-                             device=ov.device).expand(ov.numel(), c_total)
-        t_fb, f_fb = intersect_worklist(
-            clusters, every, flat_o[rays].contiguous(),
-            flat_d[rays].contiguous(), seed[rays].contiguous(), tile)
+        every = torch.arange(c_total, dtype=torch.int32, device=ov.device
+                             ).expand(ov.numel(), c_total).contiguous()
+        t_fb, f_fb = ops.intersect_worklist(
+            every, rows, flat_o[rays].contiguous(), flat_d[rays].contiguous(),
+            seed[rays].contiguous())
         t_best = t_best.index_copy(0, rays, t_fb)
         face = face.index_copy(0, rays, f_fb)
     return _hit_ids(t_best, face, flat_a, ro.reshape(-1, 3).shape[0], ts, si)

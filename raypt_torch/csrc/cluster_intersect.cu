@@ -19,10 +19,21 @@
 //     grouping amortised scalar loop bookkeeping over independent test
 //     chains; here it has no such reason, and exists for its contract: a
 //     valid id in a slot past counts but within the last group is tested.
-// The Moller-Trumbore test is cluster_test.cuh's (the (C, L, 12) table).
-// Merge: the cluster's smallest t, then the lowest face id (Woop: lane)
-// among its triangles with that t; the ray's carry (seeded with `seed`,
-// face -1) takes it only when strictly smaller.
+// And, with its own rules, raypt/accel/clusters.py::intersect_worklist_jnp
+// (:318), the XLA worklist test of the onehot finder's non-fused branch,
+// of the cluster finder's overflow fallback and of find_closest_cluster(
+// use_pallas=False): each tile tests its rays against every one of the
+// cap slots of its worklist, in slot order, whatever the counts; a -1
+// slot tests nothing (contract: ids lie in [-1, C), as both worklist
+// builders emit them; the kernel skips any id outside [0, C), and the
+// wrapper does not check, which would cost a host sync); a miss counts
+// +inf, and within a cluster the first lane of the smallest t wins.
+// The Moller-Trumbore test is cluster_test.cuh's (the (C, L, 12) table),
+// whose order is also intersect_worklist_jnp's cross/dot form.
+// Merge: the cluster's smallest t, then the lowest face id (Woop: lane;
+// the worklist test: the first lane) among its triangles with that t;
+// the ray's carry (seeded with `seed`, face -1) takes it only when
+// strictly smaller.
 //
 // What bounds it on this card: the triangle tests, ~57 flops (Moller-
 // Trumbore) or ~56 (Woop: six 4-term sums, a division, u, v and the
@@ -36,11 +47,13 @@
 // is uniform across the block, so no warp diverges on which cluster to
 // test: the block stages the cluster's 48 L bytes in shared memory and
 // every thread reads each triangle as a broadcast.
-//   * All four kernels are one template, union_kernel<Test, Source>, over
-//     the test (MtTest, WoopTest) and over where a tile's cluster ids come
-//     from (UnionSource: rk::BitWalk over the union's set bits, ascending;
+//   * All five kernels are one template, union_kernel<Test, Source>, over
+//     the test (MtTest, WoopTest, WorklistTest: MtTest under the first-
+//     lane rule) and over where a tile's cluster ids come from
+//     (UnionSource: rk::BitWalk over the union's set bits, ascending;
 //     ListSource: rk::ListWalk over the worklist's slots, in list order,
-//     the group's rounding included). Each does only work that can change
+//     the group's rounding included; SlotSource: rk::ListWalk over all cap
+//     slots). Each does only work that can change
 //     the result. A ray whose seed is not > 0 (a dead ray is seeded -BIG)
 //     keeps its seed and id -1 untested: every candidate t lies in (0,
 //     inf], so nothing could replace it. The live rays are packed to the
@@ -102,6 +115,21 @@ struct MtTest {   // the (C, L, 12) rows, cluster_test.cuh
                                                 const rk::Ray (&r)[N],
                                                 float (&t)[N], int (&id)[N]) {
         rk::fold_cluster(tri + part * 3, tri + leaf * 3, 3 * split, r, t, id);
+    }
+};
+
+// intersect_worklist_jnp's test: MtTest's arithmetic and schedule under
+// its tie rule (a miss is +inf, the first lane of the smallest t wins).
+struct WorklistTest {
+    static constexpr int kThreads = MtTest::kThreads;
+    static constexpr int kRays = MtTest::kRays;
+    static constexpr int kMinBlocks = MtTest::kMinBlocks;
+    static constexpr int kMaxSplit = 1;
+    template <int N>
+    __device__ static __forceinline__ void fold(const float4* tri, int leaf, int,
+                                                int, int, const rk::Ray (&r)[N],
+                                                float (&t)[N], int (&id)[N]) {
+        rk::fold_cluster<N, rk::Tie::kFirstLane>(tri, tri + leaf * 3, 3, r, t, id);
     }
 };
 
@@ -230,6 +258,14 @@ struct ListSource {   // the first slots of the tile's worklist of cap
         int n = min(counts[tile], cap);
         if (group > 1) n = min((n + group - 1) / group * group, cap);
         return rk::ListWalk(worklist + tile * cap, n, c_total);
+    }
+};
+
+struct SlotSource {   // every slot of the tile's worklist of cap
+    const int* worklist;
+    int cap;
+    __device__ rk::ListWalk walk(long long tile, int c_total) const {
+        return rk::ListWalk(worklist + tile * cap, cap, c_total);
     }
 };
 
@@ -460,6 +496,17 @@ extern "C" int rk_cluster_intersect(const int* worklist, const int* counts, int 
     return launch_union<MtTest>(ListSource{worklist, counts, cap, group}, rows,
                                 c_total, leaf, ro, rd, seed, t_out, face_out, n_tiles,
                                 stream);
+}
+
+// intersect_worklist_jnp: every slot of the (n_tiles, cap) worklist,
+// the first-lane rule; face_out -1 where no cluster won.
+extern "C" int rk_intersect_worklist(const int* worklist, int cap, const float* rows,
+                                     int c_total, int leaf, const float* ro,
+                                     const float* rd, const float* seed, float* t_out,
+                                     int* face_out, long long n_tiles, void* stream) {
+    if (cap < 0) return (int)cudaErrorInvalidValue;
+    return launch_union<WorklistTest>(SlotSource{worklist, cap}, rows, c_total, leaf,
+                                      ro, rd, seed, t_out, face_out, n_tiles, stream);
 }
 
 extern "C" int rk_inv_det_sweep(float one, unsigned long long* mismatches,

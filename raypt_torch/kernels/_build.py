@@ -73,6 +73,9 @@ def kernel_lib() -> ctypes.CDLL:
         # n_tiles, stream
         "rk_cluster_intersect_mask_woop": [p, i32, p, i32, i32, p, p, p, p, p,
                                            i64, p],
+        # worklist, cap, rows, c_total, leaf, ro, rd, seed -> t, face;
+        # n_tiles, stream
+        "rk_intersect_worklist": [p, i32, p, i32, i32, p, p, p, p, p, i64, p],
         # one -> mismatches, first_bad; stream (the check of 1 / det)
         "rk_inv_det_sweep": [ctypes.c_float, p, p, p],
         # worklist, counts, cap, group, rows, c_total, leaf, ro, rd, seed

@@ -7,14 +7,22 @@ bits of the tile's wanted-cluster union (`cluster_intersect_mask`,
 `counts` entries of the tile's worklist (`cluster_intersect`,
 `pallas_cluster_intersect`; `cluster_intersect_grouped`,
 `pallas_cluster_intersect_grouped`, which rounds the count up to a
-multiple of its group).
+multiple of its group); and, with the rules of the JAX package's XLA
+reference `raypt/accel/clusters.py::intersect_worklist_jnp`, every slot
+of the tile's worklist (`intersect_worklist`).
 
 Merge rules, which decide the exact result: within a cluster the
 smallest t wins, and among triangles with that t the lowest face id (the
 Woop kernel: the lowest lane); across clusters, in the tile's order
 (ascending id for the union, list order for the worklist), a cluster
 replaces the ray's carry only when its t is strictly smaller; the carry
-starts at the seed with face -1.
+starts at the seed with face -1. `intersect_worklist` keeps
+intersect_worklist_jnp's own rules instead: every slot is scanned
+whatever the counts (a -1 slot tests nothing), a miss is inf, and within
+a cluster the first lane of the smallest t wins (argmin), where the
+kernels above take the lowest face id; across slots the same strict
+merge. Its test is written with cross/dot, whose operation order is
+`_test_cluster`'s.
 
 `_test_cluster` is the Moller-Trumbore test of one cluster in the Pallas
 kernel's operation order, written as separate elementwise ops so that
@@ -38,7 +46,7 @@ from __future__ import annotations
 
 import torch
 
-from ..core.math3d import BIG
+from ..core.math3d import BIG, EPS, STEP_PAIRS, cross, dot
 from ._build import SMEM_LIMIT, launch, on_cuda
 
 TILE = 256            # rays per tile: one CUDA block
@@ -360,3 +368,93 @@ def _worklist_kernel(worklist, counts, tri_rows, ro, rd, t0, group: int):
            ro.data_ptr(), rd.data_ptr(), t0.data_ptr(), t_out.data_ptr(),
            f_out.data_ptr(), n_tiles)
     return t_out, f_out
+
+
+@torch.no_grad()
+def intersect_worklist_plain(worklist, tri_rows, ro, rd, t0,
+                             tile: int = TILE):
+    """The worklist intersection reference (`intersect_worklist_jnp`):
+    every ray of a tile of `tile` rays against every slot of the tile's
+    worklist (n_tiles, cap), in slot order. A -1 slot tests nothing, a
+    miss is inf, within a cluster the first lane of the smallest t wins
+    (argmin), and the test is written with cross/dot. Across slots the
+    carry takes a strictly smaller t. Tiles are processed in chunks of
+    about STEP_PAIRS ray-triangle pairs a slot; none depends on another.
+
+    A chunk of tiles scans its slots only up to the last one that any of
+    its tiles fills: both worklist builders pad with trailing -1, a -1
+    slot tests nothing, and inf < t never holds, so the result is the
+    same. Reading the chunks' slot counts costs one host sync, which the
+    kernel does not make."""
+    r = ro.shape[0]
+    n_tiles, cap = worklist.shape
+    leaf = tri_rows.shape[1]
+    o_all = ro.view(n_tiles, tile, 1, 3)
+    d_all = rd.view(n_tiles, tile, 1, 3)
+    tb = t0.reshape(n_tiles, tile).clone()
+    fb = torch.full_like(tb, -1, dtype=torch.int32)
+    chunk = max(1, STEP_PAIRS // (tile * leaf))
+    slot = torch.arange(1, cap + 1, device=worklist.device)
+    filled = torch.where(worklist >= 0, slot, 0).amax(dim=1) if cap else \
+        torch.zeros((n_tiles,), dtype=torch.int64, device=worklist.device)
+    starts = range(0, n_tiles, chunk)
+    ends = torch.stack([filled[s0:s0 + chunk].amax() for s0 in starts]
+                       ).tolist() if n_tiles else []
+    for s0, n_slots in zip(starts, ends):
+        tiles = slice(s0, s0 + chunk)
+        o, d = o_all[tiles], d_all[tiles]
+        for w in range(n_slots):
+            cid = worklist[tiles, w]
+            rows = tri_rows[torch.clamp(cid, min=0).long()]
+            p0 = rows[..., 0:3][:, None]             # (T, 1, leaf, 3)
+            e1 = rows[..., 3:6][:, None]
+            e2 = rows[..., 6:9][:, None]
+            fid = rows[..., 9].contiguous().view(torch.int32)[:, None]
+            pvec = cross(d, e2)
+            det = dot(e1, pvec)
+            ok_det = torch.abs(det) > EPS
+            inv_det = (torch.where(ok_det, 1.0, 0.0)
+                       / torch.where(ok_det, det, torch.ones_like(det)))
+            tvec = o - p0
+            u = dot(tvec, pvec) * inv_det
+            qvec = cross(tvec, e1)
+            v = dot(d, qvec) * inv_det
+            t = dot(e2, qvec) * inv_det
+            hit = (ok_det & (u >= 0) & (v >= 0) & (u + v <= 1.0) & (t > 0.0)
+                   & (cid >= 0)[:, None, None])
+            t = torch.where(hit, t, torch.full_like(t, torch.inf))
+            tmin, col = torch.min(t, dim=-1)         # first index of the min
+            fmin = torch.gather(fid.expand(t.shape), -1, col[..., None])[..., 0]
+            better = tmin < tb[tiles]
+            tb[tiles] = torch.where(better, tmin, tb[tiles])
+            fb[tiles] = torch.where(better, fmin, fb[tiles])
+    return tb.view(r), fb.view(r)
+
+
+def intersect_worklist(worklist, tri_rows, ro, rd, t0):
+    """worklist (R // TILE, cap) int32 cluster ids, every slot tested in
+    slot order (ids in [-1, C): a -1 slot tests nothing; the contract is
+    not checked, which would cost a host sync, and the kernel skips any
+    id outside [0, C)), tri_rows (C, L, 12) f32, ro/rd (R, 3) f32, t0
+    (R,) f32 seed. Returns (t (R,) f32, face (R,) int32, -1 where no
+    cluster won) under intersect_worklist_jnp's rules (the module
+    docstring). One launch of `csrc/cluster_intersect.cu`'s
+    union_kernel<WorklistTest, SlotSource> on CUDA tensors (no host
+    sync); `intersect_worklist_plain` on CPU tensors."""
+    n_tiles = _n_tiles(ro)
+    cap = worklist.shape[1] if worklist.dim() == 2 else -1
+    specs = _ray_specs(tri_rows, _rows_shape(tri_rows), ro, rd, t0, n_tiles)
+    specs["worklist"] = (worklist, (n_tiles, cap), torch.int32)
+    if not on_cuda(specs):
+        return intersect_worklist_plain(worklist, tri_rows, ro, rd, t0)
+    t_out = torch.empty_like(t0)
+    f_out = torch.empty((ro.shape[0],), dtype=torch.int32, device=ro.device)
+    launch("rk_intersect_worklist", worklist.data_ptr(), cap,
+           tri_rows.data_ptr(), tri_rows.shape[0], tri_rows.shape[1],
+           ro.data_ptr(), rd.data_ptr(), t0.data_ptr(), t_out.data_ptr(),
+           f_out.data_ptr(), n_tiles)
+    intersect_worklist.launches += 1
+    return t_out, f_out
+
+
+intersect_worklist.launches = 0

@@ -39,7 +39,8 @@ from chip_smoke import (LAYOUT_FLAGS, MERGE_LEAVES, WL_GROUPS,
                         config5_case, copy_most_hit, edge_seeds, fit_run,
                         deep_stack_case, merge_case, mixed_tile, same_fit,
                         walk_edges, walk_layouts, wide_edges, woop_faces,
-                        woop_merge, worklist_merge, zero_maps_table)
+                        woop_merge, worklist_edges, worklist_merge,
+                        zero_maps_table, compare_unfused)
 
 pytestmark = pytest.mark.gpu
 
@@ -369,6 +370,101 @@ def test_cluster_stages_bitwise(gpu_scene, bounce):
                              ops=PLAIN)
     assert _bits_equal(k.t, p.t) and torch.equal(k.tri, p.tri)
     assert torch.equal(k.sphere, p.sphere)
+
+
+@pytest.mark.parametrize("leaf,bounce", [(128, 0), (128, 1), (128, 2),
+                                         (16, 1)])
+def test_intersect_worklist_bitwise(gpu_scene, leaf, bounce):
+    """The worklist intersection (intersect_worklist_jnp's rules) on one
+    bounce of the non-fused render, its worklists the first 512 clusters
+    of each tile's union, against its plain version, bitwise; then
+    chip_smoke.worklist_edges: -1 gaps between filled slots, a repeated
+    id, an all -1 and an all-dead tile, a coincident triangle in a later
+    lane (the first lane wins) and an exact tie across two slots (the
+    earlier slot keeps it)."""
+    scene, accels = gpu_scene
+    ro, rd, active = _waves(scene, DENSE, accels[128], 5,
+                            partial(find_closest_onehot, accel=accels[128],
+                                    **UNFUSED))[bounce]
+    stats = Stats()
+    _, args = compare_unfused(stats, f"bounce {bounce}", scene, accels[leaf],
+                              ro, rd, active, timed=False)
+    lanes, slots = worklist_edges(stats, *args, rng_seed=leaf + bounce)
+    assert lanes > 0 and slots > 0 and stats.err["intersect_worklist"] == 0
+
+
+def test_cluster_worklist_routes_bitwise(gpu_scene):
+    """find_closest_cluster(use_pallas=False) at the default cap and at
+    cap 2 (whose fallback runs the worklist kernel too) through the
+    kernels against PLAIN, bitwise; each launch counted once where it
+    runs the kernel."""
+    scene, accels = gpu_scene
+    clusters = accels["cluster"]
+    ro, rd, active = _waves(scene, CLUSTER, clusters, 6)[1]
+    for cap in (0, 2):
+        before = tdn.intersect_worklist.launches
+        k = find_closest_cluster(scene, clusters, ro, rd, active,
+                                 use_pallas=False, cap=cap)
+        assert tdn.intersect_worklist.launches == before + (2 if cap else 1)
+        p = find_closest_cluster(scene, clusters, ro, rd, active,
+                                 use_pallas=False, cap=cap, ops=PLAIN)
+        assert _bits_equal(k.t, p.t) and torch.equal(k.tri, p.tri)
+        assert torch.equal(k.sphere, p.sphere) and bool((k.tri >= 0).any())
+
+
+# the onehot finder's options (find_closest_onehot's keywords), each on
+# the branch it applies to: accel key, base keywords, the option
+OPTIONS = [
+    ("sort-alive", 128, {}, dict(sort_rays="alive")),
+    ("sort-mask", 128, {}, dict(sort_rays="mask")),
+    ("sort-True", 128, {}, dict(sort_rays=True)),
+    ("segment-2048", 128, {}, dict(segment_sort=2048)),
+    ("segment-3000", 128, {}, dict(segment_sort=3000)),
+    ("tile_b-128", 128, {}, dict(tile_b=128)),
+    ("tile_b-512", 128, {}, dict(tile_b=512)),
+    ("walk_tile-128", 128, {}, dict(walk_tile=128)),
+    ("expand-walk_tile-512", 384, dict(expand_n=8192, compact_n=GROUP),
+     dict(walk_tile=512)),
+    ("expand-sort-alive", 384, dict(expand_n=8192, compact_n=GROUP),
+     dict(sort_rays="alive")),
+    ("woop-sort-mask", "config4", {}, dict(sort_rays="mask")),
+    ("unfused-sort-alive", 128, dict(use_pallas_intersect=False),
+     dict(sort_rays="alive")),
+    ("unfused-segment-2048", 128, dict(use_pallas_intersect=False),
+     dict(segment_sort=2048)),
+    ("unfused-no-fallback", 128, dict(use_pallas_intersect=False),
+     dict(overflow_fallback=False)),
+]
+
+
+@pytest.mark.parametrize("name,leaf,base,opts", OPTIONS,
+                         ids=[o[0] for o in OPTIONS])
+def test_option_render_bitwise(gpu_scene, name, leaf, base, opts):
+    """A render through find_closest_onehot with the option: bitwise the
+    same render through PLAIN, and bitwise the render with no option
+    (each ray's mask lies inside its tile's union; every sort is
+    undone)."""
+    scene, accels = gpu_scene
+    cfg = DENSE
+    if leaf == "config4":
+        scene, accel = accels["config4"]
+        cfg = C4
+    else:
+        accel = accels[leaf]
+    kw = dict(dict(expand_n=0, compact_n=0), **base)
+
+    def render(ops=KERNELS, **more):
+        with torch.no_grad():
+            return render_sample(scene, cfg, rng.key(7), partial(
+                find_closest_onehot, accel=accel, ops=ops, **kw, **more),
+                return_alive=True)
+
+    img, tr = render(**opts)
+    img_p, tr_p = render(PLAIN, **opts)
+    img_0, tr_0 = render()
+    assert bool(torch.isfinite(img).all()) and int(tr[1]) > 0
+    assert _bits_equal(img, img_p) and torch.equal(tr, tr_p)
+    assert _bits_equal(img, img_0) and torch.equal(tr, tr_0)
 
 
 @pytest.mark.parametrize("path", ["expand", "dense_union", "cluster",

@@ -1,8 +1,11 @@
 """The onehot finder's non-fused branch of raypt_torch against the JAX
 package, on seeded numpy inputs over the bench scene's stand-in bunny:
 the mask-only walk (`topwalk_cm`, `topwalk`), the ascending-id
-worklists (`worklist_slice`) and the finder with use_pallas_intersect
-=False, its residual rounds included (JAX kernels in interpret mode).
+worklists (`worklist_slice`, `worklists_from_masks`), the ray-sort keys
+(`first_wanted`, `onehot_sort_key`), the worklist intersection
+(`intersect_worklist`, whose CPU path is its plain version) and the
+finder with use_pallas_intersect=False, its residual rounds included
+(JAX kernels in interpret mode).
 
 The CUDA walk runs only on the card: test_torch_gpu.py and
 chip_smoke.py hold it bitwise against these plain versions there."""
@@ -13,12 +16,15 @@ import torch
 
 from raypt.accel import clusters as jcl
 from raypt.accel.traverse import find_closest_onehot as jax_find_onehot
+from raypt.accel.traverse import onehot_sort_key as jax_sort_key
 from raypt.kernels.onehot_walk import pallas_topwalk
 
 from raypt_torch.accel import clusters as tcl
 from raypt_torch.accel.ctree import walk_topwalk
 from raypt_torch.accel.traverse import (DENSE_CHUNK, KERNELS, PLAIN,
-                                        find_closest_onehot, wavefront_inputs)
+                                        find_closest_onehot, onehot_sort_key,
+                                        wavefront_inputs)
+from raypt_torch.kernels import cluster_pallas as tdn
 from raypt_torch.kernels import dense_pallas as tdp
 from raypt_torch.kernels import onehot_walk as twk
 
@@ -156,3 +162,112 @@ def test_unfused_ops_and_wrapper_checks(bunny):
         tdp.closest_dense(w, w, w, c, c, c, r, r, t, tri_chunk=2048)
     with pytest.raises(ValueError):
         tdp.closest_dense(w, w, w, c, c, c.double(), r, r, t, tri_chunk=256)
+
+
+def _masks(bunny, leaf, seed):
+    """The walk's (R, words) masks of a seeded wavefront with ~40% dead
+    rays (whose rows are empty), with rows rewritten: 0-7 empty, 8-15
+    only bit 31 of a word, 16-23 only the last word's low bits (the last
+    word is partly filled: leaf 128 has 130 clusters, 2 bits of word 4;
+    leaf 16 1,026, 2 bits of word 32), 24-31 every bit."""
+    rng = np.random.default_rng(seed)
+    _, acc = _onehot(bunny, leaf)
+    ro, rd, t0, active = (_t(x) for x in _wavefront(rng, bunny[0]))
+    nw = -(-acc.num_clusters // 32)
+    mask = twk.topwalk(acc.table, ro, rd, t0, active, nw).clone()
+    last = acc.num_clusters - 32 * (nw - 1)
+    mask[:8] = 0
+    mask[8:16] = 0
+    mask[8:16, torch.arange(8) % nw] = -2 ** 31
+    mask[16:24] = 0
+    mask[16:24, -1] = torch.arange(1, 9, dtype=torch.int32) % (1 << last)
+    mask[24:32] = -1
+    assert (mask[32:] == 0).all(dim=1).sum() > 100   # dead or missing rays
+    return acc, mask, active
+
+
+@pytest.mark.parametrize("leaf", [16, 128])
+def test_first_wanted_bitwise(bunny, leaf):
+    """first_wanted against the JAX one, bitwise, on the walk's masks
+    with empty rows, rows of bit 31 alone, a partly filled last word and
+    full rows; and the "mask" sort's key, dead rays at 1 << 29."""
+    acc, mask, active = _masks(bunny, leaf, 140 + leaf)
+    ref = np.asarray(jcl.first_wanted(jnp.asarray(mask.numpy())))
+    got = tcl.first_wanted(mask)
+    assert got.dtype == torch.int32 and np.array_equal(got.numpy(), ref)
+    assert (ref[:8] == 1 << 29).all() and (ref[8:16] % 32 == 31).all()
+    assert (ref[24:32] == 0).all() and (ref[32:] < acc.num_clusters).any()
+    key = torch.where(active, got, torch.full_like(got, 1 << 29))
+    assert np.array_equal(key.numpy(), np.where(active.numpy(), ref, 1 << 29))
+
+
+@pytest.mark.parametrize("tile,cap", [(256, 512), (256, 8), (128, 8),
+                                      (512, 4)])
+def test_worklists_from_masks_bitwise(bunny, tile, cap):
+    """worklists_from_masks (worklist, clamped counts, overflow) against
+    the JAX one, bitwise, at leaf 16 (1,026 clusters, 33 words)."""
+    acc, mask, _ = _masks(bunny, 16, 150)
+    c = acc.num_clusters
+    ref = jcl.worklists_from_masks(jnp.asarray(mask.numpy()), tile, cap, c)
+    got = tcl.worklists_from_masks(mask, tile, cap, c)
+    for g, r in zip(got, ref):
+        assert np.array_equal(g.numpy(), np.asarray(r))
+    assert bool(got[2].any()) and bool((got[0] >= 0).any())
+
+
+def test_onehot_sort_key_bitwise(bunny):
+    """onehot_sort_key against the JAX one, bitwise: origins inside,
+    on and outside the mesh's bounds (clamped to cells 0 and 63),
+    direction components of +-0 and of either sign, ~40% dead rays."""
+    rng = np.random.default_rng(160)
+    pos = np.asarray(bunny[0].mesh.positions)[:2562]
+    bmin, bmax = pos.min(0), pos.max(0)
+    ro, rd, _, active = _wavefront(rng, bunny[0])
+    ro[:64] = bmin + (bmax - bmin) * rng.integers(-1, 3, (64, 3))
+    rd[64:128] = rng.choice(np.float32([0.0, -0.0, 1.0, -1.0]), (64, 3))
+    ref = np.asarray(jax_sort_key(jnp.asarray(ro), jnp.asarray(rd),
+                                  jnp.asarray(active), jnp.asarray(bmin),
+                                  jnp.asarray(bmax)))
+    got = onehot_sort_key(_t(ro), _t(rd), _t(active), _t(bmin), _t(bmax))
+    assert got.dtype == torch.int32 and np.array_equal(got.numpy(), ref)
+    live = ref[active]
+    assert (ref[~active] == 1 << 30).all() and len(np.unique(live)) > 100
+    assert (live & 7 == 7).any() and (live & 7 == 0).any()
+
+
+@pytest.mark.parametrize("leaf,cap", [(128, 40), (16, 8)])
+def test_intersect_worklist_matches_jax(bunny, leaf, cap):
+    """The worklist intersection's wrapper (its plain version on the
+    CPU) against intersect_worklist_jnp on the same worklists: the
+    first cap clusters of each tile's union, then -1 gaps spread between
+    them (every slot is scanned) and a repeated id. Faces equal on every
+    live ray, t within test_torch_cluster's T_RTOL/T_ATOL (measured:
+    faces equal; worst t 2.4e-4 absolute at t = 570, 1.2e-5 relative);
+    gaps and repeats leave the port's result bitwise unchanged."""
+    rng = np.random.default_rng(170 + leaf)
+    (jclu, _), acc = _onehot(bunny, leaf)
+    ro, rd, t0, active = _wavefront(rng, bunny[0])
+    c = acc.num_clusters
+    mask = twk.topwalk(acc.table, _t(ro), _t(rd), _t(t0), _t(active),
+                       -(-c // 32))
+    wl = tcl.worklists_from_masks(mask, 256, cap, c)[0]
+    seed = np.where(active, t0, -1e30).astype(np.float32)
+    args = (_t(ro), _t(rd), _t(seed))
+    got = tdn.intersect_worklist(wl, acc.clusters.tri_rows, *args)
+    ref = jcl.intersect_worklist_jnp(jclu, jnp.asarray(wl.numpy()), None,
+                                     *(jnp.asarray(x) for x in (ro, rd, seed)),
+                                     tile=256)
+    assert (np.asarray(ref[1])[active] >= 0).sum() > 30
+    assert np.array_equal(got[1].numpy()[active], np.asarray(ref[1])[active])
+    np.testing.assert_allclose(got[0].numpy()[active],
+                               np.asarray(ref[0])[active], rtol=1e-5,
+                               atol=2.0 ** -16)
+    n_tiles = wl.shape[0]
+    gaps = torch.full((n_tiles, 2 * cap + 1), -1, dtype=torch.int32)
+    slot = 2 * torch.arange(cap) + torch.from_numpy(
+        rng.integers(0, 2, (n_tiles, cap)))
+    gaps.scatter_(1, slot, wl)
+    gaps[:, -1] = wl[:, 0]                   # a repeated id (or -1)
+    again = tdn.intersect_worklist(gaps, acc.clusters.tri_rows, *args)
+    assert torch.equal(again[0].view(torch.int32), got[0].view(torch.int32))
+    assert torch.equal(again[1], got[1])
