@@ -15,9 +15,11 @@ bounces, roulette) through:
                closest_dense, every ray against every triangle
   unfused      the onehot finder's non-fused branch at leaf 128
                (find_closest_onehot(..., use_pallas_intersect=False)):
-               topwalk_cm, then tile unions and ascending-id worklists
-               in torch, intersect_worklist (the worklist test of the
-               JAX package's XLA intersect_worklist_jnp, with its rules)
+               topwalk (the mask-only walk's ray-major mode), then tile
+               unions and ascending-id worklists in torch,
+               intersect_worklist (the worklist test of the JAX
+               package's XLA intersect_worklist_jnp, with its rules,
+               behind a conservative per-ray cluster cull)
   auto         RenderConfig's default backend, which resolves to "dense"
                for this mesh; the port serves "dense" with the pallas
                path's finder: closest_dense
@@ -34,8 +36,8 @@ config4_scene at 1024^2, 8 bounces, roulette, refraction, key 7):
 
   config4      backend "onehot" with build_onehot(build_sah(mesh),
                leaf=128, with_woop=True), the finder's Woop branch:
-               topwalk_cm (then a transpose and the tile unions in
-               torch), cluster_intersect_mask_woop
+               topwalk (then the tile unions in torch),
+               cluster_intersect_mask_woop
 
 cluster_intersect_grouped lies on no path, as in the JAX package: phase 3
 holds it on the cluster path's wavefronts against its plain version and
@@ -69,7 +71,21 @@ Phases:
      2^22 and at STEP_PAIRS pairs a step), intersect_worklist on
      worklist_edges' cases (-1 gaps, a repeated id, an all -1 and an
      all-dead tile, a coincident triangle in a later lane, a tie across
-     two slots) on 65,536 rays of the unfused path, a tile of rays that hit
+     two slots) on 65,536 rays of the unfused path and on cull_edges'
+     (rays grazing a triangle at |det| of 1-3 x 1e-8, origins 10^3-10^4
+     edge lengths away, hits on vertices and edge midpoints, a table of
+     zero rows, slivers, a one-triangle, an empty and a mixed-normal
+     cluster). Wherever intersect_worklist is checked (the unfused
+     wavefronts, the fallback, these cases, phase 5's use_pallas=False)
+     it also runs in its audit mode (cull_audit): every (ray, cluster)
+     pair its cull skipped is tested in full, and a skipped pair whose
+     hit the merge would have taken fails the phase, as do pre-pass
+     records that differ from worklist_cull_prep_plain's and live or
+     kept pair counts that differ from intersect_worklist_culled_plain's
+     on the same inputs; the log gives the pairs the cull kept. The
+     kernel's bound counts the kept pairs' tests, the cull of every live
+     pair and the pre-pass; the log gives, as information, the bound had
+     every live pair been tested. A tile of rays that hit
      nothing, duplicated triangles tying within a triangle chunk and
      across chunks, tables of one chunk exactly and of a size that
      needs padding, and zero maps among the real triangles (tables of
@@ -271,8 +287,9 @@ Phases:
 The last line is {"ok": true, "device": {...}}; the line before it is
 the per-kernel JSON summary: "ms", "plain_ms" and "bound_ms" are summed
 over the bounce wavefronts of the kernel's paths (one frame's worth of
-launches of each: four, eight on config4; topwalk_cm's over the unfused
-path's four and config4's eight, which the log also gives apart; the
+launches of each: four, eight on config4; topwalk's (and topwalk_cm's,
+which no path launches) over the unfused path's four and
+config4's eight, which the log also gives apart; the
 grouped kernel's on the cluster path's four), "launches" are counted in
 those paths' renders of phase 4 (0 for cluster_intersect_grouped, which
 no path runs; wide_walk's in phase 10's bvh4 render; the layout walks'
@@ -305,6 +322,7 @@ COMPACT_N = 32768
 DENSE_LEAF = 128          # RenderConfig's default onehot_leaf
 MULTIWORD_LEAF = 16
 MULTIWORD_RAYS = 65536
+CULL_EDGE_RAYS = 4096     # rays of each of cull_edges' cases
 OVERFLOW_CAP = 8
 UNFUSED_CAP = 2           # the non-fused finder's forced residual rounds
 # closest_dense vs matmul_closest: a ray agrees when both pick the same
@@ -327,6 +345,10 @@ GRAD_RTOL = 1e-3
 # of it and an operations bound below is a floor they cannot reach.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+# float64 operations/s outside the tensor cores (the same data sheet;
+# the on-chip guide's table has no f64 row): the worklist cull's slab
+# test and its pre-pass run in f64
+F64_OPS_PER_S = 34e12
 # f32 operations of one walk step (12 slab sub/mul, 10 min/max, 8
 # compares, 15 for the three link/id decodes) and of one ray-triangle
 # Moller-Trumbore test with its merge (cluster_test.cuh: 50 arithmetic,
@@ -339,6 +361,20 @@ WALK_OPS = 45
 ROW_DECODE_OPS = 15
 WALK_BLOCK = 256   # rays a block of the walk kernels (onehot_walk.cu kThreads)
 MT_OPS = 57
+# The worklist cull (csrc/worklist_cull.cuh: rk::cull::keep_pair) for a
+# (live ray, cluster) pair on its full path: f32 the cone (the axis dot
+# 6, cos and sin of beta 9, cos(beta + alpha) 5, g 3), the threshold
+# bound (10), rho (4), the origin's far distance (19), delta (12), the
+# slab's grown bounds and axis flags (12), the state and ray flags (3):
+# 84; f64 the slab's three axes (8 each) and its emptiness test (6): 30.
+# Once a live ray a tile (rk::cull::ray_data): |d|, its reciprocal, the
+# three clamped 1 / d_i and the range checks, 34 f32. The pre-pass
+# (cull_prep_kernel) once a row: the f64 normal, three lengths, the
+# |det| reach, side, unit normal and sums, s_min, E, E2 and the cone's
+# cosine (65), f32 the box and range checks (42). Its records, C x 64
+# bytes, are written once and read once.
+CULL_OPS, CULL_OPS_F64, CULL_RAY_OPS = 84, 30, 34
+PREP_OPS, PREP_OPS_F64, CULL_REC_BYTES = 42, 65, 64
 # f32 operations of one Woop ray-triangle test (dense_closest.cu): six
 # 3-term transforms (3 with an offset: 18 mul/add, 15 without), |d'_w|
 # and its compare (2), the negation and the division (2), u and v (4),
@@ -544,10 +580,15 @@ KERNELS = {   # name -> (paths that launch it, source, TPU kernel it replaces)
                           "raypt/kernels/cluster_pallas.py:104"),
     "closest_dense": (("pallas",), "raypt_torch/csrc/dense_closest.cu",
                       "raypt/kernels/dense_pallas.py:84"),
-    # with a transpose after it, also pallas_topwalk (onehot_walk.py:169);
-    # its row's times and launches are the unfused path's and config4's
-    "topwalk_cm": (("unfused", "config4"), "raypt_torch/csrc/onehot_walk.cu",
+    # the mask-only walk's word-major mode: no path takes it since the
+    # finders take its ray-major mode (topwalk); phase 3 times it on the
+    # unfused and config4 wavefronts
+    "topwalk_cm": ((), "raypt_torch/csrc/onehot_walk.cu",
                    "raypt/kernels/onehot_walk.py:190"),
+    # the same walk's ray-major mode (rk_topwalk_mask_rows): the (R,
+    # words) mask of the non-fused and Woop branches
+    "topwalk": (("unfused", "config4"), "raypt_torch/csrc/onehot_walk.cu",
+                "raypt/kernels/onehot_walk.py:169"),
     "cluster_intersect_mask_woop": (("config4",),
                                     "raypt_torch/csrc/cluster_intersect.cu",
                                     "raypt/kernels/cluster_pallas.py:486"),
@@ -678,8 +719,9 @@ class Stats:
         self.plain_ms = {k: 0.0 for k in KERNELS}
         self.bound_ms = {k: 0.0 for k in KERNELS}
         self.library_ms = {k: None for k in KERNELS}
-        # topwalk_cm and its transpose, per frame of each path
-        self.topwalk_ms = {}
+        # the worklist cull's (live ray-cluster pairs, pairs kept), per
+        # frame of each path
+        self.cull = {}
         # device time from CUDA graph replay (no host work between
         # calls), summed over the timed wavefronts: name -> ms
         self.graph_ms = {}
@@ -698,17 +740,17 @@ class Stats:
                                  f"on {what} (max abs err {err})")
 
     def time(self, name, label, kernel, plain, args, moved, ops,
-             plain_ms=None):
+             plain_ms=None, ops_f64=0):
         """CUDA-event times of one launch of the kernel and of its plain
         version on args (mean of 2 after a warm-up, or `plain_ms` where
         the caller timed it), and the launch's bound: the larger of
         `moved` bytes over the HBM rate and `ops` f32 operations over the
-        peak."""
+        f32 peak plus `ops_f64` f64 operations over the f64 peak."""
         k_ms = cuda_ms(lambda: kernel(*args), 10)
         p_ms = (cuda_ms(lambda: plain(*args), 2) if plain_ms is None
                 else plain_ms)
         by_bytes = 1e3 * moved / HBM_BYTES_PER_S
-        by_ops = 1e3 * ops / F32_OPS_PER_S
+        by_ops = 1e3 * (ops / F32_OPS_PER_S + ops_f64 / F64_OPS_PER_S)
         self.ms[name] += k_ms
         self.plain_ms[name] += p_ms
         self.bound_ms[name] += max(by_bytes, by_ops)
@@ -1403,13 +1445,14 @@ def compare_pallas(stats, label, scene, mats, chunk, ro, rd, timed,
 def compare_unfused(stats, label, scene, accel, ro, rd, active, timed,
                     worklist=True):
     """The non-fused path's stages on one wavefront, kernels against
-    plain versions: the mask-only walk, word-major and transposed (the
-    (R, words) form the finder takes), and, with `worklist`, the
-    worklist intersection of the first WORKLIST_CAP clusters of each
-    tile's union (the finder's first round; its plain version timed once,
-    by the run checked, where timed). Returns the kernel's (words, R)
-    mask, and with `worklist` the intersection's (worklist, rows, o, d,
-    seed)."""
+    plain versions: the mask-only walk, word-major (topwalk_cm) and
+    ray-major (topwalk, the (R, words) form the finder takes, written so
+    by the kernel), and, with `worklist`, the worklist intersection of
+    the first WORKLIST_CAP clusters of each tile's union (the finder's
+    first round; its plain version timed once, by the run checked, where
+    timed), also through the kernel's audit (`cull_audit`). Returns the
+    kernel's (words, R) mask, and with `worklist` the intersection's
+    (worklist, rows, o, d, seed)."""
     import torch
     from raypt_torch.accel.clusters import (WORKLIST_CAP, tile_union_counts,
                                             worklist_slice)
@@ -1424,7 +1467,7 @@ def compare_unfused(stats, label, scene, accel, ro, rd, active, timed,
     wargs = (accel.table, o, d, t, a, nw)
     km = wk.topwalk_cm(*wargs)
     stats.check("topwalk_cm", f"{label} mask", km, wk.topwalk_cm_plain(*wargs))
-    stats.check("topwalk_cm", f"{label} (R, words) mask", wk.topwalk(*wargs),
+    stats.check("topwalk", f"{label} (R, words) mask", wk.topwalk(*wargs),
                 walk_topwalk(*wargs))
     if worklist:
         union, counts = tile_union_counts(km.T.contiguous(), dn.TILE)
@@ -1441,22 +1484,42 @@ def compare_unfused(stats, label, scene, accel, ro, rd, active, timed,
         torch.cuda.synchronize()
         stats.check("intersect_worklist", f"{label} t", kt, pt)
         stats.check("intersect_worklist", f"{label} face", kf, pf)
+        pairs, kept = cull_audit(stats, label, iargs, (pt, pf))
         if timed:
             n = counts.clamp(max=WORKLIST_CAP)
             tests = live_tests(a, n, dn.TILE)
+            if tests != pairs:
+                raise AssertionError(f"intersect_worklist {label}: the audit "
+                                     f"counted {pairs} live pairs, the "
+                                     f"union {tests}")
+            # the work this run's data needs: the kept pairs' tests, the
+            # cull of every live pair, each live ray's cull data and the
+            # pre-pass over the rows; the records written and read once
+            c_rows = rows.shape[0] * rows.shape[1]
+            live = int((seed > 0).sum())
             stats.time("intersect_worklist", label, dn.intersect_worklist,
                        dn.intersect_worklist_plain, iargs,
-                       nbytes(wl, rows, o, d, seed, kt, kf),
-                       MT_OPS * rows.shape[1] * tests,
-                       plain_ms=start.elapsed_time(end))
+                       nbytes(wl, rows, o, d, seed, kt, kf)
+                       + 2 * CULL_REC_BYTES * rows.shape[0],
+                       MT_OPS * rows.shape[1] * kept + CULL_OPS * pairs
+                       + CULL_RAY_OPS * live + PREP_OPS * c_rows,
+                       plain_ms=start.elapsed_time(end),
+                       ops_f64=CULL_OPS_F64 * pairs + PREP_OPS_F64 * c_rows)
+            union_ms = 1e3 * MT_OPS * rows.shape[1] * tests / F32_OPS_PER_S
+            stats.cull[stats.path] = [x + y for x, y in zip(
+                stats.cull.get(stats.path, (0, 0, 0.0)),
+                (pairs, kept, union_ms))]
             every = dn.TILE * int(n.sum())
             log(f"  {label:9s} worklist clusters per tile "
                 f"{float(n.float().mean()):.2f}, max {int(n.max())} of "
                 f"{WORKLIST_CAP} slots; live ray-cluster tests {tests} "
-                f"({tests / max(every, 1):.4f} of all)")
+                f"({tests / max(every, 1):.4f} of all); the cull kept "
+                f"{kept} ({kept / max(pairs, 1):.4f}), which the bound "
+                f"counts; testing every live pair would take {union_ms:.4f} "
+                f"ms at the f32 peak (information)")
     if timed:
         # what the function needs: the table once, a live ray's origin,
-        # direction and t, every ray's flag and mask column
+        # direction and t, every ray's flag and mask words (either layout)
         visits = walk_visits(*wargs)
         live = int(a.sum())
         busy = int(a.view(-1, WALK_BLOCK).any(dim=1).sum())
@@ -1466,12 +1529,48 @@ def compare_unfused(stats, label, scene, accel, ro, rd, active, timed,
                + ROW_DECODE_OPS * accel.table.shape[0] * busy)
         stats.time("topwalk_cm", label, wk.topwalk_cm, wk.topwalk_cm_plain,
                    wargs, moved, ops)
-        ms = cuda_ms(lambda: wk.topwalk(*wargs), 10)
-        stats.topwalk_ms[stats.path] = stats.topwalk_ms.get(stats.path,
-                                                            0.0) + ms
-        log(f"  {label:9s} topwalk (kernel + transpose) {ms:9.3f} ms; walk "
-            f"visits {visits}, {nw} words, {busy} blocks with a live ray")
+        stats.time("topwalk", label, wk.topwalk, walk_topwalk, wargs, moved,
+                   ops)
+        log(f"  {label:9s} walk visits {visits}, {nw} words, {busy} blocks "
+            f"with a live ray")
     return (km, iargs) if worklist else km
+
+
+def cull_audit(stats, label, iargs, plain):
+    """intersect_worklist through its audit mode: (t, face) bitwise the
+    plain version's; no pair the cull skipped holds a hit the merge would
+    have taken (the kernel tests every skipped pair in full); the
+    pre-pass's records equal, value for value, worklist_cull_prep_plain's
+    on the CPU (the sign of a zero aside, which no decision reads); and
+    the kernel's counts of live and kept pairs are those of
+    intersect_worklist_culled_plain on the same inputs (the plain
+    predicate, run on the card), whose (t, face) is the plain version's
+    too. Returns (live ray-cluster pairs, pairs kept)."""
+    import torch
+    from raypt_torch.kernels import cluster_pallas as dn
+    at, af, (pairs, kept, bad), recs = dn.intersect_worklist_audit(*iargs)
+    stats.check("intersect_worklist", f"{label} audit t", at, plain[0])
+    stats.check("intersect_worklist", f"{label} audit face", af, plain[1])
+    if bad:
+        raise AssertionError(f"intersect_worklist {label}: the cull skipped "
+                             f"{bad} pairs whose hit the merge would take")
+    want = dn.worklist_cull_prep_plain(iargs[1].cpu())
+    differ = (recs.cpu() != want).any(dim=1)
+    if differ.any():
+        c = int(torch.nonzero(differ)[0])
+        raise AssertionError(
+            f"intersect_worklist {label}: the pre-pass's records differ from "
+            f"worklist_cull_prep_plain's in {int(differ.sum())} clusters; "
+            f"cluster {c}: {recs[c].tolist()} against {want[c].tolist()}")
+    ct, cf, counts = dn.intersect_worklist_culled_plain(*iargs)
+    stats.check("intersect_worklist", f"{label} culled plain t", ct, plain[0])
+    stats.check("intersect_worklist", f"{label} culled plain face", cf,
+                plain[1])
+    if counts != (pairs, kept, 0):
+        raise AssertionError(f"intersect_worklist {label}: the kernel's audit "
+                             f"counted (live, kept) pairs {(pairs, kept)}, the "
+                             f"plain predicate {counts[:2]}")
+    return pairs, kept
 
 
 def worklist_edges(stats, wl, rows, o, d, seed, rng_seed=7):
@@ -1565,6 +1664,103 @@ def worklist_edges(stats, wl, rows, o, d, seed, rng_seed=7):
     return int(on_f0.sum()), int(in_c.sum())
 
 
+def cull_rays(rows, picks, bary, dist, grazing, gen):
+    """Rays at the points p0 + u e1 + v e2 of the picked (cluster, lane)
+    rows (bary (n, 2)) from `dist` back along the direction; with
+    `grazing`, the direction lies in the triangle's plane but for a
+    normal part giving |det| = |d . (e1 x e2)| of 1-3 x 1e-8 (f64, then
+    f32)."""
+    import torch
+    tri = rows[picks[:, 0], picks[:, 1]].double()
+    p0, e1, e2 = tri[:, 0:3], tri[:, 3:6], tri[:, 6:9]
+    x = p0 + bary[:, 0:1] * e1 + bary[:, 1:2] * e2
+    n = torch.linalg.cross(e1, e2)
+    rnd = torch.randn(picks.shape[0], 3, generator=gen, dtype=torch.float64
+                      ).to(rows.device)
+    if grazing:
+        tang = torch.linalg.cross(n, rnd)
+        tang /= tang.norm(dim=1, keepdim=True)
+        det = (1.0 + 2.0 * torch.rand(picks.shape[0], generator=gen,
+                                      dtype=torch.float64).to(rows.device))
+        d = tang + (det * 1e-8 / n.norm(dim=1) ** 2)[:, None] * n
+    else:
+        d = torch.where(((rnd * n).sum(1) > 0)[:, None], -rnd, rnd)
+    d /= d.norm(dim=1, keepdim=True)
+    o = x - dist[:, None] * d
+    return o.float().contiguous(), d.float().contiguous()
+
+
+def cull_edges(stats, rows, dev, rays=CULL_EDGE_RAYS, seed=8):
+    """intersect_worklist on the cull's adversarial cases, built on the
+    card, over every cluster of `rows` in a seeded order with -1 gaps:
+    rays grazing a triangle (|det| of 1-3 x 1e-8), from 10^3-10^4 edge
+    lengths away, and at vertices and edge midpoints; and a table of zero
+    rows, slivers, a one-triangle cluster, an empty cluster and a cluster
+    of mixed normals against rays around it. Each bitwise the plain
+    version, and the audit finds no skipped pair with a taken hit."""
+    import torch
+    from raypt_torch.kernels import cluster_pallas as dn
+    gen = torch.Generator().manual_seed(seed)
+
+    def every(c_total, n_tiles):
+        cap = c_total + c_total // 4
+        keys = torch.rand(n_tiles, cap, generator=gen).argsort(dim=1)
+        ids = torch.where(keys < c_total, keys, -1)
+        return ids.to(torch.int32).to(dev).contiguous()
+
+    def run(label, table, o, d):
+        s = torch.full((o.shape[0],), 1e30, device=dev)
+        args = (every(table.shape[0], o.shape[0] // dn.TILE), table, o, d, s)
+        kt, kf = dn.intersect_worklist(*args)
+        pt, pf = dn.intersect_worklist_plain(*args)
+        stats.check("intersect_worklist", f"cull {label} t", kt, pt)
+        stats.check("intersect_worklist", f"cull {label} face", kf, pf)
+        pairs, kept = cull_audit(stats, f"cull {label}", args, (pt, pf))
+        log(f"  cull edges {label:8s}: {int((pf >= 0).sum())} hits, kept "
+            f"{kept} of {pairs} pairs, bitwise, no skipped pair held a "
+            f"taken hit")
+
+    area = torch.linalg.cross(rows[..., 3:6], rows[..., 6:9]).norm(dim=-1)
+    cands = torch.nonzero(area > 0)
+    edge = float(rows[..., 3:6].norm(dim=-1).max())
+    for case in ("grazing", "far", "edges"):
+        picks = cands[torch.randint(0, cands.shape[0], (rays,), generator=gen
+                                    ).to(dev)]
+        if case == "edges":
+            corners = torch.tensor([[0, 0], [1, 0], [0, 1], [0.5, 0], [0, 0.5],
+                                    [0.5, 0.5]], dtype=torch.float64)
+            bary = corners[torch.randint(0, 6, (rays,), generator=gen)]
+        else:
+            u = torch.rand(rays, 2, generator=gen, dtype=torch.float64)
+            bary = torch.where(u.sum(1, keepdim=True) > 1, 1 - u, u)
+        span = (1e3 * edge, 1e4 * edge) if case == "far" else (0.5, 20.0)
+        dist = span[0] + (span[1] - span[0]) * torch.rand(
+            rays, generator=gen, dtype=torch.float64)
+        o, d = cull_rays(rows, picks, bary.to(dev), dist.to(dev),
+                         case == "grazing", gen)
+        run(case, rows, o, d)
+    table = torch.zeros((4, 8, 12), dtype=torch.float32)
+    fid = torch.arange(16, dtype=torch.int32).view(torch.float32)
+    table[0, 5, :10] = torch.tensor([0, 0, 0, 1, 0, 0, 0, 1, 0, fid[1]])
+    table[1, 0, :10] = torch.tensor([0, 0, 0.5, 1, 1, 0, 2, 2, 0, fid[2]])
+    table[1, 1, :10] = torch.tensor([0, 0, 0.25, 1, 0, 0, 1, 1e-7, 0, fid[3]])
+    table[1, 2, :10] = torch.tensor([0, 0, 0.75, 0.5, 0, 0, 0, 0.5, 0,
+                                     fid[4]])
+    for j in range(8):
+        n = torch.randn(3, generator=gen)
+        e1 = torch.linalg.cross(n, torch.randn(3, generator=gen))
+        table[3, j, 0:3] = torch.rand(3, generator=gen) - 0.5
+        table[3, j, 3:6] = e1
+        table[3, j, 6:9] = torch.linalg.cross(n, e1) / 3
+        table[3, j, 9] = fid[5 + j]
+    target = torch.rand(rays, 3, generator=gen) * 3 - 1.5
+    o = torch.randn(rays, 3, generator=gen) * 4
+    d = target - o
+    d /= d.norm(dim=1, keepdim=True)
+    run("slivers", table.to(dev), o.to(dev).contiguous(),
+        d.to(dev).contiguous())
+
+
 def options_phase(stats, counters, scene, accels, waves, cfg, skey):
     """The onehot finder's options and the cluster finder's use_pallas on
     the card (phase 5): on the dense-union path's bounce-1 wavefront
@@ -1581,11 +1777,15 @@ def options_phase(stats, counters, scene, accels, waves, cfg, skey):
     path's bounce-1 wavefront against the same finder through PLAIN,
     timed beside use_pallas=True."""
     import torch
+    from raypt_torch.accel.clusters import tile_worklists
     from raypt_torch.accel.traverse import (DENSE_CHUNK, PLAIN,
                                             find_closest_cluster,
                                             find_closest_onehot,
                                             wavefront_inputs)
+    from raypt_torch.core.math3d import BIG
     from raypt_torch.kernels import compact as cp
+    from raypt_torch.kernels.cluster_pallas import (TILE, intersect_worklist,
+                                                    intersect_worklist_plain)
     from raypt_torch.render.integrator import render_sample
 
     ro, rd, active = waves["dense_union"][1]
@@ -1610,7 +1810,7 @@ def options_phase(stats, counters, scene, accels, waves, cfg, skey):
     unfused_kw = dict(base_kw, use_pallas_intersect=False)
     sort = {"alive_compact": 1, "alive_uncompact": 1}
     union = {"topwalk_union": 1, "cluster_intersect_mask": 1}
-    masked = {"topwalk_cm": 1, "cluster_intersect_mask": 1}
+    masked = {"topwalk": 1, "cluster_intersect_mask": 1}
     cases = [  # label, keywords, launches
         ("none", base_kw, union),
         ("sort_rays alive", dict(base_kw, sort_rays="alive"),
@@ -1625,10 +1825,10 @@ def options_phase(stats, counters, scene, accels, waves, cfg, skey):
         ("tile_b 512", dict(base_kw, tile_b=512), union),
         ("walk_tile 512", dict(base_kw, walk_tile=512), union),
         ("walk_tile 128", dict(base_kw, walk_tile=128), masked),
-        ("unfused", unfused_kw, {"topwalk_cm": 1, "intersect_worklist": 1}),
+        ("unfused", unfused_kw, {"topwalk": 1, "intersect_worklist": 1}),
         ("unfused, overflow_fallback off",
          dict(unfused_kw, overflow_fallback=False),
-         {"topwalk_cm": 1, "intersect_worklist": 1}),
+         {"topwalk": 1, "intersect_worklist": 1}),
     ]
     ref, frames = {}, {}
     for label, kw, expect in cases:
@@ -1670,6 +1870,17 @@ def options_phase(stats, counters, scene, accels, waves, cfg, skey):
         outs[use_pallas], _ = counted(counters, expect, run)
         log(f"  cluster finder use_pallas={use_pallas}: forward "
             f"{cuda_ms(run, 3):9.3f} ms; launches {expect}")
+    o, d, t, a, _, _ = wavefront_inputs(scene, ro, rd, active, DENSE_CHUNK)
+    seed = torch.where(a, t, torch.full_like(t, -BIG))
+    wl = tile_worklists(clusters, o, d, seed, TILE)[0]
+    iargs = (wl, clusters.tri_rows, o, d, seed)
+    pairs, kept = cull_audit(stats, "use_pallas=False", iargs,
+                             intersect_worklist_plain(*iargs))
+    log(f"  cluster finder use_pallas=False: the cull kept {kept} of {pairs} "
+        f"live ray-cluster pairs ({kept / max(pairs, 1):.4f}) of the "
+        f"nearest-first worklists, none skipped held a taken hit; "
+        f"intersect_worklist {cuda_ms(lambda: intersect_worklist(*iargs), 3):.3f}"
+        f" ms")
     t0 = time.perf_counter()
     plain = find_closest_cluster(scene, clusters, ro, rd, active,
                                  use_pallas=False, ops=PLAIN)
@@ -2073,10 +2284,13 @@ SASS_LOOPS = {
         r"\d+union_kernelINS_6MtTestENS_10ListSourceE", "MUFU.RCP", 1),
     "union_kernel<WoopTest<4>>": (r"\d+union_kernelINS_8WoopTestILi4E",
                                   "MUFU.RCP", 1),
-    "union_kernel<WorklistTest, SlotSource>": (
-        r"\d+union_kernelINS_12WorklistTestENS_10SlotSourceE", "MUFU.RCP", 1),
+    "worklist_cull_kernel (intersect_worklist)": (
+        r"\d+worklist_cull_kernelILb\dELb0E", "MUFU.RCP", 1),
     "closest_dense_kernel": (r"\d+closest_dense_kernelE", "MUFU.RCP", 1),
-    "topwalk_mask_kernel": (r"\d+topwalk_mask_kernelE", "LDS.128", 2),
+    "topwalk_mask_kernel<false>": (r"\d+topwalk_mask_kernelILb0E", "LDS.128",
+                                   2),
+    "topwalk_mask_kernel<true> (topwalk)": (r"\d+topwalk_mask_kernelILb1E",
+                                            "LDS.128", 2),
     "topwalk_union_kernel": (r"\d+topwalk_union_kernelE", "LDS.128", 2),
     "topwalk_cm_u_kernel": (r"\d+topwalk_cm_u_kernelE", "LDS.128", 2),
     "split_walk_kernel (packed_walk)": (r"split_walk_kernelILb0E", "LDG.E.128",
@@ -4832,8 +5046,11 @@ def main():
     stats.check("intersect_worklist", "overflowed tiles t", kt, fb_out[0][0])
     stats.check("intersect_worklist", "overflowed tiles face", kf,
                 fb_out[0][1])
+    pairs, kept = cull_audit(stats, "overflowed tiles", fb_args, fb_out[0])
     log(f"  overflow fallback's intersect_worklist kernel: {ms:.4f} ms on the "
-        f"{ov.numel()} overflowed tiles, bitwise equal to the plain version")
+        f"{ov.numel()} overflowed tiles, bitwise equal to the plain version; "
+        f"the cull kept {kept} of {pairs} live ray-cluster pairs "
+        f"({kept / max(pairs, 1):.4f}), none skipped held a taken hit")
     # the worklist kernel's edge cases on the non-fused path's bounce-1
     # wavefront (its first MULTIWORD_RAYS rays)
     ro, rd, active = (x[:MULTIWORD_RAYS].contiguous()
@@ -4845,6 +5062,7 @@ def main():
         f"an all-dead tile, a coincident triangle in a later lane ({lanes} "
         f"rays: the first lane kept) and a copied cluster before and after "
         f"its original ({slots} rays: the earlier slot kept), bitwise")
+    cull_edges(stats, accels["unfused"].clusters.tri_rows, dev)
     # closest_dense: a tile of rays that hit nothing (from far outside the
     # scene, pointing away)
     ro, rd, _ = waves["pallas"][1]
@@ -4926,6 +5144,7 @@ def main():
                 "cluster_intersect": dn.cluster_intersect,
                 "closest_dense": dp.closest_dense,
                 "topwalk_cm": wk.topwalk_cm,
+                "topwalk": wk.topwalk,
                 "cluster_intersect_mask_woop": dn.cluster_intersect_mask_woop,
                 "cluster_intersect_grouped": dn.cluster_intersect_grouped,
                 "intersect_worklist": dn.intersect_worklist,
@@ -5204,9 +5423,12 @@ def main():
     log(f"phase 12: {time.perf_counter() - t0:.1f} s; the call so far "
         f"{time.perf_counter() - t_start:.1f} s ({smi[0]})")
 
-    for path, ms in stats.topwalk_ms.items():
-        log(f"topwalk_cm and its transpose (pallas_topwalk's counterpart), "
-            f"{path}: {ms:.4f} ms per frame")
+    for path, (pairs, kept, union_ms) in stats.cull.items():
+        log(f"intersect_worklist's cull, {path}: kept {kept} of {pairs} live "
+            f"ray-cluster pairs a frame ({kept / max(pairs, 1):.4f}); bound "
+            f"{stats.by_path[('intersect_worklist', path)][2]:.4f} ms on "
+            f"the kept pairs and the cull, {union_ms:.4f} ms had every live "
+            f"pair been tested (information)")
     for name, ms in stats.graph_ms.items():
         log(f"{name}: {ms:.4f} ms per frame replayed from CUDA graphs "
             f"(device time; {stats.ms[name]:.4f} through the wrapper)")

@@ -102,6 +102,8 @@ __device__ __forceinline__ int walk_step(const float4* s_row, int node,
 // With s_union set (the mask-and-union walk), each nonzero word is also
 // ORed into the block's shared union words when it is stored: one
 // register word feeds both outputs, and the mask is never read back.
+// The calls' `r` is the stride of a ray's words: R for the word-major
+// (cwp, R) mask, 1 for the ray-major (R, cwp) one.
 struct MaskColumn {
     int* col;          // word 0 of the ray's column; word w at col[w * r]
     int cur_w, last;

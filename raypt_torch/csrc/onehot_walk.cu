@@ -1,8 +1,9 @@
 // Per-ray walk of the encoded cluster top tree, for Hopper (sm_90a).
 //
 // Replaces raypt/kernels/onehot_walk.py: pallas_topwalk_cm_u (:252),
-// pallas_topwalk_union (:325) and pallas_topwalk_cm (:190; with a
-// transpose after it, pallas_topwalk :169), all with body _kernel (:61).
+// pallas_topwalk_union (:325), pallas_topwalk_cm (:190) and
+// pallas_topwalk (:169, the same mask ray-major), all with body _kernel
+// (:61).
 // Contract:
 // for each active ray, walk the skip-link top tree from node 0,
 // slab-testing each node box against the ray with the bound t0; a hit
@@ -10,13 +11,15 @@
 // skip link; a hit leaf sets its cluster's bit (ids in the first cwp
 // words only). The table rows are the (Nt, 16) bf16 encoding of
 // raypt/accel/ctree.py; links decode as round(hi) * 128 + round(lo) - 1.
-// At most ceil((Nt + 1) / 4) * 4 steps. Four modes, four entry points:
+// At most ceil((Nt + 1) / 4) * 4 steps. Five modes, five entry points:
 //   * rk_topwalk: the word-major (cwp, R) int32 mask and union_pp
 //     (R / 2048, cwp), the OR of the masks of each 2048-ray walk tile;
 //   * rk_topwalk_union: only the (R / 256, cwp) OR over each 256-ray
 //     union tile; the per-ray mask never reaches device memory;
 //   * rk_topwalk_mask: only the (cwp, R) mask, with no union; cwp is
 //     any word count (the non-fused branch passes ceil(C / 32) unpadded);
+//   * rk_topwalk_mask_rows: the same mask ray-major, (R, cwp), which the
+//     non-fused and Woop branches take (pallas_topwalk's layout);
 //   * rk_topwalk_mask_spec: the mask of rk_topwalk_mask by a speculative
 //     walk (scripts/tpu_walk_spec_probe.py: topwalk_spec :146, body
 //     _kernel_spec :45): the node's row is carried in registers, and
@@ -55,8 +58,15 @@
 // The block decodes the table once into f32 bounds, links and flags (32
 // bytes a row, as the bf16 rows), which takes the unpacking and link
 // decoding out of every step (the same values, so the same walk). Then:
-//   * Mask-only form (rk_topwalk_mask, topwalk_mask_kernel): a dead
-//     ray's column is stored as zeros; a live ray's mask word is built in
+//   * Mask-only form (rk_topwalk_mask and rk_topwalk_mask_rows,
+//     topwalk_mask_kernel<kRows>; ray-major, a ray's words are its row,
+//     which the thread that walks it stores, so no transpose follows; a
+//     block without a live ray stores its contiguous zero rows in one
+//     coalesced pass, which cut the mode's time on config4's mostly dead
+//     later bounces by a third or more, while building every block's rows
+//     in shared memory to store them coalesced cost 8% on busy bounces:
+//     walk_designs.cu's rows_staged): a dead ray's column is stored as
+//     zeros; a live ray's mask word is built in
 //     a register (rk::MaskColumn) and stored once, when the walk moves to
 //     another word (the words skipped are stored as zeros then, the rest
 //     when the walk ends), and a word that comes back after it was
@@ -175,9 +185,13 @@ topwalk_spec_kernel(const uint16_t* __restrict__ table, int nt,
     }
 }
 
-// The mask-only walk (rk_topwalk_mask): kThreads rays a block, its live
-// rays packed in pixel order onto its first threads, one a thread; the
-// step and the mask column are mask_walk.cuh's.
+// The mask-only walk (rk_topwalk_mask, and with kRows rk_topwalk_mask_rows):
+// kThreads rays a block, its live rays packed in pixel order onto its
+// first threads, one a thread; the step and the mask column are
+// mask_walk.cuh's. The mask is word-major (cwp, r), or with kRows
+// ray-major (r, cwp): a ray's words are then its row, stored by the
+// thread that walks it (a word's stride 1 instead of r).
+template <bool kRows>
 __global__ void __launch_bounds__(kThreads)
 topwalk_mask_kernel(const uint16_t* __restrict__ table, int nt,
                     const float* __restrict__ ro, const float* __restrict__ rd,
@@ -187,27 +201,40 @@ topwalk_mask_kernel(const uint16_t* __restrict__ table, int nt,
     __shared__ int s_warp[33];
     __shared__ int s_list[kThreads];    // the live rays, in pixel order
     const long long base = (long long)blockIdx.x * kThreads;
+    // word w of ray i at mask[i * at + w * stride]
+    const long long at = kRows ? cwp : 1, stride = kRows ? 1 : r;
     const bool live = active[base + threadIdx.x];
-    // a dead ray's column is zeros; a block without a live ray is done
-    if (!live)
+    // a dead ray's words are zeros (word-major: stored now, coalesced
+    // across the warp); a block without a live ray is done
+    if (!kRows && !live)
         for (int w = 0; w < cwp; ++w) mask[w * r + base + threadIdx.x] = 0;
     int n;
-    const int at = rk::block_exclusive_scan(live, s_warp, &n);
+    const int pos = rk::block_exclusive_scan(live, s_warp, &n);
+    if constexpr (kRows) {
+        // ray-major: a block without a live ray stores its rows, which are
+        // contiguous, in one coalesced pass; in another block each dead ray
+        // stores its own row
+        if (n == 0)
+            for (int k = threadIdx.x; k < kThreads * cwp; k += kThreads)
+                mask[base * cwp + k] = 0;
+        else if (!live)
+            for (int w = 0; w < cwp; ++w) mask[(base + threadIdx.x) * cwp + w] = 0;
+    }
     if (n == 0) return;   // uniform across the block
-    if (live) s_list[at] = threadIdx.x;
+    if (live) s_list[pos] = threadIdx.x;
     rk::decode_table(table, nt, cwp, s_row);
     __syncthreads();
     if ((int)threadIdx.x >= n) return;
     const long long i = base + s_list[threadIdx.x];
     const rk::WalkRay ray = rk::load_walk_ray(ro, rd, t0, i);
-    rk::MaskColumn col{mask + i, -1, -1, 0u};
+    rk::MaskColumn col{mask + i * at, -1, -1, 0u};
     int node = 0;
     for (int step = 0; step < max_steps && node >= 0; ++step) {
         int cid;
         node = rk::walk_step(s_row, node, ray, &cid);
-        if (cid >= 0) col.add(r, cid);
+        if (cid >= 0) col.add(stride, cid);
     }
-    col.finish(r, cwp);
+    col.finish(stride, cwp);
 }
 
 // The union walk (rk_topwalk_union): one 256-ray union tile a block, its
@@ -345,20 +372,44 @@ extern "C" int rk_topwalk_union(const uint16_t* table, int nt, const float* ro,
     return (int)cudaGetLastError();
 }
 
-// mask: (cw, r) int32, every word written; r a multiple of 256.
-extern "C" int rk_topwalk_mask(const uint16_t* table, int nt, const float* ro,
-                               const float* rd, const float* t0,
-                               const uint8_t* active, int* mask, long long r,
-                               int cw, int max_steps, void* stream) {
+namespace {
+
+// The mask-only walk's launch: the (cw, r) mask, or with kRows (r, cw);
+// every word written, r a multiple of 256.
+template <bool kRows>
+int launch_mask(const uint16_t* table, int nt, const float* ro, const float* rd,
+                const float* t0, const uint8_t* active, int* mask, long long r, int cw,
+                int max_steps, void* stream) {
     if (r % kThreads || nt <= 0 || nt >= 1 << 15 || cw <= 0)   // links: 15 bits
         return (int)cudaErrorInvalidValue;
     if (r == 0) return 0;
     const size_t smem = (size_t)nt * 32;
-    if (const int e = prepare_packed_smem(topwalk_mask_kernel, smem)) return e;
-    topwalk_mask_kernel<<<(unsigned)(r / kThreads), kThreads, smem,
-                          (cudaStream_t)stream>>>(
+    if (const int e = prepare_packed_smem(topwalk_mask_kernel<kRows>, smem)) return e;
+    topwalk_mask_kernel<kRows><<<(unsigned)(r / kThreads), kThreads, smem,
+                                 (cudaStream_t)stream>>>(
         table, nt, ro, rd, t0, active, mask, r, cw, max_steps);
     return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// mask: (cw, r) int32, word-major, every word written; r a multiple of 256.
+extern "C" int rk_topwalk_mask(const uint16_t* table, int nt, const float* ro,
+                               const float* rd, const float* t0,
+                               const uint8_t* active, int* mask, long long r,
+                               int cw, int max_steps, void* stream) {
+    return launch_mask<false>(table, nt, ro, rd, t0, active, mask, r, cw, max_steps,
+                              stream);
+}
+
+// mask: (r, cw) int32, ray-major (pallas_topwalk's layout), every word
+// written; r a multiple of 256.
+extern "C" int rk_topwalk_mask_rows(const uint16_t* table, int nt, const float* ro,
+                                    const float* rd, const float* t0,
+                                    const uint8_t* active, int* mask, long long r,
+                                    int cw, int max_steps, void* stream) {
+    return launch_mask<true>(table, nt, ro, rd, t0, active, mask, r, cw, max_steps,
+                             stream);
 }
 
 // The mask of rk_topwalk_mask by the speculative walk.

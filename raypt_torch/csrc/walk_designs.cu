@@ -14,6 +14,13 @@
 //   * refilled (kRays > kWalks, packed): a block of kRays rays a thread,
 //     whose thread takes the next ray of the list from a shared counter
 //     when one of its walks ends.
+// And one design of the ray-major mask (rk_topwalk_mask_rows, each ray's
+// words stored by the thread that walks it, at a stride of the word
+// count across a warp's rays), held against that kernel's (R, cwp) mask:
+//   * rows_staged: the block's rows are built in shared memory (a ray's
+//     words at a stride of cwp | 1, so a warp's 32 rays take 32 banks)
+//     and, after a barrier, stored by the whole block in one coalesced
+//     pass: the block's kThreads x cwp words are contiguous in the mask.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -141,7 +148,71 @@ int launch(const uint16_t* table, int nt, const float* ro, const float* rd,
     return (int)cudaGetLastError();
 }
 
+// The packed mask-only walk writing the (r, cwp) mask through shared
+// memory (rows_staged, the header); an all-dead block's rows at once, as
+// the package's.
+__global__ void __launch_bounds__(kThreads)
+rows_staged_kernel(const uint16_t* __restrict__ table, int nt,
+                   const float* __restrict__ ro, const float* __restrict__ rd,
+                   const float* __restrict__ t0, const uint8_t* __restrict__ active,
+                   int* __restrict__ mask, long long r, int cwp, int max_steps) {
+    extern __shared__ float4 s_row[];   // nt * 2 rows, then the staged rows
+    int* s_mask = reinterpret_cast<int*>(s_row + nt * 2);
+    __shared__ int s_warp[33];
+    __shared__ int s_list[kThreads];
+    const int stride = cwp | 1;
+    const long long base = (long long)blockIdx.x * kThreads;
+    int* out = mask + base * cwp;   // the block's rows, contiguous
+    const bool live = active[base + threadIdx.x];
+    int n;
+    const int pos = rk::block_exclusive_scan(live, s_warp, &n);
+    if (n == 0) {   // uniform across the block: every row is zeros
+        for (int k = threadIdx.x; k < kThreads * cwp; k += kThreads) out[k] = 0;
+        return;
+    }
+    if (live) s_list[pos] = threadIdx.x;
+    for (int k = threadIdx.x; k < kThreads * stride; k += kThreads) s_mask[k] = 0;
+    rk::decode_table(table, nt, cwp, s_row);
+    __syncthreads();
+    if ((int)threadIdx.x < n) {
+        const int j = s_list[threadIdx.x];
+        const rk::WalkRay ray = rk::load_walk_ray(ro, rd, t0, base + j);
+        rk::MaskColumn col{s_mask + j * stride, -1, -1, 0u};
+        int node = 0;
+        for (int step = 0; step < max_steps && node >= 0; ++step) {
+            int cid;
+            node = rk::walk_step(s_row, node, ray, &cid);
+            if (cid >= 0) col.add(1, cid);
+        }
+        col.finish(1, cwp);
+    }
+    __syncthreads();
+    for (int k = threadIdx.x; k < kThreads * cwp; k += kThreads)
+        out[k] = s_mask[k / cwp * stride + k % cwp];
+}
+
 }  // namespace
+
+// rk_topwalk_mask_rows' arguments: table, nt, ro, rd, t0, active -> the
+// (r, cw) mask; r a multiple of kThreads, cw, max_steps, stream
+extern "C" int rk_walk_rows_staged(const uint16_t* table, int nt, const float* ro,
+                                   const float* rd, const float* t0,
+                                   const uint8_t* active, int* mask, long long r,
+                                   int cw, int max_steps, void* stream) {
+    if (r % kThreads || nt <= 0 || nt >= 1 << 15 || cw <= 0)   // links: 15 bits
+        return (int)cudaErrorInvalidValue;
+    if (r == 0) return 0;
+    const size_t smem = (size_t)nt * 32 + (size_t)kThreads * (cw | 1) * 4;
+    if (smem + sizeof(int) * (33 + kThreads) > 48 * 1024)
+        if (const cudaError_t e = cudaFuncSetAttribute(
+                rows_staged_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                (int)smem))
+            return (int)e;
+    rows_staged_kernel<<<(unsigned)(r / kThreads), kThreads, smem,
+                         (cudaStream_t)stream>>>(table, nt, ro, rd, t0, active, mask,
+                                                 r, cw, max_steps);
+    return (int)cudaGetLastError();
+}
 
 // rk_topwalk_mask's arguments: table, nt, ro, rd, t0, active -> mask;
 // r, cw, max_steps, stream

@@ -26,7 +26,8 @@ KERNEL_SOURCES = ("compact.cu", "onehot_walk.cu", "cluster_expand.cu",
                   "expand_diag.cu", "regroup.cu", "packed_walk.cu",
                   "wide_walk.cu", "packed_layouts.cu")
 KERNEL_HEADERS = ("cluster_test.cuh", "block_scan.cuh", "mask_walk.cuh",
-                  "packed_walk.cuh", "wide_walk.cuh", "packed_layouts.cuh")
+                  "packed_walk.cuh", "wide_walk.cuh", "packed_layouts.cuh",
+                  "worklist_cull.cuh")
 SMEM_LIMIT = 232448   # shared memory a block may use on Hopper (227 KB)
 
 
@@ -61,6 +62,7 @@ def kernel_lib() -> ctypes.CDLL:
         "rk_topwalk_union": [p, i32, p, p, p, p, p, i64, i32, i32, p],
         # table, nt, ro, rd, t0, active -> mask; r, cw, max_steps, stream
         "rk_topwalk_mask": [p, i32, p, p, p, p, p, i64, i32, i32, p],
+        "rk_topwalk_mask_rows": [p, i32, p, p, p, p, p, i64, i32, i32, p],
         "rk_topwalk_mask_spec": [p, i32, p, p, p, p, p, i64, i32, i32, p],
         # mask, union_pp, rows, c_total, leaf, ro, rd, seed -> t, face;
         # r, cwp, stream
@@ -74,8 +76,12 @@ def kernel_lib() -> ctypes.CDLL:
         "rk_cluster_intersect_mask_woop": [p, i32, p, i32, i32, p, p, p, p, p,
                                            i64, p],
         # worklist, cap, rows, c_total, leaf, ro, rd, seed -> t, face;
-        # n_tiles, stream
-        "rk_intersect_worklist": [p, i32, p, i32, i32, p, p, p, p, p, i64, p],
+        # the cull's records (scratch), n_tiles, stream
+        "rk_intersect_worklist": [p, i32, p, i32, i32, p, p, p, p, p, p, i64,
+                                  p],
+        # the same and the audit's three counts
+        "rk_intersect_worklist_audit": [p, i32, p, i32, i32, p, p, p, p, p, p,
+                                        p, i64, p],
         # one -> mismatches, first_bad; stream (the check of 1 / det)
         "rk_inv_det_sweep": [ctypes.c_float, p, p, p],
         # worklist, counts, cap, group, rows, c_total, leaf, ro, rd, seed

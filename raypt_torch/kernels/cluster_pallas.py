@@ -370,6 +370,33 @@ def _worklist_kernel(worklist, counts, tri_rows, ro, rd, t0, group: int):
     return t_out, f_out
 
 
+def _slot_test(rows, valid, o, d):
+    """One worklist slot of T tiles: rows (T, leaf, 12) the slot's
+    clusters, valid (T,) whether the slot names one, o/d (T, tile, 1, 3).
+    Returns each ray's (t, face) of its tile's cluster under
+    intersect_worklist_jnp's rules: cross/dot, a miss inf, the first lane
+    of the smallest t (argmin)."""
+    p0 = rows[..., 0:3][:, None]             # (T, 1, leaf, 3)
+    e1 = rows[..., 3:6][:, None]
+    e2 = rows[..., 6:9][:, None]
+    fid = rows[..., 9].contiguous().view(torch.int32)[:, None]
+    pvec = cross(d, e2)
+    det = dot(e1, pvec)
+    ok_det = torch.abs(det) > EPS
+    inv_det = (torch.where(ok_det, 1.0, 0.0)
+               / torch.where(ok_det, det, torch.ones_like(det)))
+    tvec = o - p0
+    u = dot(tvec, pvec) * inv_det
+    qvec = cross(tvec, e1)
+    v = dot(d, qvec) * inv_det
+    t = dot(e2, qvec) * inv_det
+    hit = (ok_det & (u >= 0) & (v >= 0) & (u + v <= 1.0) & (t > 0.0)
+           & valid[:, None, None])
+    t = torch.where(hit, t, torch.full_like(t, torch.inf))
+    tmin, col = torch.min(t, dim=-1)         # first index of the min
+    return tmin, torch.gather(fid.expand(t.shape), -1, col[..., None])[..., 0]
+
+
 @torch.no_grad()
 def intersect_worklist_plain(worklist, tri_rows, ro, rd, t0,
                              tile: int = TILE):
@@ -405,30 +432,258 @@ def intersect_worklist_plain(worklist, tri_rows, ro, rd, t0,
         o, d = o_all[tiles], d_all[tiles]
         for w in range(n_slots):
             cid = worklist[tiles, w]
-            rows = tri_rows[torch.clamp(cid, min=0).long()]
-            p0 = rows[..., 0:3][:, None]             # (T, 1, leaf, 3)
-            e1 = rows[..., 3:6][:, None]
-            e2 = rows[..., 6:9][:, None]
-            fid = rows[..., 9].contiguous().view(torch.int32)[:, None]
-            pvec = cross(d, e2)
-            det = dot(e1, pvec)
-            ok_det = torch.abs(det) > EPS
-            inv_det = (torch.where(ok_det, 1.0, 0.0)
-                       / torch.where(ok_det, det, torch.ones_like(det)))
-            tvec = o - p0
-            u = dot(tvec, pvec) * inv_det
-            qvec = cross(tvec, e1)
-            v = dot(d, qvec) * inv_det
-            t = dot(e2, qvec) * inv_det
-            hit = (ok_det & (u >= 0) & (v >= 0) & (u + v <= 1.0) & (t > 0.0)
-                   & (cid >= 0)[:, None, None])
-            t = torch.where(hit, t, torch.full_like(t, torch.inf))
-            tmin, col = torch.min(t, dim=-1)         # first index of the min
-            fmin = torch.gather(fid.expand(t.shape), -1, col[..., None])[..., 0]
+            tmin, fmin = _slot_test(tri_rows[torch.clamp(cid, min=0).long()],
+                                    cid >= 0, o, d)
             better = tmin < tb[tiles]
             tb[tiles] = torch.where(better, tmin, tb[tiles])
             fb[tiles] = torch.where(better, fmin, fb[tiles])
     return tb.view(r), fb.view(r)
+
+
+# The worklist test's cull (`csrc/worklist_cull.cuh`, which derives the
+# bound): a cluster's record of CULL_REC floats, and the constants, each
+# the kernel's (f32 where the kernel computes in f32).
+CULL_REC = 16
+_F = torch.float32
+DIR_LIMIT = 2.0           # |d| above it: the ray is never culled
+COORD_LIMIT = 2.0 ** 40   # |coordinate| above it: never culled
+DET_MIN = float(torch.tensor(EPS, dtype=_F))   # 1e-8f, the test's threshold
+G5, S2G5, G7, TWO_EPS = (torch.tensor(x, dtype=_F)
+                         for x in (3.0e-7, 4.25e-7, 4.2e-7, 1.2e-7))
+G_MAX = 8.0e5             # above it gamma5 g may pass 1/4: never culled
+CONE_MIN = 2.0 ** -10     # cos(beta + alpha) below it: no cone bound
+SQRT2 = torch.tensor(1.4143, dtype=_F)
+# record fields (rk::cull::Field)
+LO, HI, AXIS, CA, SA, SMIN, E1, E2, STATE = 0, 3, 6, 9, 10, 11, 12, 13, 14
+
+
+def _f(x) -> torch.Tensor:
+    return torch.tensor(x, dtype=_F)
+
+
+def _add_dir(x, y, up: bool):
+    """x + y of f32 tensors rounded up or down (CUDA's __fadd_ru /
+    __fadd_rd): the nearest sum, moved one ulp where TwoSum's exact
+    error says it lies on the wrong side."""
+    s = x + y
+    bp = s - x
+    e = (x - (s - bp)) + (y - bp)
+    if up:
+        return torch.where(e > 0, torch.nextafter(s, torch.full_like(
+            s, float("inf"))), s)
+    return torch.where(e < 0, torch.nextafter(s, torch.full_like(
+        s, float("-inf"))), s)
+
+
+def _to_f32_dir(x: torch.Tensor, up: bool) -> torch.Tensor:
+    """A float64 tensor to float32 rounded up or down."""
+    f = x.to(_F)
+    if up:
+        return torch.where(f.double() < x, torch.nextafter(f, torch.full_like(
+            f, float("inf"))), f)
+    return torch.where(f.double() > x, torch.nextafter(f, torch.full_like(
+        f, float("-inf"))), f)
+
+
+def _warp_sum(x: torch.Tensor) -> torch.Tensor:
+    """The kernel's sum over a cluster's lanes (dim 1 of (C, L, ...)) in
+    its order: warp lane k adds lanes k, k + 32, ... in turn from 0.0,
+    then the butterfly x + shfl_xor(x, off) for off = 16, 8, 4, 2, 1,
+    lane 0's result (each step's pair sums are commutative, so the lanes
+    agree bit for bit)."""
+    c, leaf = x.shape[:2]
+    pad = -leaf % 32
+    x = torch.cat([x, x.new_zeros((c, pad) + x.shape[2:])], dim=1)
+    x = x.view((c, -1, 32) + x.shape[2:])
+    s = x.new_zeros((c, 32) + x.shape[3:])
+    for k in range(x.shape[1]):
+        s = s + x[:, k]
+    lanes = torch.arange(32, device=x.device)
+    for off in (16, 8, 4, 2, 1):
+        s = s + s[:, lanes ^ off]
+    return s[:, 0]
+
+
+def _dot3(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """x . y over the last dim of 3, summed left to right (the kernel's
+    order)."""
+    return x[..., 0] * y[..., 0] + x[..., 1] * y[..., 1] + x[..., 2] * y[..., 2]
+
+
+@torch.no_grad()
+def worklist_cull_prep_plain(tri_rows: torch.Tensor) -> torch.Tensor:
+    """Each cluster's cull record, (C, CULL_REC) f32, as the kernel's
+    pre-pass (`cull_prep_kernel`) derives it from the rows, bit for bit
+    (f64 where it computes in f64, its sums in its order): the box of
+    p0, p0 + e1, p0 + e2 (sums rounded outward) over the triangles that
+    can pass |det| > 1e-8 for some ray with |d| <= DIR_LIMIT, the normal
+    cone (axis: the sum of their unit normals turned to the first one's
+    side, `_warp_sum`; cos alpha the least |cos| to the axis as stored,
+    rounded down; sin alpha rounded up), the least sin between e1 and e2
+    (down), the largest |e1|, |e2| and |e1| |e2| (up), and the state: 1
+    cull by the bound, 0 never cull (a value not finite or past
+    COORD_LIMIT), -1 no triangle can pass (cull every pair)."""
+    c_total, leaf = tri_rows.shape[:2]
+    dev = tri_rows.device
+    p, a, b = tri_rows[..., 0:3], tri_rows[..., 3:6], tri_rows[..., 6:9]
+    wild = ~((p.abs() <= COORD_LIMIT) & (a.abs() <= COORD_LIMIT)
+             & (b.abs() <= COORD_LIMIT)).all(dim=-1)
+    ad, bd = a.double(), b.double()
+    a0, a1, a2 = ad.unbind(-1)
+    b0, b1, b2 = bd.unbind(-1)
+    n = torch.stack([a1 * b2 - a2 * b1, a2 * b0 - a0 * b2, a0 * b1 - a1 * b0],
+                    dim=-1)
+    nn = torch.sqrt(_dot3(n, n))
+    na = torch.sqrt(_dot3(ad, ad))
+    nb = torch.sqrt(_dot3(bd, bd))
+    hi_det = (DIR_LIMIT * (nn + float(S2G5) * na * nb) * (1.0 + 2.0 ** -40)
+              + 1e-30)
+    can = ~wild & (hi_det >= DET_MIN)
+    state = torch.where(wild.any(dim=1), 0.0,
+                        torch.where(can.any(dim=1), 1.0, -1.0)).to(_F)
+    first = torch.argmax(can.to(torch.int32), dim=1)
+    ref = n[torch.arange(c_total, device=dev), first][:, None, :]
+    inf = float("inf")
+    lo = torch.fmin(p, torch.fmin(_add_dir(p, a, False), _add_dir(p, b, False)))
+    hi = torch.fmax(p, torch.fmax(_add_dir(p, a, True), _add_dir(p, b, True)))
+    lo = torch.where(can[..., None], lo, inf).amin(dim=1)
+    hi = torch.where(can[..., None], hi, -inf).amax(dim=1)
+    side = torch.where(_dot3(n, ref) >= 0, 1.0, -1.0)
+    unit = side[..., None] * n / torch.where(nn > 0, nn, 1.0)[..., None]
+    axis = _warp_sum(torch.where((can & (nn > 0))[..., None], unit, 0.0))
+    length = torch.sqrt(_dot3(axis, axis))
+    ax = torch.where((length > 0)[:, None],
+                     (axis / torch.where(length > 0, length, 1.0)[:, None]
+                      ).to(_F),
+                     torch.tensor([1.0, 0.0, 0.0], dtype=_F, device=dev))
+    axd = ax.double()
+    axn = torch.sqrt(_dot3(axd, axd))
+    cosv = torch.where(nn > 0, _dot3(n, axd[:, None]).abs()
+                       / (torch.where(nn > 0, nn, 1.0) * axn[:, None]), 0.0)
+    # both start at 1.0 in the kernel
+    ca = torch.clamp(torch.where(can, cosv, 1.0).amin(dim=1), max=1.0)
+    smin = torch.clamp(torch.where(can, nn / (na * nb), 1.0).amin(dim=1),
+                       max=1.0)
+    e = torch.where(can, torch.fmax(na, nb), 0.0).amax(dim=1)
+    e2 = torch.where(can, na * nb, 0.0).amax(dim=1)
+    ca_lo = _to_f32_dir(torch.clamp(ca - 2.0 ** -40, min=0.0), False)
+    sa = torch.sqrt(torch.clamp(1.0 - ca_lo.double() * ca_lo.double(),
+                                min=0.0))
+    rec = torch.cat([
+        lo, hi, ax, ca_lo[:, None],
+        _to_f32_dir(torch.clamp(sa + 2.0 ** -40, max=1.0), True)[:, None],
+        _to_f32_dir(smin * (1.0 - 2.0 ** -40), False)[:, None],
+        _to_f32_dir(e * (1.0 + 2.0 ** -40), True)[:, None],
+        _to_f32_dir(e2 * (1.0 + 2.0 ** -40), True)[:, None],
+        state[:, None], torch.zeros((c_total, 1), dtype=_F, device=dev)],
+        dim=1)
+    only_state = torch.where(torch.arange(CULL_REC, device=dev) == STATE,
+                             state[:, None], 0.0)
+    return torch.where((state == 1.0)[:, None], rec, only_state)
+
+
+@torch.no_grad()
+def worklist_cull_plain(rec, o, d, tb, carry: bool = True) -> torch.Tensor:
+    """The cull's predicate (`rk::cull::keep_pair`) for P (ray, cluster)
+    pairs: rec (P, CULL_REC) the clusters' records, o/d (P, 3) f32 rays,
+    tb (P,) f32 carries (> 0; used with `carry`). True where the pair
+    must be tested; False only where no triangle of the cluster can
+    return a hit that the worklist test accepts with 0 < t < tb (the
+    bound of `csrc/worklist_cull.cuh`). The kernel's operation order,
+    f32 where it computes in f32."""
+    lim = COORD_LIMIT
+    ok = ((o.abs() <= lim) & (d.abs() <= lim)).all(dim=1)
+    dx, dy, dz = d.unbind(1)
+    d2 = dx * dx + dy * dy + dz * dz
+    ok &= (d2 > _f(1e-30)) & (d2 <= _f(DIR_LIMIT) * _f(DIR_LIMIT) * _f(0.999))
+    dn0 = torch.sqrt(d2)
+    dn = dn0 * _f(1.0001)
+    idn = _f(1.0) / dn0
+    state = rec[:, STATE]
+    e, e2 = rec[:, E1], rec[:, E2]
+    dot = (dx * rec[:, AXIS] + dy * rec[:, AXIS + 1]
+           + dz * rec[:, AXIS + 2]).abs()
+    cb = torch.fmin(dot * idn - _f(1e-6), _f(1.0))
+    sb = torch.sqrt((_f(1.0) - cb) * (_f(1.0) + cb)) * _f(1.0001)
+    cmin = cb * rec[:, CA] - sb * rec[:, SA] - _f(1e-6)
+    inf = float("inf")
+    g = torch.where((cb > 0) & (cmin > CONE_MIN),
+                    SQRT2 / (rec[:, SMIN] * cmin) * _f(1.0001), inf)
+    k = S2G5 * e2 * dn + _f(1e-30)
+    g = torch.where(k < _f(DET_MIN) / _f(3.0), torch.fmin(
+        g, SQRT2 * e2 * dn / (_f(DET_MIN) - k) * _f(1.0001)), g)
+    rho = (G5 * g + TWO_EPS) * _f(1.0001) + _f(1e-9)
+    rf = torch.zeros_like(e)
+    for i in range(3):
+        rf = rf + torch.fmax((o[:, i] - rec[:, LO + i]).abs(),
+                             (o[:, i] - rec[:, HI + i]).abs())
+    rf = rf * _f(1.0001)
+    delta = ((rho * (_f(2.0) * e + rf) + _f(3.0) * G7 * rf * g + _f(6.1e-8) * e)
+             / (_f(1.0) - rho) * _f(1.001))
+    tn = torch.zeros_like(e, dtype=torch.float64)
+    tf = tb.double() if carry else torch.full_like(tn, float("inf"))
+    miss = torch.zeros_like(ok)
+    for i in range(3):
+        lo_i = _add_dir(rec[:, LO + i], -delta, False)
+        hi_i = _add_dir(rec[:, HI + i], delta, True)
+        oi, di = o[:, i], d[:, i]
+        zero = di == 0
+        # 1 / d_i in f32; an axis with 0 < |d_i| < 2^-60 is not tested
+        skip = zero | (di.abs() < 2.0 ** -60)
+        miss |= zero & ((oi < lo_i) | (oi > hi_i))
+        inv = (_f(1.0) / torch.where(skip, 1.0, di)).double()
+        t1 = (lo_i.double() - oi.double()) * inv
+        t2 = (hi_i.double() - oi.double()) * inv
+        tn = torch.where(skip, tn, torch.fmax(tn, torch.fmin(t1, t2)))
+        tf = torch.where(skip, tf, torch.fmin(tf, torch.fmax(t1, t2)))
+    empty = (tn - tf) > 2.0 ** -20 * (tn.abs() + tf.abs())
+    bound = ~(g < G_MAX) | ~(delta < lim) | ~(miss | empty)
+    return ~ok | ((state > 0) & bound) | ~((state > 0) | (state < 0))
+
+
+@torch.no_grad()
+def intersect_worklist_culled_plain(worklist, tri_rows, ro, rd, t0,
+                                    carry: bool = True, tile: int = TILE):
+    """`intersect_worklist_plain`'s slot loop, in the same chunks of
+    tiles up to their last filled slot, with the cull applied as the kernel applies it (the box, and
+    with `carry` the carry): at each slot, a live ray is tested only
+    where `worklist_cull_plain` keeps (its carry then, its cluster's
+    record from `worklist_cull_prep_plain`). Returns (t, face) and the
+    audit's counts (live ray-cluster pairs, pairs kept, skipped pairs
+    whose hit the merge would have taken), the kernel's audit's."""
+    r = ro.shape[0]
+    n_tiles, cap = worklist.shape
+    c_total, leaf = tri_rows.shape[:2]
+    rec = worklist_cull_prep_plain(tri_rows)
+    o_all = ro.view(n_tiles, tile, 1, 3)
+    d_all = rd.view(n_tiles, tile, 1, 3)
+    tb = t0.reshape(n_tiles, tile).clone()
+    fb = torch.full_like(tb, -1, dtype=torch.int32)
+    chunk = max(1, STEP_PAIRS // (tile * leaf))
+    counts = torch.zeros(3, dtype=torch.int64, device=worklist.device)
+    slot = torch.arange(1, cap + 1, device=worklist.device)
+    filled = torch.where(worklist >= 0, slot, 0).amax(dim=1) if cap else \
+        torch.zeros((n_tiles,), dtype=torch.int64, device=worklist.device)
+    for s0 in range(0, n_tiles, chunk):
+        tiles = slice(s0, s0 + chunk)
+        o, d = o_all[tiles], d_all[tiles]
+        live = tb[tiles] > 0
+        for w in range(int(filled[tiles].amax())):
+            cid = worklist[tiles, w]
+            valid = (cid >= 0) & (cid < c_total)
+            at = torch.clamp(cid, 0, c_total - 1).long()
+            tmin, fmin = _slot_test(tri_rows[at], valid, o, d)
+            pairs = live & valid[:, None]
+            keep = worklist_cull_plain(
+                rec[at].repeat_interleave(tile, 0), o.reshape(-1, 3),
+                d.reshape(-1, 3), tb[tiles].reshape(-1), carry).view(pairs.shape)
+            better = tmin < tb[tiles]
+            counts += torch.stack([pairs.sum(), (pairs & keep).sum(),
+                                   (pairs & ~keep & better).sum()])
+            take = pairs & keep & better
+            tb[tiles] = torch.where(take, tmin, tb[tiles])
+            fb[tiles] = torch.where(take, fmin, fb[tiles])
+    return tb.view(r), fb.view(r), tuple(counts.tolist())
 
 
 def intersect_worklist(worklist, tri_rows, ro, rd, t0):
@@ -438,23 +693,60 @@ def intersect_worklist(worklist, tri_rows, ro, rd, t0):
     id outside [0, C)), tri_rows (C, L, 12) f32, ro/rd (R, 3) f32, t0
     (R,) f32 seed. Returns (t (R,) f32, face (R,) int32, -1 where no
     cluster won) under intersect_worklist_jnp's rules (the module
-    docstring). One launch of `csrc/cluster_intersect.cu`'s
-    union_kernel<WorklistTest, SlotSource> on CUDA tensors (no host
-    sync); `intersect_worklist_plain` on CPU tensors."""
-    n_tiles = _n_tiles(ro)
-    cap = worklist.shape[1] if worklist.dim() == 2 else -1
-    specs = _ray_specs(tri_rows, _rows_shape(tri_rows), ro, rd, t0, n_tiles)
-    specs["worklist"] = (worklist, (n_tiles, cap), torch.int32)
-    if not on_cuda(specs):
+    docstring). On CUDA tensors, two launches of
+    `csrc/cluster_intersect.cu` (no host sync): `cull_prep_kernel`, each
+    cluster's cull record from the rows, then `worklist_cull_kernel`,
+    which tests only the (ray, cluster) pairs the cull keeps
+    (`csrc/worklist_cull.cuh`: a skipped pair holds no hit the merge
+    would take, so the result is the same bit for bit); one count on
+    `launches`. `intersect_worklist_plain` on CPU tensors."""
+    n_tiles, cap, cuda = _slot_inputs(worklist, tri_rows, ro, rd, t0)
+    if not cuda:
         return intersect_worklist_plain(worklist, tri_rows, ro, rd, t0)
-    t_out = torch.empty_like(t0)
-    f_out = torch.empty((ro.shape[0],), dtype=torch.int32, device=ro.device)
+    t_out, f_out, recs = _worklist_outputs(ro, t0, tri_rows)
     launch("rk_intersect_worklist", worklist.data_ptr(), cap,
            tri_rows.data_ptr(), tri_rows.shape[0], tri_rows.shape[1],
            ro.data_ptr(), rd.data_ptr(), t0.data_ptr(), t_out.data_ptr(),
-           f_out.data_ptr(), n_tiles)
+           f_out.data_ptr(), recs.data_ptr(), n_tiles)
     intersect_worklist.launches += 1
     return t_out, f_out
 
 
 intersect_worklist.launches = 0
+
+
+def _slot_inputs(worklist, tri_rows, ro, rd, t0):
+    """Check intersect_worklist's inputs: (n_tiles, cap, whether they lie
+    on a CUDA device)."""
+    n_tiles = _n_tiles(ro)
+    cap = worklist.shape[1] if worklist.dim() == 2 else -1
+    specs = _ray_specs(tri_rows, _rows_shape(tri_rows), ro, rd, t0, n_tiles)
+    specs["worklist"] = (worklist, (n_tiles, cap), torch.int32)
+    return n_tiles, cap, on_cuda(specs)
+
+
+def _worklist_outputs(ro, t0, tri_rows):
+    """The worklist kernel's (t, face) outputs and its cull's records."""
+    return (torch.empty_like(t0),
+            torch.empty((ro.shape[0],), dtype=torch.int32, device=ro.device),
+            torch.empty((tri_rows.shape[0], CULL_REC), dtype=torch.float32,
+                        device=ro.device))
+
+
+def intersect_worklist_audit(worklist, tri_rows, ro, rd, t0):
+    """`intersect_worklist` through the kernel's audit mode (CUDA tensors
+    only; not counted as a launch of the path): (t, face) as the kernel
+    gives them, (live ray-cluster pairs, pairs the cull kept, skipped
+    pairs whose full test gives a hit the merge would have taken; 0 for a
+    sound cull), and the pre-pass's (C, CULL_REC) records, which
+    `worklist_cull_prep_plain` gives bit for bit."""
+    n_tiles, cap, cuda = _slot_inputs(worklist, tri_rows, ro, rd, t0)
+    if not cuda:
+        raise ValueError("the audit runs the kernel: CUDA tensors only")
+    t_out, f_out, recs = _worklist_outputs(ro, t0, tri_rows)
+    audit = torch.zeros(3, dtype=torch.int64, device=ro.device)
+    launch("rk_intersect_worklist_audit", worklist.data_ptr(), cap,
+           tri_rows.data_ptr(), tri_rows.shape[0], tri_rows.shape[1],
+           ro.data_ptr(), rd.data_ptr(), t0.data_ptr(), t_out.data_ptr(),
+           f_out.data_ptr(), recs.data_ptr(), audit.data_ptr(), n_tiles)
+    return t_out, f_out, tuple(int(x) for x in audit.tolist()), recs

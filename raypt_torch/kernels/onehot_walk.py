@@ -5,8 +5,8 @@
   * `topwalk_union` (`pallas_topwalk_union`): only the OR-union of each
     256-ray tile; the per-ray mask never reaches device memory;
   * `topwalk_cm` (`pallas_topwalk_cm`): only the word-major mask, for
-    any word count; `topwalk` (`pallas_topwalk`) is its (R, words)
-    transpose.
+    any word count; `topwalk` (`pallas_topwalk`): the same mask
+    ray-major, (R, words), written so by the kernel.
 
 On CUDA tensors they launch `csrc/onehot_walk.cu`; on CPU tensors they
 run the plain torch version, `accel.ctree.walk_topwalk`, with the tile
@@ -149,7 +149,26 @@ topwalk_cm.launches = 0
 
 
 def topwalk(table, ro, rd, t0, active, num_words: int):
-    """topwalk_cm transposed: (R, num_words) int32, contiguous (on CUDA
-    tensors the mask-only kernel, then a transpose). Its plain version is
+    """The walk's per-ray wanted-cluster bits ray-major: (R, num_words)
+    int32, contiguous (`pallas_topwalk`'s layout; the mask-only kernel's
+    row mode on CUDA tensors, each ray's words stored by the thread that
+    walks it). R % UNION_TILE == 0. Its plain version is
     `accel.ctree.walk_topwalk`."""
-    return topwalk_cm(table, ro, rd, t0, active, num_words).T.contiguous()
+    r = ro.shape[0]
+    nt = table.shape[0]
+    if r % UNION_TILE:
+        raise ValueError(f"R={r} must be a multiple of {UNION_TILE}")
+    if not on_cuda(_walk_specs(table, ro, rd, t0, active)):
+        return walk_topwalk(table, ro, rd, t0, active, num_words)
+    # beside the table, the block's packed rays and its scan's 33 words
+    _check_table(table, UNION_TILE + 33)
+    # every word of every ray is stored by the kernel, zero or not
+    mask = torch.empty((r, num_words), dtype=torch.int32, device=ro.device)
+    launch("rk_topwalk_mask_rows", table.data_ptr(), nt, ro.data_ptr(),
+           rd.data_ptr(), t0.data_ptr(), active.data_ptr(), mask.data_ptr(),
+           r, num_words, walk_max_steps(nt))
+    topwalk.launches += 1
+    return mask
+
+
+topwalk.launches = 0

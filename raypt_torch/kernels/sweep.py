@@ -11,6 +11,14 @@ constants set (`_set`), each as a library of its own:
     `kMinBlocks`); the first variant is the package's own setting;
   * worklist: the worklist kernel, the union template's ListSource
     instance (struct MtTest, the same four constants);
+  * slots: intersect_worklist, the worklist test of every slot
+    (`csrc/cluster_intersect.cu`, the worklist test's design block:
+    `kCullCarry` 0 for the cull by the grown box alone, 1 for the box
+    and the carry; `kCullRays` kept rays and one of `kCullChunks` chunks
+    of the triangles an item; `kCullMinBlocks`, the launch bound), on
+    the non-fused path's four wavefronts; the kernel before the cull
+    (every live ray against every slot's cluster) is a parent
+    checkout's, through `--against`;
   * dense: `closest_dense` (`csrc/dense_closest.cu`: threads a block
     `kThreads`, rays a thread `kRays`, triangles a stage `kStage`,
     threads sharing a group of rays `kSplit`, the pre-test `kCull`), and
@@ -22,6 +30,13 @@ constants set (`_set`), each as a library of its own:
     `csrc/walk_designs.cu` (walks a thread interleaved, live rays
     packed, threads refilled from the packed rays; that file says how),
     built as one library;
+  * rows: the mask-only walk's ray-major mode (`topwalk`,
+    `rk_topwalk_mask_rows`: each ray's words stored by its thread) beside
+    "rows_staged" of `csrc/walk_designs.cu` (the block's rows built in
+    shared memory, then stored coalesced) and "transposed" (the
+    word-major mode, then `.T.contiguous()`: the route before the ray-
+    major mode), on the walk's wavefronts (config4's eight, then the
+    dense-union path's four, which are the non-fused path's);
   * mask: the Moller-Trumbore union kernel, the package's alone;
   * union: the union walk (`csrc/onehot_walk.cu`, the union walk's
     design block: `kUnionWarpFlush`, a warp's flushes of one word merged
@@ -99,7 +114,9 @@ of 1024^2 renders recorded on the card: the eight bounces of the
 config-4 render (`scripts/baseline_config4.py`: leaf 128; woop and
 walk), and the four of the bench scene's renders through the
 dense-union finder (leaf 128: walk, union and mask), the cluster finder
-(clusters of 64: worklist), the pallas finder (dense), the expand
+(clusters of 64: worklist), the onehot finder's non-fused branch (leaf
+128: slots),
+the pallas finder (dense), the expand
 finder (`bench.py`'s: leaf 384, groups of 32,768; compact, cm_u,
 uncompact), the bvh finder (packed, with bvh_large's) and the bvh4
 finder (wide, with bvh_large's), while
@@ -170,6 +187,16 @@ LIST_VARIANTS = {
                                kMinBlocks=3),
     "t512_rays1_split32": dict(kThreads=512, kRays=1, kMaxSplit=32,
                                kMinBlocks=1)}
+# intersect_worklist's (the worklist test's design block of
+# csrc/cluster_intersect.cu; the package: the box and carry cull, items
+# of one kept ray and an eighth of the triangles, launch bound 6)
+SLOT_VARIANTS = {
+    "box": dict(kCullCarry=0),
+    "chunks4": dict(kCullChunks=4),
+    "chunks16": dict(kCullChunks=16),
+    "rays2": dict(kCullRays=2),
+    "mb8": dict(kCullMinBlocks=8),
+    "rays2_mb8": dict(kCullRays=2, kCullMinBlocks=8)}
 # closest_dense's (csrc/dense_closest.cu; the package: 128 threads, four
 # rays, each group of rays split over four threads, stages of 256
 # triangles, no pre-test)
@@ -214,9 +241,12 @@ SWEPT = {
              "struct WoopTest {", WOOP_VARIANTS),
     "worklist": ("cluster_intersect.cu", "rk_cluster_intersect",
                  "struct MtTest {", LIST_VARIANTS),
+    "slots": ("cluster_intersect.cu", "rk_intersect_worklist",
+              "// The worklist test's design", SLOT_VARIANTS),
     "dense": ("dense_closest.cu", "rk_closest_dense",
               "// The main kernel's design", DENSE_VARIANTS),
     "walk": ("onehot_walk.cu", "rk_topwalk_mask", None, {}),
+    "rows": ("onehot_walk.cu", "rk_topwalk_mask_rows", None, {}),
     "mask": ("cluster_intersect.cu", "rk_cluster_intersect_mask", None, {}),
     "union": ("onehot_walk.cu", "rk_topwalk_union", "// The union walk's design",
               UNION_VARIANTS),
@@ -231,12 +261,14 @@ SWEPT = {
 # timed also from CUDA graph replay: kernels of tens of microseconds,
 # where a direct call's host work may outlast the kernel
 GRAPHED = ("union", "compact", "cm_u", "uncompact", "packed", "wide",
-           "layouts")
+           "layouts", "rows")
 # the walks whose designs --designs picks (the package's always runs)
 DESIGNED = ("packed", "wide", "layouts")
 # the walk's designs: entry rk_walk_<name> of csrc/walk_designs.cu
 WALK_DESIGNS = ("unpacked", "interleaved2", "interleaved3",
                 "packed_interleaved2", "refilled1", "refilled2")
+# the ray-major walk's designs, entries of the same file
+ROW_DESIGNS = ("rows_staged",)
 
 
 def _packed_designs() -> dict:
@@ -340,10 +372,19 @@ P, I64, I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 SIGS = {"woop": [P, I32, P, I32, I32, P, P, P, P, P, I64, P],
         "mask": [P, I32, P, I32, I32, P, P, P, P, P, I64, P],
         "worklist": [P, P, I32, I32, P, I32, I32, P, P, P, P, P, I64, P],
+        # worklist, cap, rows, c_total, leaf, ro, rd, seed -> t, face;
+        # the cull's records, n_tiles, stream
+        "slots": [P, I32, P, I32, I32, P, P, P, P, P, P, I64, P],
+        # intersect_worklist before the cull (no records)
+        "slots_unscratched": [P, I32, P, I32, I32, P, P, P, P, P, I64, P],
         "dense": [P, P, P, P, P, P, I64, P, P, P, P, P, I64, P, P, P, P],
         # closest_dense before its list of the triangles that can hit
         "dense_unlisted": [P, P, P, P, P, P, I64, P, P, P, P, P, I64, P],
         "walk": [P, I32, P, P, P, P, P, I64, I32, I32, P],
+        # the (R, words) mask: the same arguments; or the word-major walk
+        # with a transpose after it
+        "rows": [P, I32, P, P, P, P, P, I64, I32, I32, P],
+        "rows_transposed": [P, I32, P, P, P, P, P, I64, I32, I32, P],
         "union": [P, I32, P, P, P, P, P, I64, I32, I32, P],
         "compact": [P, P, P, P, P, P, P, P, P, I64, I32, P],
         # alive_compact before its count pass's scratch
@@ -426,11 +467,15 @@ def build_variants(kernels, against: str | None, designs=None) -> dict:
             jobs[(kernel, name)] = (_nvcc_job(
                 f"{kernel}_{name}", source, _set(text, scope, consts),
                 CSRC_DIR), entry, kernel)
-    if "walk" in kernels:
-        designs = _nvcc_job("walk_designs", "walk_designs.cu",
-                            _read(CSRC_DIR, "walk_designs.cu"), CSRC_DIR)
-        for name in WALK_DESIGNS:
-            jobs[("walk", name)] = (designs, f"rk_walk_{name}", "walk")
+    if {"walk", "rows"} & set(kernels):
+        walk_lib = _nvcc_job("walk_designs", "walk_designs.cu",
+                             _read(CSRC_DIR, "walk_designs.cu"), CSRC_DIR)
+        if "walk" in kernels:
+            for name in WALK_DESIGNS:
+                jobs[("walk", name)] = (walk_lib, f"rk_walk_{name}", "walk")
+        if "rows" in kernels:
+            for name in ROW_DESIGNS:
+                jobs[("rows", name)] = (walk_lib, f"rk_walk_{name}", "rows")
     def wanted(names):
         return designs is None or bool(set(designs) & set(names))
 
@@ -466,6 +511,10 @@ def build_variants(kernels, against: str | None, designs=None) -> dict:
                 sig = "uncompact_unscratched"
             if kernel == "packed":
                 sig = packed_sig(text)
+            if kernel == "slots" and "rk::cull" not in text:
+                sig = "slots_unscratched"
+            if kernel == "rows" and entry not in text:
+                entry, sig = "rk_topwalk_mask", "rows_transposed"
             jobs[(kernel, "against")] = (_nvcc_job(
                 f"{kernel}_against", source, text, other), entry, sig)
     thunks = list({id(b): b for b, _, _ in jobs.values()}.values())
@@ -524,14 +573,16 @@ def wavefronts(kernels=tuple(SWEPT)) -> dict:
     the bvh finder, then bvh_large's four (packed), and the bvh4
     finder's, then bvh_large's (wide). Only the renders that feed
     `kernels` are made."""
-    from ..accel.clusters import (CLUSTER_LEAF, build_clusters,
-                                  tile_union_counts, tile_worklists)
+    from ..accel.clusters import (CLUSTER_LEAF, WORKLIST_CAP, build_clusters,
+                                  tile_union_counts, tile_worklists,
+                                  worklist_slice)
     from ..accel import lbvh
     from ..accel.ctree import build_onehot
     from ..accel.host_bvh import build_sah
     from ..accel.packed import (pack, pack_cherries, pack_lookahead,
                                 pack_quads)
-    from ..accel.traverse import DENSE_CHUNK, onehot_inputs, wavefront_inputs
+    from ..accel.traverse import (DENSE_CHUNK, find_closest_onehot,
+                                  onehot_inputs, wavefront_inputs)
     from ..accel.wide import collapse
     from ..core.math3d import BIG
     from ..core.types import RenderConfig
@@ -558,12 +609,14 @@ def wavefronts(kernels=tuple(SWEPT)) -> dict:
                 width=WIDTH, height=WIDTH, samples_per_pixel=1,
                 num_bounces=8, russian_roulette=True,
                 enable_refraction=True, backend="onehot", onehot_leaf=LEAF),
-             7, ("woop", "walk")),
+             7, ("woop", "walk", "rows")),
             (stanford_bunny, bench.replace(backend="onehot",
                                            onehot_leaf=LEAF), 0,
-             ("walk", "union", "mask")),
+             ("walk", "rows", "union", "mask")),
             (stanford_bunny, bench.replace(backend="cluster"), 0,
              ("worklist",)),
+            (stanford_bunny, bench.replace(backend="onehot",
+                                           onehot_leaf=LEAF), 0, ("slots",)),
             (stanford_bunny, bench.replace(backend="pallas"), 0, ("dense",)),
             (stanford_bunny, bench.replace(
                 backend="onehot", onehot_leaf=EXPAND_LEAF,
@@ -605,9 +658,12 @@ def wavefronts(kernels=tuple(SWEPT)) -> dict:
         else:
             acc = None
         finder = make_finder(scene, cfg, acc)
+        if feeds == ("slots",):   # the non-fused branch
+            finder = partial(find_closest_onehot, accel=acc, expand_n=0,
+                             compact_n=0, use_pallas_intersect=False)
 
         def rec(s, ro, rd, active=None, finder=finder, acc=acc, cfg=cfg,
-                c4=build is config4_scene, tables=tables):
+                c4=build is config4_scene, tables=tables, feeds=feeds):
             if cfg.backend == "bvh4":
                 o, d, t, a, _, _ = wavefront_inputs(s, ro, rd, active, 1)
                 out["wide"].append((acc.rows, acc.root, acc.nw_cap, o, d, t,
@@ -648,6 +704,13 @@ def wavefronts(kernels=tuple(SWEPT)) -> dict:
             o, d, t, a, _, _ = wavefront_inputs(s, ro, rd, active,
                                                 DENSE_CHUNK)
             seed = torch.where(a, t, torch.full_like(t, -BIG))
+            if feeds == ("slots",):
+                nw = -(-acc.num_clusters // 32)
+                union = tile_union_counts(wk.topwalk(acc.table, o, d, t, a,
+                                                     nw), TILE)[0]
+                wl = worklist_slice(union, acc.num_clusters, WORKLIST_CAP)
+                out["slots"].append((wl, acc.clusters.tri_rows, o, d, seed))
+                return finder(s, ro, rd, active)
             if cfg.backend == "cluster":
                 wl, cnt, _ = tile_worklists(acc, o, d, seed, TILE)
                 out["worklist"].append((wl, cnt, acc.tri_rows, o, d, seed))
@@ -655,6 +718,7 @@ def wavefronts(kernels=tuple(SWEPT)) -> dict:
             wargs = (acc.table, o, d, t, a, -(-acc.num_clusters // 32))
             union = tile_union_counts(wk.topwalk(*wargs), TILE)[0]
             out["walk"].append(wargs)
+            out["rows"].append(wargs)
             if not c4:
                 out["union"].append(wargs)
             if c4:
@@ -710,6 +774,19 @@ def _call_worklist(fn, wl, cnt, rows, o, d, seed):
     return t, f
 
 
+def _call_slots(fn, wl, rows, o, d, seed, scratch=True):
+    t = torch.empty_like(seed)
+    f = torch.empty(seed.shape, dtype=torch.int32, device=seed.device)
+    recs = torch.empty((rows.shape[0], 16), dtype=torch.float32,
+                       device=seed.device)
+    _check(fn(wl.data_ptr(), wl.shape[1], rows.data_ptr(), rows.shape[0],
+              rows.shape[1], o.data_ptr(), d.data_ptr(), seed.data_ptr(),
+              t.data_ptr(), f.data_ptr(),
+              *((recs.data_ptr(),) if scratch else ()), wl.shape[0],
+              _stream()), "slots")
+    return t, f
+
+
 def _call_dense(fn, wu, wv, ww, cu, cv, cw, o, d, t0, listed=True):
     t = torch.empty_like(t0)
     f = torch.empty(t0.shape, dtype=torch.int32, device=t0.device)
@@ -732,6 +809,15 @@ def _call_walk(fn, table, o, d, t, a, nw):
     _check(fn(table.data_ptr(), table.shape[0], o.data_ptr(), d.data_ptr(),
               t.data_ptr(), a.data_ptr(), mask.data_ptr(), o.shape[0], nw,
               walk_max_steps(table.shape[0]), _stream()), "walk")
+    return (mask,)
+
+
+def _call_rows(fn, table, o, d, t, a, nw):
+    from ..accel.ctree import walk_max_steps
+    mask = torch.empty((o.shape[0], nw), dtype=torch.int32, device=o.device)
+    _check(fn(table.data_ptr(), table.shape[0], o.data_ptr(), d.data_ptr(),
+              t.data_ptr(), a.data_ptr(), mask.data_ptr(), o.shape[0], nw,
+              walk_max_steps(table.shape[0]), _stream()), "rows")
     return (mask,)
 
 
@@ -868,6 +954,11 @@ def _call_presorted(fn, rows, o, d, t, a, inv):
 
 CALLS = {"woop": _call_union, "mask": _call_union,
          "worklist": _call_worklist, "dense": _call_dense,
+         "slots": _call_slots, "rows": _call_rows,
+         "rows_transposed": lambda fn, *w: (_call_walk(fn, *w)[0].T
+                                            .contiguous(),),
+         "slots_unscratched": lambda fn, *w: _call_slots(fn, *w,
+                                                         scratch=False),
          "dense_unlisted": lambda fn, *w: _call_dense(fn, *w, listed=False),
          "walk": _call_walk, "union": _call_walk_union,
          "cm_u": _call_walk_cm_u, "compact": _call_compact,
@@ -1333,6 +1424,10 @@ def main(argv=None) -> None:
         if kernel == "dense":
             variants[(kernel, "all_tested")] = (
                 ref, kernel, [all_tested(w) for w in waves[kernel]])
+        if kernel == "rows":   # the word-major walk, then a transpose
+            variants[(kernel, "transposed")] = (
+                _loaded("rows_transposed", lib._name, "rk_topwalk_mask"),
+                "rows_transposed", waves[kernel])
         if kernel == "uncompact":   # without the compaction's counts
             variants[(kernel, "count_pass")] = (
                 ref, kernel, [w[:4] for w in waves[kernel]])

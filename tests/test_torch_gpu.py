@@ -40,7 +40,8 @@ from chip_smoke import (LAYOUT_FLAGS, MERGE_LEAVES, WL_GROUPS,
                         deep_stack_case, merge_case, mixed_tile, same_fit,
                         walk_edges, walk_layouts, wide_edges, woop_faces,
                         woop_merge, worklist_edges, worklist_merge,
-                        zero_maps_table, compare_unfused)
+                        zero_maps_table, compare_unfused, cull_audit,
+                        cull_edges)
 
 pytestmark = pytest.mark.gpu
 
@@ -391,6 +392,91 @@ def test_intersect_worklist_bitwise(gpu_scene, leaf, bounce):
                               ro, rd, active, timed=False)
     lanes, slots = worklist_edges(stats, *args, rng_seed=leaf + bounce)
     assert lanes > 0 and slots > 0 and stats.err["intersect_worklist"] == 0
+
+
+@pytest.mark.parametrize("table", ["onehot128", "cluster"])
+def test_worklist_cull_edges_bitwise(gpu_scene, table):
+    """chip_smoke.cull_edges on the leaf-128 clusters and on the cluster
+    finder's: grazing rays (|det| of 1-3 x 1e-8), origins 10^3-10^4 edge
+    lengths away, hits on vertices and edge midpoints, and a table of
+    zero rows, slivers, a one-triangle, an empty and a mixed-normal
+    cluster; each bitwise the plain version, and the kernel's audit finds
+    no skipped pair with a taken hit."""
+    _, accels = gpu_scene
+    rows = (accels[128].clusters.tri_rows if table == "onehot128"
+            else accels["cluster"].tri_rows)
+    stats = Stats()
+    cull_edges(stats, rows, "cuda", rays=1024)
+    assert stats.err["intersect_worklist"] == 0
+
+
+def test_cluster_fallback_cull_audit(gpu_scene):
+    """The cluster finder's overflow fallback worklists at cap 2 (every
+    cluster, each overflowed tile) and its nearest-first worklists with
+    use_pallas=False: intersect_worklist's audit bitwise the plain
+    version, no skipped pair with a taken hit, and the cull keeps fewer
+    pairs than the worklists hold."""
+    scene, accels = gpu_scene
+    clusters = accels["cluster"]
+    ro, rd, active = _waves(scene, CLUSTER, clusters, 6)[1]
+    o, d, t, a, _, _ = wavefront_inputs(scene, ro, rd, active, DENSE_CHUNK)
+    seed = torch.where(a, t, torch.full_like(t, -BIG))
+    wl, _, over = tile_worklists(clusters, o, d, seed, 256, 2)
+    ov = torch.nonzero(over).flatten()
+    rays = (ov[:, None] * 256 + torch.arange(256, device=ov.device)).flatten()
+    every = torch.arange(clusters.num_clusters, dtype=torch.int32,
+                         device=ov.device).expand(ov.numel(), -1).contiguous()
+    stats = Stats()
+    for args in ((every, clusters.tri_rows, o[rays].contiguous(),
+                  d[rays].contiguous(), seed[rays].contiguous()),
+                 (tile_worklists(clusters, o, d, seed, 256)[0],
+                  clusters.tri_rows, o, d, seed)):
+        pairs, kept = cull_audit(stats, "fallback", args,
+                                 tdn.intersect_worklist_plain(*args))
+        assert 0 < kept < pairs
+
+
+@pytest.mark.parametrize("bounce", [0, 2])
+def test_worklist_cull_records_and_kept(gpu_scene, bounce):
+    """intersect_worklist_audit on one bounce of the non-fused render:
+    its pre-pass's records equal worklist_cull_prep_plain's (run on the
+    CPU) value for value, its live and kept pair counts are
+    intersect_worklist_culled_plain's on the same inputs (the plain
+    predicate on the card), no skipped pair held a taken hit, and its
+    (t, face) is the plain version's bitwise."""
+    scene, accels = gpu_scene
+    ro, rd, active = _waves(scene, DENSE, accels[128], 5,
+                            partial(find_closest_onehot, accel=accels[128],
+                                    **UNFUSED))[bounce]
+    _, args = compare_unfused(Stats(), f"bounce {bounce}", scene,
+                              accels[128], ro, rd, active, timed=False)
+    t, f, (pairs, kept, bad), recs = tdn.intersect_worklist_audit(*args)
+    assert torch.equal(recs.cpu(), tdn.worklist_cull_prep_plain(
+        args[1].cpu()))
+    ct, cf, counts = tdn.intersect_worklist_culled_plain(*args)
+    assert counts == (pairs, kept, 0) and 0 < kept <= pairs
+    if bounce:
+        assert kept < pairs
+    pt, pf = tdn.intersect_worklist_plain(*args)
+    assert _bits_equal(t, pt) and torch.equal(f, pf)
+    assert _bits_equal(ct, pt) and torch.equal(cf, pf)
+
+
+def test_topwalk_rows_launch(gpu_scene):
+    """topwalk launches the mask-only walk's ray-major mode itself (no
+    transpose, no topwalk_cm launch): one launch counted on topwalk, its
+    (R, words) mask contiguous and bitwise the plain walk's."""
+    scene, accels = gpu_scene
+    cfg, finder, _ = _path(scene, accels, "unfused")
+    ro, rd, active = _waves(scene, cfg, None, 5, finder)[1]
+    accel = accels[128]
+    o, d, t, a, _, _ = wavefront_inputs(scene, ro, rd, active, DENSE_CHUNK)
+    args = (accel.table, o, d, t, a, -(-accel.num_clusters // 32))
+    before = (twk.topwalk.launches, twk.topwalk_cm.launches)
+    km = twk.topwalk(*args)
+    assert (twk.topwalk.launches, twk.topwalk_cm.launches) == (
+        before[0] + 1, before[1])
+    assert km.is_contiguous() and torch.equal(km, PLAIN.walk_mask(*args))
 
 
 def test_cluster_worklist_routes_bitwise(gpu_scene):
