@@ -189,7 +189,9 @@ Phases:
      every mode and cycle count the script runs; the speculative walk
      also against topwalk_cm (timed beside it), the gathers beside
      torch.index_select (their library_ms; both also replayed from CUDA
-     graphs, the device time without the host work), and the expansion
+     graphs, the device time without the host work), cycle_budget and
+     sel_probe also from CUDA graphs (every call; sel_probe's bound with
+     and without its rank's operations), and the expansion
      diagnostics' v1/v2/v3 maxima and rays whose cluster count is not
      their mask's popcount (which fails the phase)
   8. the bvh backend beyond the bench path, each render with the launch
@@ -349,6 +351,12 @@ F32_OPS_PER_S = 67e12
 # the on-chip guide's table has no f64 row): the worklist cull's slab
 # test and its pre-pass run in f64
 F64_OPS_PER_S = 34e12
+# int32 operations/s outside the tensor cores (the H100 SXM's INT32 peak,
+# NVIDIA's Hopper architecture white paper: half the f32 rate, 64 INT32
+# lanes an SM against 128 FP32); like the f32 peak it counts a
+# multiply-add as two, so it is a floor for adds and compares. sel_probe's
+# rank is integer work
+INT32_OPS_PER_S = 33.5e12
 # f32 operations of one walk step (12 slab sub/mul, 10 min/max, 8
 # compares, 15 for the three link/id decodes) and of one ray-triangle
 # Moller-Trumbore test with its merge (cluster_test.cuh: 50 arithmetic,
@@ -393,6 +401,12 @@ WOOP_OPS = 57
 # errors (6 subtractions, 6 abs), the row maxima and the two into v2/v3
 # (6), and the v1 check (sub, abs, max: 3)
 DIAG_OPS = 57
+# integer operations of sel_probe's rank (regroup.cu's sel_kernel): one
+# interest test per (lane, cycle) (the residue's step to the next cycle,
+# its wrap, the test against the lane's residue mask: 3) and, once a
+# lane, one shifted term per shift k <= lane into that mask (the window's
+# two compares, its bits, the next shift's residue: 4)
+SEL_TEST_OPS, SEL_TERM_OPS = 3, 4
 
 # the config-4 path (scripts/baseline_config4.py)
 C4_BOUNCES = 8
@@ -740,17 +754,19 @@ class Stats:
                                  f"on {what} (max abs err {err})")
 
     def time(self, name, label, kernel, plain, args, moved, ops,
-             plain_ms=None, ops_f64=0):
+             plain_ms=None, ops_f64=0, ops_i32=0):
         """CUDA-event times of one launch of the kernel and of its plain
         version on args (mean of 2 after a warm-up, or `plain_ms` where
         the caller timed it), and the launch's bound: the larger of
         `moved` bytes over the HBM rate and `ops` f32 operations over the
-        f32 peak plus `ops_f64` f64 operations over the f64 peak."""
+        f32 peak plus `ops_f64` f64 operations over the f64 peak and
+        `ops_i32` int32 operations over the int32 peak."""
         k_ms = cuda_ms(lambda: kernel(*args), 10)
         p_ms = (cuda_ms(lambda: plain(*args), 2) if plain_ms is None
                 else plain_ms)
         by_bytes = 1e3 * moved / HBM_BYTES_PER_S
-        by_ops = 1e3 * (ops / F32_OPS_PER_S + ops_f64 / F64_OPS_PER_S)
+        by_ops = 1e3 * (ops / F32_OPS_PER_S + ops_f64 / F64_OPS_PER_S
+                        + ops_i32 / INT32_OPS_PER_S)
         self.ms[name] += k_ms
         self.plain_ms[name] += p_ms
         self.bound_ms[name] += max(by_bytes, by_ops)
@@ -2546,24 +2562,53 @@ def probes_phase(stats):
     # P4: sel (the four variants are one function)
     n = sel_probe.N
     xs = sel_probe.inputs("cuda")
+    lane = torch.arange(n)
+    shifts = [k for k in (2 ** j for j in range(32)) if k < n]
+    terms = sum(n - k for k in shifts)   # shifts k <= lane, over the lanes
+    old_bound, first_bound = 0.0, 0.0
     for iters in sel_probe.ITERS:
         a = (xs, iters, n)
         out = regroup.sel(*a)
         stats.check("sel_probe", f"{iters} cycles", out, regroup.sel_plain(*a))
-        per, slots = [], 0
+        per, slots, pair_terms = [], 0, 0
         for c in range(iters):
             rank_m = regroup.sel_slots(n, c, "cpu")
             per.append(torch.nonzero(rank_m >= 0).flatten())
             slots += int(torch.unique(rank_m[rank_m >= 0]).numel())
+            m = regroup._interest(lane, c)
+            pair_terms += sum(int((m & (lane >= k)).sum()) for k in shifts)
         used, total = _lanes_used(per, n)
         # y reads rows 0-17; per lane 18 slot adds and 6 output adds, per
-        # slot the two adds of each of y's 6 rows
+        # slot the two adds of each of y's 6 rows; and the rank, in int32:
+        # an interest test per (lane, cycle), each lane's shifted terms
+        # once
+        moved = 2 * 18 * used * sel_probe.PROGS + nbytes(out)
+        ops = sel_probe.PROGS * (24 * total + 12 * slots)
+        rank_ops = sel_probe.PROGS * (SEL_TEST_OPS * n * iters
+                                      + SEL_TERM_OPS * terms)
+        by_bytes = 1e3 * moved / HBM_BYTES_PER_S
+        old = max(by_bytes, 1e3 * ops / F32_OPS_PER_S)
+        old_bound += old
+        # the first count with the rank: the shifted terms of every
+        # interested (lane, cycle), at the f32 rate
+        first_bound += max(by_bytes, 1e3 * (ops + sel_probe.PROGS * (
+            SEL_TEST_OPS * n * iters + SEL_TERM_OPS * pair_terms))
+            / F32_OPS_PER_S)
         stats.time("sel_probe", f"{iters} cyc", regroup.sel, regroup.sel_plain,
-                   a, 2 * 18 * used * sel_probe.PROGS + nbytes(out),
-                   sel_probe.PROGS * (24 * total + 12 * slots))
+                   a, moved, ops, ops_i32=rank_ops)
+        stats.time_graph("sel_probe", f"{iters} cyc", regroup.sel, a)
         log(f"  sel_probe {iters} cycles: {total} lane-slots in all (the "
             f"shifted-sum rank gives no interested lane a slot), output "
-            f"{'all zero' if not bool(out.any()) else 'nonzero'}")
+            f"{'all zero' if not bool(out.any()) else 'nonzero'}; "
+            f"{n * iters * sel_probe.PROGS} interest tests, "
+            f"{terms * sel_probe.PROGS} shifted terms (once a lane); bound "
+            f"without the rank (the count before it held the rank) "
+            f"{old:.4g} ms")
+    log(f"  sel_probe: bound {stats.bound_ms['sel_probe']:.4g} ms over its "
+        f"{len(sel_probe.ITERS)} calls with the rank's int32 operations "
+        f"({stats.bound_by('sel_probe')}); {old_bound:.4g} ms without the "
+        f"rank, {first_bound:.4g} ms with every interested (lane, cycle)'s "
+        f"shifted terms at the f32 rate (the count this one corrects)")
 
     # P5: cycle_budget's three modes
     n, progs = cycle_budget.N, cycle_budget.PROGS
@@ -2585,6 +2630,8 @@ def probes_phase(stats):
             stats.time("cycle_budget", f"{mode[:5]} {iters}", regroup.cycle,
                        regroup.cycle_plain, a, x_in + nbytes(out),
                        progs * ops)
+            stats.time_graph("cycle_budget", f"{mode[:5]} {iters}",
+                             regroup.cycle, a)
 
     # P6-P8: the expansion's stages
     wkt, pages, pay, _, pages2 = expand_debug.inputs("cuda")

@@ -9,9 +9,8 @@
 //     build one selection matrix four ways): rk_sel;
 //   * tpu_cycle_budget.py (run :72, body _kernel :36): rk_cycle, modes
 //     full / no_mm / fixed_s.
-// Every probe runs `iters` cycles c on each program of n lanes (one
-// block). A cycle picks interested lanes, gives them slots, moves their
-// payload rows into a 128-slot tile, runs a stand-in test on the slots
+// Every probe runs `iters` cycles c on each program of n lanes. A cycle
+// picks interested lanes, gives them slots, moves their payload rows into a 128-slot tile, runs a stand-in test on the slots
 // and sends the result back to the lanes. Contracts (lane = index within
 // the program, bf16 = round to nearest even):
 //   * permute: lanes with ((lane * 37 + c * 131) % 199) < 5 ranked by an
@@ -38,24 +37,75 @@
 // Arithmetic in f32 without contraction (-fmad=false), so the plain
 // torch versions in raypt_torch/probes/regroup.py match bit for bit.
 //
-// What bounds it on this card: per cycle, the block-wide rank (a chain
-// of shuffles and barriers) and three barriers around the slot tile; the
-// bytes (x in, the output out, once) are tens of MB at most, far below.
+// What bounds it on this card. permute: per cycle, the block-wide rank (a
+// chain of shuffles and barriers) and three barriers around the slot
+// tile; its bytes (x in, the output out, once) are tens of MB at most.
+// cycle: the (slot, cycle) sums, n / 128 adds each in fixed_s (64 at the
+// script's n of 8,192: 67M adds over 64 cycles and 128 programs), a few
+// in full; its bytes are row 0 of the selected lanes and the output,
+// once. sel: one interest test per (lane, cycle) and, on the about 5/199
+// interested lanes, the shifted sums (log2 n terms); its bytes are the
+// output, written once (no lane reaches a slot, so no x is read).
 //
-// What the design does about it: one block of 1,024 threads per program.
-// permute: each thread owns a run of consecutive lanes, counts its
+// What the design does about it. permute: one block of 1,024 threads per
+// program; each thread owns a run of consecutive lanes, counts its
 // interested lanes, and one block scan of the counts ranks them; the
 // selected lanes post their index to the slot; thread (row, slot) moves
 // one payload value into the shared bf16 tile, tests it and adds the
-// result back to its lane. sel: m and the rank live in shared memory;
-// warp j sums slot j with a ballot over each 32 lanes, its lanes holding
-// the 24 rows, so members add in ascending order. Since rk_sel takes at
-// most 16,384 lanes a program, every rank is -1: no input reaches the
-// slot sums, the s_y build or the scatter, and a check against the plain
-// version holds only the zero output. cycle: slot j's
-// members have a closed form (64 (j + 128 t) + off, or j + 128 t), which
-// warp j walks in ascending order. The TPU kernels' selection matrices,
-// their matmuls and the Hillis-Steele lane scan have no counterpart.
+// result back to its lane.
+// cycle: a lane's slot does not depend on the cycle ((lane >> 6) & 127 in
+// full and no_mm, lane & 127 in fixed_s) and no cycle reads another's
+// result, so each program splits into groups of kCycleGroup slots, one
+// block each (rk_cycle launches as many groups as cover the slots that
+// hold a lane), which owns its slots' lanes over all cycles. Its lanes
+// are runs of kCycleGroup slots' lanes, kPeriod apart. The block stages
+// bf16(x[0, lane]) of the lanes a cycle can select (in full every eighth
+// lane) in shared memory, up to kCycleStage values at once: once, where
+// its runs fit, else a chunk of runs at a time for each chunk of cycles;
+// row 0 is the only row that reaches the output. For a chunk of
+// 4 * kCycleThreads / kCycleGroup cycles at a time, each thread sums four
+// neighbouring slots of one cycle in ascending lane order from 0 (16-byte
+// shared loads; the sum carried over the staged chunks of runs in
+// registers; lanes past n read as +0.0, which leaves a sum that starts at
+// +0.0 unchanged) and writes their y0 = bf16(g * 1.0001 + 0.5) to shared
+// memory. A lane's total depends only on its slot and, in full and
+// no_mm, on lane % 64 / 8 (the cycles mod 8 that select it), so after one
+// barrier thread (q, slot) adds, in cycle order and in registers, the y0
+// of its slot in the cycles that select q (every cycle in fixed_s); no_mm
+// adds bf16(1e-9) and stages nothing. Then every lane of the block's runs
+// is written once, coalesced, from these 8 * kCycleGroup totals, zeros
+// included; so a program takes any number of lanes. Every cycle's sums
+// are computed, also in fixed_s where they repeat. The design block below
+// (threads a block, slots a block, values staged at once) was swept on
+// the card (`kernels/sweep.py --kernels regroup`, the probe's six calls
+// from CUDA graphs, NVIDIA H100 80GB HBM3, 700.00 W): 128 threads in
+// groups of 8 slots 33.0-33.6 us, 64 threads 33.0-33.1, 2,048 values
+// staged against 256 (fixed_s restaged) 34.3-34.5, groups of 16 slots
+// 36.6-36.8 (256 threads 37.0-37.1), of 4 44.0-44.2; the first kernel,
+// one block of 1,024 threads a program, 9,243-9,245.
+// sel: one block of 1,024 threads per program (at most 16,384 lanes).
+// The interest depends only on (lane, c), and so does the rank: lane i
+// is interested where its residue r = (37 i + 131 c) mod 199 is below 5,
+// and its shifted sum then counts the shifts k = 2^j <= i whose lane
+// i - k is interested too, residue r - 37 k mod 199. So each lane first
+// sums, for each of the 5 residues, its shifted terms (37 * 2^j mod 199
+// doubles with j) into a 5-bit mask of the residues that give it a slot;
+// then, for every cycle, it carries its residue to the next cycle and
+// tests it against the mask: one interest test per (lane, cycle), in
+// registers, no branch, nothing in shared memory. The lanes and cycles
+// are spread over the block's threads, with no barrier between cycles. One
+// __syncthreads_or decides whether any (lane, cycle) of the program has
+// a slot. With the probe's interest none has, and the block writes its
+// zero output once (rows 6-7 before the tests, rows 0-5 after). Else the
+// general path runs the cycles in order: the ranks into shared memory,
+// warp s sums slot s's lanes in ascending lane order with a ballot over
+// each 32 lanes, then y, and each lane adds its slot's y in registers
+// (for each 1,024 lanes at a time, the cycles again); rows 0-5 are then
+// written once. The interest's four constants stand in one block below:
+// a test builds sel with a wider interest (residues below 32) to reach
+// that path, which the probe's never does.
+// The TPU kernels' selection matrices, their matmuls and the
+// Hillis-Steele lane scan have no counterpart.
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -64,7 +114,7 @@
 
 namespace {
 
-constexpr int kThreads = 1024;
+constexpr int kThreads = 1024;   // permute's and sel's blocks
 constexpr int kWarps = kThreads / 32;
 constexpr int kSlots = 128;
 constexpr unsigned kFull = 0xffffffffu;
@@ -75,8 +125,15 @@ __device__ __forceinline__ float round_bf16(float x) {
     return __bfloat162float(__float2bfloat16_rn(x));
 }
 
+// The probes' interest: lane i is interested in cycle c when
+// (i * kStride + c * kShift) % kModulus < kWidth.
+constexpr int kStride = 37;
+constexpr int kShift = 131;
+constexpr int kModulus = 199;
+constexpr int kWidth = 5;
+
 __device__ __forceinline__ bool interest(int lane, int c) {
-    return ((lane * 37 + c * 131) % 199) < 5;
+    return ((lane * kStride + c * kShift) % kModulus) < kWidth;
 }
 
 template <bool kChain, bool kFixedS>
@@ -119,104 +176,241 @@ permute_kernel(const float* __restrict__ x, float* __restrict__ out,
     }
 }
 
+// --- sel
+
+constexpr int kSelLanes = 16384;   // lanes a program, at most
+constexpr int kSelShifts = 14;     // k = 1, 2, ..., 8,192: ranks < 14
+
+// (i * kStride + c * kShift) mod kModulus, for any i, c >= 0.
+__device__ __forceinline__ int residue(int i, int c) {
+    return ((i % kModulus) * kStride + (c % kModulus) * kShift) % kModulus;
+}
+
+// rank_m of lane i, interested (residue r < kWidth): the shifted sum of
+// m[i - k] over k = 1, 2, 4, ... <= i (so k < n), minus 1. The residue of
+// lane i - k is r - kStride * k mod kModulus, and kStride * k mod
+// kModulus doubles with k.
+__device__ __forceinline__ int sel_rank(int i, int r) {
+    int rank = -1;
+    int a = kStride % kModulus;
+    for (int k = 1; k <= i; k *= 2) {
+        const int t = r >= a ? r - a : r - a + kModulus;
+        rank += t < kWidth;
+        a = 2 * a >= kModulus ? 2 * a - kModulus : 2 * a;
+    }
+    return rank;
+}
+
+// Bit r (< kWidth) set where an interested lane i of residue r has a
+// slot: some shift k <= i with (r - kStride k) mod kModulus < kWidth,
+// i.e. r in [a, a + kWidth) for a = kStride k mod kModulus below kWidth,
+// or r < a + kWidth - kModulus for a above kModulus - kWidth.
+static_assert(kWidth <= 32, "a 32-bit residue mask");
+__device__ __forceinline__ unsigned slot_mask(int i) {
+    constexpr unsigned kAll = kWidth == 32 ? ~0u : (1u << kWidth) - 1u;
+    unsigned mask = 0;
+    int a = kStride % kModulus;
+    for (int k = 1; k <= i; k *= 2) {
+        if (a < kWidth) mask |= kAll & ~((1u << a) - 1u);
+        if (a > kModulus - kWidth) mask |= (1u << (a + kWidth - kModulus)) - 1u;
+        a = 2 * a >= kModulus ? 2 * a - kModulus : 2 * a;
+    }
+    return mask;
+}
+
 __global__ void __launch_bounds__(kThreads)
 sel_kernel(const bf16* __restrict__ x, float* __restrict__ out, long long len,
            int n, int iters) {
-    extern __shared__ signed char s_mr[];   // m (n bytes), then rank_m (n)
-    signed char* s_m = s_mr;
-    signed char* s_rank = s_mr + n;
-    __shared__ float s_g[24][kSlots];
-    __shared__ bf16 s_y[6][kSlots];
+    __shared__ signed char s_rank[kSelLanes];
+    __shared__ float s_g[24][kSelShifts];
+    __shared__ float s_y[6][kSelShifts];
     const long long base = (long long)blockIdx.x * n;
+    for (int r = 6; r < 8; ++r)   // rows 6-7 are zero whatever the ranks
+        for (int i = threadIdx.x; i < n; i += kThreads)
+            out[(long long)r * len + base + i] = 0.0f;
+    // every (lane, cycle) at once: `lanes` threads a cycle, the block's
+    // threads over kThreads / lanes cycles in flight
+    int lanes = 1;
+    while (lanes < n && lanes < kThreads) lanes *= 2;
+    const int step = kThreads / lanes;
+    const int dr = (step % kModulus) * kShift % kModulus;
+    const int c0 = threadIdx.x / lanes;
+    unsigned found = 0;
+    for (int i = threadIdx.x % lanes; i < n; i += lanes) {
+        const unsigned mask = slot_mask(i);   // residues with a slot
+        int r = residue(i, c0);
+        for (int c = c0; c < iters; c += step) {   // m, then its slot
+            found |= __funnelshift_rc(mask, 0u, r) & 1u;
+            r = r + dr >= kModulus ? r + dr - kModulus : r + dr;
+        }
+    }
+    if (!__syncthreads_or(found)) {   // no lane has a slot in any cycle
+        for (int r = 0; r < 6; ++r)
+            for (int i = threadIdx.x; i < n; i += kThreads)
+                out[(long long)r * len + base + i] = 0.0f;
+        return;
+    }
+    // The general path, cycles in order; for each kThreads lanes (a lane a
+    // thread) the ranks and slot sums of every cycle again.
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    for (int e = threadIdx.x; e < 8 * n; e += kThreads)
-        out[(long long)(e / n) * len + base + e % n] = 0.0f;
-    int nk = 0;   // shifts k = 1, 2, 4, ... < n; rank_m < nk
+    int nk = 0;   // shifts k < n; ranks < nk
     for (int k = 1; k < n; k *= 2) ++nk;
-    const int nslots = min(nk, kSlots);
-    for (int c = 0; c < iters; ++c) {
-        for (int i = threadIdx.x; i < n; i += kThreads) s_m[i] = interest(i, c);
-        __syncthreads();
-        for (int i = threadIdx.x; i < n; i += kThreads) {
-            int rank = -s_m[i];
-            for (int k = 1; k < n; k *= 2)
-                if (i >= k) rank += s_m[i - k];
-            s_rank[i] = s_m[i] ? rank : -1;
-        }
-        __syncthreads();
-        for (int s = warp; s < nslots; s += kWarps) {
-            float acc = 0.0f;
-            for (int i0 = 0; i0 < n; i0 += 32) {
-                unsigned bal = __ballot_sync(kFull, i0 + lane < n && s_rank[i0 + lane] == s);
-                while (bal) {
-                    const int i = i0 + __ffs(bal) - 1;
-                    bal &= bal - 1u;
-                    if (lane < 24)
-                        acc = acc + __bfloat162float(x[(long long)lane * len + base + i]);
+    for (int i0 = 0; i0 < n; i0 += kThreads) {
+        const int i = i0 + threadIdx.x;
+        float acc[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+        for (int c = 0; c < iters; ++c) {
+            for (int j = threadIdx.x; j < n; j += kThreads) {
+                const int r = residue(j, c);
+                s_rank[j] = r < kWidth ? sel_rank(j, r) : -1;
+            }
+            __syncthreads();
+            for (int s = warp; s < nk; s += kWarps) {
+                float g = 0.0f;
+                for (int j0 = 0; j0 < n; j0 += 32) {
+                    unsigned bal = __ballot_sync(
+                        kFull, j0 + lane < n && s_rank[j0 + lane] == s);
+                    while (bal) {
+                        const int j = j0 + __ffs(bal) - 1;
+                        bal &= bal - 1u;
+                        if (lane < 24)
+                            g = g + __bfloat162float(x[(long long)lane * len + base + j]);
+                    }
                 }
+                if (lane < 24) s_g[lane][s] = g;
             }
-            if (lane < 24) s_g[lane][s] = acc;
-        }
-        __syncthreads();
-        for (int e = threadIdx.x; e < 6 * nslots; e += kThreads) {
-            const int r = e / nslots, s = e % nslots;
-            s_y[r][s] = __float2bfloat16_rn((s_g[r][s] + s_g[6 + r][s]) + s_g[12 + r][s]);
-        }
-        __syncthreads();
-        for (int i = threadIdx.x; i < n; i += kThreads) {
-            const int s = s_rank[i];
-            if (s < 0) continue;
-            for (int r = 0; r < 6; ++r) {
-                float* o = out + (long long)r * len + base + i;
-                *o = *o + __bfloat162float(s_y[r][s]);
+            __syncthreads();
+            for (int e = threadIdx.x; e < 6 * nk; e += kThreads) {
+                const int r = e / nk, s = e % nk;
+                s_y[r][s] = round_bf16((s_g[r][s] + s_g[6 + r][s]) + s_g[12 + r][s]);
             }
+            __syncthreads();
+            const int s = i < n ? s_rank[i] : -1;
+            if (s >= 0)
+                for (int r = 0; r < 6; ++r) acc[r] = acc[r] + s_y[r][s];
+            __syncthreads();
         }
+        if (i < n)
+            for (int r = 0; r < 6; ++r) out[(long long)r * len + base + i] = acc[r];
     }
 }
 
+// --- cycle
+
 enum CycleMode { kFullMode = 0, kNoMm = 1, kFixedMode = 2 };
 
+// The cycle kernel's design: threads a block, slots a block (the group),
+// values of row 0 staged in shared memory at once.
+constexpr int kCycleThreads = 128;
+constexpr int kCycleGroup = 8;
+constexpr int kCycleStage = 2048;
+
+constexpr int kPairs = 4 * kCycleThreads;   // (slot, cycle) sums a chunk
+static_assert(kCycleGroup % 4 == 0 && kPairs % kCycleGroup == 0, "four slots a sum");
+static_assert(8 * kCycleGroup <= kCycleThreads, "a lane total a thread");
+static_assert(kCycleStage % (8 * kCycleGroup) == 0, "whole runs staged");
+
+// A group's lanes: runs of kCycleGroup * kRun lanes, kPeriod apart, the
+// first at group index * kCycleGroup * kRun; kRows staged values a slot
+// a run (full: one a cycle mod 8).
+template <CycleMode kMode> struct CycleLayout {
+    static constexpr int kPeriod = kMode == kFixedMode ? kSlots : 64 * kSlots;
+    static constexpr int kRun = kMode == kFixedMode ? 1 : 64;
+    static constexpr int kRows = kMode == kFixedMode ? 1 : 8;
+};
+
+// Block (program, slot group): slots of the program from its group index
+// * kCycleGroup on.
 template <CycleMode kMode>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kCycleThreads)
 cycle_kernel(const float* __restrict__ x, float* __restrict__ out, long long len,
-             int n, int iters) {
-    __shared__ float s_g[24][kSlots];
-    __shared__ bf16 s_y[6][kSlots];
-    const long long base = (long long)blockIdx.x * n;
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    for (int i = threadIdx.x; i < n; i += kThreads) out[base + i] = 0.0f;
-    __syncthreads();
-    const float inc = round_bf16(1e-9f);
-    for (int c = 0; c < iters; ++c) {
-        const int off = (-8 * c) & 63;   // (lane + 8c) & 63 == 0
-        if (kMode == kNoMm) {
-            for (int q = threadIdx.x; 64 * q + off < n; q += kThreads)
-                out[base + 64 * q + off] += inc;
-            continue;
-        }
-        for (int s = warp; s < kSlots; s += kWarps) {
-            if (lane >= 24) continue;
-            float acc = 0.0f;
-            for (int t = 0;; ++t) {
-                const int i = kMode == kFullMode ? 64 * (s + kSlots * t) + off
-                                                 : s + kSlots * t;
-                if (i >= n) break;
-                acc = acc + round_bf16(x[(long long)lane * len + base + i]);
+             int n, int iters, int groups) {
+    using L = CycleLayout<kMode>;
+    constexpr int kQuads = kCycleGroup / 4, kChunk = kPairs / kCycleGroup;
+    constexpr int kRunLanes = kCycleGroup * L::kRun;      // lanes a run
+    constexpr int kPerRun = L::kRows * kCycleGroup;    // staged values a run
+    constexpr int kStageRuns = kCycleStage / kPerRun;
+    __shared__ __align__(16) float s_v[kCycleStage];
+    __shared__ __align__(16) float s_y[kPairs];
+    __shared__ float s_acc[8 * kCycleGroup];
+    const long long base = (long long)(blockIdx.x / groups) * n;
+    const int first = (blockIdx.x % groups) * kRunLanes;
+    const int runs = (n - first + L::kPeriod - 1) / L::kPeriod;
+    const int t = threadIdx.x;
+    // thread t < 8 * kCycleGroup keeps the total of slot t % kCycleGroup
+    // for the lanes with lane % 64 / 8 = q: selected where c % 8 == -q % 8
+    const int a_slot = t % kCycleGroup, q = t / kCycleGroup;
+    float acc = 0.0f;
+    if (kMode == kNoMm) {
+        const float inc = round_bf16(1e-9f);
+        for (int c = (8 - q) & 7; c < iters; c += 8) acc = acc + inc;
+    } else {
+        // bf16(x[0, lane]) of runs r0..: fixed_s s_v[run][slot], full
+        // s_v[run][row][slot] (lane run * kPeriod + 64 slot + 8 row + first)
+        auto stage = [&](int r0) {
+            const int staged = min(kStageRuns, runs - r0) * kPerRun;
+            for (int e = t; e < staged; e += kCycleThreads) {
+                const int run = r0 + e / kPerRun, rest = e % kPerRun;
+                const int i = run * L::kPeriod + first +
+                              (kMode == kFixedMode
+                                   ? rest
+                                   : 64 * (rest % kCycleGroup) + 8 * (rest / kCycleGroup));
+                s_v[e] = i < n ? round_bf16(x[base + i]) : 0.0f;
             }
-            s_g[lane][s] = acc;
+        };
+        const bool once = runs <= kStageRuns;
+        if (once) stage(0);
+        const int u = t % kQuads, cc = t / kQuads;   // sums: slots 4u.., cycle cb + cc
+        const float4* v4 = reinterpret_cast<const float4*>(s_v);
+        float4* y4 = reinterpret_cast<float4*>(s_y);
+        for (int cb = 0; cb < iters; cb += kChunk) {
+            const int c = cb + cc;
+            const int row = kMode == kFixedMode ? 0 : (-c) & 7;
+            float4 g = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+            for (int r0 = 0; r0 < runs; r0 += kStageRuns) {
+                __syncthreads();   // s_v staged (or free to restage); s_y read
+                if (!once) {
+                    stage(r0);
+                    __syncthreads();
+                }
+                if (c < iters) {
+                    const int end = min(kStageRuns, runs - r0);
+#pragma unroll 4
+                    for (int run = 0; run < end; ++run) {
+                        const float4 v = v4[(run * L::kRows + row) * kQuads + u];
+                        g.x = g.x + v.x;
+                        g.y = g.y + v.y;
+                        g.z = g.z + v.z;
+                        g.w = g.w + v.w;
+                    }
+                }
+            }
+            if (c < iters)
+                y4[cc * kQuads + u] = make_float4(
+                    round_bf16(__fadd_rn(__fmul_rn(g.x, 1.0001f), 0.5f)),
+                    round_bf16(__fadd_rn(__fmul_rn(g.y, 1.0001f), 0.5f)),
+                    round_bf16(__fadd_rn(__fmul_rn(g.z, 1.0001f), 0.5f)),
+                    round_bf16(__fadd_rn(__fmul_rn(g.w, 1.0001f), 0.5f)));
+            __syncthreads();
+            const int end = min(kChunk, iters - cb);
+            if (t < 8 * kCycleGroup) {
+                if (kMode == kFixedMode)
+                    for (int e = 0; e < end; ++e) acc = acc + s_y[e * kCycleGroup + a_slot];
+                else
+                    for (int e = (8 - q - cb) & 7; e < end; e += 8)
+                        acc = acc + s_y[e * kCycleGroup + a_slot];
+            }
         }
-        __syncthreads();
-        for (int e = threadIdx.x; e < 6 * kSlots; e += kThreads)
-            s_y[e / kSlots][e % kSlots] =
-                __float2bfloat16_rn(s_g[e / kSlots][e % kSlots] * 1.0001f + 0.5f);
-        __syncthreads();
-        if (kMode == kFullMode) {
-            for (int q = threadIdx.x; 64 * q + off < n; q += kThreads)
-                out[base + 64 * q + off] += __bfloat162float(s_y[0][q & (kSlots - 1)]);
-        } else {
-            for (int i = threadIdx.x; i < n; i += kThreads)
-                out[base + i] += __bfloat162float(s_y[0][i & (kSlots - 1)]);
-        }
+    }
+    if (t < 8 * kCycleGroup) s_acc[t] = acc;
+    __syncthreads();
+    // block lane l is lane l / kRunLanes * kPeriod + first + l % kRunLanes
+    const int lanes = runs * kRunLanes;
+    for (int l = t; l < lanes; l += kCycleThreads) {
+        const int o = l % kRunLanes, i = l / kRunLanes * L::kPeriod + first + o;
+        if (i >= n) break;
+        out[base + i] = kMode == kFixedMode ? s_acc[o]
+                        : (o & 7) == 0      ? s_acc[(o & 63) / 8 * kCycleGroup + o / 64]
+                                            : 0.0f;
     }
 }
 
@@ -247,24 +441,30 @@ extern "C" int rk_permute(const float* x, float* out, long long len, int n,
 extern "C" int rk_sel(const uint16_t* x, float* out, long long len, int n,
                       int iters, void* stream) {
     if (const int e = check_shape(len, n, iters)) return e;
-    if (n > 16384) return (int)cudaErrorInvalidValue;
-    sel_kernel<<<(unsigned)(len / n), kThreads, 2 * (size_t)n, (cudaStream_t)stream>>>(
+    if (n > kSelLanes) return (int)cudaErrorInvalidValue;
+    sel_kernel<<<(unsigned)(len / n), kThreads, 0, (cudaStream_t)stream>>>(
         reinterpret_cast<const bf16*>(x), out, len, n, iters);
     return (int)cudaGetLastError();
 }
 
-// x (24, len) f32 -> out (1, len) f32; mode 0 full, 1 no_mm, 2 fixed_s.
+// x (24, len) f32 -> out (1, len) f32; mode 0 full, 1 no_mm, 2 fixed_s;
+// a block for each kCycleGroup slots that hold a lane of a program.
 extern "C" int rk_cycle(const float* x, float* out, long long len, int n,
                         int iters, int mode, void* stream) {
     if (const int e = check_shape(len, n, iters)) return e;
-    const unsigned grid = (unsigned)(len / n);
+    if (n > 0x7fffffff - 64 * kSlots) return (int)cudaErrorInvalidValue;
+    const int run = mode == kFixedMode ? 1 : 64;
+    const int used = min(kSlots, (n + run - 1) / run);   // slots holding a lane
+    const int groups = (used + kCycleGroup - 1) / kCycleGroup;
+    if ((len / n) * groups > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    const unsigned grid = (unsigned)((len / n) * groups);
     cudaStream_t st = (cudaStream_t)stream;
     if (mode == kFullMode)
-        cycle_kernel<kFullMode><<<grid, kThreads, 0, st>>>(x, out, len, n, iters);
+        cycle_kernel<kFullMode><<<grid, kCycleThreads, 0, st>>>(x, out, len, n, iters, groups);
     else if (mode == kNoMm)
-        cycle_kernel<kNoMm><<<grid, kThreads, 0, st>>>(x, out, len, n, iters);
+        cycle_kernel<kNoMm><<<grid, kCycleThreads, 0, st>>>(x, out, len, n, iters, groups);
     else if (mode == kFixedMode)
-        cycle_kernel<kFixedMode><<<grid, kThreads, 0, st>>>(x, out, len, n, iters);
+        cycle_kernel<kFixedMode><<<grid, kCycleThreads, 0, st>>>(x, out, len, n, iters, groups);
     else
         return (int)cudaErrorInvalidValue;
     return (int)cudaGetLastError();

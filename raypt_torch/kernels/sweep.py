@@ -2,6 +2,7 @@
 
     python -m raypt_torch.kernels.sweep [--against DIR] [--out FILE]
                                         [--kernels K ...]
+    python -m raypt_torch.kernels.sweep --kernels regroup --against DIR
 
 Variants of a kernel's constants are built from its source with those
 constants set (`_set`), each as a library of its own:
@@ -102,6 +103,19 @@ constants set (`_set`), each as a library of its own:
     and the longest, "sass_pass"), and per path the bytes a visit reads
     (`layout_bytes`, on the plain walk's record and the plain model's
     right-box tests).
+  * cycle, sel, permute (`--kernels regroup`, all three): the regroup
+    probes' kernels (`csrc/regroup.cu`, `probes/regroup.py`) on their
+    scripts' default inputs (`probes/cycle_budget.py`: full, no_mm and
+    fixed_s at 16 and 64 cycles, 8,192 lanes, 128 programs;
+    `probes/sel_probe.py`: 16, 64 and 256 cycles, 2,048 lanes, 128
+    programs; `probes/permute_probe.py` and `permute_probe2.py`: summed
+    at 8, 32 and 128 cycles, chained with and without fixed_s at 16 and
+    64), each call a wavefront.
+    cycle's variants are its design block (CYCLE_VARIANTS: threads a
+    block, slots a block, values staged at once; "stage256" stages
+    fixed_s's runs in two chunks for each chunk of cycles); a parent
+    checkout's kernels, through `--against`, may be the first ones (one
+    block of 1,024 threads a program).
 With `--against`, the kernels of another checkout (DIR/raypt_torch/csrc)
 join as variant "against" (a `compact.cu` without `chunk_count_kernel`,
 or whose uncompaction is `for_each_destination`'s, is called with the
@@ -235,6 +249,14 @@ COMPACT_SCRATCH_CHUNK = 128   # the smallest kChunk of the variants
 # the uncompaction's (the same block; the package: two passes, its own
 # count pass)
 UNCOMPACT_VARIANTS = {"recount_256": dict(kChunk=256, kTwoPass=0)}
+# the cycle kernel's design block (threads a block, slots a block, values
+# staged at once); the package's is kCycleThreads 128, kCycleGroup 8,
+# kCycleStage 2048
+CYCLE_VARIANTS = {
+    name: dict(kCycleThreads=t, kCycleGroup=g, kCycleStage=st)
+    for name, t, g, st in [("g16", 128, 16, 2048), ("g4", 128, 4, 2048),
+                           ("t256_g16", 256, 16, 2048), ("t64", 64, 8, 2048),
+                           ("stage256", 128, 8, 256)]}
 # kernel -> (source, C entry point, scope of its constants, variants)
 SWEPT = {
     "woop": ("cluster_intersect.cu", "rk_cluster_intersect_mask_woop",
@@ -257,11 +279,17 @@ SWEPT = {
                   "// The compaction's design", UNCOMPACT_VARIANTS),
     "packed": ("packed_walk.cu", "rk_packed_walk", None, {}),
     "wide": ("wide_walk.cu", "rk_wide_walk", None, {}),
-    "layouts": ("packed_layouts.cu", "rk_layout_walk", None, {})}
+    "layouts": ("packed_layouts.cu", "rk_layout_walk", None, {}),
+    "cycle": ("regroup.cu", "rk_cycle", "// The cycle kernel's design",
+              CYCLE_VARIANTS),
+    "sel": ("regroup.cu", "rk_sel", None, {}),
+    "permute": ("regroup.cu", "rk_permute", None, {})}
+# --kernels names that stand for several
+FAMILIES = {"regroup": ("cycle", "sel", "permute")}
 # timed also from CUDA graph replay: kernels of tens of microseconds,
 # where a direct call's host work may outlast the kernel
 GRAPHED = ("union", "compact", "cm_u", "uncompact", "packed", "wide",
-           "layouts", "rows")
+           "layouts", "rows", "cycle", "sel", "permute")
 # the walks whose designs --designs picks (the package's always runs)
 DESIGNED = ("packed", "wide", "layouts")
 # the walk's designs: entry rk_walk_<name> of csrc/walk_designs.cu
@@ -408,7 +436,13 @@ SIGS = {"woop": [P, I32, P, I32, I32, P, P, P, P, P, I64, P],
         # stream
         "layouts": [I32, P, I64, P, P, P, P, P, P, I64, P, P],
         # a layout design's walk of one layout: the same without the code
-        "layouts_design": [P, I64, P, P, P, P, P, P, I64, P, P]}
+        "layouts_design": [P, I64, P, P, P, P, P, P, I64, P, P],
+        # x -> out; len, n, iters, mode, stream
+        "cycle": [P, P, I64, I32, I32, I32, P],
+        # x -> out; len, n, iters, stream
+        "sel": [P, P, I64, I32, I32, P],
+        # x -> out; len, n, iters, chain, fixed_s, stream
+        "permute": [P, P, I64, I32, I32, I32, I32, P]}
 
 
 def _set(src: str, scope: str, consts: dict) -> str:
@@ -596,6 +630,25 @@ def wavefronts(kernels=tuple(SWEPT)) -> dict:
     from .cluster_pallas import TILE
     from .dense_pallas import RAY_TILE
     out = {k: [] for k in SWEPT}
+    if "cycle" in kernels:   # the scripts' calls, each a wavefront
+        from ..probes import cycle_budget
+        from ..probes.regroup import CYCLE_MODES
+        xc = cycle_budget.inputs("cuda")
+        out["cycle"] = [(xc, cycle_budget.N, iters, mode)
+                        for mode in CYCLE_MODES
+                        for iters in (16, cycle_budget.ITERS)]
+    if "sel" in kernels:
+        from ..probes import sel_probe
+        xs = sel_probe.inputs("cuda")
+        out["sel"] = [(xs, sel_probe.N, iters) for iters in sel_probe.ITERS]
+    if "permute" in kernels:   # tpu_permute_probe.py's, then probe2's
+        from ..probes import permute_probe, permute_probe2
+        xp = permute_probe.inputs("cuda")
+        n = permute_probe.N
+        out["permute"] = [(xp, n, iters, False, False)
+                          for iters in permute_probe.ITERS] + [
+            (xp, n, iters, True, fixed) for fixed in (True, False)
+            for iters in permute_probe2.ITERS]
     out["packed_path"] = []   # the path of each packed wavefront
     out["wide_path"] = []     # and of each wide one
     out["layouts_path"] = []  # and of each layout one
@@ -947,6 +1000,28 @@ def presort(rows, o, d, t, a, keys=("octant", "morton")):
             t[order].contiguous(), a[order].contiguous(), inv)
 
 
+def _call_cycle(fn, x, n, iters, mode):
+    from ..probes.regroup import CYCLE_MODES
+    out = torch.empty((1, x.shape[1]), dtype=torch.float32, device=x.device)
+    _check(fn(x.data_ptr(), out.data_ptr(), x.shape[1], n, iters,
+              CYCLE_MODES.index(mode), _stream()), "cycle")
+    return (out,)
+
+
+def _call_sel(fn, x, n, iters):
+    out = torch.empty((8, x.shape[1]), dtype=torch.float32, device=x.device)
+    _check(fn(x.data_ptr(), out.data_ptr(), x.shape[1], n, iters, _stream()),
+           "sel")
+    return (out,)
+
+
+def _call_permute(fn, x, n, iters, chain, fixed_s):
+    out = torch.empty_like(x)
+    _check(fn(x.data_ptr(), out.data_ptr(), x.shape[1], n, iters, int(chain),
+              int(fixed_s), _stream()), "permute")
+    return (out,)
+
+
 def _call_presorted(fn, rows, o, d, t, a, inv):
     t_out, f_out = _call_packed(fn, rows, o, d, t, a)
     return t_out[inv], f_out[inv]
@@ -973,7 +1048,9 @@ CALLS = {"woop": _call_union, "mask": _call_union,
          "packed_presorted": _call_presorted,
          "wide": _call_wide,
          "wide_design": lambda fn, *w: _call_wide(fn, *w, scratch=True),
-         "layouts": _call_layouts, "layouts_design": _call_layouts}
+         "layouts": _call_layouts, "layouts_design": _call_layouts,
+         "cycle": _call_cycle,
+         "sel": _call_sel, "permute": _call_permute}
 
 
 class SmClock:
@@ -1397,12 +1474,14 @@ def main(argv=None) -> None:
     p.add_argument("--against", help="a checkout whose kernels join the sweep")
     p.add_argument("--out", help="also write the JSON lines here")
     p.add_argument("--rounds", type=int, default=3)
-    p.add_argument("--kernels", nargs="+", choices=tuple(SWEPT),
+    p.add_argument("--kernels", nargs="+", choices=(*SWEPT, *FAMILIES),
                    default=list(SWEPT))
     p.add_argument("--designs", nargs="+", help="the walks' designs to "
                    "time (of PACKED_DESIGNS, PRESORTED, WIDE_DESIGNS and "
                    "LAYOUT_DESIGNS; default all)")
     args = p.parse_args(argv)
+    args.kernels = list(dict.fromkeys(
+        k for name in args.kernels for k in FAMILIES.get(name, (name,))))
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device: the sweep runs on the card")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

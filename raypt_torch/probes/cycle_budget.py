@@ -9,6 +9,11 @@ checked bitwise against its plain version:
   fixed_s  every lane in slot lane % 128 in every cycle (each slot sums
            CB_N / 128 lanes)
 
+The kernel runs a block for each group of 16 slots of a program (eight
+groups a program at the default CB_N of 8,192, any CB_N), which computes
+every cycle's slot sums, so the time a cycle is the time of the sums, y
+and the way back, not of a block's barriers.
+
     CB_N=8192 CB_PROGS=128 CB_ITERS=64 python -m raypt_torch.probes.cycle_budget
 """
 from __future__ import annotations

@@ -6,12 +6,19 @@ lanes, moving their payload into 128 slots, a stand-in test there and
 the way back, on every program of n lanes.
 
 The plain versions are vectorised over programs, with a loop over cycles;
-where a slot collects several lanes (cycle's fixed_s; sel's rank allows
-it, though its interest pattern gives no lane a slot) they add the lanes
-in ascending order from 0, as the kernel does. At the n that `sel`
-takes (at most 16,384) every rank is -1, so its slot sums never run and
-its output is zero: a check of `sel` holds only that. On CPU tensors the
-wrappers run them.
+where a slot collects several lanes (cycle's fixed_s, and full past
+8,192 lanes; sel's rank allows it, though its interest pattern gives no
+lane a slot) they add the lanes in ascending order from 0, as the
+kernels do. At the n that `sel` takes (at most 16,384) every rank is -1,
+so its slot sums never run and its output is zero: a check of `sel`
+holds only that. On CPU tensors the wrappers run them.
+
+The kernels: `permute` one block a program; `cycle` a block for each
+group of slots of a program (a lane's slot is the same in every cycle,
+so a group owns its lanes over all cycles; the kernel's entry picks the
+grid); `sel` one block a program, the rank of each (lane, cycle) from
+its closed form in registers, one block-wide vote whether any lane has
+a slot.
 """
 from __future__ import annotations
 

@@ -4,9 +4,12 @@ function, which on Hopper is one kernel (`regroup.sel`, no matrix), so
 each variant name runs it. Its rank is the probe's shifted sum of the
 interest bits, not a prefix sum; with the probe's interest pattern it is
 -1 on every interested lane, so no lane reaches a slot and the output is
-zero: the probe times the rank and an empty slot tile. For 16, 64 and
-256 cycles on (24, SP_N * 128) bf16 rows, checked bitwise against the
-plain version, with the marginal time per cycle.
+zero. The kernel tests every (lane, cycle) against the residues that
+would give the lane a slot (its shifted sums, summed once a lane) and
+votes once a program whether any has one: the probe times that test and
+the zero output's writes. For 16, 64 and 256 cycles on (24, SP_N * 128)
+bf16 rows (SP_N <= 16,384), checked bitwise against the plain version,
+with the marginal time per cycle.
 
     SP_N=2048 python -m raypt_torch.probes.sel_probe [variant ...]
 """

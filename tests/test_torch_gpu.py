@@ -770,13 +770,16 @@ def _probe_case(probe):
         chain, fixed = arg in ("chain", "chain_fixed"), arg.endswith("fixed")
         return (regroup.permute(x, 8, 8192, chain, fixed),
                 regroup.permute_plain(x, 8, 8192, chain, fixed))
-    if name == "sel":
-        x = rows(24, 2048, 8).to(torch.bfloat16)
-        return regroup.sel(x, 16, 2048), regroup.sel_plain(x, 16, 2048)
-    if name == "cycle":
-        x = rows(24, 8192, 8)
-        return (regroup.cycle(x, 16, 8192, arg),
-                regroup.cycle_plain(x, 16, 8192, arg))
+    if name == "sel":   # [n:programs]
+        n, progs = map(int, arg.split(":")) if arg else (2048, 8)
+        x = rows(24, n, progs).to(torch.bfloat16)
+        return regroup.sel(x, 16, n), regroup.sel_plain(x, 16, n)
+    if name == "cycle":   # mode[:n:programs]
+        mode, *size = arg.split(":")
+        n, progs = map(int, size) if size else (8192, 8)
+        x = rows(24, n, progs)
+        return (regroup.cycle(x, 16, n, mode),
+                regroup.cycle_plain(x, 16, n, mode))
     args = walk_spec_probe.wavefront("cuda", 256, int(arg))
     spec = walk_spec_probe.topwalk_spec(*args)
     return ((spec, spec), (twk.topwalk_cm(*args), twk.topwalk_cm_plain(*args)))
@@ -785,11 +788,18 @@ def _probe_case(probe):
 @pytest.mark.parametrize("probe", [
     "gather:fill", "gather:clip", "gather:oob", "stages", "diag", "permute:sum",
     "permute:sum_fixed", "permute:chain", "permute:chain_fixed", "sel",
+    "sel:64:5", "sel:16384:3",
     "cycle:full", "cycle:no_mm", "cycle:fixed_s", "walk_spec:512",
-    "walk_spec:16"])
+    "walk_spec:16"] + [f"cycle:{mode}:{n}:3" for mode in ("full", "no_mm",
+                                                           "fixed_s")
+                       for n in (128, 4096, 16384)] + [
+    f"cycle:{mode}:{n}:1" for mode in ("full", "no_mm", "fixed_s")
+    for n in (32768, 65536)] + ["cycle:full:300000:1"])
 def test_probe_kernels_bitwise(probe):
     """Each kernel of raypt_torch/probes/ (the scripts/ probes) against its
-    plain version; the speculative walk also against topwalk_cm."""
+    plain version; the speculative walk also against topwalk_cm. cycle
+    also at any number of lanes a program: fixed_s restages its runs past
+    32,768 lanes, full past 262,144."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     got, want = _probe_case(probe)
@@ -797,7 +807,45 @@ def test_probe_kernels_bitwise(probe):
         got, want = (got,), (want,)
     for a, b in zip(got, want):
         assert _bits_equal(a, b)
-    assert any(bool(a.any()) for a in got) or probe == "sel"
+    assert any(bool(a.any()) for a in got) or probe.startswith("sel")
+
+
+@pytest.fixture(scope="module")
+def sel_wide():
+    """rk_sel of regroup.cu built with a wider interest: residues below
+    32 of 199 (the kernel's interest block, set by the sweep's `_set`)."""
+    import os
+
+    from raypt_torch.kernels import sweep
+    from raypt_torch.kernels._build import CSRC_DIR
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    with open(os.path.join(CSRC_DIR, "regroup.cu")) as f:
+        text = f.read()
+    path = sweep._nvcc_job("sel_wide", "regroup.cu", sweep._set(
+        text, "// The probes' interest", {"kWidth": 32}), CSRC_DIR)()
+    return partial(sweep.CALLS["sel"], sweep._loaded("sel", path, "rk_sel"))
+
+
+@pytest.mark.parametrize("n,progs,iters", [(17, 3, 30), (64, 3, 5),
+                                           (1000, 1, 4), (2048, 2, 3)])
+def test_sel_general_path(sel_wide, n, progs, iters, monkeypatch):
+    """sel_kernel with the wider interest gives lanes slots, so its
+    general path runs: the ranks, the slot sums in ascending lane order,
+    y and each lane's additions in cycle order, bitwise against sel_plain
+    under the same interest (the probe's interest never gets there; at 17
+    lanes only lane 16 can take a slot, first in cycle 23)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from raypt_torch.probes import regroup
+    monkeypatch.setattr(regroup, "_interest", lambda lane, c: (
+        (lane * 37 + c * 131) % 199) < 32)
+    g = torch.Generator().manual_seed(n)
+    x = torch.randn((24, n * progs), generator=g).to(torch.bfloat16).cuda()
+    want = regroup.sel_plain(x, iters, n)
+    (got,) = sel_wide(x, n, iters)
+    assert _bits_equal(got, want) and bool(want[:6].any())
+    assert not bool(got[6:].any())
 
 
 @pytest.fixture(scope="module")

@@ -221,6 +221,22 @@ def test_cycle_matches_jax(mode):
     _close_bf16(got.numpy(), ref, sums=mode == "fixed_s")
 
 
+def test_cycle_two_members_matches_jax():
+    """tpu_cycle_budget.py in full mode at 16,384 lanes, one program, two
+    cycles: there each slot sums two lanes (64 (slot + 128 t) + 8c's
+    offset, t = 0, 1), which the kernel adds in ascending lane order."""
+    n = 16384
+    ns = load_script("tpu_cycle_budget.py", N=n, PROGS=1)
+    x = np.random.default_rng(6).normal(size=(24, n)).astype(np.float32)
+    ref = np.asarray(ns["run"](jnp.asarray(x), 2, "full"))
+    got = regroup.cycle(_t(x), 2, n, "full")
+    for c in range(2):
+        slots = regroup.cycle_members(n, c, "full", "cpu")[1]
+        assert int(torch.bincount(slots).min()) == 2
+    assert np.count_nonzero(ref) == 2 * n // 64
+    _close_bf16(got.numpy(), ref)
+
+
 # --- P6-P9: the expansion diagnostics
 
 @pytest.mark.parametrize("wk", [(11, 7), (15, 31), (20, 3)])

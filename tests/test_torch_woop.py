@@ -343,13 +343,13 @@ def test_sweep_sets_constants():
 
 
 @pytest.mark.parametrize("kernel", ["worklist", "dense", "union", "compact",
-                                    "uncompact"])
+                                    "uncompact", "cycle"])
 def test_sweep_sets_constants_of(kernel):
     """The sweep's variants of the worklist kernel (struct MtTest), of
-    closest_dense, the union walk, the compaction and the uncompaction
-    (their designs' constants): each sets exactly the lines of its
-    constants in its scope, and every variant differs from the package's
-    setting."""
+    closest_dense, the union walk, the compaction, the uncompaction and
+    the regroup probes' cycle kernel (their designs' constants):
+    each sets exactly the lines of its constants in its scope, and every
+    variant differs from the package's setting."""
     import os
     import re
 
