@@ -189,11 +189,12 @@ Phases:
      every mode and cycle count the script runs; the speculative walk
      also against topwalk_cm (timed beside it), the gathers beside
      torch.index_select (their library_ms; both also replayed from CUDA
-     graphs, the device time without the host work), cycle_budget and
-     sel_probe also from CUDA graphs (every call; sel_probe's bound with
-     and without its rank's operations), and the expansion
-     diagnostics' v1/v2/v3 maxima and rays whose cluster count is not
-     their mask's popcount (which fails the phase)
+     graphs, the device time without the host work), cycle_budget,
+     sel_probe, both permute probes and the expansion diagnostics also
+     from CUDA graphs (every call; sel_probe's and the permute probes'
+     bounds with and without their ranks' integer operations), and the
+     expansion diagnostics' v1/v2/v3 maxima and rays whose cluster count
+     is not their mask's popcount (which fails the phase)
   8. the bvh backend beyond the bench path, each render with the launch
      counts set to 0 before it and read after it, and bitwise against
      the same render through the plain finder: cli_default, the CLI's
@@ -407,6 +408,11 @@ DIAG_OPS = 57
 # lane, one shifted term per shift k <= lane into that mask (the window's
 # two compares, its bits, the next shift's residue: 4)
 SEL_TEST_OPS, SEL_TERM_OPS = 3, 4
+# integer operations of permute's rank (regroup.cu's rank_cycle) per lane
+# a cycle's scan tests: the residue's step to the lane 32 on, its wrap,
+# the interest test (3); the scan needs the lanes up to its cycle's 128th
+# interested lane (all n where fewer are interested)
+PERMUTE_RANK_OPS = 3
 
 # the config-4 path (scripts/baseline_config4.py)
 C4_BOUNCES = 8
@@ -2509,8 +2515,8 @@ def probes_phase(stats):
     (all of x where its output carries x), the input rows its output
     depends on (cycle_budget: row 0; the split3 payloads: 18 of 24 rows;
     the diagnostics: rays with a wanted cluster, the unpadded mask),
-    every output, and the f32 operations on the selected lanes and used
-    slots."""
+    every output, the f32 operations on the selected lanes and used
+    slots, and the int32 operations of sel's and permute's ranks."""
     import torch
     from raypt_torch.kernels import onehot_walk as wk
     from raypt_torch.probes import (cycle_budget, expand_debug, expand_diag2,
@@ -2518,6 +2524,7 @@ def probes_phase(stats):
                                     pallas_gather_test2, permute_probe,
                                     permute_probe2, regroup, sel_probe,
                                     walk_spec_probe)
+    from raypt_torch.probes._common import SLOTS
     t_start = time.perf_counter()
     log("phase 7: the scripts/ probes, kernel vs plain version, bitwise, at "
         "the scripts' default sizes")
@@ -2545,19 +2552,32 @@ def probes_phase(stats):
     for name, chain, modes, cycles in (
             ("permute_probe", False, (False,), permute_probe.ITERS),
             ("permute_probe2", True, (True, False), permute_probe2.ITERS)):
+        old_bound = 0.0
         for fixed in modes:
             for iters in cycles:
                 a = (x, iters, n, chain, fixed)
                 what = f"{iters} cycles{' fixed' if fixed else ''}"
                 stats.check(name, what, regroup.permute(*a),
                             regroup.permute_plain(*a))
-                used, total = _lanes_used(
-                    [regroup.permute_lanes(n, 0 if fixed else c, "cpu")
-                     for c in range(iters)], n)
+                per = [regroup.permute_lanes(n, 0 if fixed else c, "cpu")
+                       for c in range(iters)]
+                used, total = _lanes_used(per, n)
+                # the rank scans each ranked cycle (fixed_s: cycle 0 alone)
+                # up to its 128th interested lane
+                scanned = sum(int(lanes[-1]) + 1
+                              if lanes.numel() == SLOTS else n
+                              for lanes in per[:1 if fixed else iters])
                 x_in = nbytes(x) if chain else 4 * 8 * used * progs
+                ops = progs * 8 * total * (4 if chain else 3)
+                old_bound += max(1e3 * (x_in + nbytes(x)) / HBM_BYTES_PER_S,
+                                 1e3 * ops / F32_OPS_PER_S)
                 stats.time(name, what[:9], regroup.permute,
-                           regroup.permute_plain, a, x_in + nbytes(x),
-                           progs * 8 * total * (4 if chain else 3))
+                           regroup.permute_plain, a, x_in + nbytes(x), ops,
+                           ops_i32=progs * PERMUTE_RANK_OPS * scanned)
+                stats.time_graph(name, what[:9], regroup.permute, a)
+        log(f"  {name}: bound {stats.bound_ms[name]:.4g} ms with the rank's "
+            f"int32 operations ({stats.bound_by(name)}), {old_bound:.4g} ms "
+            f"without them")
 
     # P4: sel (the four variants are one function)
     n = sel_probe.N
@@ -2678,6 +2698,7 @@ def probes_phase(stats):
                expand_diag2.diag_plain, a,
                nbytes(mask, *out) + (2 * 18 + 4 * 6) * wanting,
                DIAG_OPS * pairs)
+    stats.time_graph("expand_diag2", "diag", expand_diag2.diag, a)
     log(f"  diag: {ro.shape[0]} rays, {ro.shape[0] // expand_diag2.N} "
         f"programs, {mask_cm.shape[0]} words, {pairs} ray-cluster round "
         f"trips; v1 max {float(out[0].max())}, v2 max {float(out[1].max())}, "

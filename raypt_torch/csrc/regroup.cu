@@ -37,9 +37,12 @@
 // Arithmetic in f32 without contraction (-fmad=false), so the plain
 // torch versions in raypt_torch/probes/regroup.py match bit for bit.
 //
-// What bounds it on this card. permute: per cycle, the block-wide rank (a
-// chain of shuffles and barriers) and three barriers around the slot
-// tile; its bytes (x in, the output out, once) are tens of MB at most.
+// What bounds it on this card. permute: its bytes, x in (in summed mode
+// only the lanes a cycle selects) and the output out, once: 33.5 MB each
+// at the probes' 8,192 lanes and 128 programs; then the rank, a scan of
+// each cycle's lanes up to the 128th interested one (about 5,100 of
+// them) at a few integer operations a lane; cycles run in order would
+// add a barrier-bound move through the slots each (the slot tile design).
 // cycle: the (slot, cycle) sums, n / 128 adds each in fixed_s (64 at the
 // script's n of 8,192: 67M adds over 64 cycles and 128 programs), a few
 // in full; its bytes are row 0 of the selected lanes and the output,
@@ -47,12 +50,26 @@
 // interested lanes, the shifted sums (log2 n terms); its bytes are the
 // output, written once (no lane reaches a slot, so no x is read).
 //
-// What the design does about it. permute: one block of 1,024 threads per
-// program; each thread owns a run of consecutive lanes, counts its
-// interested lanes, and one block scan of the counts ranks them; the
-// selected lanes post their index to the slot; thread (row, slot) moves
-// one payload value into the shared bf16 tile, tests it and adds the
-// result back to its lane.
+// What the design does about it. permute: the selection never reads x,
+// and a cycle's update of a lane reads only that lane's rows, so a lane's
+// result is its count k of selecting cycles applied to its own rows in
+// cycle order. One block of 1,024 threads a program ranks the cycles at
+// once, a warp a cycle (rank_cycle: per 32 lanes one ballot of the
+// interest tests and its popcount, the exclusive rank of a lane the count
+// before its 32 lanes plus the popcount of the ballot below it, the scan
+// stopped once 128 lanes are found; no block-wide barrier), the selected
+// lanes adding to their counts in shared memory; then each thread loads
+// its lanes' 8 rows once (neighbouring threads, neighbouring lanes),
+// applies their k steps in registers and writes them once, zeros and
+// untouched lanes included; lanes of many steps (fixed_s: every selected
+// lane, iters of them) are packed 32 to a warp first, so no warp waits
+// on one thread's steps. Past kPermuteWindow lanes the counts are
+// held a window at a time (each window's ranks again from lane 0, up to
+// the last lane a scan reached), so any n and iters run. The slot tile
+// design of the sweep (kPermuteSlots 1) keeps the first kernel's move:
+// the same ballot ranks, 32 cycles at once into lists of selected lanes,
+// then per cycle in order the lanes' values into the shared bf16 tile,
+// the test there and the way back to the output, behind three barriers.
 // cycle: a lane's slot does not depend on the cycle ((lane >> 6) & 127 in
 // full and no_mm, lane & 127 in fixed_s) and no cycle reads another's
 // result, so each program splits into groups of kCycleGroup slots, one
@@ -110,11 +127,9 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include "block_scan.cuh"
-
 namespace {
 
-constexpr int kThreads = 1024;   // permute's and sel's blocks
+constexpr int kThreads = 1024;   // sel's blocks
 constexpr int kWarps = kThreads / 32;
 constexpr int kSlots = 128;
 constexpr unsigned kFull = 0xffffffffu;
@@ -132,48 +147,244 @@ constexpr int kShift = 131;
 constexpr int kModulus = 199;
 constexpr int kWidth = 5;
 
-__device__ __forceinline__ bool interest(int lane, int c) {
-    return ((lane * kStride + c * kShift) % kModulus) < kWidth;
+// --- permute
+
+// The permute kernel's design: kPermuteSlots 0 keeps each lane's rows in
+// registers over the cycles that select it (the package's design), 1
+// moves each cycle's lanes through the 128-slot tile, cycles in order
+// (the sweep's "slot_tile"); kPermuteWindow lanes' selection counts held
+// in shared memory at once; kRankWords ballots of a scan between two
+// tests of its count; lanes with more than kPermuteHeavy selecting cycles
+// taken from a packed list, 32 to a warp.
+constexpr int kPermuteSlots = 0;
+constexpr int kPermuteWindow = 6144;
+constexpr int kRankWords = 8;
+constexpr int kPermuteHeavy = 4;
+
+constexpr int kPermuteThreads = 1024;
+constexpr int kPermuteWarps = kPermuteThreads / 32;
+constexpr int kListCycles = 32;      // cycles ranked at once by the slot tile design
+constexpr int kStep32 = (32 * kStride) % kModulus;   // a lane's residue 32 lanes on
+
+// Cycle c's selection, by one warp: lane l of the warp tests lane i0 + l
+// of each 32 lanes from lane 0 (its residue stepped by kStep32), a ballot
+// gathers the 32 tests, and the interested lanes are counted; an
+// interested lane with rank (interested lanes before it) below kSlots is
+// selected, sel(i, rank). The count is tested every kRankWords words;
+// while it stays within kSlots every interested lane is selected, so the
+// rank test runs only in the words where it passes kSlots, and the scan
+// stops after them. Returns the lanes found (min'd with kSlots: the slots
+// filled); *stop gets the lane where the scan stopped, below which every
+// selected lane lies (n where fewer than kSlots lanes are interested).
+template <class Sel>
+__device__ __forceinline__ int rank_cycle(int c, int n, int* stop, Sel sel) {
+    const int lane = threadIdx.x & 31;
+    const unsigned below = (1u << lane) - 1u;
+    int r = (lane * kStride + (c % kModulus) * kShift) % kModulus;
+    int found = 0, i0 = 0;
+    while (i0 < n && found < kSlots) {
+        const bool whole = i0 + 32 * kRankWords <= n;
+        bool m[kRankWords];
+        unsigned bal[kRankWords];
+        int total = found;
+#pragma unroll
+        for (int u = 0; u < kRankWords; ++u) {
+            m[u] = (whole || i0 + 32 * u + lane < n) && r < kWidth;
+            bal[u] = __ballot_sync(kFull, m[u]);
+            total += __popc(bal[u]);
+            r = r + kStep32 >= kModulus ? r + kStep32 - kModulus : r + kStep32;
+        }
+        if (total <= kSlots) {
+#pragma unroll
+            for (int u = 0; u < kRankWords; ++u) {
+                if (m[u]) sel(i0 + 32 * u + lane, found + __popc(bal[u] & below));
+                found += __popc(bal[u]);
+            }
+        } else {
+#pragma unroll
+            for (int u = 0; u < kRankWords; ++u) {
+                const int rank = found + __popc(bal[u] & below);
+                if (m[u] && rank < kSlots) sel(i0 + 32 * u + lane, rank);
+                found += __popc(bal[u]);
+            }
+        }
+        i0 += 32 * kRankWords;
+    }
+    *stop = min(i0, n);
+    return min(found, kSlots);
 }
 
+// bf16(bf16(v) * 1.0001 + 0.5): a slot's stand-in test of one value.
+__device__ __forceinline__ float permute_y(float v) {
+    return round_bf16(round_bf16(v) * 1.0001f + 0.5f);
+}
+
+// A lane's 8 rows through the k cycles that select it, in registers: a
+// cycle's update reads only the lane's own rows, so they are k steps of
+// the same update, the 8 rows side by side. Chained, x += y * 1e-6 each
+// step, y recomputed from the new x; summed, the output adds y (the same
+// each step) k times from 0.
+template <bool kChain>
+__device__ __forceinline__ void permute_steps(float (&v)[8], int k) {
+    if (kChain) {
+        for (int e = 0; e < k; ++e)
+#pragma unroll
+            for (int r = 0; r < 8; ++r) v[r] = v[r] + permute_y(v[r]) * 1e-6f;
+    } else {
+        float y[8];
+#pragma unroll
+        for (int r = 0; r < 8; ++r) {
+            y[r] = permute_y(v[r]);
+            v[r] = 0.0f;
+        }
+        for (int e = 0; e < k; ++e)
+#pragma unroll
+            for (int r = 0; r < 8; ++r) v[r] = v[r] + y[r];
+    }
+}
+
+// One block a program. Its warps rank the cycles at once (warp w cycles
+// w, w + 32, ...), each selected lane adding its cycle to its count in
+// shared memory, for the lanes of one window of kPermuteWindow lanes at
+// a time; then each thread takes lanes of the window (neighbouring
+// threads neighbouring lanes, two at a time) through their counts, and
+// lanes with more than kPermuteHeavy steps, which would hold a warp for
+// one busy thread, go to a list taken 32 lanes to a warp after one more
+// barrier. Windows past the last lane any cycle can select (the scans'
+// largest stop, known after the first) are not ranked: their lanes are
+// written with count 0. So two barriers a window, none a cycle.
 template <bool kChain, bool kFixedS>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kPermuteThreads)
 permute_kernel(const float* __restrict__ x, float* __restrict__ out,
                long long len, int n, int iters) {
-    __shared__ int s_warp[33];
-    __shared__ int s_lane[kSlots];
+    __shared__ int s_count[kPermuteWindow];
+    __shared__ uint16_t s_heavy[kPermuteWindow];
+    __shared__ int s_stop, s_nheavy;
+    const long long base = (long long)blockIdx.x * n;
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    // fixed_s: cycle 0's selection, ranked once, stands for every cycle
+    const int ranked = kFixedS ? min(iters, 1) : iters;
+    const int weight = kFixedS ? iters : 1;
+    if (threadIdx.x == 0) s_stop = 0;
+    for (int w0 = 0;; w0 += kPermuteWindow) {
+        const int w1 = (int)min((long long)n, (long long)w0 + kPermuteWindow);
+        for (int i = threadIdx.x; i < w1 - w0; i += kPermuteThreads) s_count[i] = 0;
+        if (threadIdx.x == 0) s_nheavy = 0;
+        __syncthreads();
+        int* count = s_count;
+        for (int c = warp; c < ranked; c += kPermuteWarps) {
+            int stop;
+            rank_cycle(c, n, &stop, [=](int i, int) {
+                if (i >= w0 && i < w1) atomicAdd(count + (i - w0), weight);
+            });
+            if (lane == 0) atomicMax(&s_stop, stop);
+        }
+        __syncthreads();
+        const bool last = w1 >= s_stop;
+        const int end = last ? n : w1;
+        for (int i = w0 + threadIdx.x; i < end; i += 2 * kPermuteThreads) {
+            float v[2][8];
+            int k[2];
+            bool own[2];
+#pragma unroll
+            for (int l = 0; l < 2; ++l) {
+                const int il = i + l * kPermuteThreads;
+                k[l] = il < w1 ? s_count[il - w0] : 0;
+                own[l] = il < end && k[l] <= kPermuteHeavy;
+                if (k[l] > kPermuteHeavy) s_heavy[atomicAdd(&s_nheavy, 1)] = il - w0;
+                // a lane no cycle selects reads nothing in summed mode
+                const bool load = own[l] && (kChain || k[l]);
+#pragma unroll
+                for (int r = 0; r < 8; ++r)
+                    v[l][r] = load ? x[r * len + base + il] : 0.0f;
+            }
+#pragma unroll
+            for (int l = 0; l < 2; ++l) {
+                if (!own[l]) continue;
+                const int il = i + l * kPermuteThreads;
+                permute_steps<kChain>(v[l], k[l]);
+#pragma unroll
+                for (int r = 0; r < 8; ++r) out[r * len + base + il] = v[l][r];
+            }
+        }
+        __syncthreads();
+        for (int e = threadIdx.x; e < s_nheavy; e += kPermuteThreads) {
+            const int il = w0 + s_heavy[e];
+            float v[8];
+#pragma unroll
+            for (int r = 0; r < 8; ++r) v[r] = x[r * len + base + il];
+            permute_steps<kChain>(v, s_count[il - w0]);
+#pragma unroll
+            for (int r = 0; r < 8; ++r) out[r * len + base + il] = v[r];
+        }
+        if (last) return;
+        __syncthreads();   // s_count and s_heavy are the next window's
+    }
+}
+
+// The slot tile design (kPermuteSlots 1): the output first set to x
+// (chained) or 0; the warps rank kListCycles cycles at once into lists of
+// their selected lanes; then, cycle by cycle in order, thread (row, slot)
+// moves its lane's value into the shared bf16 tile, thread (slot, row)
+// tests it there, and thread (row, slot) adds the result back to the
+// lane in the output: three barriers a cycle.
+template <bool kChain, bool kFixedS>
+__global__ void __launch_bounds__(kPermuteThreads)
+permute_slots_kernel(const float* __restrict__ x, float* __restrict__ out,
+                     long long len, int n, int iters) {
+    __shared__ int s_lane[kListCycles][kSlots];
+    __shared__ int s_nsel[kListCycles];
     __shared__ bf16 s_g[8][kSlots];
     __shared__ bf16 s_y[8][kSlots];
     const long long base = (long long)blockIdx.x * n;
-    for (int e = threadIdx.x; e < 8 * n; e += kThreads) {
-        const long long a = (long long)(e / n) * len + base + e % n;
-        out[a] = kChain ? x[a] : 0.0f;
-    }
-    const int per = (n + kThreads - 1) / kThreads;
-    const int first = min(threadIdx.x * per, n), last = min(first + per, n);
-    const int row = threadIdx.x / kSlots, j = threadIdx.x % kSlots;
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    for (int r = 0; r < 8; ++r)
+        for (int i = threadIdx.x; i < n; i += kPermuteThreads) {
+            const long long a = r * len + base + i;
+            out[a] = kChain ? x[a] : 0.0f;
+        }
     const float* src = kChain ? out : x;
-    for (int c = 0; c < iters; ++c) {
-        const int cc = kFixedS ? 0 : c;
-        int cnt = 0;
-        for (int i = first; i < last; ++i) cnt += interest(i, cc);
-        int total;
-        int rank = rk::block_exclusive_scan(cnt, s_warp, &total);
-        for (int i = first; i < last && rank < kSlots; ++i)
-            if (interest(i, cc)) s_lane[rank++] = i;
-        const int nsel = min(total, kSlots);
+    const int row = threadIdx.x / kSlots, j = threadIdx.x % kSlots;   // move, way back
+    const int trow = threadIdx.x % 8, tj = threadIdx.x / 8;           // the test
+    for (int c0 = 0; c0 < iters; c0 += kListCycles) {
+        const int chunk = min(kListCycles, iters - c0);
+        const int lists = kFixedS ? (c0 == 0) : chunk;
+        for (int e = warp; e < lists; e += kPermuteWarps) {
+            int stop;
+            int* list = s_lane[e];
+            const int nsel = rank_cycle(kFixedS ? 0 : c0 + e, n, &stop,
+                                        [=](int i, int rank) { list[rank] = i; });
+            if (lane == 0) s_nsel[e] = nsel;
+        }
         __syncthreads();
-        const long long a = (long long)row * len + base + (j < nsel ? s_lane[j] : 0);
-        if (j < nsel) s_g[row][j] = __float2bfloat16_rn(src[a]);
-        __syncthreads();
-        if (j < nsel)
-            s_y[row][j] = __float2bfloat16_rn(__bfloat162float(s_g[row][j]) * 1.0001f + 0.5f);
-        __syncthreads();
-        if (j < nsel) {
-            const float z = __bfloat162float(s_y[row][j]);
-            out[a] = kChain ? out[a] + z * 1e-6f : out[a] + z;
+        for (int e = 0; e < chunk; ++e) {
+            const int l = kFixedS ? 0 : e;
+            const int nsel = s_nsel[l];
+            const long long a = (long long)row * len + base + (j < nsel ? s_lane[l][j] : 0);
+            if (j < nsel) s_g[row][j] = __float2bfloat16_rn(src[a]);
+            __syncthreads();
+            if (tj < nsel)
+                s_y[trow][tj] = __float2bfloat16_rn(__bfloat162float(s_g[trow][tj]) * 1.0001f + 0.5f);
+            __syncthreads();
+            if (j < nsel) {
+                const float z = __bfloat162float(s_y[row][j]);
+                out[a] = kChain ? out[a] + z * 1e-6f : out[a] + z;
+            }
+            __syncthreads();   // the next cycle reads the lanes this one wrote
         }
     }
+}
+
+template <bool kChain, bool kFixedS>
+void launch_permute(const float* x, float* out, long long len, int n, int iters,
+                    cudaStream_t st) {
+    const unsigned grid = (unsigned)(len / n);
+    if constexpr (kPermuteSlots != 0)
+        permute_slots_kernel<kChain, kFixedS><<<grid, kPermuteThreads, 0, st>>>(
+            x, out, len, n, iters);
+    else
+        permute_kernel<kChain, kFixedS><<<grid, kPermuteThreads, 0, st>>>(
+            x, out, len, n, iters);
 }
 
 // --- sel
@@ -420,20 +631,21 @@ int check_shape(long long len, int n, int iters) {
 
 }  // namespace
 
-// x, out (8, len) f32; programs of n lanes (len a multiple of n).
+// x, out (8, len) f32; programs of n lanes (len a multiple of n), any n
+// and iters.
 extern "C" int rk_permute(const float* x, float* out, long long len, int n,
                           int iters, int chain, int fixed_s, void* stream) {
     if (const int e = check_shape(len, n, iters)) return e;
-    const unsigned grid = (unsigned)(len / n);
+    if (len / n > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
     cudaStream_t st = (cudaStream_t)stream;
     if (chain && fixed_s)
-        permute_kernel<true, true><<<grid, kThreads, 0, st>>>(x, out, len, n, iters);
+        launch_permute<true, true>(x, out, len, n, iters, st);
     else if (chain)
-        permute_kernel<true, false><<<grid, kThreads, 0, st>>>(x, out, len, n, iters);
+        launch_permute<true, false>(x, out, len, n, iters, st);
     else if (fixed_s)
-        permute_kernel<false, true><<<grid, kThreads, 0, st>>>(x, out, len, n, iters);
+        launch_permute<false, true>(x, out, len, n, iters, st);
     else
-        permute_kernel<false, false><<<grid, kThreads, 0, st>>>(x, out, len, n, iters);
+        launch_permute<false, false>(x, out, len, n, iters, st);
     return (int)cudaGetLastError();
 }
 

@@ -3,6 +3,7 @@
     python -m raypt_torch.kernels.sweep [--against DIR] [--out FILE]
                                         [--kernels K ...]
     python -m raypt_torch.kernels.sweep --kernels regroup --against DIR
+    python -m raypt_torch.kernels.sweep --kernels permute diag --against DIR
 
 Variants of a kernel's constants are built from its source with those
 constants set (`_set`), each as a library of its own:
@@ -115,7 +116,17 @@ constants set (`_set`), each as a library of its own:
     block, slots a block, values staged at once; "stage256" stages
     fixed_s's runs in two chunks for each chunk of cycles); a parent
     checkout's kernels, through `--against`, may be the first ones (one
-    block of 1,024 threads a program).
+    block of 1,024 threads a program). permute's variant is its design
+    block (PERMUTE_VARIANTS: "slot_tile" moves each cycle's selected
+    lanes through the shared 128-slot tile and back, cycles in order,
+    behind the same ballot ranks; the package keeps each lane's rows in
+    registers over its selecting cycles, testing the scan's count every 8
+    ballots; "rank2" and "rank4" every 2 or 4);
+  * diag: the expansion diagnostics kernel (`rk_expand_diag`,
+    `csrc/expand_diag.cu`, `probes/expand_diag2.py::diag`) on the
+    probe's default wavefront (the bunny's 256^2 primary rays, the leaf-64
+    walk's mask, programs of 2,048 rays), one call; its variants are its
+    design block (DIAG_VARIANTS: the most warps a block).
 With `--against`, the kernels of another checkout (DIR/raypt_torch/csrc)
 join as variant "against" (a `compact.cu` without `chunk_count_kernel`,
 or whose uncompaction is `for_each_destination`'s, is called with the
@@ -257,6 +268,14 @@ CYCLE_VARIANTS = {
     for name, t, g, st in [("g16", 128, 16, 2048), ("g4", 128, 4, 2048),
                            ("t256_g16", 256, 16, 2048), ("t64", 64, 8, 2048),
                            ("stage256", 128, 8, 256)]}
+# the permute kernel's design block: kPermuteSlots 1 moves each cycle's
+# lanes through the slot tile (the package's is 0: rows in registers);
+# kRankWords ballots a scan takes between two tests of its count
+PERMUTE_VARIANTS = {"slot_tile": dict(kPermuteSlots=1),
+                    "rank2": dict(kRankWords=2), "rank4": dict(kRankWords=4)}
+# the diagnostics kernel's design block: the most warps a block (an item
+# each at a time; the package's 16)
+DIAG_VARIANTS = {"warps32": dict(kDiagWarps=32), "warps8": dict(kDiagWarps=8)}
 # kernel -> (source, C entry point, scope of its constants, variants)
 SWEPT = {
     "woop": ("cluster_intersect.cu", "rk_cluster_intersect_mask_woop",
@@ -283,13 +302,16 @@ SWEPT = {
     "cycle": ("regroup.cu", "rk_cycle", "// The cycle kernel's design",
               CYCLE_VARIANTS),
     "sel": ("regroup.cu", "rk_sel", None, {}),
-    "permute": ("regroup.cu", "rk_permute", None, {})}
+    "permute": ("regroup.cu", "rk_permute", "// The permute kernel's design",
+                PERMUTE_VARIANTS),
+    "diag": ("expand_diag.cu", "rk_expand_diag",
+             "// The diagnostics kernel's design", DIAG_VARIANTS)}
 # --kernels names that stand for several
 FAMILIES = {"regroup": ("cycle", "sel", "permute")}
 # timed also from CUDA graph replay: kernels of tens of microseconds,
 # where a direct call's host work may outlast the kernel
 GRAPHED = ("union", "compact", "cm_u", "uncompact", "packed", "wide",
-           "layouts", "rows", "cycle", "sel", "permute")
+           "layouts", "rows", "cycle", "sel", "permute", "diag")
 # the walks whose designs --designs picks (the package's always runs)
 DESIGNED = ("packed", "wide", "layouts")
 # the walk's designs: entry rk_walk_<name> of csrc/walk_designs.cu
@@ -442,7 +464,9 @@ SIGS = {"woop": [P, I32, P, I32, I32, P, P, P, P, P, I64, P],
         # x -> out; len, n, iters, stream
         "sel": [P, P, I64, I32, I32, P],
         # x -> out; len, n, iters, chain, fixed_s, stream
-        "permute": [P, P, I64, I32, I32, I32, I32, P]}
+        "permute": [P, P, I64, I32, I32, I32, I32, P],
+        # mask, cwp, pay, otrue; r, n -> v1, v2, nc, v3; stream
+        "diag": [P, I32, P, P, I64, I32, P, P, P, P, P]}
 
 
 def _set(src: str, scope: str, consts: dict) -> str:
@@ -649,6 +673,11 @@ def wavefronts(kernels=tuple(SWEPT)) -> dict:
                           for iters in permute_probe.ITERS] + [
             (xp, n, iters, True, fixed) for fixed in (True, False)
             for iters in permute_probe2.ITERS]
+    if "diag" in kernels:   # tpu_expand_diag2.py's run_diag
+        from ..probes import expand_diag2
+        ro, rd, mask_cm, _ = expand_diag2.wavefront("cuda")
+        out["diag"] = [(mask_cm, *expand_diag2.payload(ro, rd),
+                        expand_diag2.N)]
     out["packed_path"] = []   # the path of each packed wavefront
     out["wide_path"] = []     # and of each wide one
     out["layouts_path"] = []  # and of each layout one
@@ -1022,6 +1051,17 @@ def _call_permute(fn, x, n, iters, chain, fixed_s):
     return (out,)
 
 
+def _call_diag(fn, mask_cm, pay, otrue, n):
+    r = mask_cm.shape[1]
+    v1, v2, v3 = (torch.empty((1, r), dtype=torch.float32,
+                              device=mask_cm.device) for _ in range(3))
+    nc = torch.empty((1, r), dtype=torch.int32, device=mask_cm.device)
+    _check(fn(mask_cm.data_ptr(), mask_cm.shape[0], pay.data_ptr(),
+              otrue.data_ptr(), r, n, v1.data_ptr(), v2.data_ptr(),
+              nc.data_ptr(), v3.data_ptr(), _stream()), "diag")
+    return v1, v2, nc, v3
+
+
 def _call_presorted(fn, rows, o, d, t, a, inv):
     t_out, f_out = _call_packed(fn, rows, o, d, t, a)
     return t_out[inv], f_out[inv]
@@ -1050,7 +1090,7 @@ CALLS = {"woop": _call_union, "mask": _call_union,
          "wide_design": lambda fn, *w: _call_wide(fn, *w, scratch=True),
          "layouts": _call_layouts, "layouts_design": _call_layouts,
          "cycle": _call_cycle,
-         "sel": _call_sel, "permute": _call_permute}
+         "sel": _call_sel, "permute": _call_permute, "diag": _call_diag}
 
 
 class SmClock:

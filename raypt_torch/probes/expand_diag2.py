@@ -4,6 +4,14 @@ leaf-64 top-tree walk), with the triangle test replaced by checks of the
 regrouping's invariants, in the CUDA kernel of `csrc/expand_diag.cu`
 (contract there), held bitwise against its plain torch version.
 
+The kernel runs the (program, cluster, round) items concurrently over
+the card: a block for each (program, mask word) reads its rays' words
+once, forms that word of the union and ranks each wanted cluster's rays
+by warp ballots; each item runs on a warp's own 128-slot tile, and a
+ray's outputs merge over items by integer adds (nc) and a max over bit
+patterns (v1-v3, into outputs zeroed first). At most MAX_RAYS rays a
+program.
+
 Per program of DIAG_N rays: the union of their masks, its clusters in
 ascending id, the rank of the rays that want each, rounds of 128 slots
 and the split3 transport of each ray's origin and direction into its slot
@@ -28,6 +36,7 @@ from ._common import (SLOTS, bits_equal, card_label, exclusive_rank,
 from .expand_debug import payload_rows
 
 N = int(os.environ.get("DIAG_N", 2048))
+MAX_RAYS = 16384   # rays a program the kernel takes (kDiagMaxRays)
 SIZE = 256
 LEAF = 64
 
@@ -88,11 +97,11 @@ def diag_plain(mask_cm, pay, otrue, n_rays: int):
 
 def diag(mask_cm, pay, otrue, n_rays: int):
     """mask_cm (cwp, R) int32, pay (24, R) bf16, otrue (6, R) f32;
-    R a multiple of n_rays <= 4,096 -> (v1, v2, nc, v3), each (1, R)."""
+    R a multiple of n_rays <= MAX_RAYS -> (v1, v2, nc, v3), each (1, R)."""
     cwp, r = mask_cm.shape
-    if r % n_rays or not 0 < n_rays <= 4096:
+    if r % n_rays or not 0 < n_rays <= MAX_RAYS:
         raise ValueError(f"R={r} must be a multiple of n_rays={n_rays} "
-                         f"<= 4096")
+                         f"<= {MAX_RAYS}")
     if not on_cuda({"mask_cm": (mask_cm, (cwp, r), torch.int32),
                     "pay": (pay, (24, r), torch.bfloat16),
                     "otrue": (otrue, (6, r), torch.float32)}):

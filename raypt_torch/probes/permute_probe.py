@@ -1,7 +1,12 @@
 """`scripts/tpu_permute_probe.py` on the card: the cost of one regroup ->
 test -> scatter cycle per cluster, `regroup.permute` on (8, N * PROGS)
 random rows for 8, 32 and 128 cycles, each checked bitwise against its
-plain version, with the marginal time per cluster-cycle.
+plain version, with the marginal time per cluster-cycle. The kernel
+(`csrc/regroup.cu`) ranks each program's cycles at once by warp ballots
+and takes each lane's rows through its selecting cycles in registers,
+so the marginal time is the rank's; `python -m raypt_torch.kernels.sweep
+--kernels permute` times it beside the slot tile design, which moves
+each cycle's lanes through the slots in order.
 
     PP_N=8192 PP_PROGS=128 python -m raypt_torch.probes.permute_probe
 """

@@ -2,7 +2,10 @@
 (each cycle's scatter feeds the next cycle's x), with a fixed selection
 (cycle 0's, in every cycle) against a fresh rank and selection per
 cycle, for 16 and 64 cycles, each checked bitwise against its plain
-version, with the marginal time per cluster-cycle.
+version, with the marginal time per cluster-cycle. In the kernel
+(`csrc/regroup.cu`) a chained lane's cycles are steps in registers, its
+x read once and written once; fixed-S ranks cycle 0 once and the full
+rank every cycle, at once by warp ballots.
 
     PP_N=8192 PP_PROGS=128 python -m raypt_torch.probes.permute_probe2
 """

@@ -13,12 +13,16 @@ kernels do. At the n that `sel` takes (at most 16,384) every rank is -1,
 so its slot sums never run and its output is zero: a check of `sel`
 holds only that. On CPU tensors the wrappers run them.
 
-The kernels: `permute` one block a program; `cycle` a block for each
-group of slots of a program (a lane's slot is the same in every cycle,
-so a group owns its lanes over all cycles; the kernel's entry picks the
-grid); `sel` one block a program, the rank of each (lane, cycle) from
-its closed form in registers, one block-wide vote whether any lane has
-a slot.
+The kernels: `permute` one block a program, which ranks its cycles at
+once by warp ballots over the interest tests (a warp a cycle, stopping
+at the 128th interested lane), counts the cycles that select each lane,
+and takes each lane's rows through that many steps in registers (a
+cycle's update of a lane reads only that lane's rows); `cycle` a block
+for each group of slots of a program (a lane's slot is the same in every
+cycle, so a group owns its lanes over all cycles; the kernel's entry
+picks the grid); `sel` one block a program, the rank of each (lane,
+cycle) from its closed form in registers, one block-wide vote whether
+any lane has a slot.
 """
 from __future__ import annotations
 
@@ -69,7 +73,8 @@ def permute_plain(x, iters: int, n: int, chain: bool = False,
 def permute(x: torch.Tensor, iters: int, n: int, chain: bool = False,
             fixed_s: bool = False) -> torch.Tensor:
     """x (8, P * n) f32 -> (8, P * n) f32: the sum of the cycles'
-    scattered results (chain False), or x after `iters` chained cycles."""
+    scattered results (chain False), or x after `iters` chained cycles;
+    any n and iters."""
     progs = _programs(x, 8, n)
     if not on_cuda({"x": (x, (8, progs * n), torch.float32)}):
         return permute_plain(x, iters, n, chain, fixed_s)

@@ -760,16 +760,29 @@ def _probe_case(probe):
                 (*expand_debug.stage12_plain(wk, pages),
                  *expand_debug.stage34_plain(pay, m),
                  expand_debug.stage5_plain(wk, pages2)))
-    if name == "diag":
-        ro, rd, mask_cm, _ = expand_diag2.wavefront("cuda", 64)
+    if name == "diag":   # [n_rays | nan]
+        n = int(arg) if arg.isdigit() else 2048
+        ro, rd, mask_cm, mask = expand_diag2.wavefront(
+            "cuda", 128 if arg.isdigit() else 64)
         pay, otrue = expand_diag2.payload(ro, rd)
-        return (expand_diag2.diag(mask_cm, pay, otrue, 2048),
-                expand_diag2.diag_plain(mask_cm, pay, otrue, 2048))
-    if name == "permute":
-        x = rows(8, 8192, 8)
-        chain, fixed = arg in ("chain", "chain_fixed"), arg.endswith("fixed")
-        return (regroup.permute(x, 8, 8192, chain, fixed),
-                regroup.permute_plain(x, 8, 8192, chain, fixed))
+        if arg == "nan":   # NaN and inf in a few rays' truth and payload
+            hit = torch.nonzero(expand_diag2.popcount(mask) > 0).flatten()
+            otrue[0, hit[0::97]] = float("nan")
+            otrue[4, hit[1::89]] = float("inf")
+            otrue[2, hit[2::83]] = -float("inf")
+            pay[3, hit[3::79]] = float("nan")
+        got = expand_diag2.diag(mask_cm, pay, otrue, n)
+        assert torch.equal(got[2][0].long(), expand_diag2.popcount(mask))
+        if arg == "nan":
+            assert bool(got[3].isnan().any()) and bool(got[1].isinf().any())
+        return got, expand_diag2.diag_plain(mask_cm, pay, otrue, n)
+    if name == "permute":   # mode[:n:programs:cycles]
+        mode, *size = arg.split(":")
+        n, progs, iters = map(int, size) if size else (8192, 8, 8)
+        x = rows(8, n, progs)
+        chain, fixed = mode in ("chain", "chain_fixed"), mode.endswith("fixed")
+        return (regroup.permute(x, iters, n, chain, fixed),
+                regroup.permute_plain(x, iters, n, chain, fixed))
     if name == "sel":   # [n:programs]
         n, progs = map(int, arg.split(":")) if arg else (2048, 8)
         x = rows(24, n, progs).to(torch.bfloat16)
@@ -788,7 +801,10 @@ def _probe_case(probe):
 @pytest.mark.parametrize("probe", [
     "gather:fill", "gather:clip", "gather:oob", "stages", "diag", "permute:sum",
     "permute:sum_fixed", "permute:chain", "permute:chain_fixed", "sel",
-    "sel:64:5", "sel:16384:3",
+    "sel:64:5", "sel:16384:3", "diag:1024", "diag:8192", "diag:nan"] + [
+    f"permute:{mode}:{n}:3:{iters}"
+    for mode in ("sum", "sum_fixed", "chain", "chain_fixed")
+    for n, iters in ((100, 40), (4096, 40), (20000, 40), (8192, 300))] + [
     "cycle:full", "cycle:no_mm", "cycle:fixed_s", "walk_spec:512",
     "walk_spec:16"] + [f"cycle:{mode}:{n}:3" for mode in ("full", "no_mm",
                                                            "fixed_s")
@@ -799,7 +815,12 @@ def test_probe_kernels_bitwise(probe):
     """Each kernel of raypt_torch/probes/ (the scripts/ probes) against its
     plain version; the speculative walk also against topwalk_cm. cycle
     also at any number of lanes a program: fixed_s restages its runs past
-    32,768 lanes, full past 262,144."""
+    32,768 lanes, full past 262,144. permute in its four modes at 100,
+    4,096 and 20,000 lanes (every interested lane selected, then the scan
+    stopping at the 128th) and for 300 cycles; diag at 1,024 and 8,192
+    rays a program (the first kernel took at most 4,096) and with NaN and
+    inf in some rays' truth and payload (merged by a max of bit patterns);
+    diag's nc is every ray's popcount."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     got, want = _probe_case(probe)
@@ -808,6 +829,44 @@ def test_probe_kernels_bitwise(probe):
     for a, b in zip(got, want):
         assert _bits_equal(a, b)
     assert any(bool(a.any()) for a in got) or probe.startswith("sel")
+
+
+@pytest.fixture(scope="module", params=["window1024", "slot_tile"])
+def permute_design(request):
+    """rk_permute of regroup.cu built with its design block set: counts
+    held 1,024 lanes at a time (the scans' stops past several windows) or
+    the sweep's slot tile design."""
+    import os
+
+    from raypt_torch.kernels import sweep
+    from raypt_torch.kernels._build import CSRC_DIR
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    consts = ({"kPermuteWindow": 1024} if request.param == "window1024"
+              else sweep.PERMUTE_VARIANTS[request.param])
+    with open(os.path.join(CSRC_DIR, "regroup.cu")) as f:
+        text = f.read()
+    path = sweep._nvcc_job(f"permute_{request.param}", "regroup.cu", sweep._set(
+        text, "// The permute kernel's design", consts), CSRC_DIR)()
+    return partial(sweep.CALLS["permute"],
+                   sweep._loaded("permute", path, "rk_permute"))
+
+
+@pytest.mark.parametrize("mode", ["sum", "sum_fixed", "chain", "chain_fixed"])
+@pytest.mark.parametrize("n,progs,iters", [(8192, 3, 40), (20000, 1, 70),
+                                           (100, 5, 33)])
+def test_permute_designs(permute_design, mode, n, progs, iters):
+    """The permute kernel's other designs, bitwise permute_plain: several
+    windows of counts a program, and the slot tile design (lists of 32
+    cycles at a time, so 33 and more cycles take two chunks)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from raypt_torch.probes import regroup
+    g = torch.Generator().manual_seed(n + iters)
+    x = torch.randn((8, n * progs), generator=g).cuda()
+    chain, fixed = mode.startswith("chain"), mode.endswith("fixed")
+    (got,) = permute_design(x, n, iters, chain, fixed)
+    assert _bits_equal(got, regroup.permute_plain(x, iters, n, chain, fixed))
 
 
 @pytest.fixture(scope="module")

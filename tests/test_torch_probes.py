@@ -287,10 +287,10 @@ def _rays(scene, r, seed):
     return ro.astype(np.float32), rd.astype(np.float32)
 
 
-def test_expand_diag_bitwise(bunny):
-    """tpu_expand_diag2.py's run_diag on 1,024 rays of the leaf-64 walk,
-    four programs of N: v1, v2, nc, v3 bitwise; the flow is right (v1 =
-    v2 = v3 = 0, nc = the mask's popcount)."""
+@pytest.fixture(scope="module")
+def diag_wave(bunny):
+    """1,024 rays around the bunny, the JAX leaf-64 walk's (R, words)
+    mask and its (cwp, R) form padded to a multiple of 8 words."""
     scene, bvh = bunny
     m = scene.mesh
     jacc = jax_build_onehot(bvh, m.positions, m.faces, m.face_valid, leaf=64)
@@ -303,6 +303,15 @@ def test_expand_diag_bitwise(bunny):
     cwp = -(-nw // 8) * 8
     mask_cm = np.zeros((cwp, r), np.int32)
     mask_cm[:nw] = mask.T
+    return ro, rd, mask, mask_cm
+
+
+def test_expand_diag_bitwise(diag_wave):
+    """tpu_expand_diag2.py's run_diag on 1,024 rays of the leaf-64 walk,
+    four programs of N: v1, v2, nc, v3 bitwise; the flow is right (v1 =
+    v2 = v3 = 0, nc = the mask's popcount)."""
+    ro, rd, mask, mask_cm = diag_wave
+    r = ro.shape[0]
     ns = load_script("tpu_expand_diag2.py", N=N)
     ref = [np.asarray(a) for a in ns["run_diag"](
         jnp.asarray(mask_cm), jnp.asarray(ro), jnp.asarray(rd), N)]
@@ -312,6 +321,21 @@ def test_expand_diag_bitwise(bunny):
     pop = expand_diag2.popcount(_t(mask.T.copy())).numpy()
     assert pop.sum() > r and np.array_equal(got[2].numpy()[0], pop)
     assert not got[0].any() and not got[1].any() and not got[3].any()
+
+
+def test_expand_diag_items_model(diag_wave):
+    """The diagnostics kernel's design (`diag_items` of
+    test_torch_permute_design.py: a block for each (program, mask word),
+    each (cluster, round) item on its own tile, the rays' outputs merged
+    in a shuffled order) on the same wavefront: bitwise diag_plain."""
+    from test_torch_permute_design import diag_items
+    ro, rd, _, mask_cm = diag_wave
+    a = (_t(mask_cm), *expand_diag2.payload(_t(ro), _t(rd)), N)
+    want = expand_diag2.diag_plain(*a)
+    got = diag_items(*a, seed=11)
+    for x, y in zip(got, want):
+        assert torch.equal(x.view(torch.int32), y.view(torch.int32))
+    assert int(got[2].sum()) > ro.shape[0]
 
 
 # --- P1: the speculative walk
